@@ -1,0 +1,597 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``kubeflow_tpu_torch``).
+
+Run from the root of a checkout on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
+sm_90a, into the git-ignored ``build/``) and runs four phases:
+
+1. kernels — each kernel against its plain PyTorch twin on the card at
+   the serving model's shapes, with times for kernel, plain version and
+   (for flash) ``F.scaled_dot_product_attention`` as a yardstick only;
+2. forward — the full-width bf16 ``TransformerLM`` no-cache forward with
+   ``attn_impl="flash"`` against the same weights with ``"reference"``;
+3. serving — ``ModelServer`` + ``LMEngineModel`` at full width in bf16 on
+   the paged-attention kernel, answering 8 concurrent
+   ``/v2/models/lm/generate`` requests;
+4. f32 parity — the same engine in f32: the ``kernel`` and ``gather``
+   read paths must give token-identical greedy streams.
+
+Each phase prints one JSON line. The line before the last lists every
+kernel with its launches on its path, error, times and bound; the last
+line is ``{"ok": true, "device": {...}}``. Any failed phase, or a host
+without CUDA or without the package, exits non-zero and prints no
+result. ``--phases`` runs a subset (for debugging).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import threading
+import time
+import traceback
+import urllib.request
+import zlib
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
+PHASES = ("kernels", "forward", "serving", "parity")
+
+# the widest LM the repo serves (the engine_decode paged bench model)
+MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
+             d_ff=4096, causal=True, use_rope=True)
+ENGINE = dict(max_batch=8, max_seq=128, chunk_steps=8, prefill_buckets=(32,),
+              kv_pool_tokens=1152, page_size=32, eos_id=1)
+N_REQ, MAX_NEW = 8, 48
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def time_ms(torch, fn, iters=20, flush=None):
+    """Mean device time of ``fn`` (CUDA events around each call, after
+    warm-up). ``flush`` (a tensor larger than L2) is rewritten before each
+    call so inputs are read cold, as the engine's 12-layer pool would be."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def compare(out, ref, dt, atol=None):
+    """``(max |out - ref|, tolerance, within)``. Every element must lie
+    within ``atol + rtol * |ref|``: in f32 atol 2e-5 and no rtol (the sums
+    run in another order); in bf16/f16 atol 2e-3 (or the caller's) and
+    rtol 2**-6, two ulps of the output type, since both sides round an
+    f32 result to it."""
+    import torch
+
+    if dt == torch.float32:
+        atol, rtol = 2e-5, 0.0
+    else:
+        atol, rtol = (2e-3 if atol is None else atol), 2.0 ** -6
+    diff = (out.float() - ref.float()).abs()
+    within = bool((diff <= atol + rtol * ref.float().abs()).all())
+    return diff.max().item(), f"atol {atol} + rtol {rtol}", within
+
+
+def _dtname(torch, dt):
+    return {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}[dt]
+
+
+# --------------------------------------------------------------------------- #
+# phase 1: kernels against their plain twins
+# --------------------------------------------------------------------------- #
+
+def paged_cases(torch):
+    """(name, kwargs) at the serving shapes: B=8 rows, H=16, D=64, page 32,
+    windows of up to 4 pages; row 7 is dead (its table is all scratch
+    page 0)."""
+    base = dict(B=8, H=16, Hkv=16, D=64, P=32, T=1152, W=4)
+    return [
+        ("decode_bf16", dict(base, S=1, dtype=torch.bfloat16)),
+        ("decode_f32", dict(base, S=1, dtype=torch.float32)),
+        ("prefill_bf16", dict(base, S=32, dtype=torch.bfloat16)),
+        ("prefill_f32", dict(base, S=32, dtype=torch.float32)),
+        ("gqa_prefill_bf16", dict(base, S=32, Hkv=4, dtype=torch.bfloat16)),
+        ("window_prefill_bf16", dict(base, S=32, window=48, dtype=torch.bfloat16)),
+        ("int8_decode_bf16", dict(base, S=1, quant=True, dtype=torch.bfloat16)),
+        ("int8_prefill_f32", dict(base, S=32, quant=True, dtype=torch.float32)),
+        ("pos0_zero_decode_bf16", dict(base, S=1, pos0_zero=True, dtype=torch.bfloat16)),
+    ]
+
+
+def run_paged_case(torch, name, c, flush):
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
+    B, H, Hkv, S, D, P, T, W = (c[k] for k in ("B", "H", "Hkv", "S", "D", "P", "T", "W"))
+    dt = c["dtype"]
+    dev = "cuda"
+    q = torch.randn(B, H, S, D, generator=g, device=dev).to(dt)
+    kf = torch.randn(Hkv, T, D, generator=g, device=dev)
+    vf = torch.randn(Hkv, T, D, generator=g, device=dev)
+    ks = vs = None
+    if c.get("quant"):
+        kp, ks = pa.quantize_kv(kf)
+        vp, vs = pa.quantize_kv(vf)
+    else:
+        kp, vp = kf.to(dt).contiguous(), vf.to(dt).contiguous()
+    n_pages = T // P
+    perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
+    table = perm[: B * W].reshape(B, W).to(torch.int32)
+    table[B - 1] = 0  # dead row: every entry is the scratch page
+    if c.get("pos0_zero"):
+        pos0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    else:
+        pos0 = torch.randint(0, W * P - S + 1, (B,), generator=g, device=dev,
+                             dtype=torch.int32)
+    window = c.get("window")
+    kw = dict(page_size=P, window=window, k_scale=ks, v_scale=vs)
+    out = pa.paged_attention(q, kp, vp, table, pos0, **kw)
+    ref = pa.paged_attention_reference(q, kp, vp, table, pos0, **kw)
+    torch.cuda.synchronize()
+    err, tol, close = compare(out, ref, dt)
+    ms = time_ms(torch, lambda: pa.paged_attention(q, kp, vp, table, pos0, **kw),
+                 flush=flush)
+    plain_ms = time_ms(
+        torch, lambda: pa.paged_attention_reference(q, kp, vp, table, pos0, **kw),
+        flush=flush,
+    )
+    # bound: bytes of the pages each row's span actually visits, q, out,
+    # table, pos0 (+ scales); flops 4*D per visible (query, key) pair
+    # (a page several rows visit, as the dead row's scratch page, counts once)
+    p0, tbl = pos0.tolist(), table.tolist()
+    pages = set()
+    visible = 0
+    for b in range(B):
+        for i in range(W):
+            first = i * P
+            run = first <= p0[b] + S - 1
+            if window is not None:
+                run = run and first + P - 1 >= p0[b] - window + 1
+            if run:
+                pages.add(tbl[b][i])
+        for s in range(S):
+            qp = p0[b] + s
+            lo = 0 if window is None else max(0, qp - window + 1)
+            visible += max(0, qp - lo + 1)
+    page_bytes = 2 * Hkv * P * (D * kp.element_size() + (4 if ks is not None else 0))
+    nbytes = len(pages) * page_bytes + 2 * q.numel() * q.element_size() + table.numel() * 4 + B * 4
+    flops = 4 * D * H * visible
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[_dtname(torch, dt)] * 1e3
+    return {
+        "kernel": "paged_attention", "case": name, "shape": [B, H, Hkv, S, D, P, W],
+        "dtype": _dtname(torch, dt), "kv": "int8" if ks is not None else _dtname(torch, dt),
+        "window": window, "max_abs_err": err, "tol": tol, "ok": close,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
+def flash_cases(torch):
+    base = dict(B=8, H=16, D=64)
+    return [
+        ("causal_s128_bf16", dict(base, S=128, dtype=torch.bfloat16)),
+        ("causal_s128_f32", dict(base, S=128, dtype=torch.float32)),
+        ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
+        ("window_s512_bf16", dict(base, S=512, window=128, dtype=torch.bfloat16)),
+        ("segment_s512_bf16", dict(base, S=512, seg=True, dtype=torch.bfloat16)),
+    ]
+
+
+def run_flash_case(torch, name, c, flush):
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
+    B, H, S, D, dt = c["B"], c["H"], c["S"], c["D"], c["dtype"]
+    q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda").to(dt)
+               for _ in range(3))
+    seg = None
+    if c.get("seg"):
+        # packed rows: 1..4 segments per row at random boundaries
+        cuts = torch.rand(B, S, generator=g, device="cuda") < 3.0 / S
+        cuts[:, 0] = False
+        seg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
+    window = c.get("window")
+    kw = dict(causal=True, window=window, q_segment_ids=seg, kv_segment_ids=seg)
+    out, lse = fa.flash_attention(q, k, v, return_residuals=True, **kw)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
+    torch.cuda.synchronize()
+    # bf16: the kernel rounds p = exp(s - m) to bf16 against its running
+    # max m, the twin against the row's final max; each rounding is
+    # within 2**-9 of p, so out may differ by 2**-8 * max|v| beyond that
+    err, tol, close = compare(out, ref, dt,
+                              atol=2.0 ** -8 * v.float().abs().max().item())
+    lse_err = (lse - ref_lse).abs().max().item()
+    lse_tol = 2e-4  # f32 in both; exp/log and summation order only
+    ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), flush=flush)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, **kw),
+                       flush=flush)
+    mask = fa._full_mask(q.shape, k.shape, seg, seg, True, window, q.device)
+    if window is None and seg is None:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+    else:
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
+    library_ms = time_ms(torch, lib, flush=flush)
+    visible = int(mask.expand(B, 1, S, S).sum().item())
+    nbytes = 4 * q.numel() * q.element_size() + B * H * S * 4 + (
+        2 * seg.numel() * 4 if seg is not None else 0)
+    flops = 4 * D * H * visible
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[_dtname(torch, dt)] * 1e3
+    return {
+        "kernel": "flash_attention", "case": name, "shape": [B, H, S, D],
+        "dtype": _dtname(torch, dt), "window": window, "segments": seg is not None,
+        "max_abs_err": err, "tol": tol, "lse_err": lse_err, "lse_tol": lse_tol,
+        "ok": close and lse_err <= lse_tol,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+    }
+
+
+def phase_kernels(torch, state):
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    ok = True
+    for name, c in paged_cases(torch):
+        r = run_paged_case(torch, name, c, flush)
+        emit(r)
+        ok &= r["ok"]
+        if name == "decode_bf16":
+            state["paged_main"] = r
+    for name, c in flash_cases(torch):
+        r = run_flash_case(torch, name, c, flush)
+        emit(r)
+        ok &= r["ok"]
+        if name == "causal_s128_bf16":
+            state["flash_main"] = r
+    return ok
+
+
+# --------------------------------------------------------------------------- #
+# phase 2: full-width no-cache forward, flash kernel vs plain attention
+# --------------------------------------------------------------------------- #
+
+def _model(torch, dtype, attn_impl, seed=0, state_dict=None):
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, TransformerLM, init_weights,
+    )
+
+    cfg = TransformerConfig(dtype=dtype, attn_impl=attn_impl, **MODEL)
+    m = TransformerLM(cfg, device="cuda")
+    if state_dict is None:
+        init_weights(m, seed)
+    else:
+        m.load_state_dict(state_dict)
+    return m.eval().requires_grad_(False)
+
+
+def phase_forward(torch, state):
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    m_flash = _model(torch, torch.bfloat16, "flash")
+    m_ref = _model(torch, torch.bfloat16, "reference",
+                   state_dict=m_flash.state_dict())
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(2, MODEL["vocab_size"], (8, 128), generator=g, device="cuda")
+    with torch.inference_mode():
+        ref = m_ref(tokens)
+        fa.LAUNCHES = 0
+        out = m_flash(tokens)
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES
+    finite = bool(torch.isfinite(out).all())
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    top1 = (out.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    tol = 5e-2
+    state["flash_launches"] = launches
+    ok = finite and rel <= tol and launches == MODEL["n_layers"]
+    emit({"phase": "forward", "shape": list(tokens.shape), "dtype": "bf16",
+          "logits_rel_err": rel, "tol": tol, "top1_agreement": top1,
+          "finite": finite, "flash_launches": launches, "ok": ok})
+    del m_flash, m_ref
+    return ok
+
+
+# --------------------------------------------------------------------------- #
+# phases 3-4: the served engine
+# --------------------------------------------------------------------------- #
+
+def sharpened_state(torch, dtype):
+    """Random weights from a seed with the unembed tied to the embedding
+    and the residual branches tempered (bench.py's paged-attention model):
+    a fully random head has near-tied logits, so any rounding would flip
+    a greedy argmax; this keeps margins a trained LM would have."""
+    m = _model(torch, dtype, "flash", seed=0)
+    sd = {k: v.clone() for k, v in m.state_dict().items()}
+    del m
+    sd["unembed.weight"] = sd["embed.embedding"].clone()
+    for k in sd:
+        if "o_proj" in k:
+            sd[k] *= 0.5
+        elif "down_proj" in k:
+            sd[k] *= 0.1
+    return sd
+
+
+def prompts():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [
+        [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=int(n))]
+        for n in rng.integers(8, 28, size=N_REQ)
+    ]
+
+
+def _concurrent(fn, args):
+    outs = [None] * len(args)
+    errs = []
+
+    def work(i):
+        try:
+            outs[i] = fn(args[i])
+        except Exception as e:  # noqa: BLE001 — reported by the phase
+            errs.append(e)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    if errs:
+        raise errs[0]
+    return outs
+
+
+def _engine_streams(torch, model, impl, reqs):
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    eng = LMEngine(model, paged_attn_impl=impl, **ENGINE).start()
+    try:
+        return _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+    finally:
+        eng.stop()
+
+
+def phase_serving(torch, state):
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.serve.engine import LMEngineModel
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+    lm = LMEngineModel(
+        "lm", config=cfg, state_dict=sharpened_state(torch, torch.bfloat16),
+        device="cuda", max_new_tokens=MAX_NEW, paged_attn_impl="kernel",
+        **ENGINE,
+    )
+    server = ModelServer([lm], http_port=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    reqs = prompts()
+
+    def post(ids):
+        body = json.dumps({"input_ids": ids, "max_new_tokens": MAX_NEW}).encode()
+        r = urllib.request.Request(f"{base}/v2/models/lm/generate", data=body,
+                                   headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(r, timeout=300) as resp:
+            return json.loads(resp.read())["token_ids"]
+
+    try:
+        with urllib.request.urlopen(f"{base}/v2/health/ready", timeout=30) as r:
+            ready = r.status == 200 and json.loads(r.read())["ready"]
+        post(reqs[0][:8])  # warm-up: cuBLAS handles, allocator, kernels
+        lm.engine.ttft_ms.clear()
+        pa.LAUNCHES = fa.LAUNCHES = 0
+        t0 = time.perf_counter()
+        outs = _concurrent(post, reqs)
+        wall = time.perf_counter() - t0
+        paged_launches, flash_launches = pa.LAUNCHES, fa.LAUNCHES
+        ttft = sorted(lm.engine.ttft_ms)
+        # the same weights through the gather read path, in process
+        gather = _engine_streams(torch, lm.engine.model, "gather", reqs)
+    finally:
+        server.stop()
+    n_tok = sum(len(o) for o in outs)
+    well_formed = all(
+        1 <= len(o) <= MAX_NEW and all(0 <= t < MODEL["vocab_size"] for t in o)
+        for o in outs
+    )
+    first_agree = sum(o[:1] == g[:1] for o, g in zip(outs, gather))
+    match = sum(
+        a == b for o, g in zip(outs, gather) for a, b in zip(o, g)
+    ) / max(1, sum(max(len(o), len(g)) for o, g in zip(outs, gather)))
+    state["paged_launches"] = paged_launches
+    ok = (ready and well_formed and paged_launches > 0
+          and first_agree >= N_REQ - 1)
+    emit({"phase": "serving", "dtype": "bf16", "requests": N_REQ,
+          "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "ttft_ms_p50": ttft[len(ttft) // 2] if ttft else None,
+          "ttft_ms_max": ttft[-1] if ttft else None,
+          "paged_launches": paged_launches, "flash_launches": flash_launches,
+          "ready": ready, "well_formed": well_formed,
+          "first_token_agree_vs_gather": first_agree,
+          "token_match_vs_gather": match, "card": state["card"], "ok": ok})
+    return ok
+
+
+def phase_parity(torch, state):
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(torch, torch.float32, "flash",
+                   state_dict=sharpened_state(torch, torch.float32))
+    reqs = prompts()
+    pa.LAUNCHES = 0
+    kern = _engine_streams(torch, model, "kernel", reqs)
+    launches = pa.LAUNCHES
+    gath = _engine_streams(torch, model, "gather", reqs)
+    diverged = [i for i, (a, b) in enumerate(zip(kern, gath)) if a != b]
+    ok = not diverged and launches > 0
+    emit({"phase": "parity", "dtype": "f32", "requests": N_REQ,
+          "tokens": sum(len(s) for s in kern), "identical": not diverged,
+          "diverged_rows": diverged, "kernel_launches": launches, "ok": ok})
+    return ok
+
+
+def phase_profile(torch, state):
+    """Where the time of one served batch goes (not in the default run:
+    ``--phases profile``). The bf16 engine on the paged kernel serves the
+    8 requests once plainly, for the wall time, and once under
+    ``torch.profiler``, for the device time by kernel and the time in
+    which some kernel ran (the profiler slows the host, so the busy share
+    is given against both walls)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    model = _model(torch, torch.bfloat16, "flash",
+                   state_dict=sharpened_state(torch, torch.bfloat16))
+    reqs = prompts()
+    eng = LMEngine(model, paged_attn_impl="kernel", **ENGINE).start()
+    try:
+        eng.submit(reqs[0][:8], max_new_tokens=MAX_NEW)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+        torch.cuda.synchronize()
+        plain_wall_ms = (time.perf_counter() - t0) * 1e3
+        before = dict(eng.stats)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            outs = _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        stats = {k: eng.stats[k] - before[k] for k in ("chunks", "prefill_pieces")}
+    finally:
+        eng.stop()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
+            spans.append((e.time_range.start, e.time_range.end))
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0][:60]
+            n, ms = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):  # union of kernel intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    tokens = sum(len(o) for o in outs)
+    emit({"phase": "profile", "dtype": "bf16", "requests": N_REQ,
+          "tokens": tokens, "wall_ms": plain_wall_ms,
+          "profiled_wall_ms": wall_ms, "chunks": stats["chunks"],
+          "prefill_pieces": stats["prefill_pieces"], "kernels": len(spans),
+          "device_busy_ms": busy_us / 1e3,
+          "device_busy_share": busy_us / 1e3 / plain_wall_ms,
+          "device_busy_share_profiled": busy_us / 1e3 / wall_ms,
+          "top_kernels": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top],
+          "card": state["card"], "ok": bool(spans) and tokens > 0})
+    return bool(spans) and tokens > 0
+
+
+# --------------------------------------------------------------------------- #
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of "
+                    + ",".join(PHASES + ("profile",)))
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from kubeflow_tpu_torch.ops import _build
+    except ImportError as e:
+        print(f"chip_smoke: kubeflow_tpu_torch not importable: {e}", file=sys.stderr)
+        return 2
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    state = {"card": card}
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    ptxas = {
+        n: [ln.strip() for ln in
+            (_build._target(n).with_suffix(".log")).read_text().splitlines()
+            if "registers" in ln or "spill" in ln]
+        for n in _build.sources()
+    }
+    emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    runners = {"kernels": phase_kernels, "forward": phase_forward,
+               "serving": phase_serving, "parity": phase_parity,
+               "profile": phase_profile}
+    ok = True
+    for p in phases:
+        try:
+            good = runners[p](torch, state)
+        except Exception:  # noqa: BLE001 — reported, and the run fails
+            traceback.print_exc()
+            emit({"phase": p, "ok": False, "error": traceback.format_exc(limit=3)})
+            good = False
+        ok &= bool(good)
+        torch.cuda.empty_cache()
+    emit({"phase": "total", "seconds": time.perf_counter() - t0})
+    if not ok:
+        print("chip_smoke: a phase failed", file=sys.stderr)
+        return 1
+    if "paged_main" in state and "flash_main" in state:
+        kernels = []
+        for key, launches, src, rep in (
+            ("paged_main", state.get("paged_launches", 0),
+             "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
+             "kubeflow_tpu/ops/paged_attention.py:185"),
+            ("flash_main", state.get("flash_launches", 0),
+             "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
+             "kubeflow_tpu/ops/flash_attention.py:120"),
+        ):
+            r = state[key]
+            kernels.append({
+                "name": r["kernel"], "route": "cuda", "source": src,
+                "replaces": rep, "launches": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
+        emit({"kernels": kernels})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,213 @@
+"""The port's paged ``LMEngine`` against the JAX ``LMEngine``.
+
+Both engines run the same bridged weights in f32 on the CPU, in paged
+mode (``kv_pool_tokens`` set) with the synchronous loop
+(``pipeline_depth=0``) and greedy decoding, and must give identical token
+streams: continuous batching, row churn, page backpressure, sliding
+windows, GQA, int8 KV and the kernel read path change how the tokens are
+computed, never which tokens come out.
+"""
+
+from __future__ import annotations
+
+import functools
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu.models.transformer import TransformerConfig as JaxConfig
+from kubeflow_tpu.models.transformer import TransformerLM as JaxLM
+from kubeflow_tpu.serve.engine import LMEngine as JaxEngine
+from kubeflow_tpu_torch.models.bridge import params_to_state_dict
+from kubeflow_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+)
+from kubeflow_tpu_torch.serve.engine import (
+    EngineOverloaded,
+    LMEngine,
+    LMEngineConfig,
+)
+
+KW = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
+          d_ff=128)
+ENGINE = dict(max_batch=2, max_seq=64, chunk_steps=4, prefill_buckets=(16, 32),
+              eos_id=1, kv_pool_tokens=16 * 12, page_size=16,
+              pipeline_depth=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _models(over=()):
+    over = dict(over)
+    jcfg = JaxConfig(**{**KW, **over}, attn_impl="reference",
+                     dtype=jnp.float32, interpret_kernels=True)
+    jmodel = JaxLM(jcfg)
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))
+    params = jax.tree_util.tree_map(np.asarray, params["params"])
+    tmodel = TransformerLM(TransformerConfig(**{**KW, **over}), device="cpu")
+    tmodel.load_state_dict(params_to_state_dict(params))
+    return (jmodel, jcfg, params), tmodel.eval()
+
+
+def _prompts(seed, lengths):
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(2, KW["vocab_size"], size=n)]
+            for n in lengths]
+
+
+def _serve(engine, prompts, max_new):
+    engine.start()
+    try:
+        with ThreadPoolExecutor(len(prompts)) as ex:
+            futs = [ex.submit(engine.submit, p, max_new_tokens=max_new)
+                    for p in prompts]
+            return [f.result() for f in futs], dict(engine.stats)
+    finally:
+        engine.stop()
+
+
+SCENARIOS = [
+    # name, model overrides, engine overrides, prompt lengths, max_new
+    ("two_buckets", (), dict(max_batch=4), (5, 12, 20, 28), 16),
+    ("row_churn", (), dict(), (9, 3, 14, 27, 6, 18), 12),
+    ("page_backpressure", (), dict(kv_pool_tokens=16 * 5), (20, 24, 22), 20),
+    ("attn_window", (("attn_window", 6),), dict(), (12, 25, 7), 20),
+    ("gqa_kernel", (("n_kv_heads", 1),), dict(paged_attn_impl="kernel"),
+     (11, 19, 4), 16),
+    ("int8", (), dict(kv_quant="int8"), (13, 26, 8), 16),
+    ("int8_kernel", (), dict(kv_quant="int8", paged_attn_impl="kernel"),
+     (17, 6), 16),
+]
+
+
+@pytest.mark.parametrize("name,over,eng,lengths,max_new", SCENARIOS,
+                         ids=[s[0] for s in SCENARIOS])
+def test_greedy_streams_match_jax_engine(name, over, eng, lengths, max_new):
+    (jmodel, jcfg, params), tmodel = _models(over)
+    kw = {**ENGINE, **eng}
+    prompts = _prompts(sum(map(ord, name)), lengths)
+    want, jstats = _serve(JaxEngine(jmodel, jcfg, params, **kw), prompts, max_new)
+    got, tstats = _serve(LMEngine(tmodel, **kw), prompts, max_new)
+    assert got == want
+    assert all(1 <= len(t) <= max_new for t in got)
+    for key in ("admitted", "completed"):
+        assert tstats[key] == jstats[key] == len(prompts)
+    if name == "row_churn":
+        assert tstats["max_concurrent"] == kw["max_batch"]
+    if name == "page_backpressure":
+        # the pool holds one request's pages at a time: admission waits
+        assert tstats["page_holds"] > 0 and tstats["max_concurrent"] == 1
+
+
+def test_stream_yields_the_submit_tokens():
+    _, tmodel = _models()
+    prompt = _prompts(3, (10,))[0]
+    eng = LMEngine(tmodel, **ENGINE).start()
+    try:
+        whole = eng.submit(prompt, max_new_tokens=10)
+        pieces = list(eng.stream(prompt, max_new_tokens=10))
+    finally:
+        eng.stop()
+    assert [t for p in pieces for t in p] == whole
+
+
+def test_overload_past_max_queue_raises():
+    """Rows decoding + queued beyond ``max_batch + max_queue`` are shed."""
+    _, tmodel = _models()
+    eng = LMEngine(tmodel, **{**ENGINE, "max_batch": 1, "max_queue": 1})
+    errors: list[Exception] = []
+
+    def queued():
+        try:
+            eng.submit([5, 6, 7], max_new_tokens=4, timeout_s=30)
+        except Exception as e:  # noqa: BLE001 — checked below
+            errors.append(e)
+
+    # the loop is not started, so both submits stay queued
+    waiting = [threading.Thread(target=queued) for _ in range(2)]
+    for t in waiting:
+        t.start()
+    for _ in range(500):
+        if eng._pending.qsize() == 2:
+            break
+        threading.Event().wait(0.01)
+    with pytest.raises(EngineOverloaded):
+        eng.submit([5, 6, 7], max_new_tokens=4)
+    eng.stop()  # fails the queued requests instead of leaving them waiting
+    for t in waiting:
+        t.join(5)
+    assert len(errors) == 2
+    assert all("stopped" in str(e) for e in errors)
+
+
+def test_request_validation():
+    _, tmodel = _models()
+    eng = LMEngine(tmodel, **ENGINE)
+    with pytest.raises(ValueError, match="empty"):
+        eng.submit([], max_new_tokens=4)
+    with pytest.raises(ValueError, match="max_seq"):
+        eng.submit([3] * 30, max_new_tokens=40)
+    with pytest.raises(ValueError, match="bucket"):
+        eng.submit([3] * 33, max_new_tokens=4)
+    eng.stop()
+
+
+UNPORTED = [
+    ("dense_mode", dict(kv_pool_tokens=None), "dense KV"),
+    ("pipelined_loop", dict(pipeline_depth=1), "pipelined"),
+    ("spec_decode", dict(spec_draft_tokens=2), "speculative"),
+    ("prefix_cache", dict(prefix_cache_entries=4), "prefix cache"),
+    ("chunked_prefill", dict(prefill_chunk=16), "chunked prefill"),
+    ("host_kv_tier", dict(host_kv_bytes=1 << 20), "host KV"),
+    ("mesh", dict(mesh=object()), "tensor-parallel"),
+    ("measured_page_size", dict(page_size=None), "page-size"),
+]
+
+
+@pytest.mark.parametrize("name,knob,what", UNPORTED, ids=[u[0] for u in UNPORTED])
+def test_unported_engine_knobs_raise(name, knob, what):
+    _, tmodel = _models()
+    with pytest.raises(NotImplementedError, match=what):
+        LMEngine(tmodel, **{**ENGINE, **knob})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        LMEngine(tmodel, config=LMEngineConfig(**{**ENGINE, **knob}))
+
+
+@pytest.mark.parametrize("per_request", [dict(seed=3), dict(resume_tokens=[4])],
+                         ids=["seed", "resume"])
+def test_unported_per_request_options_raise(per_request):
+    _, tmodel = _models()
+    eng = LMEngine(tmodel, **ENGINE)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        eng.submit([3, 4], max_new_tokens=2, **per_request)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        next(eng.stream([3, 4], max_new_tokens=2, **per_request))
+    eng.stop()
+
+
+UNPORTED_MODEL = [
+    ("ring", dict(attn_impl="ring")),
+    ("ulysses", dict(attn_impl="ulysses")),
+    ("moe", dict(moe_every=2)),
+    ("remat", dict(remat=True)),
+    ("dropout", dict(dropout_rate=0.1)),
+    ("onehot_embed", dict(embed_impl="onehot")),
+]
+
+
+@pytest.mark.parametrize("name,knob", UNPORTED_MODEL,
+                         ids=[u[0] for u in UNPORTED_MODEL])
+def test_unported_model_knobs_raise(name, knob):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TransformerLM(TransformerConfig(**KW, **knob), device="cpu")
+
+
+def test_dense_cache_branch_raises():
+    _, tmodel = _models()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tmodel(torch.zeros((1, 4), dtype=torch.long), cache={})

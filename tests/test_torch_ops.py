@@ -1,0 +1,248 @@
+"""The PyTorch port's attention ops against the JAX package's.
+
+``kubeflow_tpu_torch.ops`` holds two hand-written CUDA kernels, each
+beside a plain PyTorch twin; on CPU tensors the wrappers run the twin.
+Here the twin is held against the JAX function on the same numpy inputs:
+the Pallas kernel under ``interpret=True`` and the plain
+``reference_attention``. Everything is f32, so the only difference is
+summation order: tolerance 1e-5 absolute on values of order 1.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_tpu_torch.ops import _build
+from kubeflow_tpu_torch.ops import flash_attention as tfa
+from kubeflow_tpu_torch.ops import paged_attention as tpa
+
+# the JAX ``ops`` package re-exports functions under the modules' names
+jfa = importlib.import_module("kubeflow_tpu.ops.flash_attention")
+jpa = importlib.import_module("kubeflow_tpu.ops.paged_attention")
+
+ATOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ------------------------------------------------------------ paged attention
+
+# the oracle cases of tests/test_paged_attention.py, plus the pos0=0 edge
+# and a dead row whose whole table is the scratch page
+PAGED_CASES = [
+    ("decode", dict()),
+    ("gqa_span", dict(S=5)),
+    ("window", dict(S=3, window=24)),
+    ("mha", dict(H=2, Hkv=2)),
+    ("int8_span", dict(S=5, quant=True)),
+    ("int8_window", dict(S=2, window=20, quant=True)),
+    ("pos0_zero", dict(pos0_zero=True)),
+    ("dead_row", dict(S=4, dead_row=True)),
+]
+
+
+def _paged_inputs(seed, *, H=4, Hkv=2, S=1, window=None, quant=False,
+                  pos0_zero=False, dead_row=False):
+    rng = np.random.default_rng(seed)
+    B, D, P, n_pages, W_pages = 2, 64, 16, 8, 4
+    T = n_pages * P
+    q = rng.normal(size=(B, H, S, D)).astype(np.float32)
+    kp = rng.normal(size=(Hkv, T, D)).astype(np.float32)
+    vp = rng.normal(size=(Hkv, T, D)).astype(np.float32)
+    table = np.zeros((B, W_pages), np.int32)
+    perm = rng.permutation(np.arange(1, n_pages))
+    table[0] = perm[:W_pages]
+    table[1] = perm[:W_pages][::-1]
+    # row 1 ends mid-page so the partial-last-page mask runs every time
+    pos0 = np.array([W_pages * P - S, (W_pages - 1) * P - S], np.int32)
+    if pos0_zero:
+        pos0[:] = 0
+    if dead_row:
+        table[1] = 0
+    return dict(q=q, kp=kp, vp=vp, table=table, pos0=pos0, P=P,
+                window=window, quant=quant)
+
+
+@pytest.mark.parametrize("name,kw", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
+def test_paged_attention_matches_jax_kernel(name, kw):
+    x = _paged_inputs(sum(map(ord, name)), **kw)
+    jk, jv = jnp.asarray(x["kp"]), jnp.asarray(x["vp"])
+    jks = jvs = tks = tvs = None
+    tk, tv = _t(x["kp"]), _t(x["vp"])
+    if x["quant"]:
+        jk, jks = jpa.quantize_kv(jk)
+        jv, jvs = jpa.quantize_kv(jv)
+        tk, tks = tpa.quantize_kv(tk)
+        tv, tvs = tpa.quantize_kv(tv)
+    want = jpa.paged_attention(
+        jnp.asarray(x["q"]), jk, jv, jnp.asarray(x["table"]),
+        jnp.asarray(x["pos0"]), page_size=x["P"], window=x["window"],
+        k_scale=jks, v_scale=jvs, interpret=True,
+    )
+    got = tpa.paged_attention(
+        _t(x["q"]), tk, tv, _t(x["table"]), _t(x["pos0"]),
+        page_size=x["P"], window=x["window"], k_scale=tks, v_scale=tvs,
+    )
+    assert got.dtype == torch.float32 and got.shape == x["q"].shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    assert np.isfinite(got.numpy()).all()
+
+
+def test_paged_attention_rejects_bad_shapes():
+    x = _paged_inputs(0)
+    q, k, v = _t(x["q"]), _t(x["kp"]), _t(x["vp"])
+    table, pos0 = _t(x["table"]), _t(x["pos0"])
+    with pytest.raises(ValueError, match="multiple of page"):
+        tpa.paged_attention(q, k, v, table, pos0, page_size=24)
+    with pytest.raises(ValueError, match="kv heads"):
+        tpa.paged_attention(q[:, :3], k, v, table, pos0, page_size=16)
+    with pytest.raises(ValueError, match="together"):
+        tpa.paged_attention(q, k, v, table, pos0, page_size=16,
+                            k_scale=torch.ones(k.shape[:2]))
+
+
+def test_quantize_kv_bit_equal_to_jax():
+    """Codes and scales bit-for-bit, including exact halves (both
+    frameworks round half to even) and an all-zero vector."""
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=(2, 40, 64)) * 3.0).astype(np.float32)
+    x[0, 0, :5] = [127.0, 0.5, 1.5, 2.5, -0.5]  # scale 1: halves exactly
+    x[0, 0, 5:] = 0.0
+    x[1, 3] = 0.0
+    jc, js = jpa.quantize_kv(jnp.asarray(x))
+    tc, ts = tpa.quantize_kv(_t(x))
+    assert tc.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy().view(np.int32),
+                                  np.asarray(js).view(np.int32))
+    assert list(tc[0, 0, :5]) == [127, 0, 2, 2, 0]
+    np.testing.assert_array_equal(
+        tpa.dequantize_kv(tc, ts).numpy(),
+        np.asarray(jpa.dequantize_kv(jc, js)),
+    )
+
+
+# ------------------------------------------------------------ flash attention
+
+FLASH_CASES = [
+    ("causal", dict()),
+    ("window", dict(window=12)),
+    ("segments", dict(seg=True)),
+    ("window_segments", dict(window=20, seg=True)),
+    ("bidirectional", dict(causal=False)),
+]
+
+
+def _flash_inputs(seed, *, seg=False, B=2, H=2, S=64, D=32):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.normal(size=(B, H, S, D)).astype(np.float32)
+               for _ in range(3))
+    ids = None
+    if seg:
+        ids = np.zeros((B, S), np.int32)
+        ids[0, 20:] = 1
+        ids[0, 45:] = 2
+        ids[1, 33:] = 1
+    return q, k, v, ids
+
+
+@pytest.mark.parametrize("name,kw", FLASH_CASES, ids=[c[0] for c in FLASH_CASES])
+def test_flash_attention_matches_jax(name, kw):
+    causal = kw.get("causal", True)
+    window = kw.get("window")
+    q, k, v, ids = _flash_inputs(sum(map(ord, name)), seg=kw.get("seg", False))
+    jseg = None if ids is None else jnp.asarray(ids)
+    tseg = None if ids is None else _t(ids)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    # 16-wide blocks: 4 x 4 tiles, so the tile skip and online softmax run
+    want, want_lse = jfa.flash_attention(
+        jq, jk, jv, causal=causal, window=window, q_segment_ids=jseg,
+        kv_segment_ids=jseg, block_q=16, block_k=16, interpret=True,
+        return_residuals=True,
+    )
+    want_ref = jfa.reference_attention(
+        jq, jk, jv, causal=causal, window=window, q_segment_ids=jseg,
+        kv_segment_ids=jseg,
+    )
+    tq, tk, tv = map(_t, (q, k, v))
+    kw_t = dict(causal=causal, window=window, q_segment_ids=tseg,
+                kv_segment_ids=tseg)
+    got, got_lse = tfa.flash_attention(tq, tk, tv, return_residuals=True, **kw_t)
+    assert got_lse.shape == q.shape[:3] and got_lse.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=ATOL, rtol=0)
+    np.testing.assert_allclose(
+        tfa.flash_attention(tq, tk, tv, **kw_t).numpy(), np.asarray(want),
+        atol=ATOL, rtol=0,
+    )
+    np.testing.assert_allclose(
+        tfa.reference_attention(tq, tk, tv, **kw_t).numpy(),
+        np.asarray(want_ref), atol=ATOL, rtol=0,
+    )
+
+
+def test_reference_attention_mask_is_bottom_right_aligned():
+    """Sq < Skv (a suffix of queries): ``_full_mask`` puts query i at
+    position i + Skv - Sq, as the JAX mask does."""
+    rng = np.random.default_rng(5)
+    q = rng.normal(size=(1, 2, 8, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 2, 24, 16)).astype(np.float32) for _ in range(2))
+    for window in (None, 6):
+        want = jfa.reference_attention(*map(jnp.asarray, (q, k, v)),
+                                       causal=True, window=window)
+        got = tfa.reference_attention(*map(_t, (q, k, v)), causal=True,
+                                      window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_flash_attention_rejects_bad_args():
+    q, k, v, _ = _flash_inputs(0)
+    tq, tk, tv = map(_t, (q, k, v))
+    with pytest.raises(ValueError, match="repeat kv heads"):
+        tfa.flash_attention(tq, tk[:, :1], tv[:, :1], causal=True)
+    with pytest.raises(ValueError, match="needs causal"):
+        tfa.flash_attention(tq, tk, tv, causal=False, window=4)
+    with pytest.raises(ValueError, match="both"):
+        tfa.flash_attention(tq, tk, tv, q_segment_ids=torch.zeros(2, 64))
+
+
+# ------------------------------------------------------------ device routing
+
+def test_cpu_calls_never_touch_the_kernel_build(monkeypatch):
+    """CPU tensors run the plain twins: no nvcc, no library, no launch."""
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU call reached the CUDA kernel build")
+
+    monkeypatch.setattr(_build, "build", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    monkeypatch.setattr(_build, "_nvcc", refuse)
+    before = (tpa.LAUNCHES, tfa.LAUNCHES)
+    x = _paged_inputs(1, S=2)
+    tpa.paged_attention(_t(x["q"]), _t(x["kp"]), _t(x["vp"]), _t(x["table"]),
+                        _t(x["pos0"]), page_size=x["P"])
+    q, k, v, ids = _flash_inputs(1, seg=True)
+    tfa.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                        q_segment_ids=_t(ids), kv_segment_ids=_t(ids),
+                        return_residuals=True)
+    assert (tpa.LAUNCHES, tfa.LAUNCHES) == before
+
+
+def test_every_kernel_source_builds_to_a_hash_named_library(tmp_path, monkeypatch):
+    """The build target is keyed by the source and flags: an edited
+    kernel gets a new file name, so a stale library is never loaded."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text("// one\n")
+    first = _build._target("k")
+    (tmp_path / "k.cu").write_text("// two\n")
+    assert _build._target("k") != first
+    assert first.suffix == ".so" and first.name.startswith("k-")
+    assert _build.sources() == ["k"]
