@@ -6,30 +6,37 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs four phases:
+sm_90a, into the git-ignored ``build/``) and runs five phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
-   the serving model's shapes, with times for kernel, plain version and
-   (for flash) ``F.scaled_dot_product_attention`` as a yardstick only;
+   the serving and training shapes, with times for kernel, plain version
+   and (for flash, forward and backward) ``F.scaled_dot_product_attention``
+   as a yardstick only;
 2. forward — the full-width bf16 ``TransformerLM`` no-cache forward with
    ``attn_impl="flash"`` against the same weights with ``"reference"``;
 3. serving — ``ModelServer`` + ``LMEngineModel`` at full width in bf16 on
    the paged-attention kernel, answering 8 concurrent
    ``/v2/models/lm/generate`` requests;
 4. f32 parity — the same engine in f32: the ``kernel`` and ``gather``
-   read paths must give token-identical greedy streams.
+   read paths must give token-identical greedy streams;
+5. train — the full-width LM trained through the flash forward and
+   backward kernels: 5 f32 steps against plain attention (gradients and
+   losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps.
 
 Each phase prints one JSON line. The line before the last lists every
 kernel with its launches on its path, error, times and bound; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase, or a host
 without CUDA or without the package, exits non-zero and prints no
-result. ``--phases`` runs a subset (for debugging).
+result. ``--phases`` runs a subset (for debugging); ``--phases profile``
+adds a ``torch.profiler`` breakdown of one served batch and of 3
+training steps.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -40,7 +47,7 @@ import zlib
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
-PHASES = ("kernels", "forward", "serving", "parity")
+PHASES = ("kernels", "forward", "serving", "parity", "train")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -252,9 +259,144 @@ def run_flash_case(torch, name, c, flush):
     }
 
 
+def bwd_cases(torch):
+    """The training shape first (B=8, H=16, S=512, D=64, causal bf16)."""
+    base = dict(B=8, H=16, D=64, causal=True)
+    return [
+        ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
+        ("causal_s128_f32", dict(base, S=128, dtype=torch.float32)),
+        ("window_s512_bf16", dict(base, S=512, window=128, dtype=torch.bfloat16)),
+        ("segment_s512_bf16", dict(base, S=512, seg=True, dtype=torch.bfloat16)),
+        ("ragged_s200_f32", dict(base, S=200, dtype=torch.float32)),
+        # q segment 2 is absent from the kv ids: those rows are dead (lse
+        # at the -1e30 sentinel) and must add exactly 0
+        ("dead_rows_s128_f32", dict(base, S=128, causal=False, dead=True,
+                                    dtype=torch.float32)),
+    ]
+
+
+def bwd_tolerance(torch, fa, q, k, v, out, lse, dout, kw, refs):
+    """Elementwise tolerances of (dq, dk, dv) against the twin.
+
+    f32: PR 1's atol 2e-5, scaled by max(1, max|ref|): dk and dv are sums
+    over up to S query rows and reach |g| ~ 4 at S = 512, where the f32
+    summation-order noise grows with them. bf16/f16: the kernels round
+    twice, ds to q's dtype and p to dO's dtype, from f32 values that differ
+    from the twin's by that noise. Where the two straddle a rounding
+    boundary they land one ulp apart: at most 2**-7 |x| in bf16 (8
+    significant bits), 2**-10 |x| in f16. So |d dq| <= u * sum_j |ds||k|,
+    |d dk| <= u * sum_i |ds||q| and |d dv| <= u * sum_i p |dO|, with
+    u = 2**-7 or 2**-10, added to the f32 term."""
+    tols = [2e-5 * max(1.0, r.abs().max().item()) for r in refs]
+    if q.dtype == torch.float32:
+        return tols
+    u = 2.0 ** -7 if q.dtype == torch.bfloat16 else 2.0 ** -10
+    p, ds = fa._bwd_probs(q, k, v, out, lse, dout, **kw)
+    ads = ds.abs()
+    bounds = (
+        torch.einsum("bhqk,bhkd->bhqd", ads, k.float().abs()),
+        torch.einsum("bhqk,bhqd->bhkd", ads, q.float().abs()),
+        torch.einsum("bhqk,bhqd->bhkd", p, dout.float().abs()),
+    )
+    return [t + u * b for t, b in zip(tols, bounds)]
+
+
+def run_bwd_case(torch, name, c, flush):
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
+
+    g = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
+    B, H, S, D, dt, causal = (c[k] for k in ("B", "H", "S", "D", "dtype", "causal"))
+    q, k, v, dout = (torch.randn(B, H, S, D, generator=g, device="cuda").to(dt)
+                     for _ in range(4))
+    qseg = kseg = None
+    if c.get("seg"):
+        cuts = torch.rand(B, S, generator=g, device="cuda") < 3.0 / S
+        cuts[:, 0] = False
+        qseg = kseg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
+    if c.get("dead"):
+        kseg = torch.randint(0, 2, (B, S), generator=g, device="cuda",
+                             dtype=torch.int32)
+        qseg = torch.randint(0, 3, (B, S), generator=g, device="cuda",
+                             dtype=torch.int32)
+    window = c.get("window")
+    kw = dict(causal=causal, scale=1.0 / D ** 0.5, window=window,
+              q_segment_ids=qseg, kv_segment_ids=kseg)
+    out, lse = fa.flash_attention_reference(q, k, v, **kw)
+    delta = (dout.float() * out.float()).sum(-1)
+    got = (fb.launch_dq(q, k, v, dout, lse, delta, **kw),
+           *fb.launch_dkv(q, k, v, dout, lse, delta, **kw))
+    refs = fa.flash_attention_bwd_reference(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    tols = bwd_tolerance(torch, fa, q, k, v, out, lse, dout, kw, refs)
+    errs, oks = [], []
+    for x, r, t in zip(got, refs, tols):
+        diff = (x - r).abs()
+        errs.append(diff.max().item())
+        oks.append(bool(torch.isfinite(x).all()) and bool((diff <= t).all()))
+    dead = None
+    if c.get("dead"):  # dead rows: dq exactly 0
+        rows = (lse <= fa.NEG_INF / 2)[..., None].expand_as(got[0])
+        dead = {"rows": int((lse <= fa.NEG_INF / 2).sum().item()),
+                "dq_zero": bool((got[0][rows] == 0).all())}
+        oks.append(dead["rows"] > 0 and dead["dq_zero"])
+    ms_dq = time_ms(torch, lambda: fb.launch_dq(q, k, v, dout, lse, delta, **kw),
+                    flush=flush)
+    ms_dkv = time_ms(torch, lambda: fb.launch_dkv(q, k, v, dout, lse, delta, **kw),
+                     flush=flush)
+    plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+        q, k, v, out, lse, dout, **kw), flush=flush)
+    mask = fa._full_mask(q.shape, k.shape, qseg, kseg, causal, window, q.device)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    if mask is None:
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    else:
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
+    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+        o, leaves, dout, retain_graph=True), flush=flush)
+    if mask is None:
+        visible = B * S * S
+    else:
+        visible = int(mask.expand(B, 1, S, S).sum().item())
+    # dead rows see nothing: their pairs are masked, so not counted
+    el = q.element_size()
+    n_in = 4 * q.numel() * el + 2 * B * H * S * 4 + (
+        2 * B * S * 4 if qseg is not None else 0)
+    grad_bytes = q.numel() * 4
+    peak = PEAK_FLOPS[_dtname(torch, dt)]
+    bounds = {}
+    for kern, nbytes, flops in (("dq", n_in + grad_bytes, 6 * D * H * visible),
+                                ("dkv", n_in + 2 * grad_bytes, 8 * D * H * visible)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / peak * 1e3
+        bounds[kern] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return {
+        "kernel": "flash_attention_bwd", "case": name, "shape": [B, H, S, D],
+        "dtype": _dtname(torch, dt), "causal": causal, "window": window,
+        "segments": qseg is not None, "dead_rows": dead,
+        "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
+        "tol_max": {"dq": float(torch.as_tensor(tols[0]).max()),
+                    "dk": float(torch.as_tensor(tols[1]).max()),
+                    "dv": float(torch.as_tensor(tols[2]).max())},
+        "ok": all(oks),
+        "ms": {"dq": ms_dq, "dkv": ms_dkv}, "plain_ms": plain_ms,
+        "bound_ms": {"dq": bounds["dq"][0], "dkv": bounds["dkv"][0]},
+        "bound_by": {"dq": bounds["dq"][1], "dkv": bounds["dkv"][1]},
+        "library_ms": library_ms,
+    }
+
+
 def phase_kernels(torch, state):
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     ok = True
+    for name, c in bwd_cases(torch):
+        r = run_bwd_case(torch, name, c, flush)
+        emit(r)
+        ok &= r["ok"]
+        if name == "causal_s512_bf16":
+            state["bwd_main"] = r
     for name, c in paged_cases(torch):
         r = run_paged_case(torch, name, c, flush)
         emit(r)
@@ -458,14 +600,176 @@ def phase_parity(torch, state):
     return ok
 
 
-def phase_profile(torch, state):
-    """Where the time of one served batch goes (not in the default run:
-    ``--phases profile``). The bf16 engine on the paged kernel serves the
-    8 requests once plainly, for the wall time, and once under
-    ``torch.profiler``, for the device time by kernel and the time in
-    which some kernel ran (the profiler slows the host, so the busy share
-    is given against both walls)."""
+# --------------------------------------------------------------------------- #
+# phase 5: training through Trainer.fit at full width
+# --------------------------------------------------------------------------- #
+
+TRAIN_BATCH, TRAIN_SEQ = 8, 512
+TRAIN_WARM, TRAIN_TIMED = 3, 20
+PARITY_STEPS = 5
+
+
+def _train_data(start_step=0):
+    from kubeflow_tpu_torch.data import TokenLMDataset, local_shard_iterator
+
+    ds = TokenLMDataset(vocab_size=MODEL["vocab_size"], seq_len=TRAIN_SEQ, seed=0)
+    return local_shard_iterator(ds, TRAIN_BATCH, start_step=start_step)
+
+
+def train_flops_per_step():
+    """Model FLOPs of one training step: 6 * N * tokens over the N weights
+    that enter matrix products (the projections and the unembed; the
+    embedding is a gather), plus causal attention, 4 * D flops per
+    visible (query, key) pair forward (q.k and p.v) and twice that
+    backward, in every head and layer."""
+    d, f, L, V = MODEL["d_model"], MODEL["d_ff"], MODEL["n_layers"], MODEL["vocab_size"]
+    n_matmul = L * (4 * d * d + 3 * d * f) + d * V
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    visible = TRAIN_BATCH * TRAIN_SEQ * (TRAIN_SEQ + 1) // 2
+    attn = 3 * 4 * d * visible * L  # H * D = d_model
+    return 6 * n_matmul * tokens + attn
+
+
+def phase_train(torch, state):
+    """(a) f32 parity with TF32 off: the same initial weights and batches
+    through flash attention (forward and backward kernels) and through
+    plain attention under autograd, 5 steps of adamw(1e-3): step-1
+    gradients of every parameter and the per-step losses must agree. (b)
+    ``Trainer.fit`` in bf16 over f32 master weights, 3 warm-up and 20
+    timed steps: finite, falling loss, and each attention kernel launched
+    once per layer per step."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, make_init_fn, make_loss_fn,
+    )
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, adamw
+    from kubeflow_tpu_torch.train.prefetch import device_placer, live_kft_threads
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    loss_fn = make_loss_fn()
+    place = device_placer(torch.device("cuda"))
+    batches = [place(b).claim() for b, _ in zip(_train_data(), range(PARITY_STEPS))]
+    runs = {}
+    sd0 = None
+    for impl in ("flash", "reference"):
+        cfg = TransformerConfig(dtype=torch.float32, attn_impl=impl, **MODEL)
+        model = make_init_fn(cfg)(0, torch.device("cuda"))
+        if sd0 is None:
+            sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(sd0)
+        opt = adamw(1e-3)(model.parameters())
+        losses, grads = [], None
+        for i, batch in enumerate(batches):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(model, batch)
+            loss.backward()
+            if i == 0:
+                grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+            opt.step()
+            losses.append(loss.item())
+        runs[impl] = (losses, grads)
+        del model, opt
+        torch.cuda.empty_cache()
+    (fl, fg), (rl, rg) = runs["flash"], runs["reference"]
+    grad_tol, loss_rtol = 1e-3, 1e-4
+    grad_rel = {n: ((fg[n] - rg[n]).abs().max() / rg[n].abs().max()).item()
+                for n in rg}
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(fl, rl)]
+    worst = max(grad_rel, key=grad_rel.get)
+    parity_ok = (max(grad_rel.values()) <= grad_tol
+                 and max(loss_rel) <= loss_rtol)
+    emit({"phase": "train_parity", "dtype": "f32", "tf32": False,
+          "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": PARITY_STEPS,
+          "losses_flash": fl, "losses_reference": rl,
+          "loss_rel_err_max": max(loss_rel), "loss_rtol": loss_rtol,
+          "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst_param": worst,
+          "grad_tol": grad_tol, "ok": parity_ok})
+    del runs, fg, rg, sd0, batches
+    torch.cuda.empty_cache()
+
+    steps = TRAIN_WARM + TRAIN_TIMED
+    cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+    trainer = Trainer(
+        init_params=make_init_fn(cfg), loss_fn=loss_fn, optimizer=adamw(1e-3),
+        config=TrainConfig(mesh=None, global_batch=TRAIN_BATCH, steps=steps,
+                           log_every=1, prefetch_depth=2),
+    )
+    ready = {}
+
+    def stamp(step, m):  # drain thread: step ``step`` has run on the card
+        ready[step] = time.perf_counter()
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = fb.DQ_LAUNCHES = fb.DKV_LAUNCHES = 0
+    _, history = trainer.fit(_train_data, hooks=[stamp])
+    torch.cuda.synchronize()
+    launches = {"flash_forward": fa.LAUNCHES, "flash_bwd_dq": fb.DQ_LAUNCHES,
+                "flash_bwd_dkv": fb.DKV_LAUNCHES}
+    state["train_launches"] = launches
+    losses = [h["loss"] for h in history]
+    timed_s = ready[steps] - ready[TRAIN_WARM]
+    step_ms = timed_s / TRAIN_TIMED * 1e3
+    flops = train_flops_per_step()
+    want = MODEL["n_layers"] * steps
+    finite = all(map(math.isfinite, losses))
+    ok = (parity_ok and finite and len(losses) == steps and losses[-1] < losses[0]
+          and all(n == want for n in launches.values())
+          and live_kft_threads() == [])
+    emit({"phase": "train", "dtype": "bf16", "param_dtype": "f32",
+          "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps,
+          "timed_steps": TRAIN_TIMED, "first_loss": losses[0],
+          "last_loss": losses[-1], "finite": finite,
+          "step_ms": step_ms, "steps_per_s": TRAIN_TIMED / timed_s,
+          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_TIMED / timed_s,
+          "compile_ms": history[0].get("compile_ms"),
+          "data_stall_ms": history[-1].get("data_stall_ms"),
+          "model_flops_per_step": flops,
+          "mfu_bf16_dense": flops / (step_ms / 1e3) / PEAK_FLOPS["bf16"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "launches": launches, "launches_wanted": want,
+          "card": state["card"], "ok": ok})
+    return ok
+
+
+def _device_summary(prof):
+    """(kernels, busy ms, kernels by device time) of a profile: busy is
+    the union of kernel intervals on the card. Ranges that user
+    annotations (``Optimizer.step#...``) mark on the device timeline are
+    not kernels and are left out."""
     from torch.autograd import DeviceType
+
+    spans, by_name = [], {}
+    for e in prof.events():
+        if getattr(e, "is_user_annotation", False):
+            continue
+        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
+            spans.append((e.time_range.start, e.time_range.end))
+            name = e.name.replace("(anonymous namespace)::", "")
+            name = name.split("<")[0].split("(")[0][:60]
+            n, ms = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):  # union of kernel intervals
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    return len(spans), busy_us / 1e3, top
+
+
+def phase_profile(torch, state):
+    """Where the time goes (not in the default run: ``--phases profile``).
+
+    Serving: the bf16 engine on the paged kernel serves the 8 requests once
+    plainly, for the wall time, and once under ``torch.profiler``, for the
+    device time by kernel and the time in which some kernel ran (the
+    profiler slows the host, so the busy share is given against both
+    walls). Training: the trainer's step (``Trainer._step``, what ``fit``
+    runs each step) in bf16 at full width, 2 warm-up steps, 3 plain steps
+    for the wall and 3 under the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from kubeflow_tpu_torch.serve.engine import LMEngine
@@ -490,31 +794,66 @@ def phase_profile(torch, state):
         stats = {k: eng.stats[k] - before[k] for k in ("chunks", "prefill_pieces")}
     finally:
         eng.stop()
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and e.time_range.end > e.time_range.start:
-            spans.append((e.time_range.start, e.time_range.end))
-            name = e.name.replace("(anonymous namespace)::", "")
-            name = name.split("<")[0].split("(")[0][:60]
-            n, ms = by_name.get(name, (0, 0.0))
-            by_name[name] = (n + 1, ms + (e.time_range.end - e.time_range.start) / 1e3)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted(spans):  # union of kernel intervals
-        if b > end:
-            busy_us += b - max(a, end)
-            end = b
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    del model, eng
+    n_kernels, busy_ms, top = _device_summary(prof)
     tokens = sum(len(o) for o in outs)
-    emit({"phase": "profile", "dtype": "bf16", "requests": N_REQ,
-          "tokens": tokens, "wall_ms": plain_wall_ms,
+    serve_ok = n_kernels > 0 and tokens > 0
+    emit({"phase": "profile", "path": "serving", "dtype": "bf16",
+          "requests": N_REQ, "tokens": tokens, "wall_ms": plain_wall_ms,
           "profiled_wall_ms": wall_ms, "chunks": stats["chunks"],
-          "prefill_pieces": stats["prefill_pieces"], "kernels": len(spans),
-          "device_busy_ms": busy_us / 1e3,
-          "device_busy_share": busy_us / 1e3 / plain_wall_ms,
-          "device_busy_share_profiled": busy_us / 1e3 / wall_ms,
-          "top_kernels": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top],
-          "card": state["card"], "ok": bool(spans) and tokens > 0})
-    return bool(spans) and tokens > 0
+          "prefill_pieces": stats["prefill_pieces"], "kernels": n_kernels,
+          "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / plain_wall_ms,
+          "device_busy_share_profiled": busy_ms / wall_ms,
+          "top_kernels": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top[:10]],
+          "card": state["card"], "ok": serve_ok})
+    torch.cuda.empty_cache()
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, make_init_fn, make_loss_fn,
+    )
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, adamw
+    from kubeflow_tpu_torch.train.prefetch import device_placer
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+    trainer = Trainer(init_params=make_init_fn(cfg), loss_fn=make_loss_fn(),
+                      optimizer=adamw(1e-3),
+                      config=TrainConfig(mesh=None, global_batch=TRAIN_BATCH,
+                                         steps=8))
+    tstate = trainer.init_state()
+    place = device_placer(torch.device("cuda"))
+    batches = [place(b).claim() for b, _ in zip(_train_data(), range(8))]
+    for b in batches[:2]:
+        trainer._step(tstate, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[2:5]:
+        trainer._step(tstate, b)
+    torch.cuda.synchronize()
+    train_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[5:8]:
+            trainer._step(tstate, b)
+        torch.cuda.synchronize()
+        train_prof_ms = (time.perf_counter() - t0) * 1e3
+    n_kernels, busy_ms, top = _device_summary(prof)
+    device_ms = sum(ms for _, (_, ms) in top)
+    attn = {k: ms for k, (_, ms) in top
+            if any(n in k for n in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                    "flash_bwd_dkv_kernel"))}
+    train_ok = n_kernels > 0 and len(attn) == 3
+    emit({"phase": "profile", "path": "train", "dtype": "bf16",
+          "param_dtype": "f32", "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": 3,
+          "wall_ms": train_wall_ms, "profiled_wall_ms": train_prof_ms,
+          "kernels": n_kernels, "device_busy_ms": busy_ms,
+          "device_busy_share": busy_ms / train_wall_ms,
+          "device_busy_share_profiled": busy_ms / train_prof_ms,
+          "attention_kernels_ms": attn,
+          "attention_share_of_device_time": sum(attn.values()) / device_ms,
+          "top_kernels": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top[:12]],
+          "card": state["card"], "ok": train_ok})
+    return serve_ok and train_ok
 
 
 # --------------------------------------------------------------------------- #
@@ -552,6 +891,7 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     runners = {"kernels": phase_kernels, "forward": phase_forward,
                "serving": phase_serving, "parity": phase_parity,
+               "train": phase_train,
                "profile": phase_profile}
     ok = True
     for p in phases:
@@ -567,7 +907,7 @@ def main(argv=None) -> int:
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
-    if "paged_main" in state and "flash_main" in state:
+    if all(k in state for k in ("paged_main", "flash_main", "bwd_main")):
         kernels = []
         for key, launches, src, rep in (
             ("paged_main", state.get("paged_launches", 0),
@@ -585,11 +925,33 @@ def main(argv=None) -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             })
+        # the backward pair on the training path; plain_ms (the twin) and
+        # library_ms (the backward of scaled_dot_product_attention) are
+        # each one call computing dq, dk and dv, given for both kernels
+        r = state["bwd_main"]
+        train = state.get("train_launches", {})
+        for name, part, launch_key, rep in (
+            ("flash_attention_bwd_dq", "dq", "flash_bwd_dq",
+             "kubeflow_tpu/ops/flash_attention.py:453"),
+            ("flash_attention_bwd_dkv", "dkv", "flash_bwd_dkv",
+             "kubeflow_tpu/ops/flash_attention.py:484"),
+        ):
+            err = r["max_abs_err"]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                "replaces": rep, "launches": train.get(launch_key, 0),
+                "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
+                "ms": r["ms"][part], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],
+                "library_ms": r["library_ms"],
+            })
         emit({"kernels": kernels})
     print(card, flush=True)
+    # the cards this run used: one
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

@@ -15,9 +15,17 @@ ported:
   by the paged-attention CUDA kernel (``kernel``), for ``kv_quant``
   ``none`` and ``int8``.
 
-Linear weights are held in ``cfg.dtype`` (bf16 on the card), which is the
-cast the JAX ``nn.Dense(dtype=...)`` applies at every call; norm scales,
-the embedding table and the unembed stay f32 as in the JAX package.
+Projections are :class:`Dense` layers: their weights are stored in
+``param_dtype`` and cast to ``cfg.dtype`` at every call, as the JAX
+``nn.Dense(dtype=cfg.dtype)`` casts its f32 ``param_dtype`` kernel. The
+default ``param_dtype`` is ``cfg.dtype`` (the serving layout: the cast is
+deterministic, so storing the cast weight gives the same result);
+training builds with ``param_dtype=torch.float32`` so that optimizer
+updates land on f32 master weights. Norm scales, the embedding table and
+the unembed are f32 in both layouts, as in the JAX package.
+
+:func:`make_init_fn` and :func:`make_loss_fn` are the trainer plumbing of
+the JAX module (``make_init_fn``/``make_loss_fn``).
 """
 
 from __future__ import annotations
@@ -92,8 +100,8 @@ class TransformerConfig:
             )
         if self.remat or self.dropout_rate:
             raise NotImplementedError(
-                "remat and dropout belong to the training slice "
-                "(ROADMAP queue 1 item 9)"
+                "remat and dropout are not ported yet (ROADMAP queue 1 "
+                "item 9, the rest of the training path)"
             )
         if self.embed_impl != "gather":
             raise NotImplementedError(
@@ -160,9 +168,26 @@ class RMSNorm(nn.Module):
         return (y * self.scale).to(x.dtype)
 
 
+class Dense(nn.Linear):
+    """Bias-free projection with flax ``nn.Dense`` dtype semantics: the
+    weight is stored in ``param_dtype`` and input and weight are cast to
+    the compute ``dtype`` at every call (a no-op when the two agree)."""
+
+    def __init__(self, n_in: int, n_out: int, *, dtype: torch.dtype,
+                 param_dtype: torch.dtype, device: torch.device):
+        super().__init__(n_in, n_out, bias=False, device=device,
+                         dtype=param_dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt))
+
+
 def _linear(cfg: TransformerConfig, n_in: int, n_out: int,
-            device: torch.device) -> nn.Linear:
-    return nn.Linear(n_in, n_out, bias=False, device=device, dtype=cfg.dtype)
+            device: torch.device, param_dtype: torch.dtype) -> Dense:
+    return Dense(n_in, n_out, dtype=cfg.dtype, param_dtype=param_dtype,
+                 device=device)
 
 
 def _grouped_cache_attention(q, K, V, mask, groups):
@@ -204,14 +229,15 @@ def dispatch_attention(q, k, v, cfg: TransformerConfig, *, segment_ids=None):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 param_dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
         H, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
-        self.q_proj = _linear(cfg, cfg.d_model, H * D, device)
-        self.k_proj = _linear(cfg, cfg.d_model, Hkv * D, device)
-        self.v_proj = _linear(cfg, cfg.d_model, Hkv * D, device)
-        self.o_proj = _linear(cfg, H * D, cfg.d_model, device)
+        self.q_proj = _linear(cfg, cfg.d_model, H * D, device, param_dtype)
+        self.k_proj = _linear(cfg, cfg.d_model, Hkv * D, device, param_dtype)
+        self.v_proj = _linear(cfg, cfg.d_model, Hkv * D, device, param_dtype)
+        self.o_proj = _linear(cfg, H * D, cfg.d_model, device, param_dtype)
 
     def forward(
         self, x, positions, segment_ids=None, layer_cache=None,
@@ -313,23 +339,25 @@ class Attention(nn.Module):
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 param_dtype: torch.dtype):
         super().__init__()
-        self.up_proj = _linear(cfg, cfg.d_model, cfg.d_ff, device)
-        self.gate_proj = _linear(cfg, cfg.d_model, cfg.d_ff, device)
-        self.down_proj = _linear(cfg, cfg.d_ff, cfg.d_model, device)
+        self.up_proj = _linear(cfg, cfg.d_model, cfg.d_ff, device, param_dtype)
+        self.gate_proj = _linear(cfg, cfg.d_model, cfg.d_ff, device, param_dtype)
+        self.down_proj = _linear(cfg, cfg.d_ff, cfg.d_model, device, param_dtype)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig, device: torch.device):
+    def __init__(self, cfg: TransformerConfig, device: torch.device,
+                 param_dtype: torch.dtype):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device)
-        self.attn = Attention(cfg, device)
+        self.attn = Attention(cfg, device, param_dtype)
         self.ln2 = RMSNorm(cfg.d_model, device)
-        self.mlp = Mlp(cfg, device)
+        self.mlp = Mlp(cfg, device, param_dtype)
 
     def forward(self, x, positions, segment_ids=None, layer_cache=None, **paged):
         new_cache = None
@@ -356,19 +384,25 @@ class TransformerLM(nn.Module):
     ``positions`` and gets ``(logits, cache)``; the pool is updated in
     place. Parameters are allocated uninitialized on ``device`` (``None``
     = the CUDA card): load a state dict or call :func:`init_weights`.
+    ``param_dtype`` is the storage dtype of the projections (flax
+    ``Dense.param_dtype``); ``None`` stores them in ``cfg.dtype``.
     """
 
-    def __init__(self, cfg: TransformerConfig, *, device=None):
+    def __init__(self, cfg: TransformerConfig, *, device=None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         cfg.validate()
         self.cfg = cfg
         dev = resolve_device(device)
+        param_dtype = cfg.dtype if param_dtype is None else param_dtype
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, cfg.dtype, dev)
         if not cfg.use_rope:
             self.pos_embedding = nn.Parameter(
                 torch.empty(cfg.max_seq_len, cfg.d_model, device=dev)
             )
-        self.layers = nn.ModuleList(Block(cfg, dev) for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            Block(cfg, dev, param_dtype) for _ in range(cfg.n_layers)
+        )
         self.ln_f = RMSNorm(cfg.d_model, dev)
         self.unembed = nn.Linear(
             cfg.d_model, cfg.vocab_size, bias=False, device=dev,
@@ -466,3 +500,39 @@ def init_weights(model: TransformerLM, seed: int) -> TransformerLM:
             fan_in = p.shape[1]
             p.normal_(0.0, fan_in ** -0.5, generator=gen)
     return model
+
+
+# --------------------------------------------------------------------------- #
+# Trainer plumbing
+# --------------------------------------------------------------------------- #
+
+def make_init_fn(cfg: TransformerConfig):
+    """``init_params(seed, device) -> TransformerLM`` for the trainer: the
+    model built on ``device`` with f32 master weights
+    (``param_dtype=torch.float32``, compute in ``cfg.dtype``) and drawn by
+    :func:`init_weights` from ``seed``."""
+
+    def init_params(seed: int, device) -> TransformerLM:
+        model = TransformerLM(cfg, device=device, param_dtype=torch.float32)
+        return init_weights(model, seed)
+
+    return init_params
+
+
+def make_loss_fn():
+    """``(model, {"inputs", "targets"}, generator) -> (loss, metrics)``:
+    the mean token cross-entropy of the f32 logits (optax's
+    ``softmax_cross_entropy_with_integer_labels(...).mean()``) and the
+    argmax accuracy (first index on ties, as ``jnp.argmax``). MoE layers,
+    whose aux loss the JAX function adds, raise in ``cfg.validate()``."""
+
+    def loss_fn(model: TransformerLM, batch, generator=None):
+        del generator  # no dropout in the ported model
+        targets = batch["targets"].long()
+        logits = model(batch["inputs"])
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               targets.reshape(-1))
+        acc = (logits.argmax(-1) == targets).float().mean()
+        return loss, {"lm_loss": loss.detach(), "accuracy": acc}
+
+    return loss_fn

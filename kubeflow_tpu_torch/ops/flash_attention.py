@@ -1,17 +1,19 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain
-PyTorch twin.
+"""Flash attention: the hand-written CUDA kernels and their plain PyTorch
+twins, forward and backward.
 
 Counterpart of ``kubeflow_tpu/ops/flash_attention.py``. Shapes follow the
 JAX package: q ``(B, H, Sq, D)``, k/v ``(B, H, Skv, D)`` (GQA heads
 repeated by the caller), optional int32 segment ids ``(B, Sq)`` and
 ``(B, Skv)``. :func:`flash_attention` returns the output in q's dtype and,
 with ``return_residuals=True``, also the per-row log-sum-exp ``(B, H,
-Sq)`` in f32.
+Sq)`` in f32. Without residuals it is differentiable: one autograd
+function on both devices saves ``(q, k, v, out, lse)`` and its backward is
+:func:`flash_attention_bwd`.
 
-CUDA tensors launch ``csrc/flash_attention.cu``; CPU tensors run
-:func:`flash_attention_reference`. ``LAUNCHES`` counts kernel launches.
-The backward kernels (the Pallas ``flash_attention_bwd``) belong to the
-training slice: until then a gradient through the CUDA path raises.
+CUDA tensors launch ``csrc/flash_attention.cu`` (forward, ``LAUNCHES``
+counts it) and ``csrc/flash_attention_bwd.cu`` (dq and dk/dv, counted by
+``flash_attention_bwd.DQ_LAUNCHES`` / ``DKV_LAUNCHES``); CPU tensors run
+:func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`.
 """
 
 from __future__ import annotations
@@ -130,10 +132,9 @@ def flash_attention(
         scale = 1.0 / math.sqrt(q.shape[-1])
     kw = dict(causal=causal, scale=scale, q_segment_ids=q_segment_ids,
               kv_segment_ids=kv_segment_ids, window=window)
-    if q.device.type == "cpu":
-        out, lse = flash_attention_reference(q, k, v, **kw)
-        return (out, lse) if return_residuals else out
     if return_residuals:
+        if q.device.type == "cpu":
+            return flash_attention_reference(q, k, v, **kw)
         return _launch(q, k, v, **kw)
     return _FlashAttention.apply(
         q, k, v, q_segment_ids, kv_segment_ids, causal, scale, window
@@ -141,29 +142,101 @@ def flash_attention(
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward through the kernel; the backward kernels are not ported."""
+    """Forward through the kernel (the twin on the CPU), saving the JAX
+    ``_flash_fwd`` residuals; backward through :func:`flash_attention_bwd`,
+    gradients cast to the inputs' dtypes and none for the segment ids."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale, window):
-        out, _ = _launch(q, k, v, causal=causal, scale=scale,
-                         q_segment_ids=q_seg, kv_segment_ids=kv_seg,
-                         window=window)
+        kw = dict(causal=causal, scale=scale, q_segment_ids=q_seg,
+                  kv_segment_ids=kv_seg, window=window)
+        if q.device.type == "cpu":
+            out, lse = flash_attention_reference(q, k, v, **kw)
+        else:
+            out, lse = _launch(q, k, v, **kw)
+        ctx.save_for_backward(q, k, v, out, lse, q_seg, kv_seg)
+        ctx.kw = dict(causal=causal, scale=scale, window=window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        raise NotImplementedError(
-            "flash-attention backward kernels are not ported yet "
-            "(ROADMAP queue 2 item 3, the training slice)"
+        q, k, v, out, lse, q_seg, kv_seg = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), q_segment_ids=q_seg,
+            kv_segment_ids=kv_seg, **ctx.kw,
         )
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None)
 
 
-def _launch(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
-            window):
-    global LAUNCHES
-    seg = q_segment_ids is not None
-    named = {"q": q, "k": k, "v": v}
-    if seg:
+def _bwd_probs(q, k, v, out, lse, dout, *, causal, scale,
+               q_segment_ids=None, kv_segment_ids=None, window=None):
+    """``(p, ds)`` of the backward, (B, H, Sq, Skv) f32, as the Pallas
+    ``_prob_block`` and kernel bodies form them: p = exp(s·scale − lse),
+    0 where masked and on dead rows (lse at the ``NEG_INF`` sentinel);
+    ds = p·(dp − delta)·scale with dp = dO·Vᵀ, rounded to q's dtype."""
+    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    live = (lse > NEG_INF / 2)[..., None]
+    p = torch.where(live, torch.exp(s - torch.where(live, lse[..., None], 0.0)),
+                    0.0)
+    mask = _full_mask(q.shape, k.shape, q_segment_ids, kv_segment_ids,
+                      causal, window, q.device)
+    if mask is not None:
+        p = torch.where(mask, p, 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    return p, ds
+
+
+def flash_attention_bwd_reference(
+    q, k, v, out, lse, dout, *, causal, scale=None,
+    q_segment_ids=None, kv_segment_ids=None, window=None,
+):
+    """Plain twin of the backward kernels: f32 ``(dq, dk, dv)`` following
+    the Pallas kernel bodies step for step (:func:`_bwd_probs`), then
+    dq = ds·K, dk = dsᵀ·Q, dv = p(dO's dtype)ᵀ·dO, accumulated in f32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    p, ds = _bwd_probs(q, k, v, out, lse, dout, causal=causal, scale=scale,
+                       q_segment_ids=q_segment_ids,
+                       kv_segment_ids=kv_segment_ids, window=window)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(), dout.float())
+    return dq, dk, dv
+
+
+def flash_attention_bwd(
+    q, k, v, out, lse, dout, *, causal, scale=None,
+    q_segment_ids=None, kv_segment_ids=None, window=None,
+):
+    """Flash-attention gradients from the forward's residuals: f32
+    ``(dq, dk, dv)``. ``delta = rowsum(dO·O)`` is formed here in plain
+    torch, as the JAX wrapper forms it outside Pallas; CUDA tensors then
+    launch the dq and dk/dv kernels, CPU tensors run the twin."""
+    _check_args(q, k, v, causal, q_segment_ids, kv_segment_ids, window)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    kw = dict(causal=causal, scale=scale, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids, window=window)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, dout, **kw)
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as kernels
+
+    delta = (dout.float() * out.float()).sum(-1)
+    dq = kernels.launch_dq(q, k, v, dout, lse, delta, **kw)
+    dk, dv = kernels.launch_dkv(q, k, v, dout, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def _check_launch(q, k, v, q_segment_ids, kv_segment_ids, **more):
+    """The kernels' input contract: q/k/v, the segment ids and ``more``'s
+    tensors on q's device and contiguous; q/k/v of one supported dtype,
+    D <= 128; int32 segment ids of shape (B, Sq) / (B, Skv). Returns
+    ``(B, H, Sq, Skv, D)``."""
+    named = {"q": q, "k": k, "v": v, **more}
+    if q_segment_ids is not None:
         named.update(q_segment_ids=q_segment_ids,
                      kv_segment_ids=kv_segment_ids)
     for name, t in named.items():
@@ -177,13 +250,21 @@ def _launch(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
     Skv = k.shape[2]
     if D > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D} > {_MAX_HEAD_DIM} not supported")
-    if seg:
+    if q_segment_ids is not None:
         if (q_segment_ids.dtype != torch.int32
                 or kv_segment_ids.dtype != torch.int32):
             raise TypeError("segment ids must be int32")
         if tuple(q_segment_ids.shape) != (B, Sq) or \
                 tuple(kv_segment_ids.shape) != (B, Skv):
             raise ValueError("segment ids must be (B, Sq) and (B, Skv)")
+    return B, H, Sq, Skv, D
+
+
+def _launch(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
+            window):
+    global LAUNCHES
+    B, H, Sq, Skv, D = _check_launch(q, k, v, q_segment_ids, kv_segment_ids)
+    seg = q_segment_ids is not None
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _lib()

@@ -190,3 +190,84 @@ def test_paged_prefill_and_decode_match_jax(impl, quant):
                 else:
                     np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5,
                                                err_msg=f"{layer}/{name}")
+
+
+# ------------------------------------------------------ f32 master weights
+
+def test_param_dtype_f32_holds_master_weights_and_casts_per_call():
+    """``param_dtype=torch.float32`` with bf16 compute keeps every
+    parameter in f32 after ``load_state_dict`` (the flax ``Dense`` layout)
+    and gives the default (bf16-stored) layout's logits: the cast to bf16
+    happens per call instead of once, the same rounding either way, so
+    the logits agree to bf16 tolerance (both compute in bf16)."""
+    _, _, params = _jax()
+    sd = params_to_state_dict(params)
+    cfg = ttf.TransformerConfig(**KW, dtype=torch.bfloat16)
+    master = ttf.TransformerLM(cfg, device="cpu", param_dtype=torch.float32)
+    master.load_state_dict(sd)
+    assert {p.dtype for p in master.parameters()} == {torch.float32}
+    served = ttf.TransformerLM(cfg, device="cpu")
+    served.load_state_dict(sd)
+    assert served.layers[0].attn.q_proj.weight.dtype == torch.bfloat16
+    assert served.ln_f.scale.dtype == torch.float32
+    tokens = torch.from_numpy(
+        np.random.default_rng(3).integers(0, KW["vocab_size"], (2, 16)))
+    with torch.inference_mode():
+        a, b = master(tokens), served(tokens)
+    assert a.dtype == b.dtype == torch.float32
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-2, rtol=2e-2)
+    # a weight update lands on the f32 master, below a bf16 ulp of it
+    w = master.layers[0].attn.q_proj.weight
+    with torch.no_grad():
+        before = w.clone()
+        w.add_(1e-6 * torch.sign(w))
+    assert (w != before).all()
+
+
+# ------------------------------------------------------ loss and gradients
+
+LOSS_CASES = [
+    ("gqa_flash", dict()),
+    ("window_flash", dict(attn_window=9)),
+    ("mha_flash", dict(n_kv_heads=None)),
+]
+
+
+@pytest.mark.parametrize("name,over", LOSS_CASES, ids=[c[0] for c in LOSS_CASES])
+def test_loss_and_gradients_match_jax(name, over):
+    """``make_loss_fn``'s loss and accuracy and every parameter's gradient
+    (bridged back with ``state_dict_to_params``) against
+    ``jax.value_and_grad`` of the JAX ``make_loss_fn`` on the same params
+    and batch. Both sides run flash attention: JAX its Pallas kernels in
+    interpret mode (16-wide blocks, so several tiles), the port its
+    autograd function on the CPU twins. f32, atol/rtol 1e-4."""
+    from kubeflow_tpu_torch.data import TokenLMDataset
+
+    jcfg = jtf.TransformerConfig(**{**KW, **over}, dtype=jnp.float32,
+                                 interpret_kernels=True, attn_block_q=16,
+                                 attn_block_k=16)
+    jmodel = jtf.TransformerLM(jcfg)
+    _, _, params = _jax(**over)
+    batch = TokenLMDataset(vocab_size=KW["vocab_size"], seq_len=48).batch(
+        2, step=sum(map(ord, name)))
+    jloss = jtf.make_loss_fn(jmodel)
+    (want, jaux), jgrads = jax.value_and_grad(jloss, has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        {k: jnp.asarray(v) for k, v in batch.items()}, None)
+
+    model = ttf.TransformerLM(ttf.TransformerConfig(**{**KW, **over}),
+                              device="cpu", param_dtype=torch.float32)
+    model.load_state_dict(params_to_state_dict(params))
+    loss, aux = ttf.make_loss_fn()(
+        model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(want), **TOL)
+    np.testing.assert_allclose(aux["lm_loss"].item(), float(jaux["lm_loss"]), **TOL)
+    assert aux["accuracy"].item() == float(jaux["accuracy"])
+    grads = state_dict_to_params(
+        {n: p.grad for n, p in model.named_parameters()})
+    want_g = dict(_paths(jax.tree_util.tree_map(np.asarray, jgrads)))
+    got_g = dict(_paths(grads))
+    assert set(got_g) == set(want_g)
+    for path, g in want_g.items():
+        np.testing.assert_allclose(got_g[path], g, **TOL, err_msg="/".join(path))

@@ -246,3 +246,151 @@ def test_every_kernel_source_builds_to_a_hash_named_library(tmp_path, monkeypatc
     assert _build._target("k") != first
     assert first.suffix == ".so" and first.name.startswith("k-")
     assert _build.sources() == ["k"]
+
+
+# ------------------------------------------------- flash attention backward
+
+BWD_CASES = [
+    ("causal", dict()),
+    ("bidirectional", dict(causal=False)),
+    ("window", dict(window=24)),
+    ("segments", dict(seg=True)),
+    # q segment 2 appears in no kv row: those query rows are dead (lse at
+    # the -1e30 sentinel) and contribute exactly 0
+    ("dead_rows", dict(causal=False, dead=True)),
+]
+
+
+def _bwd_inputs(name, *, seg=False, dead=False, B=2, H=2, S=96, D=32):
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, k, v, dout = (rng.normal(size=(B, H, S, D)).astype(np.float32)
+                     for _ in range(4))
+    qids = kids = None
+    if seg:
+        qids = np.zeros((B, S), np.int32)
+        qids[0, 20:] = 1
+        qids[0, 70:] = 2
+        qids[1, 41:] = 1
+        kids = qids
+    if dead:
+        kids = rng.integers(0, 2, size=(B, S)).astype(np.int32)
+        qids = rng.integers(0, 3, size=(B, S)).astype(np.int32)
+    return q, k, v, dout, qids, kids
+
+
+@pytest.mark.parametrize("name,kw", BWD_CASES, ids=[c[0] for c in BWD_CASES])
+def test_flash_attention_bwd_reference_matches_jax_kernels(name, kw):
+    """The backward twin against the JAX ``flash_attention_bwd`` run with
+    32-wide blocks in interpret mode (3 x 3 tiles: the causal and window
+    tile skips run), from the same forward residuals. f32: summation
+    order only, atol 2e-5 on gradients of order 1."""
+    causal = kw.get("causal", True)
+    window = kw.get("window")
+    q, k, v, dout, qids, kids = _bwd_inputs(
+        name, seg=kw.get("seg", False), dead=kw.get("dead", False))
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, dout))
+    jseg = {} if qids is None else dict(
+        q_segment_ids=jnp.asarray(qids), kv_segment_ids=jnp.asarray(kids))
+    out, lse = jfa.flash_attention(
+        jq, jk, jv, causal=causal, window=window, block_q=32, block_k=32,
+        interpret=True, return_residuals=True, **jseg)
+    want = jfa.flash_attention_bwd(
+        jq, jk, jv, out, lse, jdo, causal=causal, window=window, block_q=32,
+        block_k=32, interpret=True, **jseg)
+    tseg = {} if qids is None else dict(
+        q_segment_ids=_t(qids), kv_segment_ids=_t(kids))
+    got = tfa.flash_attention_bwd(
+        *map(_t, (q, k, v, np.asarray(out), np.asarray(lse), dout)),
+        causal=causal, window=window, **tseg)
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and g.shape == q.shape
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
+                                   rtol=0, err_msg=n)
+    if kw.get("dead"):
+        dead = np.asarray(lse) <= tfa.NEG_INF / 2
+        assert dead.any()
+        assert (got[0].numpy()[dead] == 0).all()
+
+
+GRAD_CASES = [
+    ("causal", dict()),
+    ("window", dict(window=12)),
+    ("segments", dict(seg=True)),
+]
+
+
+@pytest.mark.parametrize("name,kw", GRAD_CASES, ids=[c[0] for c in GRAD_CASES])
+def test_flash_attention_grad_through_autograd_function_matches_jax(name, kw):
+    """``torch.autograd.grad`` of sum(out**2) through the port's
+    ``flash_attention`` on CPU tensors (the ``_FlashAttention`` function:
+    twin forward, twin backward) against ``jax.grad`` of the JAX
+    ``flash_attention`` under interpret mode. f32, atol 1e-5. Inputs are
+    halved: dO = 2·out makes dp − delta a difference of two O(|v|²·D)
+    numbers, whose f32 rounding then sets the error floor."""
+    import jax
+
+    window = kw.get("window")
+    q, k, v, _, qids, _ = _bwd_inputs(name, seg=kw.get("seg", False), S=64)
+    q, k, v = (0.5 * x for x in (q, k, v))
+    jseg = {} if qids is None else dict(
+        q_segment_ids=jnp.asarray(qids), kv_segment_ids=jnp.asarray(qids))
+
+    def jloss(q, k, v):
+        out = jfa.flash_attention(q, k, v, causal=True, window=window,
+                                  block_q=16, block_k=16, interpret=True,
+                                  **jseg)
+        return (out * out).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    tseg = {} if qids is None else dict(
+        q_segment_ids=_t(qids), kv_segment_ids=_t(qids))
+    out = tfa.flash_attention(tq, tk, tv, causal=True, window=window, **tseg)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    got = torch.autograd.grad((out * out).sum(), (tq, tk, tv))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)
+
+
+def test_cpu_backward_runs_the_twin_not_the_kernels(monkeypatch):
+    """A CPU gradient goes through ``flash_attention_bwd`` into its plain
+    twin once per backward, and never reaches a kernel launcher."""
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as tfb
+
+    calls = []
+    twin = tfa.flash_attention_bwd_reference
+
+    def counting(*a, **k):
+        calls.append(1)
+        return twin(*a, **k)
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU backward reached a kernel launcher")
+
+    monkeypatch.setattr(tfa, "flash_attention_bwd_reference", counting)
+    monkeypatch.setattr(tfb, "launch_dq", refuse)
+    monkeypatch.setattr(tfb, "launch_dkv", refuse)
+    before = (tfb.DQ_LAUNCHES, tfb.DKV_LAUNCHES)
+    q, k, v, _ = _flash_inputs(3)
+    tq = _t(q).requires_grad_()
+    tfa.flash_attention(tq, _t(k), _t(v), causal=True).sum().backward()
+    assert calls == [1] and tq.grad is not None
+    assert (tfb.DQ_LAUNCHES, tfb.DKV_LAUNCHES) == before
+
+
+def test_backward_kernel_wrappers_reject_cpu_and_bad_residuals():
+    """The launchers take CUDA tensors of the kernel's contract only; a
+    CPU tensor never silently runs the twin there."""
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as tfb
+
+    q, k, v, dout, _, _ = _bwd_inputs("reject", S=32)
+    tq, tk, tv, tdo = map(_t, (q, k, v, dout))
+    lse = torch.zeros(q.shape[:3])
+    kw = dict(causal=True, scale=0.125, q_segment_ids=None,
+              kv_segment_ids=None, window=None)
+    with pytest.raises(TypeError, match="lse must be f32"):
+        tfb.launch_dq(tq, tk, tv, tdo, lse[..., :8].contiguous(), lse, **kw)
+    with pytest.raises(TypeError, match="dout"):
+        tfb.launch_dkv(tq, tk, tv, tdo.double(), lse, lse, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        tfb.launch_dq(tq, tk, tv, tdo.transpose(2, 3), lse, lse, **kw)

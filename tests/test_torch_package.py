@@ -10,6 +10,7 @@ a kernel.
 from __future__ import annotations
 
 import ast
+import re
 import shutil
 import subprocess
 import sys
@@ -70,27 +71,47 @@ def test_no_library_attention_or_compiler(path):
 
 
 def test_kernel_sources_exist():
-    assert {p.stem for p in CSRC} == {"paged_attention", "flash_attention"}
+    assert {p.stem for p in CSRC} == {
+        "paged_attention", "flash_attention", "flash_attention_bwd"}
+
+
+def _entry_points(cu: Path) -> list[str]:
+    """The kernel-launching C entry points of a source (not the shared
+    ``kft_error_string``)."""
+    names = re.findall(r'extern "C" int (kft_\w+)\(', cu.read_text())
+    return [n for n in names if n != "kft_error_string"]
 
 
 @pytest.mark.parametrize("cu", CSRC, ids=[p.stem for p in CSRC])
 def test_every_kernel_has_a_counting_wrapper(cu):
     """``ops/<name>.py`` loads ``csrc/<name>.cu`` through ``_build`` and
-    keeps a module-level ``LAUNCHES`` counter that it increments."""
+    keeps one module-level launch counter (``LAUNCHES`` or
+    ``<KERNEL>_LAUNCHES``) per C entry point of the source, each starting
+    at 0 and incremented at exactly one site."""
     wrapper = PKG / "ops" / f"{cu.stem}.py"
     assert wrapper.exists(), f"no wrapper for {cu.name}"
     tree = ast.parse(wrapper.read_text())
-    counter = [
+    is_counter = re.compile(r"^([A-Z]+_)?LAUNCHES$").match
+    counters = [
         n for n in tree.body if isinstance(n, ast.Assign)
-        and any(isinstance(t, ast.Name) and t.id == "LAUNCHES" for t in n.targets)
+        and any(isinstance(t, ast.Name) and is_counter(t.id) for t in n.targets)
     ]
-    assert counter and isinstance(counter[0].value, ast.Constant)
-    assert counter[0].value.value == 0
-    bumps = [
-        n for n in ast.walk(tree) if isinstance(n, ast.AugAssign)
-        and isinstance(n.target, ast.Name) and n.target.id == "LAUNCHES"
-    ]
-    assert len(bumps) == 1, "one launch site, counted once"
+    entries = _entry_points(cu)
+    assert entries and len(counters) == len(entries), (entries, counters)
+    for counter in counters:
+        (name,) = [t.id for t in counter.targets]
+        assert isinstance(counter.value, ast.Constant)
+        assert counter.value.value == 0
+        bumps = [
+            n for n in ast.walk(tree) if isinstance(n, ast.AugAssign)
+            and isinstance(n.target, ast.Name) and n.target.id == name
+        ]
+        assert len(bumps) == 1, f"{name}: one launch site, counted once"
+    called = {
+        n.func.attr for n in ast.walk(tree) if isinstance(n, ast.Call)
+        and isinstance(n.func, ast.Attribute) and n.func.attr.startswith("kft_")
+    }
+    assert set(entries) <= called, "every entry point is launched"
     loads = [
         n for n in ast.walk(tree) if isinstance(n, ast.Call)
         and isinstance(n.func, ast.Attribute) and n.func.attr == "load"
