@@ -9,9 +9,10 @@ It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
 sm_90a, into the git-ignored ``build/``) and runs five phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
-   the serving and training shapes, with times for kernel, plain version
-   and (for flash, forward and backward) ``F.scaled_dot_product_attention``
-   as a yardstick only;
+   the serving and training shapes, with device times (``time_ms``) for
+   kernel, plain version and (for flash, forward and backward)
+   ``F.scaled_dot_product_attention`` as a yardstick only, and the body
+   that ran (``"mma"``: tensor cores, for bf16/f16; ``"scalar"``);
 2. forward — the full-width bf16 ``TransformerLM`` no-cache forward with
    ``attn_impl="flash"`` against the same weights with ``"reference"``;
 3. serving — ``ModelServer`` + ``LMEngineModel`` at full width in bf16 on
@@ -21,7 +22,8 @@ sm_90a, into the git-ignored ``build/``) and runs five phases:
    read paths must give token-identical greedy streams;
 5. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
-   losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps.
+   losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
+   whose forward and dk/dv launches must all run the tensor-core bodies.
 
 Each phase prints one JSON line. The line before the last lists every
 kernel with its launches on its path, error, times and bound; the last
@@ -35,6 +37,7 @@ training steps.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import subprocess
@@ -61,17 +64,43 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+@functools.cache
+def _sleep_cycles_per_ms(torch):
+    """Cycles of ``torch.cuda._sleep`` per device millisecond, measured
+    once with CUDA events."""
+    n = 2_000_000
+    torch.cuda._sleep(n)
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(n)
+    e.record()
+    e.synchronize()
+    return n / s.elapsed_time(e)
+
+
 def time_ms(torch, fn, iters=20, flush=None):
     """Mean device time of ``fn`` (CUDA events around each call, after
     warm-up). ``flush`` (a tensor larger than L2) is rewritten before each
-    call so inputs are read cold, as the engine's 12-layer pool would be."""
-    for _ in range(3):
+    call so inputs are read cold, as the engine's 12-layer pool would be.
+    Between the flush and the start event a device-side sleep is queued
+    that outlasts the host's time to enqueue ``fn`` (twice the slowest
+    warm-up enqueue, plus 0.1 ms): the card reaches the start event only
+    after ``fn``'s work is queued behind it, so the events time the
+    device alone and not the wrappers' Python, checks and ctypes calls."""
+    host_ms = 0.0
+    for i in range(3):
+        t0 = time.perf_counter()
         fn()
-    torch.cuda.synchronize()
+        if i:  # the first call may build and load a kernel
+            host_ms = max(host_ms, (time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    cycles = int(min(2 * host_ms + 0.1, 50.0) * _sleep_cycles_per_ms(torch))
     total = 0.0
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+        torch.cuda._sleep(cycles)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -187,7 +216,8 @@ def run_paged_case(torch, name, c, flush):
     t_ops = flops / PEAK_FLOPS[_dtname(torch, dt)] * 1e3
     return {
         "kernel": "paged_attention", "case": name, "shape": [B, H, Hkv, S, D, P, W],
-        "dtype": _dtname(torch, dt), "kv": "int8" if ks is not None else _dtname(torch, dt),
+        "dtype": _dtname(torch, dt), "body": "scalar",
+        "kv": "int8" if ks is not None else _dtname(torch, dt),
         "window": window, "max_abs_err": err, "tol": tol, "ok": close,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -196,13 +226,22 @@ def run_paged_case(torch, name, c, flush):
 
 
 def flash_cases(torch):
+    """The training shape first (B=8, H=16, S=512, D=64, causal bf16). The
+    bf16 cases run the tensor-core body, the f32 case the scalar one."""
     base = dict(B=8, H=16, D=64)
     return [
+        ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
         ("causal_s128_bf16", dict(base, S=128, dtype=torch.bfloat16)),
         ("causal_s128_f32", dict(base, S=128, dtype=torch.float32)),
-        ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
         ("window_s512_bf16", dict(base, S=512, window=128, dtype=torch.bfloat16)),
         ("segment_s512_bf16", dict(base, S=512, seg=True, dtype=torch.bfloat16)),
+        ("ragged_s200_bf16", dict(base, S=200, dtype=torch.bfloat16)),
+        # q segment 2 is absent from the kv ids: those rows see no key, end
+        # with out = mean(v) and lse at the -1e30 sentinel, as the twin
+        ("dead_rows_s128_bf16", dict(base, S=128, causal=False, dead=True,
+                                     dtype=torch.bfloat16)),
+        ("causal_s512_d128_bf16", dict(B=4, H=8, D=128, S=512,
+                                       dtype=torch.bfloat16)),
     ]
 
 
@@ -213,16 +252,23 @@ def run_flash_case(torch, name, c, flush):
 
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
     B, H, S, D, dt = c["B"], c["H"], c["S"], c["D"], c["dtype"]
+    causal = c.get("causal", True)
     q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda").to(dt)
                for _ in range(3))
-    seg = None
+    seg = kseg = None
     if c.get("seg"):
         # packed rows: 1..4 segments per row at random boundaries
         cuts = torch.rand(B, S, generator=g, device="cuda") < 3.0 / S
         cuts[:, 0] = False
-        seg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
+        seg = kseg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
+    if c.get("dead"):
+        kseg = torch.randint(0, 2, (B, S), generator=g, device="cuda",
+                             dtype=torch.int32)
+        seg = torch.randint(0, 3, (B, S), generator=g, device="cuda",
+                            dtype=torch.int32)
     window = c.get("window")
-    kw = dict(causal=True, window=window, q_segment_ids=seg, kv_segment_ids=seg)
+    kw = dict(causal=causal, window=window, q_segment_ids=seg,
+              kv_segment_ids=kseg)
     out, lse = fa.flash_attention(q, k, v, return_residuals=True, **kw)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -233,16 +279,21 @@ def run_flash_case(torch, name, c, flush):
                               atol=2.0 ** -8 * v.float().abs().max().item())
     lse_err = (lse - ref_lse).abs().max().item()
     lse_tol = 2e-4  # f32 in both; exp/log and summation order only
+    dead = None
+    if c.get("dead"):  # rows that see no key: lse at the sentinel in both
+        rows = ref_lse <= fa.NEG_INF / 2
+        dead = {"rows": int(rows.sum().item()),
+                "lse_sentinel": bool((lse[rows] <= fa.NEG_INF / 2).all())}
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), flush=flush)
     plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, **kw),
                        flush=flush)
-    mask = fa._full_mask(q.shape, k.shape, seg, seg, True, window, q.device)
+    mask = fa._full_mask(q.shape, k.shape, seg, kseg, causal, window, q.device)
     if window is None and seg is None:
-        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)  # noqa: E731
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
     else:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
     library_ms = time_ms(torch, lib, flush=flush)
-    visible = int(mask.expand(B, 1, S, S).sum().item())
+    visible = B * S * S if mask is None else int(mask.expand(B, 1, S, S).sum().item())
     nbytes = 4 * q.numel() * q.element_size() + B * H * S * 4 + (
         2 * seg.numel() * 4 if seg is not None else 0)
     flops = 4 * D * H * visible
@@ -250,9 +301,11 @@ def run_flash_case(torch, name, c, flush):
     t_ops = flops / PEAK_FLOPS[_dtname(torch, dt)] * 1e3
     return {
         "kernel": "flash_attention", "case": name, "shape": [B, H, S, D],
-        "dtype": _dtname(torch, dt), "window": window, "segments": seg is not None,
+        "dtype": _dtname(torch, dt), "body": fa.body(dt, D), "causal": causal,
+        "window": window, "segments": seg is not None, "dead_rows": dead,
         "max_abs_err": err, "tol": tol, "lse_err": lse_err, "lse_tol": lse_tol,
-        "ok": close and lse_err <= lse_tol,
+        "ok": close and lse_err <= lse_tol and (
+            dead is None or (dead["rows"] > 0 and dead["lse_sentinel"])),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
@@ -260,7 +313,9 @@ def run_flash_case(torch, name, c, flush):
 
 
 def bwd_cases(torch):
-    """The training shape first (B=8, H=16, S=512, D=64, causal bf16)."""
+    """The training shape first (B=8, H=16, S=512, D=64, causal bf16). The
+    dk/dv kernel runs its tensor-core body on the bf16 cases and its
+    scalar body on the f32 ones; dq is scalar in both."""
     base = dict(B=8, H=16, D=64, causal=True)
     return [
         ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
@@ -268,10 +323,15 @@ def bwd_cases(torch):
         ("window_s512_bf16", dict(base, S=512, window=128, dtype=torch.bfloat16)),
         ("segment_s512_bf16", dict(base, S=512, seg=True, dtype=torch.bfloat16)),
         ("ragged_s200_f32", dict(base, S=200, dtype=torch.float32)),
+        ("ragged_s200_bf16", dict(base, S=200, dtype=torch.bfloat16)),
         # q segment 2 is absent from the kv ids: those rows are dead (lse
         # at the -1e30 sentinel) and must add exactly 0
         ("dead_rows_s128_f32", dict(base, S=128, causal=False, dead=True,
                                     dtype=torch.float32)),
+        ("dead_rows_s128_bf16", dict(base, S=128, causal=False, dead=True,
+                                     dtype=torch.bfloat16)),
+        ("causal_s512_d128_bf16", dict(base, B=4, H=8, D=128, S=512,
+                                       dtype=torch.bfloat16)),
     ]
 
 
@@ -374,7 +434,9 @@ def run_bwd_case(torch, name, c, flush):
         bounds[kern] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return {
         "kernel": "flash_attention_bwd", "case": name, "shape": [B, H, S, D],
-        "dtype": _dtname(torch, dt), "causal": causal, "window": window,
+        "dtype": _dtname(torch, dt),
+        "body": {"dq": "scalar", "dkv": fb.dkv_body(dt, D)},
+        "causal": causal, "window": window,
         "segments": qseg is not None, "dead_rows": dead,
         "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
         "tol_max": {"dq": float(torch.as_tensor(tols[0]).max()),
@@ -407,7 +469,7 @@ def phase_kernels(torch, state):
         r = run_flash_case(torch, name, c, flush)
         emit(r)
         ok &= r["ok"]
-        if name == "causal_s128_bf16":
+        if name == "causal_s512_bf16":
             state["flash_main"] = r
     return ok
 
@@ -704,10 +766,15 @@ def phase_train(torch, state):
 
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fb.DQ_LAUNCHES = fb.DKV_LAUNCHES = 0
+    for counts in (fa.LAUNCHES_BY_BODY, fb.DKV_LAUNCHES_BY_BODY):
+        counts.update(mma=0, scalar=0)
     _, history = trainer.fit(_train_data, hooks=[stamp])
     torch.cuda.synchronize()
     launches = {"flash_forward": fa.LAUNCHES, "flash_bwd_dq": fb.DQ_LAUNCHES,
                 "flash_bwd_dkv": fb.DKV_LAUNCHES}
+    # the bf16 step's forward and dk/dv launches all ran the tensor cores
+    by_body = {"flash_forward": dict(fa.LAUNCHES_BY_BODY),
+               "flash_bwd_dkv": dict(fb.DKV_LAUNCHES_BY_BODY)}
     state["train_launches"] = launches
     losses = [h["loss"] for h in history]
     timed_s = ready[steps] - ready[TRAIN_WARM]
@@ -717,6 +784,7 @@ def phase_train(torch, state):
     finite = all(map(math.isfinite, losses))
     ok = (parity_ok and finite and len(losses) == steps and losses[-1] < losses[0]
           and all(n == want for n in launches.values())
+          and all(b == {"mma": want, "scalar": 0} for b in by_body.values())
           and live_kft_threads() == [])
     emit({"phase": "train", "dtype": "bf16", "param_dtype": "f32",
           "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps,
@@ -729,8 +797,8 @@ def phase_train(torch, state):
           "model_flops_per_step": flops,
           "mfu_bf16_dense": flops / (step_ms / 1e3) / PEAK_FLOPS["bf16"],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "launches": launches, "launches_wanted": want,
-          "card": state["card"], "ok": ok})
+          "launches": launches, "launches_by_body": by_body,
+          "launches_wanted": want, "card": state["card"], "ok": ok})
     return ok
 
 
@@ -839,10 +907,11 @@ def phase_profile(torch, state):
         train_prof_ms = (time.perf_counter() - t0) * 1e3
     n_kernels, busy_ms, top = _device_summary(prof)
     device_ms = sum(ms for _, (_, ms) in top)
-    attn = {k: ms for k, (_, ms) in top
-            if any(n in k for n in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                    "flash_bwd_dkv_kernel"))}
-    train_ok = n_kernels > 0 and len(attn) == 3
+    names = ("flash_fwd_mma_kernel", "flash_bwd_dq_kernel",
+             "flash_bwd_dkv_mma_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel")
+    attn = {k: ms for k, (_, ms) in top if k.split(" ")[-1] in names}
+    # bf16 training runs the tensor-core forward and dk/dv, the scalar dq
+    train_ok = n_kernels > 0 and sorted(k.split(" ")[-1] for k in attn) == sorted(names[:3])
     emit({"phase": "profile", "path": "train", "dtype": "bf16",
           "param_dtype": "f32", "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": 3,
           "wall_ms": train_wall_ms, "profiled_wall_ms": train_prof_ms,
@@ -909,18 +978,22 @@ def main(argv=None) -> int:
         return 1
     if all(k in state for k in ("paged_main", "flash_main", "bwd_main")):
         kernels = []
+        train = state.get("train_launches", {})
+        # paged decode on the served burst; the flash forward, timed at the
+        # training shape, on the training run (it also ran the no-cache
+        # forward phase's 12 launches)
         for key, launches, src, rep in (
             ("paged_main", state.get("paged_launches", 0),
              "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
              "kubeflow_tpu/ops/paged_attention.py:185"),
-            ("flash_main", state.get("flash_launches", 0),
+            ("flash_main", train.get("flash_forward", 0),
              "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
              "kubeflow_tpu/ops/flash_attention.py:120"),
         ):
             r = state[key]
             kernels.append({
                 "name": r["kernel"], "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches,
+                "replaces": rep, "body": r["body"], "launches": launches,
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -929,7 +1002,6 @@ def main(argv=None) -> int:
         # library_ms (the backward of scaled_dot_product_attention) are
         # each one call computing dq, dk and dv, given for both kernels
         r = state["bwd_main"]
-        train = state.get("train_launches", {})
         for name, part, launch_key, rep in (
             ("flash_attention_bwd_dq", "dq", "flash_bwd_dq",
              "kubeflow_tpu/ops/flash_attention.py:453"),
@@ -940,7 +1012,8 @@ def main(argv=None) -> int:
             kernels.append({
                 "name": name, "route": "cuda",
                 "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
-                "replaces": rep, "launches": train.get(launch_key, 0),
+                "replaces": rep, "body": r["body"][part],
+                "launches": train.get(launch_key, 0),
                 "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
                 "ms": r["ms"][part], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],

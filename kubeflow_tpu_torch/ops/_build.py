@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use by ``nvcc`` into ``build/kubeflow_tpu_torch/<name>-<hash>.so``
 at the root of the checkout (git-ignored), then loaded with ``ctypes``.
-The file name carries a hash of the source and the flags, so an edited
-kernel is rebuilt and a stale library is never loaded. No PyTorch header
-is included, which keeps one build to seconds.
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt and a
+stale library is never loaded. No PyTorch header is included, which
+keeps one build to seconds.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` turns a non-zero code into an exception. Nothing here runs
@@ -51,7 +52,8 @@ def sources() -> list[str]:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -21,29 +21,48 @@
 // kernel writes two f32 gradients: about 67 MB, 20 us. Its operations
 // are 6 * D flops per visible (query, key) pair for dq (s, dp, dq) and
 // 8 * D for dk/dv (s, dp, dk, dv): about 6.5 us and 8.7 us of the 989
-// TFLOP/s bf16 tensor-core rate. Both are bound by bytes. This first
-// version runs every product as scalar f32 FMAs out of shared memory and
-// is far from either bound; tensor cores (mma.sync, then wgmma with TMA
-// staging) are the next step. The structure below is the one such a
-// kernel keeps: the block's own tile stays resident, the other operand's
-// tiles stream through, and p / ds never leave shared memory.
+// TFLOP/s bf16 tensor-core rate. Both are bound by bytes.
 //
 // TPU grid -> CUDA blocks: the Pallas grids (B, H, q blocks, kv blocks) for
 // dq and (B, H, kv blocks, q blocks) for dk/dv ran their last axis in
 // order ("arbitrary") with the accumulator in VMEM scratch. Here one
 // thread block owns one (q tile, head, batch) for dq and one (kv tile,
-// head, batch) for dk/dv -- blockIdx = (tile, h, b) -- and loops over the
-// other axis; the loop replaces the sequential grid axis. With this split
-// no two blocks write the same gradient row, so neither kernel needs
-// atomics and the result is deterministic. Tiles that are wholly in the
-// causal future or wholly before the window are skipped with the forward
-// kernel's predicate and its bottom-right alignment (query i sits at
-// position i + Skv - Sq; for Sq == Skv, as in training, this is
-// `_tile_mask` at line 206). Masked, dead and ragged lanes add exactly 0.
+// head, batch) for dk/dv and loops over the other axis; the loop replaces
+// the sequential grid axis. With this split no two blocks write the same
+// gradient row, so neither kernel needs atomics and the result is
+// deterministic. Tiles that are wholly in the causal future or wholly
+// before the window are skipped with the forward kernel's predicate and
+// its bottom-right alignment (query i sits at position i + Skv - Sq; for
+// Sq == Skv, as in training, this is `_tile_mask` at line 206). Masked,
+// dead and ragged lanes add exactly 0.
 //
-// Tiles: 64 query rows by 64 keys, 256 threads. Shared memory holds the
-// tiles in f32 (rows of K and V padded to D + 1 floats so that the 32
-// lanes of a warp, which walk 32 keys, hit 32 banks):
+// dk/dv has two bodies, chosen in `kft_flash_bwd_dkv` by dtype and D only
+// (mirrored by `dkv_body()` in ops/flash_attention_bwd.py):
+//
+// * bf16 / f16 with D a multiple of 16 up to 128:
+//   `flash_bwd_dkv_mma_kernel`, on the tensor cores, in the transposed
+//   (keys x queries) orientation. 4 warps, each owning 16 of the block's
+//   64 keys. The K and V tiles are copied once and stay in shared memory;
+//   q and dO tiles with their lse, delta and segment rows stream through
+//   a 2-stage ring of 16-byte cp.async copies, the next q tile loading
+//   while this one computes. S^T = K.Q^T and dP^T = V.dO^T run as
+//   mma.sync.m16n8k16 with f32 accumulators; P^T and dS^T are formed in
+//   the accumulators with the twin's f32 operations in its order, then
+//   packed (P^T to dO's dtype, dS^T to q's) straight into the A operand
+//   of dV += P^T.dO and dK += dS^T.Q, whose B operands are read with
+//   ldmatrix.trans. dK and dV stay in f32 registers over the whole q
+//   loop and leave through shared memory in 16-byte stores. At D <= 64 a
+//   pass covers the 64 queries of a tile, at D <= 128 two passes of 32
+//   (the 128 accumulator registers of dK and dV leave room for no more).
+//   Shared memory: 50 KB at D <= 64, 98 KB at D <= 128.
+// * f32 (and any other D): `flash_bwd_dkv_kernel`, scalar f32 FMAs out
+//   of shared memory, as the dq kernel still is: a tensor-core f32
+//   product would be TF32, about three decimal digits, and would break
+//   the f32 parity gates.
+//
+// Scalar tiles: 64 query rows by 64 keys, 256 threads. Shared memory
+// holds the tiles in f32 (rows of K and V padded to D + 1 floats so that
+// the 32 lanes of a warp, which walk 32 keys, hit 32 banks):
 //   dq:    q, dO, dq acc (3 x 64 x D) + K, V (2 x 64 x (D + 1)) + ds (64 x 64)
 //          = 97 KB at D = 64, 178 KB at D = 128;
 //   dk/dv: K, V (2 x 64 x (D + 1)) + dk, dv acc (2 x 64 x D) + q, dO
@@ -56,6 +75,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -78,27 +99,8 @@ template <> __device__ __forceinline__ float round_to<__half>(float x) {
   return __half2float(__float2half(x));
 }
 
-// `_tile_mask` for one (query, key) pair, in the bottom-right alignment.
-template <bool SEG>
-__device__ __forceinline__ bool visible(int qpos, int kpos, int causal,
-                                        int window, int qs, int ks) {
-  bool keep = true;
-  if (causal) {
-    keep = kpos <= qpos;
-    if (window > 0) keep = keep && (qpos - kpos < window);
-  }
-  if (SEG) keep = keep && (qs == ks);
-  return keep;
-}
-
-// The forward kernel's tile skip: false when no pair of the tile is visible.
-__device__ __forceinline__ bool tile_runs(int q_start, int R, int k_start,
-                                          int off, int causal, int window) {
-  bool run = true;
-  if (causal) run = k_start <= q_start + R - 1 + off;
-  if (window > 0) run = run && (k_start + BK - 1 >= q_start + off - window + 1);
-  return run;
-}
+using tile::tile_runs;
+using tile::visible;
 
 template <typename T>
 __device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
@@ -364,8 +366,255 @@ cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------- dk/dv mma body
+
+constexpr int MMA_THREADS = 128;  // 4 warps x 16 keys
+
+// One f32 gradient tile (64 keys x DP, 16 keys a warp in mma accumulator
+// layout) through shared memory (rows padded to DP + 8 floats: the float2
+// writes of a half-warp hit distinct banks) into rows [0, C) x [0, D) of
+// dst in 16-byte stores.
+template <int DP>
+__device__ __forceinline__ void store_grad(const float (&acc)[DP / 8][4], float* stage,
+                                           float* dst, int C, int D, int tid) {
+  constexpr int LD = DP + 8;
+  constexpr int C4 = DP / 4;
+  const int lane = tid & 31;
+  const int key0 = (tid >> 5) * 16 + (lane >> 2);
+  const int t = lane & 3;
+#pragma unroll
+  for (int d = 0; d < DP / 8; ++d) {
+    *reinterpret_cast<float2*>(stage + key0 * LD + d * 8 + 2 * t) =
+        make_float2(acc[d][0], acc[d][1]);
+    *reinterpret_cast<float2*>(stage + (key0 + 8) * LD + d * 8 + 2 * t) =
+        make_float2(acc[d][2], acc[d][3]);
+  }
+  __syncthreads();
+  const int d4 = D / 4;
+#pragma unroll
+  for (int i = 0; i < BK * C4 / MMA_THREADS; ++i) {
+    const int e = tid + i * MMA_THREADS;
+    const int r = e / C4;
+    const int c = e - r * C4;
+    if (r < C && c < d4) {
+      *reinterpret_cast<float4*>(dst + (size_t)r * D + 4 * c) =
+          *reinterpret_cast<const float4*>(stage + r * LD + 4 * c);
+    }
+  }
+  __syncthreads();
+}
+
+template <typename T, int DP, bool SEG>
+__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ qseg,
+    const int* __restrict__ kseg,
+    float* __restrict__ dk, float* __restrict__ dv,  // (B, H, Skv, D)
+    int H, int Sq, int Skv, int D, int causal, int window, float scale) {
+  constexpr int KC = DP / 16;                 // k16 steps over the head dim
+  constexpr int SUB = DP <= 64 ? 64 : 32;     // queries per pass
+  constexpr int NJ = SUB / 8;                 // n8 tiles of S^T per pass
+  constexpr int DT = DP / 8;                  // n8 tiles of a dK / dV row
+  constexpr uint32_t TILE = BQ * DP * 2;      // bytes of one 16-bit tile
+  static_assert(BQ == BK, "q and kv tiles share the tile size");
+  static_assert(BK * (DP + 8) * 4 <= 4 * TILE, "gradient stage fits the q/dO ring");
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int ik = blockIdx.z;  // causal: the kv tiles seen by the most q tiles first
+  const int k_start = ik * BK;
+  const int C = min(BK, Skv - k_start);
+  const int off = Skv - Sq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key0 = warp * 16 + g;  // this thread's keys: key0 and key0 + 8
+
+  extern __shared__ __align__(128) unsigned char tsmem[];
+  const uint32_t k_s = tile::smem_addr(tsmem);  // K tile
+  const uint32_t v_s = k_s + TILE;             // V tile
+  const uint32_t q_s = k_s + 2 * TILE;         // 2 stages
+  const uint32_t do_s = k_s + 4 * TILE;        // 2 stages
+  float* lse_s = reinterpret_cast<float*>(tsmem + 6 * TILE);  // 2 stages x BQ
+  float* dl_s = lse_s + 2 * BQ;                               // 2 stages x BQ
+  int* qseg_s = reinterpret_cast<int*>(dl_s + 2 * BQ);       // 2 stages x BQ
+  int* kseg_s = qseg_s + 2 * BQ;                              // BK
+
+  const size_t bh = (size_t)b * H + h;
+  const size_t krow0 = bh * Skv + k_start;
+
+  // the q tiles that run form one range [lo, hi]
+  const int nq = (Sq + BQ - 1) / BQ;
+  int lo = nq, hi = -1;
+  for (int iq = 0; iq < nq; ++iq) {
+    if (tile_runs(iq * BQ, min(BQ, Sq - iq * BQ), k_start, off, causal, window)) {
+      lo = min(lo, iq);
+      hi = iq;
+    }
+  }
+
+  auto load_q = [&](int iq, int st) {
+    const int q_start = iq * BQ;
+    const int R = min(BQ, Sq - q_start);
+    const size_t row0 = bh * Sq + q_start;
+    tile::load_tile<BQ, DP, MMA_THREADS>(q_s + st * TILE, q + row0 * D, R, D, tid);
+    tile::load_tile<BQ, DP, MMA_THREADS>(do_s + st * TILE, dout + row0 * D, R, D, tid);
+    tile::load_words<MMA_THREADS>(tile::smem_addr(lse_s + st * BQ), lse + row0, BQ, R, tid);
+    tile::load_words<MMA_THREADS>(tile::smem_addr(dl_s + st * BQ), delta + row0, BQ, R, tid);
+    if (SEG) {
+      tile::load_words<MMA_THREADS>(tile::smem_addr(qseg_s + st * BQ),
+                                    qseg + (size_t)b * Sq + q_start, BQ, R, tid);
+    }
+  };
+  tile::load_tile<BK, DP, MMA_THREADS>(k_s, k + krow0 * D, C, D, tid);
+  tile::load_tile<BK, DP, MMA_THREADS>(v_s, v + krow0 * D, C, D, tid);
+  if (SEG) {
+    tile::load_words<MMA_THREADS>(tile::smem_addr(kseg_s), kseg + (size_t)b * Skv + k_start,
+                                  BK, C, tid);
+  }
+  if (lo <= hi) load_q(lo, 0);
+  tile::cp_async_commit();
+
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) {
+    dka[d][0] = dka[d][1] = dka[d][2] = dka[d][3] = 0.f;
+    dva[d][0] = dva[d][1] = dva[d][2] = dva[d][3] = 0.f;
+  }
+
+  for (int iq = lo; iq <= hi; ++iq) {
+    const int st = (iq - lo) & 1;
+    if (iq < hi) {
+      load_q(iq + 1, st ^ 1);
+      tile::cp_async_commit();
+      tile::cp_async_wait<1>();
+    } else {
+      tile::cp_async_wait<0>();
+    }
+    __syncthreads();  // q tile iq (and K, V) have landed for every thread
+    const int q_start = iq * BQ;
+    const int R = min(BQ, Sq - q_start);
+    const uint32_t qs = q_s + st * TILE;
+    const uint32_t dos = do_s + st * TILE;
+    const float* lse_t = lse_s + st * BQ;
+    const float* dl_t = dl_s + st * BQ;
+    const int* qseg_t = qseg_s + st * BQ;
+    const bool whole = !SEG && C == BK && R == BQ &&
+                       tile::tile_whole(q_start, R, k_start, off, causal, window);
+#pragma unroll
+    for (int sub = 0; sub < BQ / SUB; ++sub) {
+      // S^T = K . Q^T and dP^T = V . dO^T (queries of the pass along n)
+      float s[NJ][4], dp[NJ][4];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        uint32_t kf[4], vf[4];
+        const uint32_t arow = tile::swz<DP>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
+        tile::ldsm_x4(kf, k_s + arow);
+        tile::ldsm_x4(vf, v_s + arow);
+#pragma unroll
+        for (int p = 0; p < NJ / 2; ++p) {
+          const uint32_t brow = tile::swz<DP>(
+              sub * SUB + 16 * p + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1));
+          uint32_t bq[4], bd[4];
+          tile::ldsm_x4(bq, qs + brow);
+          tile::ldsm_x4(bd, dos + brow);
+          tile::mma<T>(s[2 * p], kf, bq[0], bq[1]);
+          tile::mma<T>(s[2 * p + 1], kf, bq[2], bq[3]);
+          tile::mma<T>(dp[2 * p], vf, bd[0], bd[1]);
+          tile::mma<T>(dp[2 * p + 1], vf, bd[2], bd[3]);
+        }
+      }
+      // P^T = exp(S^T * scale - lse), 0 where masked, ragged or dead;
+      // dS^T = P^T * (dP^T - delta) * scale, in the twin's order
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key0 + ((e >> 1) << 3);
+          const int qc = sub * SUB + j * 8 + 2 * t + (e & 1);
+          const float l = lse_t[qc];
+          bool keep = l > NEG_INF / 2;
+          if (!whole) {
+            keep = keep && qc < R && key < C &&
+                   visible<SEG>(q_start + qc + off, k_start + key, causal, window,
+                                SEG ? qseg_t[qc] : 0, SEG ? kseg_s[key] : 0);
+          }
+          const float p = keep ? __expf(s[j][e] * scale - l) : 0.f;
+          dp[j][e] = p * (dp[j][e] - dl_t[qc]) * scale;
+          s[j][e] = p;
+        }
+      }
+      // dV += P^T . dO and dK += dS^T . Q, A operands packed from registers
+#pragma unroll
+      for (int kc = 0; kc < NJ / 2; ++kc) {
+        uint32_t pa[4], sa[4];
+        tile::acc_to_a<T>(pa, s[2 * kc], s[2 * kc + 1]);    // p.astype(do.dtype)
+        tile::acc_to_a<T>(sa, dp[2 * kc], dp[2 * kc + 1]);  // ds.astype(q.dtype)
+#pragma unroll
+        for (int p = 0; p < DT / 2; ++p) {
+          const uint32_t brow = tile::swz<DP>(
+              sub * SUB + 16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * p + (lane >> 4));
+          uint32_t bo[4], bq[4];
+          tile::ldsm_x4_t(bo, dos + brow);
+          tile::ldsm_x4_t(bq, qs + brow);
+          tile::mma<T>(dva[2 * p], pa, bo[0], bo[1]);
+          tile::mma<T>(dva[2 * p + 1], pa, bo[2], bo[3]);
+          tile::mma<T>(dka[2 * p], sa, bq[0], bq[1]);
+          tile::mma<T>(dka[2 * p + 1], sa, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // stage st is free for the tile after next
+  }
+
+  tile::cp_async_wait<0>();  // the K/V copies, when no q tile ran
+  __syncthreads();
+  float* stage = reinterpret_cast<float*>(tsmem + 2 * TILE);  // the q/dO ring
+  store_grad<DP>(dka, stage, dk + krow0 * D, C, D, tid);
+  store_grad<DP>(dva, stage, dv + krow0 * D, C, D, tid);
+}
+
+template <typename T, int DP, bool SEG>
+cudaError_t launch_dkv_mma(const Args& a, float* dk, float* dv) {
+  auto kern = flash_bwd_dkv_mma_kernel<T, DP, SEG>;
+  const size_t smem = 6 * (size_t)BQ * DP * 2 + sizeof(float) * 4 * BQ +
+                      sizeof(int) * (2 * BQ + BK);
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.H, a.B, (a.Skv + BK - 1) / BK);
+  kern<<<grid, MMA_THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.qseg, a.kseg, dk, dv, a.H, a.Sq, a.Skv, a.D, a.causal,
+      a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_mma_any(const Args& a, float* dk, float* dv) {
+  const bool seg = a.qseg != nullptr;
+  if (a.D <= 64) {
+    return seg ? launch_dkv_mma<T, 64, true>(a, dk, dv) : launch_dkv_mma<T, 64, false>(a, dk, dv);
+  }
+  return seg ? launch_dkv_mma<T, 128, true>(a, dk, dv) : launch_dkv_mma<T, 128, false>(a, dk, dv);
+}
+
 // dtype codes shared with ops/flash_attention.py
 enum { F32 = 0, BF16 = 1, F16 = 2 };
+
+// The dk/dv body that runs (mirrored by ops/flash_attention_bwd.py
+// `dkv_body`): the tensor cores for bf16/f16 with D a multiple of 16 up
+// to 128.
+bool dkv_mma_body(int dtype, int D) {
+  return (dtype == BF16 || dtype == F16) && D % 16 == 0 && D <= 128;
+}
 
 }  // namespace
 
@@ -413,6 +662,15 @@ extern "C" int kft_flash_bwd_dkv(KFT_BWD_ARGS, void* dk, void* dv,
                            Skv, D, causal, window, scale, stream);
   float* gk = static_cast<float*>(dk);
   float* gv = static_cast<float*>(dv);
+  if (dkv_mma_body(dtype, D)) {
+    // 16-byte copies and stores
+    if (!tile::aligned16(q) || !tile::aligned16(k) || !tile::aligned16(v) ||
+        !tile::aligned16(dout) || !tile::aligned16(dk) || !tile::aligned16(dv)) {
+      return (int)cudaErrorMisalignedAddress;
+    }
+    return (int)(dtype == BF16 ? launch_dkv_mma_any<__nv_bfloat16>(a, gk, gv)
+                               : launch_dkv_mma_any<__half>(a, gk, gv));
+  }
   const bool seg = a.qseg != nullptr;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == F32) {

@@ -14,6 +14,10 @@ CUDA tensors launch ``csrc/flash_attention.cu`` (forward, ``LAUNCHES``
 counts it) and ``csrc/flash_attention_bwd.cu`` (dq and dk/dv, counted by
 ``flash_attention_bwd.DQ_LAUNCHES`` / ``DKV_LAUNCHES``); CPU tensors run
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`.
+The forward kernel has two bodies, chosen by dtype and head dim alone
+(:func:`body`): tensor cores for bf16/f16 with D a multiple of 16 up to
+128, scalar f32 arithmetic otherwise (f32 inputs stay exact f32; a
+tensor-core f32 product would be TF32).
 """
 
 from __future__ import annotations
@@ -28,9 +32,22 @@ from kubeflow_tpu_torch.ops import _build
 NEG_INF = -1e30  # large-but-finite: keeps exp() defined on masked rows
 #: kernel launches since the counter was last set to 0
 LAUNCHES = 0
+#: the same launches split by the body that ran (see :func:`body`)
+LAUNCHES_BY_BODY = {"mma": 0, "scalar": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 128  # the kernel's shared-memory tiles hold D <= 128
+
+
+def body(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel body a launch runs, as the C entry points choose it:
+    ``"mma"`` (tensor cores) for bf16/f16 with ``head_dim`` a multiple of
+    16 up to 128, else ``"scalar"``. Shared by the forward and the dk/dv
+    kernel; the dq kernel is scalar throughout."""
+    if dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0 \
+            and 0 < head_dim <= _MAX_HEAD_DIM:
+        return "mma"
+    return "scalar"
 
 
 def _full_mask(q_shape, k_shape, q_seg, kv_seg, causal, window, device):
@@ -273,6 +290,7 @@ def _launch(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         LAUNCHES += 1
+        LAUNCHES_BY_BODY[body(q.dtype, D)] += 1
         code = lib.kft_flash_forward(
             ptr(q), ptr(k), ptr(v),
             ptr(q_segment_ids) if seg else none,

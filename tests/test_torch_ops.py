@@ -137,6 +137,9 @@ FLASH_CASES = [
     ("segments", dict(seg=True)),
     ("window_segments", dict(window=20, seg=True)),
     ("bidirectional", dict(causal=False)),
+    # q segment 2 appears in no kv row: those rows see no key and end with
+    # out = mean(v) and lse at the -1e30 sentinel (the backward's dead rows)
+    ("dead_rows", dict(causal=False, dead=True)),
 ]
 
 
@@ -157,23 +160,39 @@ def _flash_inputs(seed, *, seg=False, B=2, H=2, S=64, D=32):
 def test_flash_attention_matches_jax(name, kw):
     causal = kw.get("causal", True)
     window = kw.get("window")
-    q, k, v, ids = _flash_inputs(sum(map(ord, name)), seg=kw.get("seg", False))
+    seed = sum(map(ord, name))
+    q, k, v, ids = _flash_inputs(seed, seg=kw.get("seg", False))
+    kv_ids = ids
+    if kw.get("dead"):
+        rng = np.random.default_rng(seed)
+        B, _, S, _ = q.shape
+        kv_ids = rng.integers(0, 2, size=(B, S)).astype(np.int32)
+        ids = rng.integers(0, 3, size=(B, S)).astype(np.int32)
     jseg = None if ids is None else jnp.asarray(ids)
+    jkseg = None if kv_ids is None else jnp.asarray(kv_ids)
     tseg = None if ids is None else _t(ids)
+    tkseg = None if kv_ids is None else _t(kv_ids)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     # 16-wide blocks: 4 x 4 tiles, so the tile skip and online softmax run
     want, want_lse = jfa.flash_attention(
         jq, jk, jv, causal=causal, window=window, q_segment_ids=jseg,
-        kv_segment_ids=jseg, block_q=16, block_k=16, interpret=True,
+        kv_segment_ids=jkseg, block_q=16, block_k=16, interpret=True,
         return_residuals=True,
     )
     want_ref = jfa.reference_attention(
         jq, jk, jv, causal=causal, window=window, q_segment_ids=jseg,
-        kv_segment_ids=jseg,
+        kv_segment_ids=jkseg,
     )
+    if kw.get("dead"):
+        dead = np.asarray(want_lse) <= tfa.NEG_INF / 2
+        assert dead.any() and not dead.all()
+        np.testing.assert_allclose(np.asarray(want)[dead],
+                                   np.broadcast_to(v.mean(2, keepdims=True),
+                                                   v.shape)[dead],
+                                   atol=ATOL, rtol=0)
     tq, tk, tv = map(_t, (q, k, v))
     kw_t = dict(causal=causal, window=window, q_segment_ids=tseg,
-                kv_segment_ids=tseg)
+                kv_segment_ids=tkseg)
     got, got_lse = tfa.flash_attention(tq, tk, tv, return_residuals=True, **kw_t)
     assert got_lse.shape == q.shape[:3] and got_lse.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
@@ -187,6 +206,36 @@ def test_flash_attention_matches_jax(name, kw):
         tfa.reference_attention(tq, tk, tv, **kw_t).numpy(),
         np.asarray(want_ref), atol=ATOL, rtol=0,
     )
+
+
+BODY_CASES = [
+    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 64, "mma"),
+    (torch.bfloat16, 128, "mma"), (torch.float16, 16, "mma"),
+    (torch.float16, 64, "mma"), (torch.float16, 128, "mma"),
+    (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar"),
+    (torch.bfloat16, 40, "scalar"), (torch.float16, 40, "scalar"),
+    (torch.bfloat16, 8, "scalar"),
+]
+
+
+@pytest.mark.parametrize("dtype,head_dim,want", BODY_CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in BODY_CASES])
+def test_kernel_body_dispatch(dtype, head_dim, want):
+    """The Python mirror of the C entry points' choice of body: tensor
+    cores for bf16/f16 with D a multiple of 16 up to 128, scalar f32
+    arithmetic for f32 (a tensor-core f32 product would be TF32) and any
+    other D; the forward and dk/dv kernels share the rule."""
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as tfb
+
+    assert tfa.body(dtype, head_dim) == want
+    assert tfb.dkv_body(dtype, head_dim) == want
+
+
+def test_kernel_body_dispatch_matches_the_c_sources():
+    """Both sources dispatch on the same condition the mirror states."""
+    rule = "(dtype == BF16 || dtype == F16) && D % 16 == 0 && D <= 128"
+    for name in ("flash_attention", "flash_attention_bwd"):
+        assert rule in (_build.CSRC / f"{name}.cu").read_text(), name
 
 
 def test_reference_attention_mask_is_bottom_right_aligned():
@@ -243,8 +292,12 @@ def test_every_kernel_source_builds_to_a_hash_named_library(tmp_path, monkeypatc
     (tmp_path / "k.cu").write_text("// one\n")
     first = _build._target("k")
     (tmp_path / "k.cu").write_text("// two\n")
-    assert _build._target("k") != first
+    second = _build._target("k")
+    assert second != first
     assert first.suffix == ".so" and first.name.startswith("k-")
+    # a shared header is part of every kernel's key, and not a kernel
+    (tmp_path / "shared.cuh").write_text("// helpers\n")
+    assert _build._target("k") != second
     assert _build.sources() == ["k"]
 
 
