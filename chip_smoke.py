@@ -12,7 +12,9 @@ sm_90a, into the git-ignored ``build/``) and runs five phases:
    the serving and training shapes, with device times (``time_ms``) for
    kernel, plain version and (for flash, forward and backward)
    ``F.scaled_dot_product_attention`` as a yardstick only, and the body
-   that ran (``"mma"``: tensor cores, for bf16/f16; ``"scalar"``);
+   that ran (flash forward, dq and dk/dv: ``"mma"``, tensor cores, for
+   bf16/f16, ``"scalar"`` for f32; paged attention: ``"split"``, pages
+   split across warps);
 2. forward — the full-width bf16 ``TransformerLM`` no-cache forward with
    ``attn_impl="flash"`` against the same weights with ``"reference"``;
 3. serving — ``ModelServer`` + ``LMEngineModel`` at full width in bf16 on
@@ -23,7 +25,8 @@ sm_90a, into the git-ignored ``build/``) and runs five phases:
 5. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
-   whose forward and dk/dv launches must all run the tensor-core bodies.
+   whose forward, dq and dk/dv launches must all run the tensor-core
+   bodies.
 
 Each phase prints one JSON line. The line before the last lists every
 kernel with its launches on its path, error, times and bound; the last
@@ -139,18 +142,35 @@ def _dtname(torch, dt):
 def paged_cases(torch):
     """(name, kwargs) at the serving shapes: B=8 rows, H=16, D=64, page 32,
     windows of up to 4 pages; row 7 is dead (its table is all scratch
-    page 0)."""
+    page 0). The page-split kernel gives a row's pages to 4, 2 or 1 warps
+    as G * S is at most 4, at most 8, or more: decode, the 8-head GQA
+    decode and the prefill pieces take one each. Then long contexts of 64
+    pages (16 a warp), GQA with 4 kv heads, and a decode that sees only
+    its last page, so three of a block's four warps merge an empty
+    partial."""
     base = dict(B=8, H=16, Hkv=16, D=64, P=32, T=1152, W=4)
+    long = dict(base, Hkv=4, W=64, T=(8 * 64 + 1) * 32)
     return [
         ("decode_bf16", dict(base, S=1, dtype=torch.bfloat16)),
         ("decode_f32", dict(base, S=1, dtype=torch.float32)),
         ("prefill_bf16", dict(base, S=32, dtype=torch.bfloat16)),
         ("prefill_f32", dict(base, S=32, dtype=torch.float32)),
         ("gqa_prefill_bf16", dict(base, S=32, Hkv=4, dtype=torch.bfloat16)),
+        ("gqa8_decode_bf16", dict(base, S=1, Hkv=2, dtype=torch.bfloat16)),
         ("window_prefill_bf16", dict(base, S=32, window=48, dtype=torch.bfloat16)),
         ("int8_decode_bf16", dict(base, S=1, quant=True, dtype=torch.bfloat16)),
         ("int8_prefill_f32", dict(base, S=32, quant=True, dtype=torch.float32)),
         ("pos0_zero_decode_bf16", dict(base, S=1, pos0_zero=True, dtype=torch.bfloat16)),
+        ("long_decode_gqa_bf16", dict(long, S=1, pos0_end=True, dtype=torch.bfloat16)),
+        ("long_prefill_gqa_bf16", dict(long, S=32, pos0_end=True, dtype=torch.bfloat16)),
+        ("long_int8_decode_gqa_bf16", dict(long, S=1, pos0_end=True, quant=True,
+                                           dtype=torch.bfloat16)),
+        ("long_window700_decode_gqa_bf16", dict(long, S=1, window=700,
+                                                dtype=torch.bfloat16)),
+        ("long_window700_prefill_gqa_f32", dict(long, S=32, window=700,
+                                                dtype=torch.float32)),
+        ("last_page_decode_bf16", dict(base, S=1, W=16, T=(8 * 16 + 1) * 32, window=32,
+                                       pos0_end=True, dtype=torch.bfloat16)),
     ]
 
 
@@ -176,6 +196,8 @@ def run_paged_case(torch, name, c, flush):
     table[B - 1] = 0  # dead row: every entry is the scratch page
     if c.get("pos0_zero"):
         pos0 = torch.zeros(B, dtype=torch.int32, device=dev)
+    elif c.get("pos0_end"):  # every row's span ends on the last table slot
+        pos0 = torch.full((B,), W * P - S, dtype=torch.int32, device=dev)
     else:
         pos0 = torch.randint(0, W * P - S + 1, (B,), generator=g, device=dev,
                              dtype=torch.int32)
@@ -216,7 +238,7 @@ def run_paged_case(torch, name, c, flush):
     t_ops = flops / PEAK_FLOPS[_dtname(torch, dt)] * 1e3
     return {
         "kernel": "paged_attention", "case": name, "shape": [B, H, Hkv, S, D, P, W],
-        "dtype": _dtname(torch, dt), "body": "scalar",
+        "dtype": _dtname(torch, dt), "body": pa.body(),
         "kv": "int8" if ks is not None else _dtname(torch, dt),
         "window": window, "max_abs_err": err, "tol": tol, "ok": close,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -314,12 +336,13 @@ def run_flash_case(torch, name, c, flush):
 
 def bwd_cases(torch):
     """The training shape first (B=8, H=16, S=512, D=64, causal bf16). The
-    dk/dv kernel runs its tensor-core body on the bf16 cases and its
-    scalar body on the f32 ones; dq is scalar in both."""
+    dq and dk/dv kernels run their tensor-core bodies on the bf16 and f16
+    cases and their scalar bodies on the f32 ones."""
     base = dict(B=8, H=16, D=64, causal=True)
     return [
         ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
         ("causal_s128_f32", dict(base, S=128, dtype=torch.float32)),
+        ("causal_s512_f16", dict(base, S=512, dtype=torch.float16)),
         ("window_s512_bf16", dict(base, S=512, window=128, dtype=torch.bfloat16)),
         ("segment_s512_bf16", dict(base, S=512, seg=True, dtype=torch.bfloat16)),
         ("ragged_s200_f32", dict(base, S=200, dtype=torch.float32)),
@@ -435,7 +458,7 @@ def run_bwd_case(torch, name, c, flush):
     return {
         "kernel": "flash_attention_bwd", "case": name, "shape": [B, H, S, D],
         "dtype": _dtname(torch, dt),
-        "body": {"dq": "scalar", "dkv": fb.dkv_body(dt, D)},
+        "body": {"dq": fb.dq_body(dt, D), "dkv": fb.dkv_body(dt, D)},
         "causal": causal, "window": window,
         "segments": qseg is not None, "dead_rows": dead,
         "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
@@ -452,6 +475,10 @@ def run_bwd_case(torch, name, c, flush):
 
 def phase_kernels(torch, state):
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
+    # the timer's floor: one launch that does next to nothing, after the flush
+    one = torch.empty(1, device="cuda")
+    emit({"phase": "timer_floor", "op": "fill_ of one float",
+          "ms": time_ms(torch, lambda: one.fill_(1.0), flush=flush)})
     ok = True
     for name, c in bwd_cases(torch):
         r = run_bwd_case(torch, name, c, flush)
@@ -766,14 +793,15 @@ def phase_train(torch, state):
 
     torch.cuda.reset_peak_memory_stats()
     fa.LAUNCHES = fb.DQ_LAUNCHES = fb.DKV_LAUNCHES = 0
-    for counts in (fa.LAUNCHES_BY_BODY, fb.DKV_LAUNCHES_BY_BODY):
+    for counts in (fa.LAUNCHES_BY_BODY, fb.DQ_LAUNCHES_BY_BODY, fb.DKV_LAUNCHES_BY_BODY):
         counts.update(mma=0, scalar=0)
     _, history = trainer.fit(_train_data, hooks=[stamp])
     torch.cuda.synchronize()
     launches = {"flash_forward": fa.LAUNCHES, "flash_bwd_dq": fb.DQ_LAUNCHES,
                 "flash_bwd_dkv": fb.DKV_LAUNCHES}
-    # the bf16 step's forward and dk/dv launches all ran the tensor cores
+    # the bf16 step's forward, dq and dk/dv launches all ran the tensor cores
     by_body = {"flash_forward": dict(fa.LAUNCHES_BY_BODY),
+               "flash_bwd_dq": dict(fb.DQ_LAUNCHES_BY_BODY),
                "flash_bwd_dkv": dict(fb.DKV_LAUNCHES_BY_BODY)}
     state["train_launches"] = launches
     losses = [h["loss"] for h in history]
@@ -907,10 +935,11 @@ def phase_profile(torch, state):
         train_prof_ms = (time.perf_counter() - t0) * 1e3
     n_kernels, busy_ms, top = _device_summary(prof)
     device_ms = sum(ms for _, (_, ms) in top)
-    names = ("flash_fwd_mma_kernel", "flash_bwd_dq_kernel",
-             "flash_bwd_dkv_mma_kernel", "flash_fwd_kernel", "flash_bwd_dkv_kernel")
+    names = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+             "flash_bwd_dkv_mma_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+             "flash_bwd_dkv_kernel")
     attn = {k: ms for k, (_, ms) in top if k.split(" ")[-1] in names}
-    # bf16 training runs the tensor-core forward and dk/dv, the scalar dq
+    # bf16 training runs the tensor-core forward, dq and dk/dv
     train_ok = n_kernels > 0 and sorted(k.split(" ")[-1] for k in attn) == sorted(names[:3])
     emit({"phase": "profile", "path": "train", "dtype": "bf16",
           "param_dtype": "f32", "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": 3,
@@ -926,6 +955,36 @@ def phase_profile(torch, state):
 
 
 # --------------------------------------------------------------------------- #
+
+def ptxas_report(log):
+    """``{kernel instantiation: "N registers, S bytes spill"}`` from the
+    ``-Xptxas -v`` log nvcc leaves beside each library; names demangled
+    by ``c++filt`` where the toolchain has it."""
+    import re
+
+    raw, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            raw[name] = f"{m.group(1)} registers, {spill} bytes spill"
+    names = list(raw)
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        out = names
+    if len(out) != len(names):
+        out = names
+    short = [n.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+             for n in out]
+    return {s: raw[n] for s, n in zip(short, names)}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -951,12 +1010,8 @@ def main(argv=None) -> int:
     state = {"card": card}
     t0 = time.perf_counter()
     build_s = _build.build()
-    ptxas = {
-        n: [ln.strip() for ln in
-            (_build._target(n).with_suffix(".log")).read_text().splitlines()
-            if "registers" in ln or "spill" in ln]
-        for n in _build.sources()
-    }
+    ptxas = {n: ptxas_report(_build._target(n).with_suffix(".log").read_text())
+             for n in _build.sources()}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     runners = {"kernels": phase_kernels, "forward": phase_forward,
                "serving": phase_serving, "parity": phase_parity,

@@ -36,29 +36,52 @@
 // Sq == Skv, as in training, this is `_tile_mask` at line 206). Masked,
 // dead and ragged lanes add exactly 0.
 //
-// dk/dv has two bodies, chosen in `kft_flash_bwd_dkv` by dtype and D only
-// (mirrored by `dkv_body()` in ops/flash_attention_bwd.py):
+// Each kernel has two bodies, chosen in its C entry point by dtype and D
+// only, by the one rule `mma_body` (mirrored by `dq_body()` and
+// `dkv_body()` in ops/flash_attention_bwd.py):
 //
-// * bf16 / f16 with D a multiple of 16 up to 128:
-//   `flash_bwd_dkv_mma_kernel`, on the tensor cores, in the transposed
-//   (keys x queries) orientation. 4 warps, each owning 16 of the block's
-//   64 keys. The K and V tiles are copied once and stay in shared memory;
-//   q and dO tiles with their lse, delta and segment rows stream through
-//   a 2-stage ring of 16-byte cp.async copies, the next q tile loading
-//   while this one computes. S^T = K.Q^T and dP^T = V.dO^T run as
-//   mma.sync.m16n8k16 with f32 accumulators; P^T and dS^T are formed in
-//   the accumulators with the twin's f32 operations in its order, then
-//   packed (P^T to dO's dtype, dS^T to q's) straight into the A operand
-//   of dV += P^T.dO and dK += dS^T.Q, whose B operands are read with
-//   ldmatrix.trans. dK and dV stay in f32 registers over the whole q
-//   loop and leave through shared memory in 16-byte stores. At D <= 64 a
-//   pass covers the 64 queries of a tile, at D <= 128 two passes of 32
-//   (the 128 accumulator registers of dK and dV leave room for no more).
-//   Shared memory: 50 KB at D <= 64, 98 KB at D <= 128.
-// * f32 (and any other D): `flash_bwd_dkv_kernel`, scalar f32 FMAs out
-//   of shared memory, as the dq kernel still is: a tensor-core f32
-//   product would be TF32, about three decimal digits, and would break
-//   the f32 parity gates.
+// * bf16 / f16 with D a multiple of 16 up to 128, on the tensor cores
+//   (mma.sync.m16n8k16, f32 accumulators, operands in 16-bit tiles with
+//   XOR-swizzled rows, read by ldmatrix; csrc/tile_mma.cuh):
+//   - `flash_bwd_dq_mma_kernel`, in the forward's (queries x keys)
+//     orientation. 4 warps, each owning 16 of the block's 64 query rows.
+//     The q and dO tiles are copied once and stay in shared memory, with
+//     each row's lse, delta and segment id in registers; K and V tiles
+//     with their segment ids stream through a 2-stage ring of 16-byte
+//     cp.async copies, the next kv tile loading while this one computes.
+//     S = Q.K^T and dP = dO.V^T take their B operands from K and V rows
+//     by plain ldmatrix; P and dS are formed in the accumulators with the
+//     twin's f32 operations in its order; dS is packed to q's dtype (the
+//     one rounding the twin makes) straight into the A operand of
+//     dQ += dS.K, whose B operand is K read by ldmatrix.trans. dQ stays
+//     in f32 registers over the whole kv loop (32 a thread at D = 64, 64
+//     at D = 128) and leaves through shared memory in 16-byte stores. At
+//     D <= 64 the q and dO A fragments are held in registers for the whole
+//     loop; at D <= 128 they are re-read from shared memory per kv tile,
+//     since S, dP and dQ fill the register file there. Blocks are launched
+//     with the q tiles that see the most kv tiles first, as the forward's.
+//     What bounds it: bytes (15 us at the training shape, above). The
+//     scalar body re-read K and V from shared memory in f32 once per
+//     query row and per output element; here each K and V element is read
+//     from device memory once per q tile, the products run on the tensor
+//     cores, and copies overlap the math. Shared memory: 49 KB at
+//     D <= 64, 97 KB at D <= 128.
+//   - `flash_bwd_dkv_mma_kernel`, in the transposed (keys x queries)
+//     orientation. 4 warps, each owning 16 of the block's 64 keys. The K
+//     and V tiles are copied once and stay in shared memory; q and dO
+//     tiles with their lse, delta and segment rows stream through the
+//     same kind of ring. S^T = K.Q^T and dP^T = V.dO^T; P^T and dS^T are
+//     packed (P^T to dO's dtype, dS^T to q's) into the A operand of
+//     dV += P^T.dO and dK += dS^T.Q, whose B operands are read with
+//     ldmatrix.trans. dK and dV stay in f32 registers over the whole q
+//     loop. At D <= 64 a pass covers the 64 queries of a tile, at
+//     D <= 128 two passes of 32 (the 128 accumulator registers of dK and
+//     dV leave room for no more). Shared memory: 50 KB at D <= 64, 98 KB
+//     at D <= 128.
+// * f32 (and any other D): `flash_bwd_dq_kernel` and
+//   `flash_bwd_dkv_kernel`, scalar f32 FMAs out of shared memory: a
+//   tensor-core f32 product would be TF32, about three decimal digits,
+//   and would break the f32 parity gates.
 //
 // Scalar tiles: 64 query rows by 64 keys, 256 threads. Shared memory
 // holds the tiles in f32 (rows of K and V padded to D + 1 floats so that
@@ -606,13 +629,224 @@ cudaError_t launch_dkv_mma_any(const Args& a, float* dk, float* dv) {
   return seg ? launch_dkv_mma<T, 128, true>(a, dk, dv) : launch_dkv_mma<T, 128, false>(a, dk, dv);
 }
 
+// ------------------------------------------------------------- dq mma body
+
+template <typename T, int DP, bool SEG>
+__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ qseg,
+    const int* __restrict__ kseg,
+    float* __restrict__ dq,  // (B, H, Sq, D)
+    int H, int Sq, int Skv, int D, int causal, int window, float scale) {
+  constexpr int KC = DP / 16;                 // k16 steps over the head dim
+  constexpr int NT = BK / 8;                  // n8 tiles of a score row
+  constexpr int DT = DP / 8;                  // n8 tiles of a dQ row
+  constexpr bool HOLD = DP <= 64;             // q/dO A fragments kept in registers
+  constexpr uint32_t TILE = BQ * DP * 2;      // bytes of one 16-bit tile
+  static_assert(BQ == BK, "q and kv tiles share the tile size");
+  static_assert(BQ * (DP + 8) * 4 <= 4 * TILE, "gradient stage fits the K/V ring");
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int iq = gridDim.z - 1 - blockIdx.z;  // most kv tiles first
+  const int q_start = iq * BQ;
+  const int R = min(BQ, Sq - q_start);
+  const int off = Skv - Sq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+
+  extern __shared__ __align__(128) unsigned char tsmem[];
+  const uint32_t q_s = tile::smem_addr(tsmem);  // q tile
+  const uint32_t do_s = q_s + TILE;            // dO tile
+  const uint32_t k_s = q_s + 2 * TILE;         // 2 stages
+  const uint32_t v_s = q_s + 4 * TILE;         // 2 stages
+  int* kseg_s = reinterpret_cast<int*>(tsmem + 6 * TILE);  // 2 stages x BK
+
+  const size_t bh = (size_t)b * H + h;
+  const size_t row0 = bh * Sq + q_start;
+  const T* kb = k + bh * Skv * D;
+  const T* vb = v + bh * Skv * D;
+
+  // the kv tiles that run form one range [lo, hi]
+  const int nk = (Skv + BK - 1) / BK;
+  int lo = nk, hi = -1;
+  for (int ik = 0; ik < nk; ++ik) {
+    if (tile_runs(q_start, R, ik * BK, off, causal, window)) {
+      lo = min(lo, ik);
+      hi = ik;
+    }
+  }
+
+  auto load_kv = [&](int ik, int st) {
+    const int k0 = ik * BK;
+    const int C = min(BK, Skv - k0);
+    tile::load_tile<BK, DP, MMA_THREADS>(k_s + st * TILE, kb + (size_t)k0 * D, C, D, tid);
+    tile::load_tile<BK, DP, MMA_THREADS>(v_s + st * TILE, vb + (size_t)k0 * D, C, D, tid);
+    if (SEG) {
+      tile::load_words<MMA_THREADS>(tile::smem_addr(kseg_s + st * BK),
+                                    kseg + (size_t)b * Skv + k0, BK, C, tid);
+    }
+  };
+  tile::load_tile<BQ, DP, MMA_THREADS>(q_s, q + row0 * D, R, D, tid);
+  tile::load_tile<BQ, DP, MMA_THREADS>(do_s, dout + row0 * D, R, D, tid);
+  if (lo <= hi) load_kv(lo, 0);
+  tile::cp_async_commit();
+
+  // this thread's rows; past R the lse sentinel keeps a row dead
+  const float lse0 = r0 < R ? lse[row0 + r0] : NEG_INF;
+  const float lse1 = r0 + 8 < R ? lse[row0 + r0 + 8] : NEG_INF;
+  const float dl0 = r0 < R ? delta[row0 + r0] : 0.f;
+  const float dl1 = r0 + 8 < R ? delta[row0 + r0 + 8] : 0.f;
+  int qs0 = 0, qs1 = 0;
+  if (SEG) {
+    qs0 = r0 < R ? qseg[(size_t)b * Sq + q_start + r0] : 0;
+    qs1 = r0 + 8 < R ? qseg[(size_t)b * Sq + q_start + r0 + 8] : 0;
+  }
+
+  float dqa[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) dqa[d][0] = dqa[d][1] = dqa[d][2] = dqa[d][3] = 0.f;
+  uint32_t qf[HOLD ? KC : 1][4], df[HOLD ? KC : 1][4];
+
+  for (int ik = lo; ik <= hi; ++ik) {
+    const int st = (ik - lo) & 1;
+    if (ik < hi) {
+      load_kv(ik + 1, st ^ 1);
+      tile::cp_async_commit();
+      tile::cp_async_wait<1>();
+    } else {
+      tile::cp_async_wait<0>();
+    }
+    __syncthreads();  // kv tile ik (and q, dO) have landed for every thread
+    if constexpr (HOLD) {
+      if (ik == lo) {
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          const uint32_t arow = tile::swz<DP>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
+          tile::ldsm_x4(qf[kk], q_s + arow);
+          tile::ldsm_x4(df[kk], do_s + arow);
+        }
+      }
+    }
+    const int k_start = ik * BK;
+    const int C = min(BK, Skv - k_start);
+    const uint32_t ks = k_s + st * TILE;
+    const uint32_t vs = v_s + st * TILE;
+
+    // S = Q . K^T and dP = dO . V^T (keys of the tile along n)
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      uint32_t qa[4], da[4];
+      if constexpr (HOLD) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = qf[kk][i];
+          da[i] = df[kk][i];
+        }
+      } else {
+        const uint32_t arow = tile::swz<DP>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
+        tile::ldsm_x4(qa, q_s + arow);
+        tile::ldsm_x4(da, do_s + arow);
+      }
+#pragma unroll
+      for (int p = 0; p < NT / 2; ++p) {
+        const uint32_t brow = tile::swz<DP>(16 * p + (lane & 7) + ((lane >> 4) << 3),
+                                            2 * kk + ((lane >> 3) & 1));
+        uint32_t bk[4], bv[4];
+        tile::ldsm_x4(bk, ks + brow);
+        tile::ldsm_x4(bv, vs + brow);
+        tile::mma<T>(s[2 * p], qa, bk[0], bk[1]);
+        tile::mma<T>(s[2 * p + 1], qa, bk[2], bk[3]);
+        tile::mma<T>(dp[2 * p], da, bv[0], bv[1]);
+        tile::mma<T>(dp[2 * p + 1], da, bv[2], bv[3]);
+      }
+    }
+
+    // P = exp(S * scale - lse), 0 where masked, ragged or dead;
+    // dS = P * (dP - delta) * scale, in the twin's order
+    const bool whole = !SEG && C == BK && R == BQ &&
+                       tile::tile_whole(q_start, R, k_start, off, causal, window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool second = e >= 2;  // row r0 + 8
+        const int r = r0 + (second ? 8 : 0);
+        const int kj = j * 8 + 2 * t + (e & 1);
+        const float l = second ? lse1 : lse0;
+        bool keep = l > NEG_INF / 2;
+        if (!whole) {
+          keep = keep && kj < C &&
+                 visible<SEG>(q_start + r + off, k_start + kj, causal, window,
+                              second ? qs1 : qs0, SEG ? kseg_s[st * BK + kj] : 0);
+        }
+        const float p = keep ? __expf(s[j][e] * scale - l) : 0.f;
+        dp[j][e] = p * (dp[j][e] - (second ? dl1 : dl0)) * scale;
+      }
+    }
+
+    // dQ += dS . K, dS packed to q's dtype as the A operand
+#pragma unroll
+    for (int kc = 0; kc < NT / 2; ++kc) {
+      uint32_t sa[4];
+      tile::acc_to_a<T>(sa, dp[2 * kc], dp[2 * kc + 1]);  // ds.astype(q.dtype)
+#pragma unroll
+      for (int p = 0; p < DT / 2; ++p) {
+        uint32_t bk[4];
+        tile::ldsm_x4_t(bk, ks + tile::swz<DP>(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                               2 * p + (lane >> 4)));
+        tile::mma<T>(dqa[2 * p], sa, bk[0], bk[1]);
+        tile::mma<T>(dqa[2 * p + 1], sa, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // stage st is free for the tile after next
+  }
+
+  tile::cp_async_wait<0>();  // the q/dO copies, when no kv tile ran
+  __syncthreads();
+  float* stage = reinterpret_cast<float*>(tsmem + 2 * TILE);  // the K/V ring
+  store_grad<DP>(dqa, stage, dq + row0 * D, R, D, tid);
+}
+
+template <typename T, int DP, bool SEG>
+cudaError_t launch_dq_mma(const Args& a, float* dq) {
+  auto kern = flash_bwd_dq_mma_kernel<T, DP, SEG>;
+  const size_t smem = 6 * (size_t)BQ * DP * 2 + sizeof(int) * 2 * BK;
+  cudaError_t err = prepare(kern, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.H, a.B, (a.Sq + BQ - 1) / BQ);
+  kern<<<grid, MMA_THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.delta, a.qseg, a.kseg, dq, a.H, a.Sq, a.Skv, a.D, a.causal,
+      a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_mma_any(const Args& a, float* dq) {
+  const bool seg = a.qseg != nullptr;
+  if (a.D <= 64) return seg ? launch_dq_mma<T, 64, true>(a, dq) : launch_dq_mma<T, 64, false>(a, dq);
+  return seg ? launch_dq_mma<T, 128, true>(a, dq) : launch_dq_mma<T, 128, false>(a, dq);
+}
+
 // dtype codes shared with ops/flash_attention.py
 enum { F32 = 0, BF16 = 1, F16 = 2 };
 
-// The dk/dv body that runs (mirrored by ops/flash_attention_bwd.py
-// `dkv_body`): the tensor cores for bf16/f16 with D a multiple of 16 up
-// to 128.
-bool dkv_mma_body(int dtype, int D) {
+// The body both kernels run (mirrored by ops/flash_attention_bwd.py
+// `dq_body` and `dkv_body`): the tensor cores for bf16/f16 with D a
+// multiple of 16 up to 128.
+bool mma_body(int dtype, int D) {
   return (dtype == BF16 || dtype == F16) && D % 16 == 0 && D <= 128;
 }
 
@@ -644,6 +878,15 @@ extern "C" int kft_flash_bwd_dq(KFT_BWD_ARGS, void* dq, KFT_BWD_DIMS) {
   const Args a = make_args(q, k, v, dout, lse, delta, q_seg, kv_seg, B, H, Sq,
                            Skv, D, causal, window, scale, stream);
   float* out = static_cast<float*>(dq);
+  if (mma_body(dtype, D)) {
+    // 16-byte copies and stores
+    if (!tile::aligned16(q) || !tile::aligned16(k) || !tile::aligned16(v) ||
+        !tile::aligned16(dout) || !tile::aligned16(dq)) {
+      return (int)cudaErrorMisalignedAddress;
+    }
+    return (int)(dtype == BF16 ? launch_dq_mma_any<__nv_bfloat16>(a, out)
+                               : launch_dq_mma_any<__half>(a, out));
+  }
   const bool seg = a.qseg != nullptr;
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == F32) err = seg ? launch_dq<float, true>(a, out) : launch_dq<float, false>(a, out);
@@ -662,7 +905,7 @@ extern "C" int kft_flash_bwd_dkv(KFT_BWD_ARGS, void* dk, void* dv,
                            Skv, D, causal, window, scale, stream);
   float* gk = static_cast<float*>(dk);
   float* gv = static_cast<float*>(dv);
-  if (dkv_mma_body(dtype, D)) {
+  if (mma_body(dtype, D)) {
     // 16-byte copies and stores
     if (!tile::aligned16(q) || !tile::aligned16(k) || !tile::aligned16(v) ||
         !tile::aligned16(dout) || !tile::aligned16(dk) || !tile::aligned16(dv)) {

@@ -14,7 +14,7 @@ CUDA tensors launch ``csrc/flash_attention.cu`` (forward, ``LAUNCHES``
 counts it) and ``csrc/flash_attention_bwd.cu`` (dq and dk/dv, counted by
 ``flash_attention_bwd.DQ_LAUNCHES`` / ``DKV_LAUNCHES``); CPU tensors run
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`.
-The forward kernel has two bodies, chosen by dtype and head dim alone
+Each kernel has two bodies, chosen by dtype and head dim alone
 (:func:`body`): tensor cores for bf16/f16 with D a multiple of 16 up to
 128, scalar f32 arithmetic otherwise (f32 inputs stay exact f32; a
 tensor-core f32 product would be TF32).
@@ -42,8 +42,8 @@ _MAX_HEAD_DIM = 128  # the kernel's shared-memory tiles hold D <= 128
 def body(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel body a launch runs, as the C entry points choose it:
     ``"mma"`` (tensor cores) for bf16/f16 with ``head_dim`` a multiple of
-    16 up to 128, else ``"scalar"``. Shared by the forward and the dk/dv
-    kernel; the dq kernel is scalar throughout."""
+    16 up to 128, else ``"scalar"``. Shared by the forward and both
+    backward kernels (dq, dk/dv)."""
     if dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0 \
             and 0 < head_dim <= _MAX_HEAD_DIM:
         return "mma"

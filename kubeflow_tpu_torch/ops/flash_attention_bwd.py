@@ -7,9 +7,9 @@ entry point and counted by its own launch counter: ``DQ_LAUNCHES``
 They take CUDA tensors only: the public entry point, the plain twin and
 the CPU route are ``flash_attention.flash_attention_bwd`` and
 ``flash_attention_bwd_reference``. Gradients come back in f32 (the JAX
-``accum_dtype``), launched on the current stream. The dk/dv kernel runs
-on the tensor cores for bf16/f16 with D a multiple of 16 up to 128 and
-in scalar f32 otherwise (:func:`dkv_body`); the dq kernel is scalar.
+``accum_dtype``), launched on the current stream. Both kernels run on
+the tensor cores for bf16/f16 with D a multiple of 16 up to 128 and in
+scalar f32 otherwise (:func:`dq_body`, :func:`dkv_body`).
 """
 
 from __future__ import annotations
@@ -23,10 +23,18 @@ from kubeflow_tpu_torch.ops.flash_attention import _DTYPE_CODES, _check_launch, 
 
 #: dq kernel launches since the counter was last set to 0
 DQ_LAUNCHES = 0
+#: the same launches split by the body that ran (see :func:`dq_body`)
+DQ_LAUNCHES_BY_BODY = {"mma": 0, "scalar": 0}
 #: dk/dv kernel launches since the counter was last set to 0
 DKV_LAUNCHES = 0
 #: the same launches split by the body that ran (see :func:`dkv_body`)
 DKV_LAUNCHES_BY_BODY = {"mma": 0, "scalar": 0}
+
+
+def dq_body(dtype: torch.dtype, head_dim: int) -> str:
+    """The dq kernel body a launch runs, as ``kft_flash_bwd_dq`` chooses
+    it: the forward's rule, :func:`flash_attention.body`."""
+    return body(dtype, head_dim)
 
 
 def dkv_body(dtype: torch.dtype, head_dim: int) -> str:
@@ -76,6 +84,7 @@ def launch_dq(q, k, v, dout, lse, delta, *, causal, scale, q_segment_ids,
     with torch.cuda.device(q.device):
         args = _common(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids)
         DQ_LAUNCHES += 1
+        DQ_LAUNCHES_BY_BODY[dq_body(q.dtype, dims[4])] += 1
         code = lib.kft_flash_bwd_dq(
             *args, ctypes.c_void_p(dq.data_ptr()),
             *_dims(dims, causal, window, scale, q.dtype, q.device),

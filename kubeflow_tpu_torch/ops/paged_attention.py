@@ -13,7 +13,11 @@ arithmetic on positions, so no mask operand exists.
 tensors and runs :func:`paged_attention_reference` for CPU tensors — the
 choice follows the tensors' device only, never a fallback on error.
 ``LAUNCHES`` counts kernel launches, so a run can show the serving path
-went through the kernel.
+went through the kernel. The kernel has one body, ``"split"``
+(:func:`body`): a row's pages are split across the warps of its block,
+whose partial softmax states merge by their maxima (flash-decoding inside
+one block); it takes head dims up to 128 whose pool rows are a whole
+number of 16-byte chunks (:func:`kernel_supports`).
 
 int8 KV: :func:`quantize_kv` makes per-(kv head, token) symmetric int8
 codes plus an f32 scale; both read paths dequantize with the same single
@@ -36,6 +40,21 @@ LAUNCHES = 0
 _DTYPE_CODES = {
     torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3,
 }
+_MAX_HEAD_DIM = 128  # the kernel's lanes own at most 4 output columns each
+
+
+def body() -> str:
+    """The kernel body every launch runs: ``"split"``, the page-split
+    (flash-decoding) kernel of ``csrc/paged_attention.cu``."""
+    return "split"
+
+
+def kernel_supports(head_dim: int, kv_dtype: torch.dtype) -> bool:
+    """Whether the kernel takes pools of this head dim and dtype: D up to
+    128 with a pool row of whole 16-byte chunks (the kernel copies rows
+    16 bytes at a time), the rule ``launch`` in the CUDA source checks."""
+    row_bytes = head_dim * torch.empty((), dtype=kv_dtype).element_size()
+    return 0 < head_dim <= _MAX_HEAD_DIM and row_bytes % 16 == 0
 
 
 def quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -203,6 +222,11 @@ def _launch(q, k_pool, v_pool, page_table, pos0, page_size, window, scale,
         raise TypeError("page_table and pos0 must be int32")
     B, H, S, D = q.shape
     Hkv, T, _ = k_pool.shape
+    if not kernel_supports(D, k_pool.dtype):
+        raise ValueError(
+            f"head_dim {D} with {k_pool.dtype} pools: the kernel takes D <= "
+            f"{_MAX_HEAD_DIM} with rows of whole 16-byte chunks"
+        )
     out = torch.empty_like(q)
     lib = _lib()
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731

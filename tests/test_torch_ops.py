@@ -35,7 +35,9 @@ def _t(a):
 # ------------------------------------------------------------ paged attention
 
 # the oracle cases of tests/test_paged_attention.py, plus the pos0=0 edge
-# and a dead row whose whole table is the scratch page
+# and a dead row whose whole table is the scratch page; then windows of 12
+# pages, more than the 4 warps of a page-split kernel block, and a decode
+# that sees only its last page (the other warps' partials are empty)
 PAGED_CASES = [
     ("decode", dict()),
     ("gqa_span", dict(S=5)),
@@ -45,13 +47,17 @@ PAGED_CASES = [
     ("int8_window", dict(S=2, window=20, quant=True)),
     ("pos0_zero", dict(pos0_zero=True)),
     ("dead_row", dict(S=4, dead_row=True)),
+    ("many_pages_decode", dict(W_pages=12, n_pages=16)),
+    ("many_pages_gqa_window", dict(S=5, window=150, W_pages=12, n_pages=16)),
+    ("many_pages_int8_span", dict(S=3, quant=True, W_pages=12, n_pages=16)),
+    ("last_page_only_decode", dict(window=16, W_pages=12, n_pages=16)),
 ]
 
 
 def _paged_inputs(seed, *, H=4, Hkv=2, S=1, window=None, quant=False,
-                  pos0_zero=False, dead_row=False):
+                  pos0_zero=False, dead_row=False, n_pages=8, W_pages=4):
     rng = np.random.default_rng(seed)
-    B, D, P, n_pages, W_pages = 2, 64, 16, 8, 4
+    B, D, P = 2, 64, 16
     T = n_pages * P
     q = rng.normal(size=(B, H, S, D)).astype(np.float32)
     kp = rng.normal(size=(Hkv, T, D)).astype(np.float32)
@@ -228,14 +234,43 @@ def test_kernel_body_dispatch(dtype, head_dim, want):
     from kubeflow_tpu_torch.ops import flash_attention_bwd as tfb
 
     assert tfa.body(dtype, head_dim) == want
+    assert tfb.dq_body(dtype, head_dim) == want
     assert tfb.dkv_body(dtype, head_dim) == want
 
 
 def test_kernel_body_dispatch_matches_the_c_sources():
-    """Both sources dispatch on the same condition the mirror states."""
+    """Both sources dispatch on the same condition the mirror states, and
+    each of the three C entry points (forward, dq, dk/dv) takes its
+    tensor-core body on exactly that condition."""
+    import re
+
     rule = "(dtype == BF16 || dtype == F16) && D % 16 == 0 && D <= 128"
     for name in ("flash_attention", "flash_attention_bwd"):
         assert rule in (_build.CSRC / f"{name}.cu").read_text(), name
+    for name, entry, launcher in (
+        ("flash_attention", "kft_flash_forward", "launch_mma_any"),
+        ("flash_attention_bwd", "kft_flash_bwd_dq", "launch_dq_mma_any"),
+        ("flash_attention_bwd", "kft_flash_bwd_dkv", "launch_dkv_mma_any"),
+    ):
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        body = src[src.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("\n}\n")]
+        branch = re.search(r"if \(mma_body\(dtype, D\)\) \{(.*?)\n  \}", body, re.S)
+        assert branch is not None, entry
+        assert launcher in branch.group(1), entry
+
+
+def test_paged_kernel_body_and_shapes():
+    """One paged body, the page-split kernel; the head dims it takes (D
+    up to 128, pool rows of whole 16-byte chunks) are the ones the CUDA
+    launcher checks."""
+    assert tpa.body() == "split"
+    assert "paged_attn_split_kernel" in (_build.CSRC / "paged_attention.cu").read_text()
+    for d, dt, ok in ((64, torch.bfloat16, True), (128, torch.float32, True),
+                      (16, torch.int8, True), (8, torch.int8, False),
+                      (36, torch.bfloat16, False), (256, torch.bfloat16, False),
+                      (4, torch.float32, True)):
+        assert tpa.kernel_supports(d, dt) is ok, (d, dt)
 
 
 def test_reference_attention_mask_is_bottom_right_aligned():
