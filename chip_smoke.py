@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs five phases:
+sm_90a, into the git-ignored ``build/``) and runs six phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``) for
@@ -14,15 +14,25 @@ sm_90a, into the git-ignored ``build/``) and runs five phases:
    ``F.scaled_dot_product_attention`` as a yardstick only, and the body
    that ran (flash forward, dq and dk/dv: ``"mma"``, tensor cores, for
    bf16/f16, ``"scalar"`` for f32; paged attention: ``"split"``, pages
-   split across warps);
+   split across warps), the paged cases including the speculative verify
+   (S = K+1 = 5, a different ``pos0`` per row) and a prefill piece at an
+   offset;
 2. forward — the full-width bf16 ``TransformerLM`` no-cache forward with
    ``attn_impl="flash"`` against the same weights with ``"reference"``;
 3. serving — ``ModelServer`` + ``LMEngineModel`` at full width in bf16 on
    the paged-attention kernel, answering 8 concurrent
-   ``/v2/models/lm/generate`` requests;
+   ``/v2/models/lm/generate`` requests with the pipelined loop
+   (``pipeline_depth=1``, the default) and, from a second model in the
+   same server, with the synchronous one (``pipeline_depth=0``);
 4. f32 parity — the same engine in f32: the ``kernel`` and ``gather``
    read paths must give token-identical greedy streams;
-5. train — the full-width LM trained through the flash forward and
+5. engine — the f32 engine on the kernel read path: (a) depth 1 gives
+   depth 0's streams; (b) speculative decoding (K=4) gives K=0's greedy
+   streams on repeating prompts, accepting drafts through verify
+   launches at S=5; (c) chunked prefill with the prefix cache gives the
+   streams of an engine with neither; (d) seeded sampling repeats,
+   resumes from half a stream to its other half, and differs by seed;
+6. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
    whose forward, dq and dk/dv launches must all run the tensor-core
@@ -53,7 +63,7 @@ import zlib
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
-PHASES = ("kernels", "forward", "serving", "parity", "train")
+PHASES = ("kernels", "forward", "serving", "parity", "engine", "train")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -171,6 +181,14 @@ def paged_cases(torch):
                                                 dtype=torch.float32)),
         ("last_page_decode_bf16", dict(base, S=1, W=16, T=(8 * 16 + 1) * 32, window=32,
                                        pos0_end=True, dtype=torch.bfloat16)),
+        # the engine's new spans: a K=4 speculative verify (G * S = 5, the
+        # 2-warp page split) with each row's span at its own position, and
+        # a 16-token prefill piece after a 64-token implanted prefix
+        ("verify_bf16", dict(base, S=5, pos0_spread=(20, 120), dtype=torch.bfloat16)),
+        ("verify_int8_bf16", dict(base, S=5, pos0_spread=(20, 120), quant=True,
+                                  dtype=torch.bfloat16)),
+        ("suffix_offset_bf16", dict(base, B=1, S=16, pos0_fixed=64, live_rows=True,
+                                    dtype=torch.bfloat16)),
     ]
 
 
@@ -193,8 +211,14 @@ def run_paged_case(torch, name, c, flush):
     n_pages = T // P
     perm = torch.randperm(n_pages - 1, generator=g, device=dev) + 1
     table = perm[: B * W].reshape(B, W).to(torch.int32)
-    table[B - 1] = 0  # dead row: every entry is the scratch page
-    if c.get("pos0_zero"):
+    if not c.get("live_rows"):
+        table[B - 1] = 0  # dead row: every entry is the scratch page
+    if c.get("pos0_spread"):  # each row's span at its own position
+        lo, hi = c["pos0_spread"]
+        pos0 = torch.linspace(lo, hi, B, device=dev).round().to(torch.int32)
+    elif c.get("pos0_fixed") is not None:
+        pos0 = torch.full((B,), c["pos0_fixed"], dtype=torch.int32, device=dev)
+    elif c.get("pos0_zero"):
         pos0 = torch.zeros(B, dtype=torch.int32, device=dev)
     elif c.get("pos0_end"):  # every row's span ends on the last table slot
         pos0 = torch.full((B,), W * P - S, dtype=torch.int32, device=dev)
@@ -492,6 +516,8 @@ def phase_kernels(torch, state):
         ok &= r["ok"]
         if name == "decode_bf16":
             state["paged_main"] = r
+        elif name in ("verify_bf16", "suffix_offset_bf16"):
+            state[f"paged_{name}"] = r
     for name, c in flash_cases(torch):
         r = run_flash_case(torch, name, c, flush)
         emit(r)
@@ -597,17 +623,55 @@ def _concurrent(fn, args):
     return outs
 
 
-def _engine_streams(torch, model, impl, reqs):
+def _engine_streams(torch, model, impl, reqs, **kw):
     from kubeflow_tpu_torch.serve.engine import LMEngine
 
-    eng = LMEngine(model, paged_attn_impl=impl, **ENGINE).start()
+    eng = LMEngine(model, **{**ENGINE, "paged_attn_impl": impl, **kw}).start()
     try:
         return _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
     finally:
         eng.stop()
 
 
+def _post(base, name, ids):
+    body = json.dumps({"input_ids": ids, "max_new_tokens": MAX_NEW}).encode()
+    r = urllib.request.Request(f"{base}/v2/models/{name}/generate", data=body,
+                               headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(r, timeout=300) as resp:
+        return json.loads(resp.read())["token_ids"]
+
+
+def _served_burst(base, lm, reqs):
+    """The 8 requests at once through the server to ``lm``: streams, wall
+    seconds, and the engine's chunks, carry uploads and pipeline EWMAs of
+    this burst alone (the EWMAs restart cold before it)."""
+    eng = lm.engine
+    for k in ("decode_gap_ms", "d2h_drain_ms"):
+        eng.overlap[k] = 0.0
+    chunks0, uploads0 = eng.stats["chunks"], eng.overlap["carry_uploads"]
+    eng.ttft_ms.clear()
+    t0 = time.perf_counter()
+    outs = _concurrent(lambda ids: _post(base, lm.name, ids), reqs)
+    wall = time.perf_counter() - t0
+    ttft = sorted(eng.ttft_ms)
+    n_tok = sum(len(o) for o in outs)
+    return outs, {
+        "pipeline_depth": eng.pipeline_depth, "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall,
+        "ttft_ms_p50": ttft[len(ttft) // 2] if ttft else None,
+        "ttft_ms_max": ttft[-1] if ttft else None,
+        "chunks": eng.stats["chunks"] - chunks0,
+        "carry_uploads": eng.overlap["carry_uploads"] - uploads0,
+        "decode_gap_ms": eng.overlap["decode_gap_ms"],
+        "d2h_drain_ms": eng.overlap["d2h_drain_ms"],
+    }
+
+
 def phase_serving(torch, state):
+    """The burst through ``ModelServer`` on the pipelined engine (``lm``,
+    ``pipeline_depth=1``: the main path, whose kernel launches are
+    counted) and on the synchronous one (``lm0``, depth 0, the same
+    weights), in turns: depth 1, 0, 0, 1."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.ops import paged_attention as pa
     from kubeflow_tpu_torch.models.transformer import TransformerConfig
@@ -615,54 +679,56 @@ def phase_serving(torch, state):
     from kubeflow_tpu_torch.serve.server import ModelServer
 
     cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
-    lm = LMEngineModel(
-        "lm", config=cfg, state_dict=sharpened_state(torch, torch.bfloat16),
-        device="cuda", max_new_tokens=MAX_NEW, paged_attn_impl="kernel",
-        **ENGINE,
-    )
-    server = ModelServer([lm], http_port=0).start()
+    sd = sharpened_state(torch, torch.bfloat16)
+    models = {depth: LMEngineModel(
+        name, config=cfg, state_dict=sd, device="cuda", max_new_tokens=MAX_NEW,
+        paged_attn_impl="kernel", pipeline_depth=depth, **ENGINE,
+    ) for depth, name in ((1, "lm"), (0, "lm0"))}
+    server = ModelServer(list(models.values()), http_port=0).start()
     base = f"http://127.0.0.1:{server.port}"
     reqs = prompts()
-
-    def post(ids):
-        body = json.dumps({"input_ids": ids, "max_new_tokens": MAX_NEW}).encode()
-        r = urllib.request.Request(f"{base}/v2/models/lm/generate", data=body,
-                                   headers={"Content-Type": "application/json"})
-        with urllib.request.urlopen(r, timeout=300) as resp:
-            return json.loads(resp.read())["token_ids"]
-
+    runs = []
     try:
         with urllib.request.urlopen(f"{base}/v2/health/ready", timeout=30) as r:
             ready = r.status == 200 and json.loads(r.read())["ready"]
-        post(reqs[0][:8])  # warm-up: cuBLAS handles, allocator, kernels
-        lm.engine.ttft_ms.clear()
+        for lm in models.values():  # warm-up: cuBLAS handles, allocator, kernels
+            _post(base, lm.name, reqs[0][:8])
+        torch.cuda.synchronize()
         pa.LAUNCHES = fa.LAUNCHES = 0
-        t0 = time.perf_counter()
-        outs = _concurrent(post, reqs)
-        wall = time.perf_counter() - t0
+        pa.LAUNCHES_BY_S.clear()
+        outs, main = _served_burst(base, models[1], reqs)
         paged_launches, flash_launches = pa.LAUNCHES, fa.LAUNCHES
-        ttft = sorted(lm.engine.ttft_ms)
+        by_s = dict(pa.LAUNCHES_BY_S)
+        runs.append(main)
+        streams = {1: outs}
+        for depth in (0, 0, 1):
+            outs, r = _served_burst(base, models[depth], reqs)
+            streams.setdefault(depth, outs)
+            runs.append(r)
         # the same weights through the gather read path, in process
-        gather = _engine_streams(torch, lm.engine.model, "gather", reqs)
+        gather = _engine_streams(torch, models[1].engine.model, "gather", reqs)
     finally:
         server.stop()
-    n_tok = sum(len(o) for o in outs)
+    outs = streams[1]
     well_formed = all(
         1 <= len(o) <= MAX_NEW and all(0 <= t < MODEL["vocab_size"] for t in o)
-        for o in outs
+        for s in streams.values() for o in s
     )
     first_agree = sum(o[:1] == g[:1] for o, g in zip(outs, gather))
     match = sum(
         a == b for o, g in zip(outs, gather) for a, b in zip(o, g)
     ) / max(1, sum(max(len(o), len(g)) for o, g in zip(outs, gather)))
     state["paged_launches"] = paged_launches
+    state["paged_launches_by_s"] = by_s
     ok = (ready and well_formed and paged_launches > 0
           and first_agree >= N_REQ - 1)
     emit({"phase": "serving", "dtype": "bf16", "requests": N_REQ,
-          "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
-          "ttft_ms_p50": ttft[len(ttft) // 2] if ttft else None,
-          "ttft_ms_max": ttft[-1] if ttft else None,
-          "paged_launches": paged_launches, "flash_launches": flash_launches,
+          "tokens": main["tokens"], "wall_s": main["wall_s"],
+          "tokens_per_s": main["tokens_per_s"], "pipeline_depth": 1,
+          "ttft_ms_p50": main["ttft_ms_p50"], "ttft_ms_max": main["ttft_ms_max"],
+          "runs": runs, "depth0_equals_depth1": streams[0] == streams[1],
+          "paged_launches": paged_launches, "paged_launches_by_s": by_s,
+          "flash_launches": flash_launches,
           "ready": ready, "well_formed": well_formed,
           "first_token_agree_vs_gather": first_agree,
           "token_match_vs_gather": match, "card": state["card"], "ok": ok})
@@ -690,7 +756,133 @@ def phase_parity(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 5: training through Trainer.fit at full width
+# phase 5: the engine loop's features, f32 on the kernel read path
+# --------------------------------------------------------------------------- #
+
+def _greedy_margin(torch, model, ids, want, got):
+    """First position where two greedy streams of ``ids`` part, and the
+    top-2 logit margin there in a no-cache forward of the prompt plus
+    the tokens both agree on (a near-tie explains a flip; a wide margin
+    is a bug)."""
+    i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
+             min(len(want), len(got)))
+    with torch.inference_mode():
+        logits = model(torch.tensor([ids + want[:i]], device="cuda"))[0, -1]
+    top = torch.topk(logits.float(), 2).values
+    return {"position": i, "top2_margin": (top[0] - top[1]).item()}
+
+
+def _compare_greedy(torch, model, reqs, want, got):
+    """(identical, the margins of the rows that diverge)."""
+    bad = [dict(row=r, **_greedy_margin(torch, model, reqs[r], want[r], got[r]))
+           for r in range(len(reqs)) if want[r] != got[r]]
+    return not bad, bad
+
+
+def phase_engine(torch, state):
+    """The engine features of the pipelined loop, in f32 with TF32 off at
+    full width on the kernel read path (the sharpened weights). Each check
+    gates the phase; a greedy divergence prints the top-2 logit margin at
+    the first divergent position."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = _model(torch, torch.float32, "flash",
+                   state_dict=sharpened_state(torch, torch.float32))
+    base = dict(ENGINE, paged_attn_impl="kernel")
+    out = {"phase": "engine", "dtype": "f32", "tf32": False, "card": state["card"]}
+
+    def run(kw, reqs, warm=()):
+        eng = LMEngine(model, **kw).start()
+        try:
+            for p in warm:  # sequential first: e.g. a prefix to store
+                eng.submit(p, max_new_tokens=MAX_NEW)
+            outs = _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+            return outs, dict(eng.stats)
+        finally:
+            eng.stop()
+
+    # (a) the pipelined loop against the synchronous one
+    reqs = prompts()
+    d1, s1 = run(dict(base, pipeline_depth=1), reqs)
+    d0, _ = run(dict(base, pipeline_depth=0), reqs)
+    same, bad = _compare_greedy(torch, model, reqs, d0, d1)
+    out["a_depth1_vs_depth0"] = {"identical": same, "diverged": bad,
+                                 "tokens": sum(map(len, d1)), "chunks": s1["chunks"]}
+
+    # (b) speculative decoding on prompts that repeat an 8-token motif
+    rng = np.random.default_rng(3)
+    motif_reqs = []
+    for i in range(N_REQ):
+        motif = [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=8)]
+        motif_reqs.append((motif * 4)[: 16 + i])
+    pa.LAUNCHES = 0
+    pa.LAUNCHES_BY_S.clear()
+    k4, sk = run(dict(base, spec_draft_tokens=4, spec_ngram=3), motif_reqs)
+    by_s = dict(pa.LAUNCHES_BY_S)
+    k0, s0 = run(base, motif_reqs)
+    same_b, bad_b = _compare_greedy(torch, model, motif_reqs, k0, k4)
+    out["b_spec_k4_vs_k0"] = {
+        "identical": same_b, "diverged": bad_b, "tokens": sum(map(len, k4)),
+        "spec_proposed": sk["spec_proposed"], "spec_accepted": sk["spec_accepted"],
+        "chunks_k4": sk["chunks"], "chunks_k0": s0["chunks"],
+        "paged_launches_by_s": by_s}
+
+    # (c) chunked prefill + prefix cache against neither; the first prompt
+    # (70 tokens) stores the 64-token shared prefix, the rest follow
+    shared = [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=64)]
+    pre_reqs = []
+    for n in (70, 40, 100, 66, 88, 52, 95, 77):
+        tail = [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=n)]
+        pre_reqs.append((shared + tail)[:n])
+    kw_c = dict(base, prefill_buckets=(32, 128), max_seq=192,
+                kv_pool_tokens=48 * 32)
+    on, sc = run(dict(kw_c, prefill_chunk=32, prefix_cache_entries=8),
+                 pre_reqs[1:], warm=pre_reqs[:1])
+    off, _ = run(kw_c, pre_reqs[1:], warm=pre_reqs[:1])
+    same_c, bad_c = _compare_greedy(torch, model, pre_reqs[1:], off, on)
+    out["c_chunked_prefix_vs_plain"] = {
+        "identical": same_c, "diverged": bad_c, "requests": len(pre_reqs),
+        "prefix_hits": sc["prefix_hits"],
+        "prefix_tokens_reused": sc["prefix_tokens_reused"],
+        "prefill_pieces": sc["prefill_pieces"]}
+
+    # (d) seeded sampling: repeatable, resumable, seed-dependent (a resumed
+    # prompt carries half a stream, so it takes the 128 bucket)
+    eng = LMEngine(model, **dict(base, prefill_buckets=(32, 128))).start()
+    try:
+        ids, samp = reqs[0], dict(max_new_tokens=MAX_NEW, temperature=0.9)
+        first = eng.submit(ids, seed=1234, **samp)
+        again = eng.submit(ids, seed=1234, **samp)
+        cut = len(first) // 2
+        rest = eng.submit(ids, seed=1234, resume_tokens=first[:cut], **samp)
+        other = eng.submit(ids, seed=4321, **samp)
+    finally:
+        eng.stop()
+    out["d_seeded"] = {"tokens": len(first), "repeat_identical": again == first,
+                       "resume_identical": rest == first[cut:], "cut": cut,
+                       "other_seed_differs": other != first}
+    checks = {
+        "a": same,
+        "b": same_b and sk["spec_accepted"] > 0 and by_s.get(5, 0) > 0,
+        "c": same_c and sc["prefix_hits"] > 0 and sc["prefill_pieces"] > len(pre_reqs),
+        "d": (len(first) >= 4 and again == first and rest == first[cut:]
+              and other != first),
+    }
+    state["verify_launches"] = by_s.get(5, 0)
+    out["checks"] = checks
+    out["ok"] = all(checks.values())
+    emit(out)
+    del model
+    return out["ok"]
+
+
+# --------------------------------------------------------------------------- #
+# phase 6: training through Trainer.fit at full width
 # --------------------------------------------------------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
@@ -859,11 +1051,11 @@ def _device_summary(prof):
 def phase_profile(torch, state):
     """Where the time goes (not in the default run: ``--phases profile``).
 
-    Serving: the bf16 engine on the paged kernel serves the 8 requests once
-    plainly, for the wall time, and once under ``torch.profiler``, for the
-    device time by kernel and the time in which some kernel ran (the
-    profiler slows the host, so the busy share is given against both
-    walls). Training: the trainer's step (``Trainer._step``, what ``fit``
+    Serving: the bf16 engine on the paged kernel, pipelined (depth 1) and
+    then synchronous (depth 0), serves the 8 requests once plainly, for
+    the wall time, and once under ``torch.profiler``, for the device time
+    by kernel and the time in which some kernel ran (the profiler slows
+    the host, so the busy share is given against both walls). Training: the trainer's step (``Trainer._step``, what ``fit``
     runs each step) in bf16 at full width, 2 warm-up steps, 3 plain steps
     for the wall and 3 under the profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -873,36 +1065,41 @@ def phase_profile(torch, state):
     model = _model(torch, torch.bfloat16, "flash",
                    state_dict=sharpened_state(torch, torch.bfloat16))
     reqs = prompts()
-    eng = LMEngine(model, paged_attn_impl="kernel", **ENGINE).start()
-    try:
-        eng.submit(reqs[0][:8], max_new_tokens=MAX_NEW)  # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
-        torch.cuda.synchronize()
-        plain_wall_ms = (time.perf_counter() - t0) * 1e3
-        before = dict(eng.stats)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            outs = _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+    serve_ok = True
+    for depth in (1, 0):
+        eng = LMEngine(model, paged_attn_impl="kernel", pipeline_depth=depth,
+                       **ENGINE).start()
+        try:
+            eng.submit(reqs[0][:8], max_new_tokens=MAX_NEW)  # warm-up
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        stats = {k: eng.stats[k] - before[k] for k in ("chunks", "prefill_pieces")}
-    finally:
-        eng.stop()
-    del model, eng
-    n_kernels, busy_ms, top = _device_summary(prof)
-    tokens = sum(len(o) for o in outs)
-    serve_ok = n_kernels > 0 and tokens > 0
-    emit({"phase": "profile", "path": "serving", "dtype": "bf16",
-          "requests": N_REQ, "tokens": tokens, "wall_ms": plain_wall_ms,
-          "profiled_wall_ms": wall_ms, "chunks": stats["chunks"],
-          "prefill_pieces": stats["prefill_pieces"], "kernels": n_kernels,
-          "device_busy_ms": busy_ms,
-          "device_busy_share": busy_ms / plain_wall_ms,
-          "device_busy_share_profiled": busy_ms / wall_ms,
-          "top_kernels": [{"name": k, "count": n, "ms": ms} for k, (n, ms) in top[:10]],
-          "card": state["card"], "ok": serve_ok})
+            t0 = time.perf_counter()
+            _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+            torch.cuda.synchronize()
+            plain_wall_ms = (time.perf_counter() - t0) * 1e3
+            before = dict(eng.stats)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                outs = _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            stats = {k: eng.stats[k] - before[k] for k in ("chunks", "prefill_pieces")}
+        finally:
+            eng.stop()
+        n_kernels, busy_ms, top = _device_summary(prof)
+        tokens = sum(len(o) for o in outs)
+        serve_ok &= n_kernels > 0 and tokens > 0
+        emit({"phase": "profile", "path": "serving", "pipeline_depth": depth,
+              "dtype": "bf16", "requests": N_REQ, "tokens": tokens,
+              "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms,
+              "chunks": stats["chunks"], "prefill_pieces": stats["prefill_pieces"],
+              "kernels": n_kernels, "device_busy_ms": busy_ms,
+              "device_busy_share": busy_ms / plain_wall_ms,
+              "device_busy_share_profiled": busy_ms / wall_ms,
+              "top_kernels": [{"name": k, "count": n, "ms": ms}
+                              for k, (n, ms) in top[:10]],
+              "card": state["card"], "ok": n_kernels > 0 and tokens > 0})
+        del eng
+    del model
     torch.cuda.empty_cache()
 
     from kubeflow_tpu_torch.models.transformer import (
@@ -1015,7 +1212,7 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     runners = {"kernels": phase_kernels, "forward": phase_forward,
                "serving": phase_serving, "parity": phase_parity,
-               "train": phase_train,
+               "engine": phase_engine, "train": phase_train,
                "profile": phase_profile}
     ok = True
     for p in phases:
@@ -1049,6 +1246,9 @@ def main(argv=None) -> int:
             kernels.append({
                 "name": r["kernel"], "route": "cuda", "source": src,
                 "replaces": rep, "body": r["body"], "launches": launches,
+                **({"launches_by_s": state.get("paged_launches_by_s"),
+                    "verify_launches_engine_phase": state.get("verify_launches")}
+                   if key == "paged_main" else {}),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -12,8 +12,8 @@ arithmetic on positions, so no mask operand exists.
 :func:`paged_attention` launches ``csrc/paged_attention.cu`` for CUDA
 tensors and runs :func:`paged_attention_reference` for CPU tensors — the
 choice follows the tensors' device only, never a fallback on error.
-``LAUNCHES`` counts kernel launches, so a run can show the serving path
-went through the kernel. The kernel has one body, ``"split"``
+``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_S`` by span length),
+so a run can show the serving path went through the kernel. The kernel has one body, ``"split"``
 (:func:`body`): a row's pages are split across the warps of its block,
 whose partial softmax states merge by their maxima (flash-decoding inside
 one block); it takes head dims up to 128 whose pool rows are a whole
@@ -36,6 +36,9 @@ from kubeflow_tpu_torch.ops import _build
 NEG_INF = -1e30  # the gather path's masked-score fill
 #: kernel launches since the counter was last set to 0
 LAUNCHES = 0
+#: the same launches by query span S (1: decode, K+1: a speculative
+#: verify, a bucket or chunk: a prefill piece); cleared with LAUNCHES
+LAUNCHES_BY_S: dict[int, int] = {}
 
 _DTYPE_CODES = {
     torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3,
@@ -234,6 +237,7 @@ def _launch(q, k_pool, v_pool, page_table, pos0, page_size, window, scale,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         LAUNCHES += 1
+        LAUNCHES_BY_S[S] = LAUNCHES_BY_S.get(S, 0) + 1
         code = lib.kft_paged_attention(
             ptr(q), ptr(k_pool), ptr(v_pool),
             ptr(k_scale) if quant else none, ptr(v_scale) if quant else none,

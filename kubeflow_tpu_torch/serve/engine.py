@@ -1,24 +1,43 @@
 """Continuous-batching LM engine over a paged KV pool — the port of
-``kubeflow_tpu/serve/engine.py:LMEngine`` (paged mode, ``pipeline_depth=0``).
+``kubeflow_tpu/serve/engine.py:LMEngine`` in paged mode.
 
 Requests join and leave a running decode batch of ``max_batch`` rows:
 
 - **Admission** claims a free row and the request's whole page budget
   (prompt + max_new_tokens) from the pool; when the pool is short the
   request is HELD (FIFO: nothing admits past it) until completions free
-  pages. The prompt, padded to its prefill bucket, is prefilled in one
-  forward that writes its K/V through the block table and samples the
-  first token.
+  pages. A stored prompt prefix (the prefix cache) is copied into the
+  row's pages, and the rest of the prompt is prefilled — in one piece,
+  or with ``prefill_chunk`` in pieces interleaved with decode chunks, one
+  piece per loop iteration. The final piece samples the first token.
 - **Decode runs in chunks** of ``chunk_steps`` steps for all rows (dead
-  rows step too and write to the scratch page). The per-row arrays go to
-  the device once per chunk and the tokens come back once per chunk; the
-  host credits them, retires rows on EOS or budget and recycles them.
+  rows step too and write to the scratch page). With
+  ``spec_draft_tokens=K`` each step drafts up to K tokens by prompt
+  lookup and verifies them in one (K+1)-position forward
+  (``serve/speculative.py``), emitting up to K+1 tokens a step.
+- **Pipelined dispatch** (``pipeline_depth=1``, the default): the per-row
+  arrays live on the card as a *carry* threaded from one chunk into the
+  next, and chunk N+1 is queued before chunk N is drained, so the host's
+  drain of N overlaps N+1 on the card. Host edits (admission, prefill
+  activation, cancellation) are *epochs*: they dirty the carry, the
+  in-flight chunk is drained first, and the carry is uploaded once.
+  Each chunk's outputs are copied at dispatch into a pinned buffer of its
+  own and the drain waits on that copy's event; every upload is staged
+  through pinned memory (``serve/hostio.py``), so nothing the host does
+  between chunks stalls the card's stream. ``pipeline_depth=0`` keeps the
+  synchronous loop (upload, dispatch, drain) for parity and debugging.
 - A row's token space is contiguous, so position == token index and the
   model's paged branch derives causal and window masks from positions.
+- **Seeded requests** (``seed=``) draw the token at position p from
+  ``fold_in(PRNGKey(seed), p)`` (``serve/threefry.py``), identically to
+  the JAX engine, so a stream resumed with ``resume_tokens`` on any
+  replica continues exactly; unseeded temperature draws come from the
+  engine's ``torch.Generator``.
 
-Greedy token streams are identical to the JAX engine's on the same
-weights (pinned by ``tests/test_torch_engine.py``). The settings of the
-JAX ``LMEngineConfig`` that this port does not implement yet raise
+Greedy token streams, and seeded sampled ones, are identical to the JAX
+engine's on the same weights (``tests/test_torch_engine*.py``,
+``tests/test_torch_spec.py``). The settings of the JAX
+``LMEngineConfig`` this port does not implement raise
 ``NotImplementedError`` naming their ROADMAP item; none is ignored.
 """
 
@@ -28,7 +47,7 @@ import concurrent.futures as cf
 import queue
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field, replace as _dc_replace
 from typing import Any, Mapping
 
@@ -42,19 +61,32 @@ from kubeflow_tpu_torch.models.transformer import (
     init_weights,
 )
 from kubeflow_tpu_torch.serve.generate import sample_logits
+from kubeflow_tpu_torch.serve.headers import seed_from_headers
+from kubeflow_tpu_torch.serve.hostio import OutputRing, Uploader
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.paging import PageAllocator
+from kubeflow_tpu_torch.serve.speculative import propose_draft, spec_accept
+from kubeflow_tpu_torch.serve.threefry import seeded_sample
 
 #: idle park bound — every waker (submit, cancel, stop) sets ``_work``, so
 #: this timeout is only a belt-and-braces sweep, not a poll
 _IDLE_PARK_S = 5.0
+_INT32 = np.iinfo(np.int32)
 
 
 @dataclass
 class LMEngineConfig:
-    """Engine knobs, with the JAX ``LMEngineConfig``'s names and defaults
-    except ``pipeline_depth`` (0 until the pipelined loop is ported).
-    Every field can also be given to ``LMEngine(...)`` as a keyword."""
+    """Engine knobs, with the JAX ``LMEngineConfig``'s names and defaults.
+    Every field can also be given to ``LMEngine(...)`` as a keyword.
+
+    ``pipeline_depth``: 1 (default) the pipelined one-chunk-ahead loop, 0
+    the synchronous one. ``spec_draft_tokens`` (K > 0): speculative
+    decoding, matching on ``spec_ngram`` tokens. ``prefix_cache_entries``
+    (> 0): completed prompt prefills donate their KV, keyed by the prompt
+    rounded down to 16 tokens, LRU-bounded by entries and, when set,
+    ``prefix_cache_tokens``. ``prefill_chunk`` (a multiple of 16):
+    prompts prefill in pieces of that many tokens, interleaved with
+    decode, and are no longer bound by the largest prefill bucket."""
 
     max_batch: int = 8
     max_seq: int = 256
@@ -71,7 +103,7 @@ class LMEngineConfig:
     rules: Any = None
     kv_pool_tokens: int | None = None
     page_size: int | None = 64
-    pipeline_depth: int = 0
+    pipeline_depth: int = 1
     spec_draft_tokens: int = 0
     spec_ngram: int = 3
     paged_attn_impl: str = "gather"
@@ -80,20 +112,13 @@ class LMEngineConfig:
 
 
 def _reject_unported(c: LMEngineConfig) -> None:
-    """Settings of the JAX engine this slice does not implement raise."""
+    """Settings of the JAX engine this port does not implement raise;
+    the JAX constructor's own checks run after them."""
     unported = [
         (c.kv_pool_tokens is None,
          "dense KV mode (kv_pool_tokens=None)", "queue 1 item 3"),
-        (c.pipeline_depth == 1,
-         "the pipelined loop (pipeline_depth=1)", "queue 1 item 6c"),
-        (c.spec_draft_tokens > 0,
-         "speculative decoding (spec_draft_tokens>0)", "queue 1 items 5, 6d"),
-        (c.prefix_cache_entries > 0 or c.prefix_cache_tokens is not None,
-         "the prefix cache", "queue 1 item 6f"),
-        (c.prefill_chunk is not None,
-         "chunked prefill (prefill_chunk)", "queue 1 item 6f"),
         (c.host_kv_bytes > 0,
-         "the host KV tier (host_kv_bytes>0)", "queue 1 item 6f"),
+         "the host KV tier (host_kv_bytes>0)", "queue 1 item 7"),
         (c.mesh is not None or c.rules is not None,
          "tensor-parallel serving (mesh/rules)", "queue 1 item 10"),
         (c.page_size is None,
@@ -105,10 +130,19 @@ def _reject_unported(c: LMEngineConfig) -> None:
                 f"{what} is not ported yet (ROADMAP {item})"
             )
     if c.pipeline_depth not in (0, 1):
-        raise ValueError(f"pipeline_depth must be 0 or 1; got {c.pipeline_depth}")
+        raise ValueError(
+            "pipeline_depth must be 0 (inline) or 1 (one-chunk-ahead); "
+            f"got {c.pipeline_depth}"
+        )
     if c.spec_draft_tokens < 0:
         raise ValueError(
-            f"spec_draft_tokens must be >= 0; got {c.spec_draft_tokens}"
+            f"spec_draft_tokens must be >= 0 (0 disables speculative "
+            f"decoding); got {c.spec_draft_tokens}"
+        )
+    if c.spec_draft_tokens and c.spec_ngram < 1:
+        raise ValueError(
+            f"spec_ngram must be >= 1 when speculative decoding is on; "
+            f"got {c.spec_ngram}"
         )
     if c.paged_attn_impl not in ("gather", "kernel"):
         raise ValueError(
@@ -117,14 +151,10 @@ def _reject_unported(c: LMEngineConfig) -> None:
         )
     if c.kv_quant not in ("none", "int8"):
         raise ValueError(f"kv_quant must be 'none' or 'int8'; got {c.kv_quant!r}")
-
-
-def _reject_per_request(seed, resume_tokens) -> None:
-    if seed is not None or resume_tokens:
-        raise NotImplementedError(
-            "per-request seed / resume is not ported yet (ROADMAP queue 1 "
-            "item 6f)"
-        )
+    if c.prefill_chunk is not None and (
+        c.prefill_chunk < 16 or c.prefill_chunk % 16
+    ):
+        raise ValueError("prefill_chunk must be a multiple of 16")
 
 
 class EngineOverloaded(RuntimeError):
@@ -153,6 +183,8 @@ class _Request:
     cancelled: threading.Event = field(default_factory=threading.Event)
     # end-to-end deadline (absolute time.monotonic())
     deadline: float | None = None
+    # per-request sampling seed (None: the engine generator's draws)
+    seed: int | None = None
     t_enqueue: float = 0.0
     t_first: float = 0.0
 
@@ -170,16 +202,14 @@ class _Request:
 
 
 @dataclass
-class _Chunk:
-    """One dispatched decode chunk: device outputs plus the slot snapshot
-    at dispatch, so the drain credits tokens to the right requests."""
+class _PendingChunk:
+    """One dispatched, undrained decode chunk: its outputs staged for the
+    host (``OutputRing.stage``: toks and valid ``(B, T)``, or ``(B, T,
+    K+1)`` planes with eos/prop/acc ``(B, T)`` under speculation; the
+    post-chunk carry; liveness at dispatch) plus the slot snapshot at
+    dispatch, so the drain can mask rows retired while it was in flight."""
 
-    toks: torch.Tensor       # (B, T) tokens (pad where not valid)
-    valid: torch.Tensor      # (B, T)
-    last_tok: torch.Tensor   # (B,) post-chunk carry token
-    gen_count: torch.Tensor  # (B,) post-chunk generation counts
-    active_out: torch.Tensor  # (B,) post-chunk liveness
-    active_in: np.ndarray    # (B,) liveness at dispatch
+    staged: dict
     slots: list
 
 
@@ -212,30 +242,56 @@ class LMEngine:
         self.page_size = config.page_size
         self.paged_attn_impl = config.paged_attn_impl
         self.kv_quant = config.kv_quant
+        self.pipeline_depth = config.pipeline_depth
+        #: speculative decode: K draft tokens verified per forward (0 = off)
+        self.spec_k = config.spec_draft_tokens
+        self.spec_ngram = config.spec_ngram
+        self.prefill_chunk = config.prefill_chunk
+        #: every host→device copy of the scheduler (pinned on the card)
+        self.uploader = Uploader(self.device)
+        #: one pinned output buffer per chunk in flight
+        self._outputs = OutputRing(self.device, slots=self.pipeline_depth + 1)
         self.pager = PageAllocator(
             pool_tokens=config.kv_pool_tokens,
             page_size=config.page_size,
             max_batch=config.max_batch,
             max_pages_per_row=-(-config.max_seq // config.page_size),
-            device=self.device,
+            upload=self.uploader.upload,
         )
         self.cache = init_paged_kv_cache(
             cfg, config.kv_pool_tokens, kv_quant=self.kv_quant,
             device=self.device,
         )
-        #: sampling noise for temperature > 0 rows (threefry's stream is
-        #: not reproducible here; greedy rows never read it)
+        #: noise for unseeded temperature > 0 rows (threefry's engine-key
+        #: stream is not reproduced; greedy and seeded rows never read it)
         self._gen = torch.Generator(device=self.device).manual_seed(config.seed)
+        #: the decode chunk program (tests may wrap it to inject faults)
+        self._chunk = self._chunk_spec_paged if self.spec_k else self._chunk_paged
 
         B = config.max_batch
-        # per-row host mirrors; they ride to the device once per chunk
+        # per-row host mirrors; they ride to the device once per epoch
         self.real_len = np.zeros((B,), np.int64)   # prompt length
         self.gen_count = np.zeros((B,), np.int64)  # tokens so far
         self.budget = np.zeros((B,), np.int64)     # max_new_tokens
         self.last_tok = np.zeros((B,), np.int64)
         self.active = np.zeros((B,), bool)
         self.temp = np.zeros((B,), np.float32)
+        #: per-row sampling seed (-1 = unseeded)
+        self.seeds = np.full((B,), -1, np.int32)
+        #: host twin of the carry's seeds: picks the seeded chunk variant
+        #: at dispatch without a device sync
+        self._carry_seeded = False
+        #: speculation: the host mirror of each row's token history
+        #: (prompt + generated, by position); the device copy rides the
+        #: carry and is rewritten in-graph each step. Width max_seq + K + 1
+        #: leaves the (K+1)-wide span write at hist_len room to never clip.
+        self.hist_host = (
+            np.zeros((B, config.max_seq + self.spec_k + 1), np.int64)
+            if self.spec_k else None
+        )
         self._slots: list[_Request | None] = [None] * B
+        #: rows mid-prefill: row → piece state (``_admit``)
+        self._prefilling: dict[int, dict] = {}
         #: a request held back by page backpressure (FIFO preserved)
         self._held: _Request | None = None
 
@@ -246,13 +302,49 @@ class LMEngine:
         self._thread: threading.Thread | None = None
         self.stats = {
             "admitted": 0, "completed": 0, "chunks": 0, "max_concurrent": 0,
+            "prefix_hits": 0, "prefix_tokens_reused": 0,
             "prefill_pieces": 0, "idle_wakes": 0, "page_holds": 0,
             "kv_pages_used_peak": 0,
+            "spec_proposed": 0, "spec_accepted": 0,
             "deadline_expired_queued": 0, "deadline_expired_decoding": 0,
+            "resume_admits": 0,
         }
         #: time to first token of recent completions, milliseconds
         #: (enqueue → first token on the host)
         self.ttft_ms: deque[float] = deque(maxlen=1024)
+
+        # the pipelined loop's device-resident carry, its dirtiness (host
+        # edits pending an epoch) and the page-horizon bookkeeping that
+        # widens the table across chunks within an epoch
+        self._carry: dict[str, Any] | None = None
+        self._carry_dirty = True
+        self._carry_chunks = 0   # chunks dispatched since the last upload
+        self._carry_h0 = 0       # max(real_len + gen_count) at upload
+        self._carry_hcap = 0     # max(real_len + budget) at upload
+        self._carry_pages_w = 0  # uploaded table width (pages)
+        self._last_dispatch: float | None = None
+        self.overlap = {
+            "decode_gap_ms": 0.0,    # EWMA host time between dispatches
+            "d2h_drain_ms": 0.0,     # EWMA wait + unpack of a chunk's outputs
+            "carry_uploads": 0,      # epoch uploads and table widenings
+            "slot_occupancy": 0.0,   # EWMA occupied-row share at dispatch
+            "spec_acceptance": 0.0,  # EWMA accepted / proposed drafts
+        }
+
+        # prefix cache: completed prompt prefills donate their KV, keyed by
+        # the prompt ids rounded DOWN to a 16-token multiple
+        self._prefix_cache: "OrderedDict[tuple, dict] | None" = (
+            OrderedDict() if config.prefix_cache_entries > 0 else None
+        )
+        #: guards the prefix maps: the scheduler stores and looks up, other
+        #: threads index and drop
+        self._prefix_lock = threading.Lock()
+        self._prefix_cache_entries = config.prefix_cache_entries
+        self._prefix_cache_tokens = config.prefix_cache_tokens
+        self._prefix_lens: dict[int, int] = {}  # stored length → count
+        #: descending stored lengths, memoized (store/evict invalidate)
+        self._prefix_lens_sorted: list[int] | None = None
+        self._prefix_tokens_stored = 0
 
     # -- device programs ---------------------------------------------------- #
 
@@ -265,38 +357,54 @@ class LMEngine:
             w *= 2
         return min(w, self.pager.max_pages_per_row)
 
-    def _suffix_prefill(self, piece, slen, table, temperature):
-        """One row's prefill piece writes tokens [0, S) through its block
-        table (pad positions >= slen go to the scratch page) and samples
-        the token after the last real one."""
-        S = piece.shape[1]
-        ar = torch.arange(S, device=self.device)
+    def _forward(self, x, positions, table, write_ok):
         logits, _ = self.model(
-            piece, cache=self.cache, positions=ar[None, :],
-            page_table=table, page_size=self.page_size,
-            page_write_ok=(ar < slen)[None, :],
+            x, cache=self.cache, positions=positions, page_table=table,
+            page_size=self.page_size, page_write_ok=write_ok,
             paged_attn_impl=self.paged_attn_impl, kv_quant=self.kv_quant,
         )
-        tok = sample_logits(logits[:, slen - 1], temperature, self._gen)[0]
-        return tok, tok != self.eos_id
+        return logits
 
-    def _chunk_paged(self, c: dict):
+    def _suffix_prefill(self, piece, slen: int, offset: int, table,
+                        temperature: float, seed: int, pos: int, *,
+                        seeded: bool):
+        """One row's prefill piece writes tokens [offset, offset + S)
+        through its block table (pad positions >= slen go to the scratch
+        page) and samples the token after the last real one — by the
+        seeded draw at absolute position ``pos`` when ``seeded``."""
+        S = piece.shape[1]
+        dev = self.device
+        ar = torch.arange(S, device=dev)
+        logits = self._forward(piece, (offset + ar)[None, :], table,
+                               (ar < slen)[None, :])
+        last = logits[:, slen - 1]
+        temp = torch.full((1,), temperature, dtype=torch.float32, device=dev)
+        tok = sample_logits(last, temp, self._gen)
+        if seeded:
+            tok = seeded_sample(
+                last, torch.full((1,), seed, dtype=torch.int64, device=dev),
+                torch.full((1,), pos, dtype=torch.int64, device=dev), temp, tok,
+            )
+        return tok[0]
+
+    def _chunk_paged(self, c: dict, *, seeded: bool):
         """``chunk_steps`` decode steps for all rows (a Python loop where
-        the JAX engine scans). Dead rows still step, but their writes go
-        to the scratch page — their pages may belong to another row."""
+        the JAX engine scans; nothing in it waits for the card). Dead
+        rows still step, but their writes go to the scratch page — their
+        pages may belong to another row."""
         tok, gen_count, active = c["last_tok"], c["gen_count"], c["active"]
-        real_len, budget = c["real_len"], c["budget"]
+        real_len, budget, temp = c["real_len"], c["budget"], c["temp"]
         toks, valids = [], []
         for _ in range(self.chunk_steps):
             live = active & (gen_count < budget)
             cur = real_len + gen_count - 1                    # token index
-            lg, _ = self.model(
-                tok[:, None], cache=self.cache, positions=cur[:, None],
-                page_table=c["table"], page_size=self.page_size,
-                page_write_ok=live[:, None],
-                paged_attn_impl=self.paged_attn_impl, kv_quant=self.kv_quant,
-            )
-            nxt = sample_logits(lg[:, 0], c["temp"], self._gen)
+            lg = self._forward(tok[:, None], cur[:, None], c["table"],
+                               live[:, None])
+            nxt = sample_logits(lg[:, 0], temp, self._gen)
+            if seeded:
+                # the new token's absolute position is real_len + gen_count
+                nxt = seeded_sample(lg[:, 0], c["seed"], real_len + gen_count,
+                                    temp, nxt)
             valid = live & (nxt != self.eos_id)
             out = torch.where(valid, nxt, self.pad_id)
             gen_count = torch.where(live, gen_count + 1, gen_count)
@@ -304,7 +412,125 @@ class LMEngine:
             active = valid
             toks.append(out)
             valids.append(valid)
-        return tok, gen_count, active, torch.stack(toks, 1), torch.stack(valids, 1)
+        return {"last_tok": tok, "gen_count": gen_count, "active": active,
+                "toks": torch.stack(toks, 1), "valid": torch.stack(valids, 1)}
+
+    def _spec_emit(self, emitted, n_emit, draft_len, n_acc, tok, gen_count,
+                   active, budget):
+        """Post-verify gating of one speculative step: the one-token
+        step's liveness, budget and EOS rules applied to the span. Span
+        position i is live iff the row was live, i was emitted, the
+        budget admits it and no live EOS came earlier; an EOS position is
+        live but not valid (budget charged, token not emitted)."""
+        K1 = self.spec_k + 1
+        i = torch.arange(K1, device=emitted.device)[None, :]
+        live0 = active & (gen_count < budget)
+        cand = (live0[:, None] & (i < n_emit[:, None])
+                & (gen_count[:, None] + i < budget[:, None]))
+        is_eos = emitted == self.eos_id
+        eos_here = (cand & is_eos).long()
+        no_eos_before = torch.cat(
+            [torch.ones_like(eos_here[:, :1]),
+             torch.cumprod(1 - eos_here, dim=1)[:, :-1]], dim=1,
+        ).bool()
+        live_i = cand & no_eos_before
+        valid_i = live_i & ~is_eos
+        out = torch.where(valid_i, emitted, self.pad_id)
+        adv = live_i.sum(dim=1)
+        eos_step = (live_i & is_eos).any(dim=1)
+        # carry token: the last VALID emitted token (frozen through EOS)
+        last_idx = (adv - 1).clamp(0, K1 - 1)[:, None]
+        last_out = torch.gather(out, 1, last_idx)[:, 0]
+        last_ok = torch.gather(valid_i, 1, last_idx)[:, 0]
+        new_tok = torch.where((adv > 0) & last_ok, last_out, tok)
+        # telemetry, gated to live rows
+        prop = torch.where(live0, draft_len, 0)
+        acc = torch.where(live0, torch.minimum(n_acc, adv), 0)
+        return (out, valid_i, live_i, eos_step, new_tok, gen_count + adv,
+                active & ~eos_step, prop, acc)
+
+    def _spec_hist_update(self, hist, hist_len, emitted, live_i):
+        """Write the span's live tokens into each row's history at
+        positions [hist_len, hist_len + K] (the buffer is wide enough that
+        the window never clips)."""
+        K1 = self.spec_k + 1
+        idx = hist_len[:, None] + torch.arange(K1, device=hist.device)[None, :]
+        win = torch.gather(hist, 1, idx)
+        return hist.scatter(1, idx, torch.where(live_i, emitted, win))
+
+    def _chunk_spec_paged(self, c: dict, *, seeded: bool):
+        """Speculative twin of :meth:`_chunk_paged`: each step drafts up
+        to K tokens from the row's device history and verifies them in ONE
+        (K+1)-position forward at positions ``L-1 .. L-1+K`` (through the
+        paged kernel under ``paged_attn_impl="kernel"``, ``S = K+1`` with
+        each row's own ``pos0``). Span positions past the row's budgeted
+        region write to the scratch page. Rows with no match draft 0
+        tokens and take the one-token step."""
+        K = self.spec_k
+        tok, gen_count, active = c["last_tok"], c["gen_count"], c["active"]
+        real_len, budget, temp, hist = (
+            c["real_len"], c["budget"], c["temp"], c["hist"])
+        span = torch.arange(K + 1, device=tok.device)[None, :]
+        outs: dict[str, list] = {k: [] for k in ("toks", "valid", "eos",
+                                                  "prop", "acc")}
+        for _ in range(self.chunk_steps):
+            live0 = active & (gen_count < budget)
+            L = real_len + gen_count                      # history length
+            draft, draft_len = propose_draft(hist, L, ngram=self.spec_ngram,
+                                             k=K)
+            if seeded:
+                # seeded temperature rows do not speculate: the accept and
+                # resample draws would tie their stream to the batch's
+                # generator state; they take the one-token seeded draw
+                draft_len = torch.where((c["seed"] >= 0) & (temp > 0.0), 0,
+                                        draft_len)
+            x = torch.cat([tok[:, None], draft], dim=1)
+            positions = (L - 1)[:, None] + span
+            write_ok = live0[:, None] & (positions < (real_len + budget)[:, None])
+            lg = self._forward(x, positions, c["table"], write_ok)
+            emitted, n_emit, n_acc = spec_accept(lg, draft, draft_len,
+                                                 self._gen, temp)
+            if seeded:
+                # span position 0's absolute position is L
+                emitted = torch.cat([
+                    seeded_sample(lg[:, 0], c["seed"], L, temp,
+                                  emitted[:, 0])[:, None],
+                    emitted[:, 1:]], dim=1)
+            (out, valid_i, live_i, eos_step, tok, gen_count, active, prop,
+             acc) = self._spec_emit(emitted, n_emit, draft_len, n_acc, tok,
+                                    gen_count, active, budget)
+            hist = self._spec_hist_update(hist, L, emitted, live_i)
+            for k, v in zip(outs, (out, valid_i, eos_step, prop, acc)):
+                outs[k].append(v)
+        res = {k: torch.stack(v, 1) for k, v in outs.items()}
+        res.update(last_tok=tok, gen_count=gen_count, active=active, hist=hist)
+        return res
+
+    def _extract_prefix(self, row: int, n16: int) -> dict:
+        """Copy row ``row``'s first n16 KV tokens out through its block
+        table: ``(1, kv_heads, n16, D)`` per layer, plus ``(1, kv_heads,
+        n16)`` scales for an int8 pool (the JAX entry format)."""
+        idx = self._token_index(row, n16)
+        out = {}
+        for name, lc in self.cache.items():
+            out[name] = {which: arr[:, idx][None] for which, arr in lc.items()}
+        return out
+
+    def _implant_paged(self, stored: dict, row: int, n16: int) -> None:
+        """Scatter a stored prefix into row ``row``'s pages at token
+        indices [0, n16)."""
+        idx = self._token_index(row, n16)
+        for name, lc in self.cache.items():
+            for which, arr in lc.items():
+                arr[:, idx] = stored[name][which][0].to(arr.dtype)
+
+    def _token_index(self, row: int, n: int) -> torch.Tensor:
+        """Pool token of each of row ``row``'s first n tokens."""
+        j = np.arange(n)
+        P = self.page_size
+        return self.uploader.upload(
+            self.pager.table[row, j // P].astype(np.int64) * P + j % P
+        )
 
     # -- lifecycle ---------------------------------------------------------- #
 
@@ -345,7 +571,8 @@ class LMEngine:
     # -- admission ---------------------------------------------------------- #
 
     def _enqueue(self, ids, max_new_tokens, temperature, *, live: bool,
-                 deadline: float) -> _Request:
+                 deadline: float, resume: int = 0,
+                 seed: int | None = None) -> _Request:
         if not ids:
             raise ValueError("empty prompt")
         if self._fatal is not None:
@@ -356,6 +583,8 @@ class LMEngine:
             raise DeadlineExceeded(
                 "deadline already expired at admission", stage="admission"
             )
+        if seed is not None and not _INT32.min <= seed <= _INT32.max:
+            raise ValueError(f"seed must be a 32-bit integer; got {seed}")
         # bounded admission: rows decoding + queue beyond max_batch +
         # max_queue is shed — an unbounded tail would outwait any client
         occupied = sum(s is not None for s in self._slots)
@@ -366,7 +595,8 @@ class LMEngine:
                 f"{self._pending.qsize() + held} queued, "
                 f"max_queue={self.max_queue})"
             )
-        # max_seq first: a request over the per-row bound must say so
+        # max_seq first: a request over the per-row bound must say so; the
+        # token space is contiguous, so the layout is the prompt itself
         if len(ids) + max_new_tokens > self.max_seq:
             raise ValueError(
                 f"prompt layout {len(ids)} + max_new_tokens {max_new_tokens} "
@@ -378,19 +608,45 @@ class LMEngine:
                 f"request needs {need} pages; pool has "
                 f"{self.pager.num_pages - 1} — raise kv_pool_tokens"
             )
-        self._bucket(len(ids))  # reject over-bucket prompts now
+        if self.prefill_chunk is None:
+            self._bucket(len(ids))  # reject over-bucket prompts now
         req = _Request(
             list(ids), max_new_tokens, temperature,
             live=queue.Queue() if live else None, deadline=deadline,
-            t_enqueue=time.monotonic(),
+            seed=seed, t_enqueue=time.monotonic(),
         )
+        if resume:  # committed tokens of a mid-stream failover joined ids
+            self.stats["resume_admits"] += 1
         self._pending.put(req)
         self._work.set()
         if (self._stop.is_set() or self._fatal is not None) and not req.done.is_set():
             # raced stop()'s or the crash handler's drain: fail it here
             req.error = RuntimeError("LM engine stopped")
+            if self._fatal is not None:
+                req.error = RuntimeError("LM engine is dead")
+                req.error.__cause__ = self._fatal
             req.finish()
         return req
+
+    def _resume_args(self, ids, max_new_tokens: int, resume_tokens):
+        """Fold a mid-stream-failover resume prefix into the admission
+        arguments: the committed tokens join the prompt and the budget
+        shrinks by them, so the stream's total length is what the original
+        request asked for. Returns ``(ids, max_new_tokens, resume)``."""
+        if not resume_tokens:
+            return list(ids), max_new_tokens, 0
+        resume = len(resume_tokens)
+        if max_new_tokens - resume < 1:
+            raise ValueError(
+                f"resume prefix ({resume} tokens) leaves no generation "
+                f"budget (max_new_tokens={max_new_tokens})"
+            )
+        if self.eos_id in resume_tokens:
+            raise ValueError(
+                "resume prefix contains EOS — the stream already finished"
+            )
+        return (list(ids) + [int(t) for t in resume_tokens],
+                max_new_tokens - resume, resume)
 
     def submit(
         self, ids: list[int], *, max_new_tokens: int = 32,
@@ -400,12 +656,16 @@ class LMEngine:
     ) -> list[int]:
         """Generate up to ``max_new_tokens`` after ``ids``; blocks until
         done. ``deadline`` (absolute ``time.monotonic()``) bounds queue
-        wait and decode; ``timeout_s`` becomes it when none is given."""
-        _reject_per_request(seed, resume_tokens)
+        wait and decode; ``timeout_s`` becomes it when none is given.
+        ``seed`` pins position-folded sampling (``serve/threefry.py``);
+        ``resume_tokens`` (already-committed generated tokens) extend the
+        prompt and shrink the budget — only the tokens past them return."""
         if deadline is None:
             deadline = time.monotonic() + timeout_s
+        ids, max_new_tokens, resume = self._resume_args(
+            ids, max_new_tokens, resume_tokens)
         req = self._enqueue(ids, max_new_tokens, temperature, live=False,
-                            deadline=deadline)
+                            deadline=deadline, resume=resume, seed=seed)
         if not req.done.wait(max(0.0, deadline - time.monotonic())):
             # hand the row back: nobody will read its tokens
             req.cancelled.set()
@@ -422,12 +682,14 @@ class LMEngine:
         resume_tokens: list[int] | None = None,
     ):
         """Yields lists of new tokens as prefill and decode chunks
-        complete; every wait is charged against one deadline."""
-        _reject_per_request(seed, resume_tokens)
+        complete; every wait is charged against one deadline. ``seed`` and
+        ``resume_tokens`` as in :meth:`submit`."""
         if deadline is None:
             deadline = time.monotonic() + timeout_s
+        ids, max_new_tokens, resume = self._resume_args(
+            ids, max_new_tokens, resume_tokens)
         req = self._enqueue(ids, max_new_tokens, temperature, live=True,
-                            deadline=deadline)
+                            deadline=deadline, resume=resume, seed=seed)
         try:
             while True:
                 remaining = deadline - time.monotonic()
@@ -461,7 +723,8 @@ class LMEngine:
 
     def _admit_all(self) -> None:
         # cancelled and deadline-expired rows free up before admission
-        # looks for space
+        # looks for space: _finish dirties the carry, so the in-flight
+        # chunk drains with the row masked out before one re-upload
         now = time.monotonic()
         for row in range(self.max_batch):
             req = self._slots[row]
@@ -511,17 +774,126 @@ class LMEngine:
                 req.error = e
                 req.finish()
 
+    # -- prefix cache ------------------------------------------------------- #
+
+    def _lookup_prefix(self, ids: list[int]):
+        """Longest stored prefix strictly shorter than the prompt (one
+        token must remain to prefill for the first-token logits). Keys are
+        exact 16-multiples: only stored lengths are probed, longest first."""
+        if self._prefix_cache is None:
+            return None
+        top = (len(ids) - 1) // 16 * 16
+        with self._prefix_lock:
+            if self._prefix_lens_sorted is None:
+                self._prefix_lens_sorted = sorted(self._prefix_lens, reverse=True)
+            for n16 in self._prefix_lens_sorted:
+                if n16 > top:
+                    continue
+                key = tuple(ids[:n16])
+                entry = self._prefix_cache.get(key)
+                if entry is not None:
+                    self._prefix_cache.move_to_end(key)
+                    return key, entry
+        return None
+
+    def _store_prefix(self, ids: list[int], row: int) -> None:
+        """Donate row ``row``'s KV for ids[:n16] (its first n16 tokens are
+        real prompt tokens once its prefill completed)."""
+        n16 = (len(ids) // 16) * 16
+        if n16 < 16 or (
+            self._prefix_cache_tokens is not None
+            and n16 > self._prefix_cache_tokens
+        ):
+            return
+        key = tuple(ids[:n16])
+        with self._prefix_lock:
+            if key in self._prefix_cache:
+                self._prefix_cache.move_to_end(key)
+                return
+            self._insert_prefix_locked(key, self._extract_prefix(row, n16))
+
+    def _insert_prefix_locked(self, key: tuple, entry: dict) -> None:
+        """Insert one entry and LRU-evict to both bounds (entries, and
+        stored tokens when set). Caller holds ``_prefix_lock``."""
+        n16 = len(key)
+        self._prefix_cache[key] = entry
+        if n16 not in self._prefix_lens:
+            self._prefix_lens_sorted = None
+        self._prefix_lens[n16] = self._prefix_lens.get(n16, 0) + 1
+        self._prefix_tokens_stored += n16
+        while len(self._prefix_cache) > self._prefix_cache_entries or (
+            self._prefix_cache_tokens is not None
+            and self._prefix_tokens_stored > self._prefix_cache_tokens
+            and len(self._prefix_cache) > 1
+        ):
+            old_key, _ = self._prefix_cache.popitem(last=False)
+            n = len(old_key)
+            self._prefix_tokens_stored -= n
+            self._prefix_lens[n] -= 1
+            if not self._prefix_lens[n]:
+                del self._prefix_lens[n]
+                self._prefix_lens_sorted = None
+
+    def prefix_cache_stats(self) -> dict:
+        """Prefix-cache counters: cumulative hits and tokens reused, live
+        entries and stored tokens."""
+        return {
+            "hits": self.stats["prefix_hits"],
+            "tokens_reused": self.stats["prefix_tokens_reused"],
+            "entries": len(self._prefix_cache or ()),
+            "tokens_stored": self._prefix_tokens_stored,
+        }
+
+    def prefix_index(self) -> list[tuple[int, ...]]:
+        """The stored prefix keys, LRU → MRU."""
+        with self._prefix_lock:
+            return list(self._prefix_cache or ())
+
+    def drop_prefix_cache(self) -> int:
+        """Wipe every stored prefix entry; returns the entries dropped."""
+        with self._prefix_lock:
+            if self._prefix_cache is None:
+                return 0
+            n = len(self._prefix_cache)
+            self._prefix_cache.clear()
+            self._prefix_lens.clear()
+            self._prefix_lens_sorted = None
+            self._prefix_tokens_stored = 0
+            return n
+
+    # -- prefill ------------------------------------------------------------ #
+
     def _admit(self, req: _Request, row: int) -> None:
-        """Claim a row and its pages and prefill the prompt."""
+        """Claim a row and its pages, implant any cached prefix, lay out
+        the prefill pieces and run the FIRST one when it is the only one.
+        Multi-piece rows stay in ``_prefilling`` and take one piece per
+        loop iteration, between decode chunks."""
+        base, rest = 0, req.ids
+        hit = self._lookup_prefix(req.ids)
         self.pager.alloc(
             row, self.pager.pages_for(len(req.ids) + req.max_new_tokens)
         )
-        C = self._bucket(len(req.ids))
+        if hit is not None:
+            key, stored = hit
+            base = len(key)
+            rest = req.ids[base:]
+            self._implant_paged(stored, row, base)
+            # suffixes pad to the 16-token quantum, not a prefill bucket
+            C = self.prefill_chunk or -(-len(rest) // 16) * 16
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += base
+        else:
+            C = self.prefill_chunk or self._bucket(len(rest))
+        n_pieces = -(-len(rest) // C)
         self._slots[row] = req
         self.real_len[row] = len(req.ids)
+        if self.spec_k:
+            self.hist_host[row, :] = self.pad_id
+            self.hist_host[row, : len(req.ids)] = req.ids
         self.gen_count[row] = 0
         self.budget[row] = req.max_new_tokens
         self.temp[row] = req.temperature
+        self.seeds[row] = -1 if req.seed is None else req.seed
         self.stats["admitted"] += 1
         self.stats["max_concurrent"] = max(
             self.stats["max_concurrent"], sum(s is not None for s in self._slots)
@@ -529,38 +901,74 @@ class LMEngine:
         self.stats["kv_pages_used_peak"] = max(
             self.stats["kv_pages_used_peak"], self.pager.used_pages
         )
-        self._prefill(req, row, C)
+        self._prefilling[row] = {
+            "req": req, "rest": rest, "base": base, "C": C,
+            "n_pieces": n_pieces, "piece": 0,
+        }
+        # admission epoch: mirrors and the table changed
+        self._carry_dirty = True
+        if n_pieces == 1:
+            self._advance_prefill(row)
 
-    def _prefill(self, req: _Request, row: int, C: int) -> None:
-        """Prefill the prompt, padded to its bucket ``C``, in one piece and
-        activate (or finish) the request with its first token. Without
-        chunked prefill (ROADMAP queue 1 item 6f) a prompt is never longer
-        than its bucket, so the JAX engine's piece loop runs once."""
+    def _advance_prefill(self, row: int) -> None:
+        """Run ONE prefill piece of a prefilling row; the final piece
+        yields the first token and activates (or finishes) the request."""
+        st = self._prefilling[row]
+        req, rest, base, C = st["req"], st["rest"], st["base"], st["C"]
+        i = st["piece"]
+        final = i == st["n_pieces"] - 1
+        piece_ids = rest[i * C: (i + 1) * C]
         piece = np.full((1, C), self.pad_id, np.int64)
-        piece[0, : len(req.ids)] = req.ids
-        tok, valid = self._suffix_prefill(
-            torch.tensor(piece, device=self.device),
-            len(req.ids),
-            torch.tensor(self.pager.table[row: row + 1, : self._pages_w(C)].copy(),
-                         device=self.device),
-            torch.tensor([req.temperature], device=self.device),
+        piece[0, : len(piece_ids)] = piece_ids
+        offset = base + i * C
+        tok = self._suffix_prefill(
+            self.uploader.upload(piece), len(piece_ids), offset,
+            self.pager.device_row(row, self._pages_w(offset + C)),
+            req.temperature, -1 if req.seed is None else req.seed,
+            # the sampled token's absolute position (kept only from the
+            # final piece, where it is len(req.ids))
+            offset + len(piece_ids), seeded=req.seed is not None,
         )
         self.stats["prefill_pieces"] += 1
-        tok, valid = int(tok), bool(valid)  # prefill is synchronous by design
+        st["piece"] = i + 1
+        if not final:
+            return  # a throwaway sample from a non-final position
+        del self._prefilling[row]
+        if self._prefix_cache is not None:
+            self._store_prefix(req.ids, row)
+        tok = int(tok)  # prefill is synchronous by design
+        valid = tok != self.eos_id
         if valid:
             req.push([tok])
+            if self.spec_k:
+                self.hist_host[row, len(req.ids)] = tok
         self.last_tok[row] = tok
         if not valid or req.max_new_tokens <= 1:
             self._finish(row)
         else:
             self.active[row] = True
             self.gen_count[row] = 1
+            self._carry_dirty = True  # activation epoch
 
-    def _finish(self, row: int) -> None:
+    def _advance_prefills(self) -> None:
+        for row in list(self._prefilling):
+            if self._prefilling[row]["req"].cancelled.is_set():
+                self._finish(row)
+                continue
+            self._advance_prefill(row)
+
+    def _finish(self, row: int, *, carry_stale: bool = True) -> None:
         req = self._slots[row]
         self._slots[row] = None
         self.active[row] = False
+        self.seeds[row] = -1  # a freed row no longer forces the seeded variant
+        self._prefilling.pop(row, None)
         self.pager.free(row)
+        # ``carry_stale=False`` is the drain's EOS/budget retirement: the
+        # carry already gates the row on the card, so no epoch is needed.
+        # Host-only retirements (cancel, deadline) dirty the carry.
+        if carry_stale:
+            self._carry_dirty = True
         if req is not None:
             if req.t_first:
                 self.ttft_ms.append((req.t_first - req.t_enqueue) * 1e3)
@@ -582,83 +990,213 @@ class LMEngine:
             self._fail_all(e)
 
     def _loop_inner(self) -> None:
+        pending: _PendingChunk | None = None
         while not self._stop.is_set():
             self._admit_all()
+            self._advance_prefills()  # one piece per prefilling row
             if not self.active.any():
+                if pending is not None:
+                    # burst tail: the chunk in flight outlived its rows —
+                    # drain it, then re-evaluate
+                    self._drain_chunk(pending)
+                    pending = None
+                    continue
+                if self._prefilling:
+                    continue  # keep advancing pieces, don't park
                 # idle: park until submit/cancel/stop sets _work
+                self._last_dispatch = None
                 self.stats["idle_wakes"] += 1
                 self._work.wait(_IDLE_PARK_S)
                 self._work.clear()
                 continue
-            self._drain_chunk(self._dispatch_chunk(self._upload_carry()))
+            if self.pipeline_depth == 0:
+                # synchronous loop: upload, dispatch, drain each chunk
+                self._upload_carry()
+                self._drain_chunk(self._dispatch_chunk())
+                continue
+            if self._carry_dirty:
+                if pending is not None:
+                    # merge point: drain the chunk in flight so the mirrors
+                    # are current (retired rows masked), then loop — the
+                    # drain may free rows and pages admission wants
+                    self._drain_chunk(pending)
+                    pending = None
+                    continue
+                self._upload_carry()
+            if pending is not None and self._all_may_retire():
+                # end of burst: every active row may finish inside the
+                # chunk in flight, so a further chunk would likely decode
+                # dead rows — drain first
+                self._drain_chunk(pending)
+                pending = None
+                continue
+            # one chunk ahead: queue N+1 on the carry BEFORE draining N
+            nxt = self._dispatch_chunk()
+            if pending is not None:
+                self._drain_chunk(pending)
+            pending = nxt
 
-    def _upload_carry(self) -> dict:
-        """The per-row arrays for one chunk, uploaded from SNAPSHOTS of the
-        host mirrors (``torch.tensor`` copies; ``from_numpy`` would alias
-        mirrors the host edits while the chunk runs). The table is as wide
-        as the furthest token any active row can reach in this chunk."""
+    @property
+    def _chunk_span(self) -> int:
+        """Most tokens one chunk can advance a row: chunk_steps steps of
+        up to K+1 tokens each under speculation."""
+        return self.chunk_steps * (self.spec_k + 1)
+
+    def _all_may_retire(self) -> bool:
+        """Every host-visible active row could exhaust its budget within
+        ONE more chunk (the mirrors lag the chunk in flight by one)."""
         act = self.active
-        h0 = int((self.real_len + self.gen_count)[act].max())
-        hcap = int((self.real_len + self.budget)[act].max())
-        w = self._pages_w(max(min(h0 + self.chunk_steps, hcap), 1))
-        dev = self.device
-        return {
-            "last_tok": torch.tensor(self.last_tok, device=dev),
-            "gen_count": torch.tensor(self.gen_count, device=dev),
-            "active": torch.tensor(self.active, device=dev),
-            "real_len": torch.tensor(self.real_len, device=dev),
-            "budget": torch.tensor(self.budget, device=dev),
-            "temp": torch.tensor(self.temp, device=dev),
-            "table": self.pager.device_table(w),
+        if not act.any():
+            return True
+        return bool(((self.budget - self.gen_count)[act] <= self._chunk_span).all())
+
+    def _ewma(self, key: str, value: float, alpha: float = 0.2) -> None:
+        cur = self.overlap[key]
+        self.overlap[key] = value if cur == 0.0 else (
+            (1.0 - alpha) * cur + alpha * value
+        )
+
+    def _upload_carry(self) -> None:
+        """Upload the per-row arrays from the host mirrors — the one H2D
+        an epoch pays, staged through pinned snapshots (an upload is a
+        copy, so later mirror edits never reach what a chunk reads). Runs
+        only with the mirrors current (no undrained chunk)."""
+        up = self.uploader.upload
+        c: dict[str, Any] = {
+            "last_tok": up(self.last_tok), "gen_count": up(self.gen_count),
+            "active": up(self.active), "real_len": up(self.real_len),
+            "budget": up(self.budget), "temp": up(self.temp),
+            "seed": up(self.seeds.astype(np.int64)),
         }
+        self._carry_seeded = bool((self.seeds >= 0).any())
+        if self.spec_k:
+            c["hist"] = up(self.hist_host)
+        act = self.active
+        if act.any():
+            self._carry_h0 = int((self.real_len + self.gen_count)[act].max())
+            self._carry_hcap = int((self.real_len + self.budget)[act].max())
+        else:
+            self._carry_h0 = self._carry_hcap = 0
+        w = self._pages_w(
+            max(min(self._carry_h0 + self._chunk_span, self._carry_hcap), 1)
+        )
+        c["table"] = self.pager.device_table(w)
+        self._carry_pages_w = w
+        self._carry = c
+        self._carry_dirty = False
+        self._carry_chunks = 0
+        self.overlap["carry_uploads"] += 1
 
-    def _dispatch_chunk(self, carry: dict) -> _Chunk:
-        active_in = self.active.copy()
-        tok, gen_count, active, toks, valid = self._chunk_paged(carry)
+    def _dispatch_chunk(self) -> _PendingChunk:
+        """Queue one decode chunk on the device carry and thread its
+        per-row outputs into the carry for the next one; the outputs are
+        staged for the host (copy + event) right behind it."""
+        now = time.perf_counter()
+        if self._last_dispatch is not None:
+            self._ewma("decode_gap_ms", (now - self._last_dispatch) * 1e3)
+        self._last_dispatch = now
+        self._ewma(
+            "slot_occupancy",
+            sum(s is not None for s in self._slots) / self.max_batch,
+        )
+        c = self._carry
+        active_in = c["active"]
+        # page-horizon growth across chunks: active rows advance at most
+        # chunk_span tokens a chunk; when the bound crosses a pow2 page
+        # bucket, widen the device table (the host table is constant
+        # within an epoch)
+        horizon = min(
+            self._carry_h0 + (self._carry_chunks + 1) * self._chunk_span,
+            self._carry_hcap,
+        )
+        w = self._pages_w(max(horizon, 1))
+        if w > self._carry_pages_w:
+            c["table"] = self.pager.device_table(w)
+            self._carry_pages_w = w
+            self.overlap["carry_uploads"] += 1
+        res = self._chunk(c, seeded=self._carry_seeded)
+        for k in ("last_tok", "gen_count", "active", "hist"):
+            if k in res:
+                c[k] = res[k]
+        self._carry_chunks += 1
         self.stats["chunks"] += 1
-        return _Chunk(
-            toks=toks, valid=valid, last_tok=tok, gen_count=gen_count,
-            active_out=active, active_in=active_in, slots=list(self._slots),
-        )
+        named = {k: res[k] for k in ("toks", "valid", "eos", "prop", "acc")
+                 if k in res}
+        named.update(active_in=active_in, last_tok=res["last_tok"],
+                     gen_count=res["gen_count"], active_out=res["active"])
+        return _PendingChunk(staged=self._outputs.stage(named),
+                             slots=list(self._slots))
 
-    def _drain_chunk(self, p: _Chunk) -> None:
-        """Bring one chunk's tokens to the host (the one D2H of a chunk),
-        credit them to the requests resident at dispatch, refresh the host
-        mirrors, and retire rows that hit EOS or their budget."""
-        toks, valid, last, genc, act_out = (
-            t.cpu().numpy()
-            for t in (p.toks, p.valid, p.last_tok, p.gen_count, p.active_out)
-        )
+    def _drain_chunk(self, p: _PendingChunk) -> None:
+        """Wait for one chunk's staged outputs (its own event — never the
+        chunk queued behind it), credit tokens to the requests resident at
+        dispatch, refresh the host mirrors, and retire rows that hit EOS
+        or their budget. Rows retired while the chunk was in flight are
+        masked out: their tokens belong to a request that left the row."""
+        t0 = time.perf_counter()
+        o = self._outputs.fetch(p.staged)
+        self._ewma("d2h_drain_ms", (time.perf_counter() - t0) * 1e3)
+        toks, valid, act_in = o["toks"], o["valid"], o["active_in"]
+        chunk_prop = chunk_acc = 0
         for row in range(self.max_batch):
             req = p.slots[row]
-            if req is None or not p.active_in[row] or self._slots[row] is not req:
-                continue
+            if req is None or not act_in[row]:
+                continue  # free or still prefilling at dispatch
+            if self._slots[row] is not req:
+                continue  # retired while in flight
             hit_eos = False
             fresh: list[int] = []
-            for j in range(self.chunk_steps):
-                if len(req.tokens) + len(fresh) >= req.max_new_tokens:
-                    break
-                if not valid[row, j]:
-                    hit_eos = True
-                    break
-                fresh.append(int(toks[row, j]))
+            if self.spec_k:
+                # (steps, K+1) planes: a step's valid tokens are a prefix
+                # of its span; only the eos flag (a live EOS) stops a row
+                v, t, e = valid[row], toks[row], o["eos"][row]
+                hit_eos = bool(e.any())
+                stop_s = int(np.argmax(e)) if hit_eos else self.chunk_steps - 1
+                flat = t[: stop_s + 1][v[: stop_s + 1]]
+                remaining = req.max_new_tokens - len(req.tokens)
+                fresh = [int(x) for x in flat[:remaining]]
+                row_prop = int(o["prop"][row].sum())
+                row_acc = int(o["acc"][row].sum())
+                self.stats["spec_proposed"] += row_prop
+                self.stats["spec_accepted"] += row_acc
+                chunk_prop += row_prop
+                chunk_acc += row_acc
+                # history mirror: drained tokens at their positions, so the
+                # next epoch's upload is exact
+                start = int(self.real_len[row]) + len(req.tokens)
+                self.hist_host[row, start: start + len(fresh)] = fresh
+            else:
+                for j in range(self.chunk_steps):
+                    if len(req.tokens) + len(fresh) >= req.max_new_tokens:
+                        break
+                    if not valid[row, j]:
+                        hit_eos = True
+                        break
+                    fresh.append(int(toks[row, j]))
             req.push(fresh)
-            self.last_tok[row] = last[row]
-            self.gen_count[row] = genc[row]
-            self.active[row] = bool(act_out[row])
+            # per-row mirror refresh: rows edited by admit/prefill since
+            # dispatch keep their newer host values
+            self.last_tok[row] = o["last_tok"][row]
+            self.gen_count[row] = o["gen_count"][row]
+            self.active[row] = bool(o["active_out"][row])
             if hit_eos or len(req.tokens) >= req.max_new_tokens:
-                self._finish(row)
+                self._finish(row, carry_stale=False)
+        if chunk_prop:
+            self._ewma("spec_acceptance", chunk_acc / chunk_prop)
 
 
 class LMEngineModel(Model):
     """Engine-backed serving model: rows from concurrent requests share
     one decode batch. Request rows are ``{"input_ids": [...],
     "max_new_tokens": n, "temperature": t}`` (or a bare id list);
-    responses are ``{"token_ids": [...]}``.
+    responses are ``{"token_ids": [...]}``. An ``x-kft-seed`` request
+    header seeds every row's sampling (``serve/threefry.py``).
 
     ``load()`` builds the ``TransformerLM`` on ``device`` (``None`` = the
     CUDA card) with ``state_dict`` when given (e.g. bridged JAX params)
-    or random weights from ``seed``, then starts the engine.
+    or random weights from ``seed``, then starts the engine. Engine knobs
+    (``pipeline_depth``, ``spec_draft_tokens``, ``prefix_cache_entries``,
+    ``prefill_chunk``, ...) pass through with the JAX defaults.
     """
 
     def __init__(
@@ -756,10 +1294,10 @@ class LMEngineModel(Model):
             return self.max_new_tokens
         return max(1, min(int(req), self.max_new_tokens))
 
-    def _submit_row(self, eng: LMEngine, row) -> dict:
+    def _submit_row(self, eng: LMEngine, row, seed: int | None = None) -> dict:
         toks = eng.submit(
             row["ids"], max_new_tokens=self._row_budget(row),
-            temperature=row["temperature"],
+            temperature=row["temperature"], seed=seed,
         )
         return {"token_ids": toks}
 
@@ -767,6 +1305,7 @@ class LMEngineModel(Model):
         eng = self.engine  # snapshot: unload() may clear it concurrently
         if eng is None:
             raise RuntimeError(f"model {self.name!r} is unloaded")
+        seed = seed_from_headers(headers)
         cap = self._engine_config.max_batch + eng.max_queue
         with self._inflight_lock:
             if self._inflight + len(rows) > cap:
@@ -775,7 +1314,8 @@ class LMEngineModel(Model):
                 )
             self._inflight += len(rows)
         try:
-            futs = [self._executor.submit(self._submit_row, eng, r) for r in rows]
+            futs = [self._executor.submit(self._submit_row, eng, r, seed)
+                    for r in rows]
             cf.wait(futs)
         finally:
             with self._inflight_lock:

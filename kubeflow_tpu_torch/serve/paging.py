@@ -12,6 +12,8 @@ rows still stepping in the batch) land there and nothing reads it.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 import torch
 
@@ -20,12 +22,14 @@ class PageAllocator:
     """Host-side page bookkeeping + the block table device operand.
 
     ``table`` maps (row, page ordinal) → pool page; unallocated entries
-    point at the scratch page 0.
+    point at the scratch page 0. ``upload`` turns a host array into its
+    device copy (the engine's ``Uploader.upload``: a snapshot, staged so
+    it never stalls a chunk in flight).
     """
 
     def __init__(
         self, *, pool_tokens: int, page_size: int, max_batch: int,
-        max_pages_per_row: int, device: torch.device,
+        max_pages_per_row: int, upload: Callable[[np.ndarray], torch.Tensor],
     ):
         if page_size < 16 or page_size % 16:
             raise ValueError(f"page_size must be a 16-multiple, got {page_size}")
@@ -39,7 +43,7 @@ class PageAllocator:
         if self.num_pages < 2:
             raise ValueError("pool must hold at least 2 pages (1 is scratch)")
         self.max_pages_per_row = max_pages_per_row
-        self.device = device
+        self._upload = upload
         #: pages 1..N-1 allocatable; 0 is the scratch page
         self._free: list[int] = list(range(self.num_pages - 1, 0, -1))
         self._owned: dict[int, list[int]] = {}  # row → pages
@@ -87,13 +91,19 @@ class PageAllocator:
     def device_table(self, width: int) -> torch.Tensor:
         """Device ``table[:, :width]`` (int32), uploaded again only when the
         host table changed since the last upload at this width. It is a
-        SNAPSHOT: ``torch.from_numpy`` would alias the live table, and a
-        later alloc/free would rewrite what an in-flight step reads."""
+        SNAPSHOT: a later alloc/free must not rewrite what an in-flight
+        step reads."""
         ver, arr = self._dev.get(width, (-1, None))
         if ver != self.version or arr is None:
             self._dev = {
                 w: va for w, va in self._dev.items() if va[0] == self.version
             }
-            arr = torch.tensor(self.table[:, :width].copy(), device=self.device)
+            arr = self._upload(self.table[:, :width])
             self._dev[width] = (self.version, arr)
         return arr
+
+    def device_row(self, row: int, width: int | None = None) -> torch.Tensor:
+        """Device snapshot of one row's table, ``(1, width)`` (all of it
+        when ``width`` is None) — a prefill piece's or a prefix copy's."""
+        w = self.max_pages_per_row if width is None else width
+        return self._upload(self.table[row: row + 1, :w])

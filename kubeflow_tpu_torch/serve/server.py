@@ -9,6 +9,9 @@ needs, with the same JSON shapes:
   ``{"predictions": [...]}``
 - ``POST /v2/models/{m}/generate`` (one row) → ``{"token_ids": [...]}``
 
+Request headers reach the model's hooks with lower-cased names (an
+``x-kft-seed`` seeds an ``LMEngineModel``'s sampling).
+
 Errors: malformed input is 400, an unknown model 404, an unported
 feature 501, ``EngineOverloaded`` 429 and a deadline 503 with
 ``Retry-After``. The aiohttp server's other routes (streaming, metrics,
@@ -67,7 +70,8 @@ class ModelServer:
             def do_POST(self):
                 n = int(self.headers.get("Content-Length") or 0)
                 body = self.rfile.read(n)
-                self._respond(server._post, self.path, body)
+                headers = {k.lower(): v for k, v in self.headers.items()}
+                self._respond(server._post, self.path, body, headers)
 
             def _respond(self, fn, *args):
                 headers = {}
@@ -115,15 +119,16 @@ class ModelServer:
             return 200, {"ready": ready, "role": "both"}
         raise _HTTPError(404, f"no route GET {path}")
 
-    def _post(self, path: str, body: bytes):
+    def _post(self, path: str, body: bytes, headers: dict[str, str]):
         if m := _PREDICT.match(path):
             payload = self._json(body)
             if not isinstance(payload, dict) or "instances" not in payload:
                 raise _HTTPError(400, "v1 request must contain 'instances'")
-            return 200, self._infer(m.group(1), payload)
+            return 200, self._infer(m.group(1), payload, headers)
         if m := _GENERATE.match(path):
             row = self._json(body)
-            return 200, self._infer(m.group(1), {"instances": [row]})["predictions"][0]
+            out = self._infer(m.group(1), {"instances": [row]}, headers)
+            return 200, out["predictions"][0]
         raise _HTTPError(404, f"no route POST {path}")
 
     @staticmethod
@@ -133,14 +138,14 @@ class ModelServer:
         except ValueError as e:
             raise _HTTPError(400, f"bad JSON: {e}") from None
 
-    def _infer(self, name: str, payload: dict) -> dict:
+    def _infer(self, name: str, payload: dict, headers: dict[str, str]) -> dict:
         model = self.models.get(name)
         if model is None:
             raise _HTTPError(404, f"model '{name}' not found")
         if not model.ready:
             raise _HTTPError(503, f"model '{name}' not ready")
         try:
-            return model(payload)
+            return model(payload, headers)
         except EngineOverloaded as e:
             raise _HTTPError(429, str(e)) from None
         except DeadlineExceeded as e:

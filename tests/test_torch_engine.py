@@ -5,7 +5,10 @@ mode (``kv_pool_tokens`` set) with the synchronous loop
 (``pipeline_depth=0``) and greedy decoding, and must give identical token
 streams: continuous batching, row churn, page backpressure, sliding
 windows, GQA, int8 KV and the kernel read path change how the tokens are
-computed, never which tokens come out.
+computed, never which tokens come out. The pipelined loop, chunked
+prefill, the prefix cache and seeded resume are held against the JAX
+engine in ``test_torch_engine_loop.py``, speculative decoding in
+``test_torch_spec.py``.
 """
 
 from __future__ import annotations
@@ -159,10 +162,6 @@ def test_request_validation():
 
 UNPORTED = [
     ("dense_mode", dict(kv_pool_tokens=None), "dense KV"),
-    ("pipelined_loop", dict(pipeline_depth=1), "pipelined"),
-    ("spec_decode", dict(spec_draft_tokens=2), "speculative"),
-    ("prefix_cache", dict(prefix_cache_entries=4), "prefix cache"),
-    ("chunked_prefill", dict(prefill_chunk=16), "chunked prefill"),
     ("host_kv_tier", dict(host_kv_bytes=1 << 20), "host KV"),
     ("mesh", dict(mesh=object()), "tensor-parallel"),
     ("measured_page_size", dict(page_size=None), "page-size"),
@@ -176,18 +175,6 @@ def test_unported_engine_knobs_raise(name, knob, what):
         LMEngine(tmodel, **{**ENGINE, **knob})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMEngine(tmodel, config=LMEngineConfig(**{**ENGINE, **knob}))
-
-
-@pytest.mark.parametrize("per_request", [dict(seed=3), dict(resume_tokens=[4])],
-                         ids=["seed", "resume"])
-def test_unported_per_request_options_raise(per_request):
-    _, tmodel = _models()
-    eng = LMEngine(tmodel, **ENGINE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit([3, 4], max_new_tokens=2, **per_request)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(eng.stream([3, 4], max_new_tokens=2, **per_request))
-    eng.stop()
 
 
 UNPORTED_MODEL = [
