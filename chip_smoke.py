@@ -6,11 +6,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs six phases:
+sm_90a, into the git-ignored ``build/``) and runs seven phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
-   the serving and training shapes, with device times (``time_ms``) for
-   kernel, plain version and (for flash, forward and backward)
+   the serving and training shapes, with device times (``time_ms``: the
+   median of 20 calls, with the minimum, the spread and the samples
+   dropped because the enqueue outran the timer's sleep) for kernel,
+   plain version and (for flash, forward and backward)
    ``F.scaled_dot_product_attention`` as a yardstick only, and the body
    that ran (flash forward, dq and dk/dv: ``"mma"``, tensor cores, for
    bf16/f16, ``"scalar"`` for f32; paged attention: ``"split"``, pages
@@ -23,16 +25,25 @@ sm_90a, into the git-ignored ``build/``) and runs six phases:
    the paged-attention kernel, answering 8 concurrent
    ``/v2/models/lm/generate`` requests with the pipelined loop
    (``pipeline_depth=1``, the default) and, from a second model in the
-   same server, with the synchronous one (``pipeline_depth=0``);
+   same server, with the synchronous one (``pipeline_depth=0``), in
+   turns 1, 0, 1, 0, 1, 0: each depth's median and spread;
 4. f32 parity — the same engine in f32: the ``kernel`` and ``gather``
    read paths must give token-identical greedy streams;
 5. engine — the f32 engine on the kernel read path: (a) depth 1 gives
    depth 0's streams; (b) speculative decoding (K=4) gives K=0's greedy
    streams on repeating prompts, accepting drafts through verify
    launches at S=5; (c) chunked prefill with the prefix cache gives the
-   streams of an engine with neither; (d) seeded sampling repeats,
-   resumes from half a stream to its other half, and differs by seed;
-6. train — the full-width LM trained through the flash forward and
+   streams of an engine with neither, and (c8) the same traffic on an
+   int8 pool measures a ``kv_quant_error`` in (0, 0.05); (d) seeded
+   sampling repeats, resumes from half a stream to its other half, and
+   differs by seed;
+6. contract — the replica's request contract over HTTP on the bf16
+   model: warmup before ready, the burst over ``generate_stream``
+   (token-identical to ``generate``, client TTFT), expired and foreign
+   deadlines, an unmeetable-deadline shed, priority eviction, the
+   watchdog restarting a model wedged mid-stream and the stream resumed
+   with ``x-kft-resume-tokens``, and ``/metrics``;
+7. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
    whose forward, dq and dk/dv launches must all run the tensor-core
@@ -53,17 +64,19 @@ import argparse
 import functools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import threading
 import time
 import traceback
+import urllib.error
 import urllib.request
 import zlib
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
-PHASES = ("kernels", "forward", "serving", "parity", "engine", "train")
+PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract", "train")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -93,14 +106,20 @@ def _sleep_cycles_per_ms(torch):
 
 
 def time_ms(torch, fn, iters=20, flush=None):
-    """Mean device time of ``fn`` (CUDA events around each call, after
-    warm-up). ``flush`` (a tensor larger than L2) is rewritten before each
-    call so inputs are read cold, as the engine's 12-layer pool would be.
-    Between the flush and the start event a device-side sleep is queued
-    that outlasts the host's time to enqueue ``fn`` (twice the slowest
-    warm-up enqueue, plus 0.1 ms): the card reaches the start event only
-    after ``fn``'s work is queued behind it, so the events time the
-    device alone and not the wrappers' Python, checks and ctypes calls."""
+    """Device time of ``fn``: ``{"ms": median, "min", "spread": max - min,
+    "dropped", "samples"}`` over ``iters`` calls timed by CUDA events,
+    after warm-up. ``flush`` (a tensor larger than L2) is rewritten before
+    each call so inputs are read cold, as the engine's 12-layer pool would
+    be. Between the flush and the start event a device-side sleep is
+    queued that should outlast the host's time to enqueue ``fn`` (twice
+    the slowest warm-up enqueue, plus 0.1 ms), so the card reaches the
+    start event only after ``fn``'s work is queued behind it and the
+    events time the device alone, not the wrappers' Python, checks and
+    ctypes calls. A sample whose start event had already completed when
+    ``fn`` returned on the host is dropped: its sleep ran out before the
+    enqueue did, so it timed the host too. With more than half dropped
+    the sleep doubles and the samples are taken again, once; then the
+    timer fails."""
     host_ms = 0.0
     for i in range(3):
         t0 = time.perf_counter()
@@ -108,20 +127,50 @@ def time_ms(torch, fn, iters=20, flush=None):
         if i:  # the first call may build and load a kernel
             host_ms = max(host_ms, (time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-    cycles = int(min(2 * host_ms + 0.1, 50.0) * _sleep_cycles_per_ms(torch))
-    total = 0.0
-    for _ in range(iters):
-        if flush is not None:
-            flush.zero_()
-        torch.cuda._sleep(cycles)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        total += s.elapsed_time(e)
-    return total / iters
+    sleep_ms = min(2 * host_ms + 0.1, 50.0)
+    dropped = 0
+    for _ in range(2):
+        cycles = int(sleep_ms * _sleep_cycles_per_ms(torch))
+        kept, late = [], 0
+        for _ in range(iters):
+            if flush is not None:
+                flush.zero_()
+            torch.cuda._sleep(cycles)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            started = s.query()  # the card already passed the start event
+            e.record()
+            e.synchronize()
+            if started:
+                late += 1
+            else:
+                kept.append(s.elapsed_time(e))
+        dropped += late
+        if 2 * late <= iters:
+            break
+        sleep_ms *= 2
+    else:
+        raise RuntimeError(
+            f"time_ms: {late} of {iters} samples outran a {sleep_ms / 2:.3f} "
+            "ms sleep twice; the enqueue is slower than the timer allows")
+    return {"ms": statistics.median(kept), "min": min(kept),
+            "spread": max(kept) - min(kept), "dropped": dropped,
+            "samples": len(kept)}
+
+
+def _times(ms, plain, library=None):
+    """A case's timing fields from its ``time_ms`` results: the medians
+    under the kernels line's names, and every statistic under
+    ``timing``."""
+    t = {"ms": ms, "plain_ms": plain}
+    if library is not None:
+        t["library_ms"] = library
+    out = {k: v["ms"] for k, v in t.items()}
+    out["dropped"] = {k: v["dropped"] for k, v in t.items()}
+    out["timing"] = t
+    return out
 
 
 def compare(out, ref, dt, atol=None):
@@ -233,7 +282,7 @@ def run_paged_case(torch, name, c, flush):
     err, tol, close = compare(out, ref, dt)
     ms = time_ms(torch, lambda: pa.paged_attention(q, kp, vp, table, pos0, **kw),
                  flush=flush)
-    plain_ms = time_ms(
+    plain = time_ms(
         torch, lambda: pa.paged_attention_reference(q, kp, vp, table, pos0, **kw),
         flush=flush,
     )
@@ -265,7 +314,7 @@ def run_paged_case(torch, name, c, flush):
         "dtype": _dtname(torch, dt), "body": pa.body(),
         "kv": "int8" if ks is not None else _dtname(torch, dt),
         "window": window, "max_abs_err": err, "tol": tol, "ok": close,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        **_times(ms, plain), "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
     }
@@ -331,14 +380,14 @@ def run_flash_case(torch, name, c, flush):
         dead = {"rows": int(rows.sum().item()),
                 "lse_sentinel": bool((lse[rows] <= fa.NEG_INF / 2).all())}
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), flush=flush)
-    plain_ms = time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, **kw),
-                       flush=flush)
+    plain = time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, **kw),
+                    flush=flush)
     mask = fa._full_mask(q.shape, k.shape, seg, kseg, causal, window, q.device)
     if window is None and seg is None:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
     else:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
-    library_ms = time_ms(torch, lib, flush=flush)
+    library = time_ms(torch, lib, flush=flush)
     visible = B * S * S if mask is None else int(mask.expand(B, 1, S, S).sum().item())
     nbytes = 4 * q.numel() * q.element_size() + B * H * S * 4 + (
         2 * seg.numel() * 4 if seg is not None else 0)
@@ -352,9 +401,8 @@ def run_flash_case(torch, name, c, flush):
         "max_abs_err": err, "tol": tol, "lse_err": lse_err, "lse_tol": lse_tol,
         "ok": close and lse_err <= lse_tol and (
             dead is None or (dead["rows"] > 0 and dead["lse_sentinel"])),
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        **_times(ms, plain, library), "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
     }
 
 
@@ -453,7 +501,7 @@ def run_bwd_case(torch, name, c, flush):
                     flush=flush)
     ms_dkv = time_ms(torch, lambda: fb.launch_dkv(q, k, v, dout, lse, delta, **kw),
                      flush=flush)
-    plain_ms = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
+    plain = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
         q, k, v, out, lse, dout, **kw), flush=flush)
     mask = fa._full_mask(q.shape, k.shape, qseg, kseg, causal, window, q.device)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
@@ -461,7 +509,7 @@ def run_bwd_case(torch, name, c, flush):
         o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
     else:
         o = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
-    library_ms = time_ms(torch, lambda: torch.autograd.grad(
+    library = time_ms(torch, lambda: torch.autograd.grad(
         o, leaves, dout, retain_graph=True), flush=flush)
     if mask is None:
         visible = B * S * S
@@ -490,10 +538,14 @@ def run_bwd_case(torch, name, c, flush):
                     "dk": float(torch.as_tensor(tols[1]).max()),
                     "dv": float(torch.as_tensor(tols[2]).max())},
         "ok": all(oks),
-        "ms": {"dq": ms_dq, "dkv": ms_dkv}, "plain_ms": plain_ms,
+        "ms": {"dq": ms_dq["ms"], "dkv": ms_dkv["ms"]}, "plain_ms": plain["ms"],
         "bound_ms": {"dq": bounds["dq"][0], "dkv": bounds["dkv"][0]},
         "bound_by": {"dq": bounds["dq"][1], "dkv": bounds["dkv"][1]},
-        "library_ms": library_ms,
+        "library_ms": library["ms"],
+        "dropped": {"dq": ms_dq["dropped"], "dkv": ms_dkv["dropped"],
+                    "plain_ms": plain["dropped"], "library_ms": library["dropped"]},
+        "timing": {"dq": ms_dq, "dkv": ms_dkv, "plain_ms": plain,
+                   "library_ms": library},
     }
 
 
@@ -502,7 +554,7 @@ def phase_kernels(torch, state):
     # the timer's floor: one launch that does next to nothing, after the flush
     one = torch.empty(1, device="cuda")
     emit({"phase": "timer_floor", "op": "fill_ of one float",
-          "ms": time_ms(torch, lambda: one.fill_(1.0), flush=flush)})
+          **time_ms(torch, lambda: one.fill_(1.0), flush=flush)})
     ok = True
     for name, c in bwd_cases(torch):
         r = run_bwd_case(torch, name, c, flush)
@@ -667,11 +719,19 @@ def _served_burst(base, lm, reqs):
     }
 
 
+def _spread(values):
+    """Median and spread (max - min) of a depth's bursts."""
+    return {"median": statistics.median(values), "spread": max(values) - min(values),
+            "values": values}
+
+
 def phase_serving(torch, state):
     """The burst through ``ModelServer`` on the pipelined engine (``lm``,
     ``pipeline_depth=1``: the main path, whose kernel launches are
     counted) and on the synchronous one (``lm0``, depth 0, the same
-    weights), in turns: depth 1, 0, 0, 1."""
+    weights), in turns: depth 1, 0, 1, 0, 1, 0. Each depth's tokens/s,
+    TTFT and decode gap are reported as the median over its three bursts
+    with their spread."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
     from kubeflow_tpu_torch.ops import paged_attention as pa
     from kubeflow_tpu_torch.models.transformer import TransformerConfig
@@ -701,7 +761,7 @@ def phase_serving(torch, state):
         by_s = dict(pa.LAUNCHES_BY_S)
         runs.append(main)
         streams = {1: outs}
-        for depth in (0, 0, 1):
+        for depth in (0, 1, 0, 1, 0):
             outs, r = _served_burst(base, models[depth], reqs)
             streams.setdefault(depth, outs)
             runs.append(r)
@@ -722,10 +782,15 @@ def phase_serving(torch, state):
     state["paged_launches_by_s"] = by_s
     ok = (ready and well_formed and paged_launches > 0
           and first_agree >= N_REQ - 1)
+    by_depth = {
+        depth: {key: _spread([r[key] for r in runs if r["pipeline_depth"] == depth])
+                for key in ("tokens_per_s", "ttft_ms_p50", "decode_gap_ms",
+                            "d2h_drain_ms")}
+        for depth in (1, 0)
+    }
     emit({"phase": "serving", "dtype": "bf16", "requests": N_REQ,
-          "tokens": main["tokens"], "wall_s": main["wall_s"],
-          "tokens_per_s": main["tokens_per_s"], "pipeline_depth": 1,
-          "ttft_ms_p50": main["ttft_ms_p50"], "ttft_ms_max": main["ttft_ms_max"],
+          "tokens": main["tokens"], "pipeline_depth": 1,
+          "turns": [r["pipeline_depth"] for r in runs], "by_depth": by_depth,
           "runs": runs, "depth0_equals_depth1": streams[0] == streams[1],
           "paged_launches": paged_launches, "paged_launches_by_s": by_s,
           "flash_launches": flash_launches,
@@ -796,12 +861,14 @@ def phase_engine(torch, state):
     base = dict(ENGINE, paged_attn_impl="kernel")
     out = {"phase": "engine", "dtype": "f32", "tf32": False, "card": state["card"]}
 
-    def run(kw, reqs, warm=()):
+    def run(kw, reqs, warm=(), overlap=None):
         eng = LMEngine(model, **kw).start()
         try:
             for p in warm:  # sequential first: e.g. a prefix to store
                 eng.submit(p, max_new_tokens=MAX_NEW)
             outs = _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+            if overlap is not None:
+                overlap.update(eng.overlap)
             return outs, dict(eng.stats)
         finally:
             eng.stop()
@@ -851,6 +918,20 @@ def phase_engine(torch, state):
         "prefix_tokens_reused": sc["prefix_tokens_reused"],
         "prefill_pieces": sc["prefill_pieces"]}
 
+    # (c8) the same traffic on an int8 pool: the prefill pieces measure
+    # the quantization error (the EWMA of mean-abs error over magnitude)
+    ov8 = {}
+    q8, s8 = run(dict(kw_c, prefill_chunk=32, prefix_cache_entries=8,
+                      kv_quant="int8"), pre_reqs[1:], warm=pre_reqs[:1],
+                 overlap=ov8)
+    qerr = ov8.get("kv_quant_error")
+    out["c8_int8_kv_quant_error"] = {
+        "kv_quant_error": qerr, "bound": 0.05,
+        "prefill_pieces": s8["prefill_pieces"], "prefix_hits": s8["prefix_hits"],
+        "token_match_vs_f32_pool": sum(
+            a == b for o, g in zip(q8, on) for a, b in zip(o, g))
+        / max(1, sum(max(len(o), len(g)) for o, g in zip(q8, on)))}
+
     # (d) seeded sampling: repeatable, resumable, seed-dependent (a resumed
     # prompt carries half a stream, so it takes the 128 bucket)
     eng = LMEngine(model, **dict(base, prefill_buckets=(32, 128))).start()
@@ -870,6 +951,7 @@ def phase_engine(torch, state):
         "a": same,
         "b": same_b and sk["spec_accepted"] > 0 and by_s.get(5, 0) > 0,
         "c": same_c and sc["prefix_hits"] > 0 and sc["prefill_pieces"] > len(pre_reqs),
+        "c8": qerr is not None and math.isfinite(qerr) and 0 < qerr < 0.05,
         "d": (len(first) >= 4 and again == first and rest == first[cut:]
               and other != first),
     }
@@ -882,7 +964,329 @@ def phase_engine(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 6: training through Trainer.fit at full width
+# phase 6: the replica's request contract over HTTP
+# --------------------------------------------------------------------------- #
+
+def _http(base, method, path, body=None, headers=None):
+    """``(status, headers, body text)`` of one request; errors included."""
+    data = None if body is None else json.dumps(body).encode()
+    r = urllib.request.Request(f"{base}{path}", data=data, method=method,
+                               headers={"Content-Type": "application/json",
+                                        **(headers or {})})
+    try:
+        with urllib.request.urlopen(r, timeout=300) as resp:
+            return resp.status, dict(resp.headers), resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+class _SSE:
+    """A ``generate_stream`` client that reads one frame at a time, with
+    the client-side time to its first frame."""
+
+    def __init__(self, port, name, ids, headers=None):
+        import http.client
+
+        self.t0 = time.perf_counter()
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        self.conn.request("POST", f"/v2/models/{name}/generate_stream",
+                          json.dumps({"input_ids": ids, "max_new_tokens": MAX_NEW}),
+                          {"Content-Type": "application/json", **(headers or {})})
+        self.resp = self.conn.getresponse()
+        self.status = self.resp.status
+        self.ttft_ms = None
+
+    def frame(self):
+        while True:
+            line = self.resp.readline().decode()
+            if not line:
+                return None
+            if line.startswith("data: "):
+                if self.ttft_ms is None:
+                    self.ttft_ms = (time.perf_counter() - self.t0) * 1e3
+                return json.loads(line[len("data: "):])
+
+    def read_all(self):
+        """(tokens, the last frame)."""
+        toks = []
+        while True:
+            f = self.frame()
+            if f is None or "token_ids" not in f:
+                self.conn.close()
+                return toks, f
+            toks += f["token_ids"]
+
+
+def _sse_tokens(port, name, ids, headers=None):
+    s = _SSE(port, name, ids, headers)
+    if s.status != 200:
+        raise RuntimeError(f"generate_stream answered {s.status}")
+    toks, last = s.read_all()
+    return toks, last, s.ttft_ms
+
+
+def _wedge_hook(entered, release):
+    """A one-shot ``pre_chunk`` hook: the scheduler blocks on ``release``."""
+
+    def hook(eng):
+        entered.set()
+        release.wait(120)
+        eng._fault_hooks.pop("pre_chunk", None)
+
+    return hook
+
+
+def phase_contract(torch, state):
+    """The replica's request contract over HTTP, on the bf16 full-width
+    model on the paged kernel through one ``ModelServer``
+    (``default_deadline_ms=60000``): (1) warmup before ready; (2) three
+    bursts of the 8 prompts over ``generate_stream``, token-identical to
+    ``generate``, the paged launches counted; (3) expired deadlines and a
+    client's foreign absolute stamp; (4) an unmeetable deadline shed on
+    the warm EWMA; (5) priority eviction with the engine wedged; (6) the
+    watchdog restarting a second model wedged mid-stream, the stream
+    resumed; (7) ``/metrics``."""
+    import gc
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.ops import _build
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serve.engine import LMEngineModel
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+    sd = sharpened_state(torch, torch.bfloat16)
+    # the model's in-flight cap equals the engine's capacity (max_batch +
+    # max_queue), so a small queue lets step 5 fill it
+    common = dict(config=cfg, state_dict=sd, device="cuda", max_new_tokens=MAX_NEW,
+                  paged_attn_impl="kernel", max_queue=2, **ENGINE)
+    lm = LMEngineModel("lm", **common)
+    lm_wd = LMEngineModel("lm_wd", watchdog_min_wedge_s=1.0,
+                          watchdog_interval_s=0.1, **common)
+    out = {"phase": "contract", "dtype": "bf16", "card": state["card"]}
+    checks = {}
+    served = {"lm": 0, "lm_wd": 0}  # requests the server should count
+
+    # (1) warmup in load(), before the model reports ready
+    t0 = time.perf_counter()
+    server = ModelServer([lm, lm_wd], http_port=0,
+                         default_deadline_ms=60000.0).start()
+    load_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        rep = lm.warmup_report
+        zero = (all(v == 0 for v in lm.engine.stats.values())
+                and all(v == 0 for v in lm.engine.overlap.values()))
+        out["1_warmup"] = {**rep, "load_both_s": load_s, "stats_zeroed": zero,
+                           "libraries_loaded": sorted(_build._libs)}
+        checks["1"] = (rep["libraries"] == ["paged_attention"]
+                       and rep["ready"] is False and "paged_attention" in _build._libs
+                       and zero and lm.ready and lm_wd.ready)
+
+        # (2) the burst over SSE, three times; generate on the same prompts
+        reqs = prompts()
+        pa.LAUNCHES = 0
+        pa.LAUNCHES_BY_S.clear()
+        bursts = []
+        for _ in range(3):
+            res = _concurrent(lambda ids: _sse_tokens(server.port, "lm", ids), reqs)
+            served["lm"] += len(reqs)
+            bursts.append(res)
+        launches, by_s = pa.LAUNCHES, dict(pa.LAUNCHES_BY_S)
+        state["contract_paged_launches"] = launches
+        gen = _concurrent(lambda ids: _post(base, "lm", ids), reqs)
+        served["lm"] += len(reqs)
+        streams = [[t for t, _, _ in b] for b in bursts]
+        ttft = [statistics.median(ms for _, _, ms in b) for b in bursts]
+        done_ok = all(last == {"done": True, "n_tokens": len(t)}
+                      for b in bursts for t, last, _ in b)
+        out["2_sse"] = {
+            "requests": len(reqs), "bursts": 3, "tokens": sum(map(len, streams[0])),
+            "ttft_ms_median": statistics.median(ttft), "ttft_ms_spread": max(ttft) - min(ttft),
+            "ttft_ms_by_burst": ttft, "paged_launches": launches,
+            "paged_launches_by_s": by_s,
+            "sse_equals_generate": all(s == gen for s in streams),
+            "rows_differing": [i for i in range(len(reqs)) if streams[0][i] != gen[i]],
+            "done_frames": done_ok}
+        checks["2"] = all(s == gen for s in streams) and launches > 0 and done_ok
+
+        # (3) deadlines
+        d0 = {route: _http(base, "POST", f"/v2/models/lm/{route}",
+                           {"input_ids": reqs[0]}, {"x-kft-deadline-ms": "0"})
+              for route in ("generate", "generate_stream")}
+        foreign = _http(base, "POST", "/v2/models/lm/generate",
+                        {"input_ids": reqs[0], "max_new_tokens": MAX_NEW},
+                        {"x-kft-deadline-ms": "30000", "x-kft-deadline-abs": "1.0"})
+        served["lm"] += foreign[0] == 200
+        out["3_deadlines"] = {
+            **{f"deadline_0_{r}": [v[0], v[1].get("Retry-After")] for r, v in d0.items()},
+            "foreign_abs_stamp": foreign[0],
+            "foreign_abs_tokens_equal": foreign[0] == 200
+            and json.loads(foreign[2])["token_ids"] == gen[0]}
+        checks["3"] = (all((v[0], v[1].get("Retry-After")) == (503, "1")
+                           for v in d0.values())
+                       and out["3_deadlines"]["foreign_abs_tokens_equal"])
+
+        # (4) an unmeetable deadline: half of the warm estimate
+        eng = lm.engine
+        est = eng.estimate_admission(MAX_NEW)
+        budget_ms = (est[0] + est[1]) * 1e3 / 2 if est else None
+        shed = _http(base, "POST", "/v2/models/lm/generate", {"input_ids": reqs[0]},
+                     {"x-kft-deadline-ms": f"{budget_ms:.3f}"}) if est else (0, {}, "")
+        out["4_shed"] = {"decode_gap_ms": eng.overlap["decode_gap_ms"],
+                         "estimate_s": est, "budget_ms": budget_ms,
+                         "status": shed[0], "retry_after": shed[1].get("Retry-After"),
+                         "shed_deadline": eng.stats["shed_deadline"]}
+        checks["4"] = (shed[0] == 503 and int(shed[1].get("Retry-After", "0")) >= 1
+                       and eng.stats["shed_deadline"] == 1)
+
+        # (5) priority: the rows held by direct engine clients (priority 1)
+        # and wedged, priority 0 and 1 queued over HTTP, then a priority-3
+        # newcomer over HTTP evicts the priority-0 one
+        entered, release = threading.Event(), threading.Event()
+        eng._fault_hooks["pre_chunk"] = _wedge_hook(entered, release)
+        results = {}
+
+        def direct(i):
+            results[f"row{i}"] = eng.submit(reqs[i], max_new_tokens=MAX_NEW, priority=1)
+
+        def http_call(key, i, prio):
+            results[key] = _http(base, "POST", "/v2/models/lm/generate",
+                                 {"input_ids": reqs[i]}, {"x-kft-priority": str(prio)})
+
+        cap = eng.max_batch + eng.max_queue
+        threads = [threading.Thread(target=direct, args=(i,)) for i in range(eng.max_batch)]
+        try:
+            for t in threads:
+                t.start()
+            if not entered.wait(60):
+                raise RuntimeError("the engine never reached the wedge")
+            for key, i, prio in (("p0", 0, 0), ("p1", 1, 1)):
+                th = threading.Thread(target=http_call, args=(key, i, prio))
+                th.start()
+                threads.append(th)
+            t_fill = time.monotonic() + 60
+            while (eng._pending.qsize() + sum(s is not None for s in eng._slots)
+                   < cap and time.monotonic() < t_fill):
+                time.sleep(0.005)
+            filled = eng._pending.qsize() + sum(s is not None for s in eng._slots)
+            th = threading.Thread(target=http_call, args=("p3", 2, 3))
+            th.start()
+            threads.append(th)
+            t_evict = time.monotonic() + 60
+            while "p0" not in results and time.monotonic() < t_evict:
+                time.sleep(0.005)
+            shed_priority = eng.stats["shed_priority"]
+        finally:
+            release.set()
+            for t in threads:
+                t.join(300)
+        p0, p1, p3 = results.get("p0"), results.get("p1"), results.get("p3")
+        served["lm"] += (p1 is not None and p1[0] == 200) + (p3 is not None and p3[0] == 200)
+        out["5_priority"] = {
+            "capacity": cap, "filled": filled,
+            "p0": [p0[0], p0[1].get("Retry-After")] if p0 else None,
+            "p1": p1[0] if p1 else None, "p3": p3[0] if p3 else None,
+            "rows_served": sum(bool(results.get(f"row{i}")) for i in range(eng.max_batch)),
+            "shed_priority": shed_priority}
+        checks["5"] = (filled == cap and p0 is not None and p0[0] == 503
+                       and int(p0[1].get("Retry-After", "0")) >= 1
+                       and p1 and p1[0] == 200 and p3 and p3[0] == 200
+                       and shed_priority == 1
+                       and out["5_priority"]["rows_served"] == eng.max_batch)
+
+        # (6) the watchdog: lm_wd wedged after its stream's first frame
+        ids = reqs[3]
+        want = _post(base, "lm_wd", ids)
+        served["lm_wd"] += 1
+        gc.collect()  # so that only the old pool is left to free below
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        old = lm_wd.engine
+        entered, release = threading.Event(), threading.Event()
+        old._fault_hooks["pre_chunk"] = _wedge_hook(entered, release)
+        t_wedge = time.perf_counter()
+        s = _SSE(server.port, "lm_wd", ids)
+        first = s.frame()
+        committed = first["token_ids"]
+        end = s.frame()  # the watchdog trips, the stream ends resumable
+        trip_s = time.perf_counter() - t_wedge
+        s.conn.close()
+        served["lm_wd"] += 1
+        t_ready = time.monotonic() + 60
+        while not lm_wd.ready and time.monotonic() < t_ready:
+            time.sleep(0.01)  # the rebuild lands right after the poison
+        mem_both = torch.cuda.memory_allocated()
+        rest, last, _ = _sse_tokens(server.port, "lm_wd", ids,
+                                    {"x-kft-resume-tokens": ",".join(map(str, committed))})
+        served["lm_wd"] += 1
+        wd = lm_wd.watchdog.stats
+        new_engine = lm_wd.engine is not old
+        release.set()
+        old_thread = old._thread
+        old_thread.join(120)
+        del old, s
+        gc.collect()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        pool_bytes = sum(t.numel() * t.element_size()
+                         for lc in lm_wd.engine.cache.values() for t in lc.values())
+        out["6_watchdog"] = {
+            "trip_s": trip_s, "end_frame": end, "committed": len(committed),
+            "resumed": len(rest), "resume_equals_uninterrupted": committed + rest == want,
+            "trips": wd["trips"], "restarts": wd["restarts"], "ready": lm_wd.ready,
+            "new_engine": new_engine, "old_thread_exited": not old_thread.is_alive(),
+            "pool_bytes": pool_bytes, "allocated_before": mem0,
+            "allocated_both_pools": mem_both, "allocated_after_old_exit": mem1}
+        checks["6"] = (end is not None and end.get("resumable") is True
+                       and committed + rest == want and last.get("done") is True
+                       and wd["trips"] == {"wedged": 1} and wd["restarts"] == 1
+                       and lm_wd.ready and new_engine and not old_thread.is_alive()
+                       and mem1 <= mem0 + pool_bytes // 2)
+
+        # (7) /metrics
+        status, _, text = _http(base, "GET", "/metrics")
+        values = {}
+        for ln in text.splitlines():
+            if ln and not ln.startswith("#"):
+                series, v = ln.rsplit(" ", 1)
+                values[series] = float(v)
+        names = ["kubeflow_tpu_requests_total", "kubeflow_tpu_latency_p50_ms",
+                 "kubeflow_tpu_latency_p99_ms", "kft_server_inflight",
+                 "kubeflow_tpu_engine_admitted", "kubeflow_tpu_engine_active_rows",
+                 "kft_engine_decode_gap_ms", "kft_engine_d2h_drain_ms",
+                 "kft_engine_carry_uploads_total", "kft_engine_slot_occupancy",
+                 "kft_engine_spec_acceptance", "kft_engine_spec_proposed_total",
+                 "kft_engine_spec_accepted_total", "kft_engine_prefix_hits_total",
+                 "kft_engine_prefix_tokens_reused_total", "kft_engine_prefix_entries",
+                 "kft_engine_prefix_tokens_stored", "kubeflow_tpu_engine_kv_pages_used",
+                 "kft_engine_paged_attn_kernel", "kft_engine_watchdog_trips_total",
+                 "kft_engine_restarts_total", "kft_server_ttft_ms_bucket",
+                 "kft_server_tpot_ms_bucket"]
+        missing = [n for n in names if not any(k.startswith(n + "{") for k in values)]
+        want_counts = {
+            'kubeflow_tpu_requests_total{model="lm"}': served["lm"],
+            'kubeflow_tpu_requests_total{model="lm_wd"}': served["lm_wd"],
+            'kubeflow_tpu_engine_shed_deadline{model="lm"}': 1,
+            'kubeflow_tpu_engine_shed_priority{model="lm"}': 1,
+            'kft_engine_watchdog_trips_total{model="lm_wd",reason="wedged"}': 1,
+            'kft_engine_restarts_total{model="lm_wd"}': 1,
+            'kft_engine_paged_attn_kernel{model="lm"}': 1,
+        }
+        got_counts = {k: values.get(k) for k in want_counts}
+        out["7_metrics"] = {"status": status, "lines": len(values), "missing": missing,
+                            "counts": got_counts, "wanted": want_counts}
+        checks["7"] = status == 200 and not missing and got_counts == want_counts
+    finally:
+        server.stop()
+    out["checks"] = checks
+    out["ok"] = all(checks.values()) and len(checks) == 7
+    emit(out)
+    return out["ok"]
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: training through Trainer.fit at full width
 # --------------------------------------------------------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
@@ -1212,7 +1616,8 @@ def main(argv=None) -> int:
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
     runners = {"kernels": phase_kernels, "forward": phase_forward,
                "serving": phase_serving, "parity": phase_parity,
-               "engine": phase_engine, "train": phase_train,
+               "engine": phase_engine, "contract": phase_contract,
+               "train": phase_train,
                "profile": phase_profile}
     ok = True
     for p in phases:
@@ -1247,7 +1652,8 @@ def main(argv=None) -> int:
                 "name": r["kernel"], "route": "cuda", "source": src,
                 "replaces": rep, "body": r["body"], "launches": launches,
                 **({"launches_by_s": state.get("paged_launches_by_s"),
-                    "verify_launches_engine_phase": state.get("verify_launches")}
+                    "verify_launches_engine_phase": state.get("verify_launches"),
+                    "launches_contract_phase": state.get("contract_paged_launches")}
                    if key == "paged_main" else {}),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -242,7 +242,7 @@ class Attention(nn.Module):
     def forward(
         self, x, positions, segment_ids=None, layer_cache=None,
         page_table=None, page_size=None, page_write_ok=None,
-        paged_attn_impl="gather", kv_quant="none",
+        paged_attn_impl="gather", kv_quant="none", quant_stats=None,
     ):
         cfg = self.cfg
         B, S, _ = x.shape
@@ -257,7 +257,7 @@ class Attention(nn.Module):
         if page_table is not None:
             o, new_cache = self._paged(
                 q, k, v, positions, layer_cache, page_table, page_size,
-                page_write_ok, paged_attn_impl, kv_quant,
+                page_write_ok, paged_attn_impl, kv_quant, quant_stats,
             )
         elif layer_cache is not None:
             raise NotImplementedError(
@@ -276,11 +276,14 @@ class Attention(nn.Module):
         return out
 
     def _paged(self, q, k, v, positions, layer_cache, page_table, P,
-               page_write_ok, paged_attn_impl, kv_quant):
+               page_write_ok, paged_attn_impl, kv_quant, quant_stats):
         """PAGED decode/prefill: write this call's keys/values into the
         pool IN PLACE through the block table (row b's token j lives at
         ``table[b, j // P] * P + j % P``), then read the row's window.
-        Pad positions and dead rows write to the scratch page 0."""
+        Pad positions and dead rows write to the scratch page 0. Under
+        int8, a ``quant_stats`` list receives this layer's ``[Σ|deq(kq) -
+        k| + Σ|deq(vq) - v|, Σ|k| + Σ|v|]`` over every written position
+        (the JAX model's sown ``quant_stats``)."""
         cfg = self.cfg
         B, Hkv, S, D = k.shape
         groups = cfg.n_heads // Hkv
@@ -305,6 +308,12 @@ class Attention(nn.Module):
             layer_cache["v"][:, idx] = rows(vq)
             layer_cache["k_scale"][:, idx] = rows(ks)
             layer_cache["v_scale"][:, idx] = rows(vs)
+            if quant_stats is not None:
+                kf, vf = k.float(), v.float()
+                err = ((dequantize_kv(kq, ks) - kf).abs().sum()
+                       + (dequantize_kv(vq, vs) - vf).abs().sum())
+                quant_stats.append(torch.stack(
+                    [err, kf.abs().sum() + vf.abs().sum()]))
         elif kv_quant == "none":
             layer_cache["k"][:, idx] = rows(k.to(layer_cache["k"].dtype))
             layer_cache["v"][:, idx] = rows(v.to(layer_cache["v"].dtype))
@@ -382,8 +391,10 @@ class TransformerLM(nn.Module):
     serving passes a pool from :func:`init_paged_kv_cache` plus
     ``page_table``/``page_size``/``page_write_ok`` and explicit
     ``positions`` and gets ``(logits, cache)``; the pool is updated in
-    place. Parameters are allocated uninitialized on ``device`` (``None``
-    = the CUDA card): load a state dict or call :func:`init_weights`.
+    place, and under ``kv_quant="int8"`` a ``quant_stats`` list collects
+    each layer's quantization-error sums. Parameters are allocated
+    uninitialized on ``device`` (``None`` = the CUDA card): load a state
+    dict or call :func:`init_weights`.
     ``param_dtype`` is the storage dtype of the projections (flax
     ``Dense.param_dtype``); ``None`` stores them in ``cfg.dtype``.
     """
@@ -416,7 +427,7 @@ class TransformerLM(nn.Module):
     def forward(
         self, tokens, *, segment_ids=None, positions=None, cache=None,
         page_table=None, page_size=None, page_write_ok=None,
-        paged_attn_impl="gather", kv_quant="none",
+        paged_attn_impl="gather", kv_quant="none", quant_stats=None,
     ):
         cfg = self.cfg
         B, S = tokens.shape
@@ -433,7 +444,7 @@ class TransformerLM(nn.Module):
         paged = dict(
             page_table=page_table, page_size=page_size,
             page_write_ok=page_write_ok, paged_attn_impl=paged_attn_impl,
-            kv_quant=kv_quant,
+            kv_quant=kv_quant, quant_stats=quant_stats,
         )
         for i, block in enumerate(self.layers):
             if cache is not None:

@@ -33,6 +33,13 @@ Requests join and leave a running decode batch of ``max_batch`` rows:
   the JAX engine, so a stream resumed with ``resume_tokens`` on any
   replica continues exactly; unseeded temperature draws come from the
   engine's ``torch.Generator``.
+- **The request contract** (``serve/deadline.py``): one end-to-end
+  deadline bounds queue wait and decode; admission sheds a request whose
+  deadline the decode-gap EWMA proves unmeetable (``AdmissionShed``) and,
+  at capacity, evicts the lowest-priority *queued* request for a
+  higher-priority one. The loop stamps a heartbeat each iteration and
+  ``poison`` fails all work without joining a wedged thread, for the
+  watchdog (``serve/watchdog.py``).
 
 Greedy token streams, and seeded sampled ones, are identical to the JAX
 engine's on the same weights (``tests/test_torch_engine*.py``,
@@ -60,8 +67,23 @@ from kubeflow_tpu_torch.models.transformer import (
     init_paged_kv_cache,
     init_weights,
 )
+from kubeflow_tpu_torch.obs import names, prom
+from kubeflow_tpu_torch.serve.deadline import (
+    ADMISSION_SHED,
+    DEADLINE_EXPIRED,
+    AdmissionShed,
+    DeadlineExceeded,
+    deadline_from_headers,
+    priority_from_headers,
+    resume_from_headers,
+    seed_from_headers,
+)
 from kubeflow_tpu_torch.serve.generate import sample_logits
-from kubeflow_tpu_torch.serve.headers import seed_from_headers
+from kubeflow_tpu_torch.serve.headers import (
+    PREFILL_PEER_HEADER,
+    SESSION_HEADER,
+    header_get,
+)
 from kubeflow_tpu_torch.serve.hostio import OutputRing, Uploader
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.paging import PageAllocator
@@ -72,6 +94,21 @@ from kubeflow_tpu_torch.serve.threefry import seeded_sample
 #: this timeout is only a belt-and-braces sweep, not a poll
 _IDLE_PARK_S = 5.0
 _INT32 = np.iinfo(np.int32)
+
+#: server-side TTFT/TPOT of the requests a serving model labels (every
+#: request through the server; warmup and direct submits record nothing)
+TTFT_MS = prom.REGISTRY.histogram(
+    names.SERVER_TTFT_MS,
+    "server-side time-to-first-token of served requests (ms)",
+    ("model",),
+    buckets=prom.MS_BUCKETS,
+)
+TPOT_MS = prom.REGISTRY.histogram(
+    names.SERVER_TPOT_MS,
+    "server-side mean time-per-output-token after the first (ms)",
+    ("model",),
+    buckets=prom.MS_BUCKETS,
+)
 
 
 @dataclass
@@ -118,7 +155,7 @@ def _reject_unported(c: LMEngineConfig) -> None:
         (c.kv_pool_tokens is None,
          "dense KV mode (kv_pool_tokens=None)", "queue 1 item 3"),
         (c.host_kv_bytes > 0,
-         "the host KV tier (host_kv_bytes>0)", "queue 1 item 7"),
+         "the host KV tier (host_kv_bytes>0)", "queue 1 item 7b"),
         (c.mesh is not None or c.rules is not None,
          "tensor-parallel serving (mesh/rules)", "queue 1 item 10"),
         (c.page_size is None,
@@ -161,14 +198,6 @@ class EngineOverloaded(RuntimeError):
     """Admission queue full — callers should shed load (HTTP 429)."""
 
 
-class DeadlineExceeded(RuntimeError):
-    """The request's deadline passed; ``stage`` says where."""
-
-    def __init__(self, msg: str, *, stage: str):
-        super().__init__(msg)
-        self.stage = stage
-
-
 @dataclass
 class _Request:
     ids: list[int]
@@ -183,22 +212,82 @@ class _Request:
     cancelled: threading.Event = field(default_factory=threading.Event)
     # end-to-end deadline (absolute time.monotonic())
     deadline: float | None = None
+    # tenant priority (higher = shed last): at capacity the lowest-priority
+    # queued request is evicted first
+    priority: int = 0
     # per-request sampling seed (None: the engine generator's draws)
     seed: int | None = None
+    # serving model's label: set, the request's TTFT/TPOT are recorded
+    model: str | None = None
     t_enqueue: float = 0.0
     t_first: float = 0.0
+    t_last: float = 0.0
 
     def push(self, toks: list[int]) -> None:
-        if toks and not self.tokens:
-            self.t_first = time.monotonic()
+        if self.done.is_set():
+            return  # failed already (a poisoned engine's late drain)
+        if toks:
+            # first / latest token on the host, when a client could see it
+            self.t_last = time.monotonic()
+            if not self.tokens:
+                self.t_first = self.t_last
         self.tokens.extend(toks)
         if self.live is not None and toks:
             self.live.put(list(toks))
 
     def finish(self) -> None:
+        # record once: finish can race between the enqueue path and drains
+        label, self.model = self.model, None
+        if label is not None and self.t_first:
+            TTFT_MS.labels(model=label).observe(
+                (self.t_first - self.t_enqueue) * 1e3)
+            n = len(self.tokens)
+            if n >= 2 and self.t_last > self.t_first:
+                TPOT_MS.labels(model=label).observe(
+                    (self.t_last - self.t_first) / (n - 1) * 1e3)
         if self.live is not None:
             self.live.put(None)  # stream sentinel
         self.done.set()
+
+
+class _TokenStream:
+    """Iterator over one admitted request's token chunks (``stream``).
+    Every wait is charged against the request's one deadline; ``close``
+    (a consumer walking away) releases the row at the next chunk
+    boundary, also when the stream is closed before its first chunk."""
+
+    def __init__(self, engine: "LMEngine", req: _Request, deadline: float):
+        self._engine, self._req, self._deadline = engine, req, deadline
+        self._closed = False
+
+    def __iter__(self) -> "_TokenStream":
+        return self
+
+    def __next__(self) -> list[int]:
+        if self._closed:
+            raise StopIteration
+        req = self._req
+        remaining = self._deadline - time.monotonic()
+        try:
+            if remaining <= 0:
+                raise queue.Empty
+            item = req.live.get(timeout=remaining)
+        except queue.Empty:
+            self.close()
+            DEADLINE_EXPIRED.labels(stage="wait").inc()
+            raise DeadlineExceeded("generation timed out", stage="wait") from None
+        if item is None:
+            self._closed = True
+            if req.error is not None:
+                raise req.error
+            raise StopIteration
+        return item
+
+    def close(self) -> None:
+        self._closed = True
+        if not self._req.done.is_set():
+            self._req.cancelled.set()
+            self._engine._work.set()
 
 
 @dataclass
@@ -297,9 +386,20 @@ class LMEngine:
 
         self._pending: queue.Queue[_Request] = queue.Queue()
         self._fatal: Exception | None = None
+        #: set (with the retryable error) while the watchdog tears this
+        #: instance down: submits racing the swap fail fast with it
+        self._poisoned: Exception | None = None
         self._work = threading.Event()
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        #: scheduler-loop heartbeat (monotonic), stamped at the top of
+        #: every iteration: stale while work exists means a wedged loop
+        self._beat = time.monotonic()
+        #: fault seam: a "pre_chunk" hook runs on the scheduler thread
+        #: before each chunk dispatch (tests wedge or slow the loop here)
+        self._fault_hooks: dict[str, Any] = {}
+        #: the serving model's name, set by ``LMEngineModel``
+        self.model_name: str | None = None
         self.stats = {
             "admitted": 0, "completed": 0, "chunks": 0, "max_concurrent": 0,
             "prefix_hits": 0, "prefix_tokens_reused": 0,
@@ -307,6 +407,7 @@ class LMEngine:
             "kv_pages_used_peak": 0,
             "spec_proposed": 0, "spec_accepted": 0,
             "deadline_expired_queued": 0, "deadline_expired_decoding": 0,
+            "shed_deadline": 0, "shed_priority": 0,
             "resume_admits": 0,
         }
         #: time to first token of recent completions, milliseconds
@@ -330,6 +431,11 @@ class LMEngine:
             "slot_occupancy": 0.0,   # EWMA occupied-row share at dispatch
             "spec_acceptance": 0.0,  # EWMA accepted / proposed drafts
         }
+        if self.kv_quant == "int8":
+            # EWMA of the mean-abs relative KV quantization error, measured
+            # by the prefill pieces (pre-initialized: /metrics reads this
+            # dict from another thread)
+            self.overlap["kv_quant_error"] = 0.0
 
         # prefix cache: completed prompt prefills donate their KV, keyed by
         # the prompt ids rounded DOWN to a 16-token multiple
@@ -357,11 +463,12 @@ class LMEngine:
             w *= 2
         return min(w, self.pager.max_pages_per_row)
 
-    def _forward(self, x, positions, table, write_ok):
+    def _forward(self, x, positions, table, write_ok, quant_stats=None):
         logits, _ = self.model(
             x, cache=self.cache, positions=positions, page_table=table,
             page_size=self.page_size, page_write_ok=write_ok,
             paged_attn_impl=self.paged_attn_impl, kv_quant=self.kv_quant,
+            quant_stats=quant_stats,
         )
         return logits
 
@@ -371,12 +478,17 @@ class LMEngine:
         """One row's prefill piece writes tokens [offset, offset + S)
         through its block table (pad positions >= slen go to the scratch
         page) and samples the token after the last real one — by the
-        seeded draw at absolute position ``pos`` when ``seeded``."""
+        seeded draw at absolute position ``pos`` when ``seeded``. Returns
+        ``(token, qerr)``: under ``kv_quant="int8"`` qerr is the layers'
+        summed ``[quantization error, magnitude]`` of the piece's K and V
+        (the only program that measures it: decode chunks stay free of
+        telemetry), else None."""
         S = piece.shape[1]
         dev = self.device
         ar = torch.arange(S, device=dev)
+        qs: list | None = [] if self.kv_quant == "int8" else None
         logits = self._forward(piece, (offset + ar)[None, :], table,
-                               (ar < slen)[None, :])
+                               (ar < slen)[None, :], quant_stats=qs)
         last = logits[:, slen - 1]
         temp = torch.full((1,), temperature, dtype=torch.float32, device=dev)
         tok = sample_logits(last, temp, self._gen)
@@ -385,7 +497,7 @@ class LMEngine:
                 last, torch.full((1,), seed, dtype=torch.int64, device=dev),
                 torch.full((1,), pos, dtype=torch.int64, device=dev), temp, tok,
             )
-        return tok[0]
+        return tok[0], (torch.stack(qs).sum(0) if qs else None)
 
     def _chunk_paged(self, c: dict, *, seeded: bool):
         """``chunk_steps`` decode steps for all rows (a Python loop where
@@ -568,20 +680,90 @@ class LMEngine:
             req.error = err
             req.finish()
 
+    # -- the request contract: liveness, poisoning, admission estimate ----- #
+
+    def heartbeat(self) -> float:
+        """Monotonic stamp of the scheduler loop's last iteration start."""
+        return self._beat
+
+    def busy(self) -> bool:
+        """True when the engine has work a wedged loop would be stalling:
+        active decode rows, queued admissions, prefills in flight, or a
+        page-held request."""
+        return bool(
+            self.active.any() or self._pending.qsize() or self._prefilling
+            or self._held is not None
+        )
+
+    def poison(self, err: Exception) -> None:
+        """Fail every in-flight and queued request with ``err`` now and
+        stop accepting work, WITHOUT joining the scheduler thread: it may
+        be wedged, and exits on its own at ``_stop`` once it returns. The
+        emptied slots mask every row out of a chunk it still drains."""
+        self._poisoned = err
+        self._stop.set()
+        self._work.set()
+        self._fail_all(err)
+
+    def estimate_admission(
+        self, max_new_tokens: int
+    ) -> tuple[float, float] | None:
+        """``(queue_wait_s, decode_s)`` for a request admitted now, from
+        the decode-gap EWMA; None while it is cold (no evidence, so never
+        shed on a guess). ``decode_s`` counts chunks of the chunk *span*
+        (an upper bound on a row's tokens a chunk, so the estimate errs
+        toward admitting). ``queue_wait_s`` drains the requests queued
+        ahead ``max_batch`` at a time, each wave lasting the active rows'
+        mean remaining decode."""
+        gap_s = self.overlap["decode_gap_ms"] / 1e3
+        if gap_s <= 0.0:
+            return None
+        span = self._chunk_span
+        decode_s = -(-max_new_tokens // span) * gap_s
+        queued = self._pending.qsize() + (1 if self._held is not None else 0)
+        free = sum(s is None for s in self._slots)
+        if queued < free:
+            return 0.0, decode_s
+        act = self.active
+        if act.any():
+            mean_remaining = float((self.budget - self.gen_count)[act].mean())
+        else:
+            mean_remaining = float(max_new_tokens)
+        wave_s = max(1.0, mean_remaining / span) * gap_s
+        waves = -(-(queued + 1 - free) // self.max_batch)
+        return waves * wave_s, decode_s
+
     # -- admission ---------------------------------------------------------- #
 
     def _enqueue(self, ids, max_new_tokens, temperature, *, live: bool,
-                 deadline: float, resume: int = 0,
-                 seed: int | None = None) -> _Request:
+                 deadline: float, priority: int = 0, resume: int = 0,
+                 seed: int | None = None, label: str | None = None,
+                 ) -> _Request:
         if not ids:
             raise ValueError("empty prompt")
+        if self._poisoned is not None:
+            raise self._poisoned
         if self._fatal is not None:
             raise RuntimeError("LM engine is dead") from self._fatal
         if self._stop.is_set():
             raise RuntimeError("LM engine stopped")
-        if deadline - time.monotonic() <= 0:
+        remaining = deadline - time.monotonic()
+        if remaining <= 0:
+            DEADLINE_EXPIRED.labels(stage="admission").inc()
             raise DeadlineExceeded(
                 "deadline already expired at admission", stage="admission"
+            )
+        est = self.estimate_admission(max_new_tokens)
+        if est is not None and est[0] + est[1] > remaining:
+            # shed BEFORE the request costs a decode slot: by the evidence
+            # in hand it cannot finish inside its budget
+            queue_wait_s, decode_s = est
+            self.stats["shed_deadline"] += 1
+            ADMISSION_SHED.labels(reason="deadline_unmeetable").inc()
+            raise AdmissionShed(
+                f"deadline unmeetable: ~{queue_wait_s:.1f}s queue + "
+                f"~{decode_s:.1f}s decode > {remaining:.1f}s remaining",
+                reason="deadline_unmeetable", retry_after_s=queue_wait_s,
             )
         if seed is not None and not _INT32.min <= seed <= _INT32.max:
             raise ValueError(f"seed must be a 32-bit integer; got {seed}")
@@ -589,7 +771,9 @@ class LMEngine:
         # max_queue is shed — an unbounded tail would outwait any client
         occupied = sum(s is not None for s in self._slots)
         held = 1 if self._held is not None else 0
-        if self._pending.qsize() + occupied + held >= self.max_batch + self.max_queue:
+        if (self._pending.qsize() + occupied + held
+                >= self.max_batch + self.max_queue
+                and not self._evict_lower_priority(priority)):
             raise EngineOverloaded(
                 f"engine at capacity ({occupied} decoding, "
                 f"{self._pending.qsize() + held} queued, "
@@ -613,20 +797,48 @@ class LMEngine:
         req = _Request(
             list(ids), max_new_tokens, temperature,
             live=queue.Queue() if live else None, deadline=deadline,
-            seed=seed, t_enqueue=time.monotonic(),
+            priority=priority, seed=seed, model=label,
+            t_enqueue=time.monotonic(),
         )
         if resume:  # committed tokens of a mid-stream failover joined ids
             self.stats["resume_admits"] += 1
         self._pending.put(req)
         self._work.set()
         if (self._stop.is_set() or self._fatal is not None) and not req.done.is_set():
-            # raced stop()'s or the crash handler's drain: fail it here
-            req.error = RuntimeError("LM engine stopped")
+            # raced stop()'s, poison()'s or the crash handler's drain
+            req.error = self._poisoned or RuntimeError("LM engine stopped")
             if self._fatal is not None:
                 req.error = RuntimeError("LM engine is dead")
                 req.error.__cause__ = self._fatal
             req.finish()
         return req
+
+    def _evict_lower_priority(self, priority: int) -> bool:
+        """At capacity, shed the lowest-priority QUEUED request whose
+        priority is strictly below the newcomer's; True when a slot was
+        freed. Active rows, prefilling rows and the page-held request are
+        never victims: evicting them would waste work already done."""
+        with self._pending.mutex:  # the scheduler's get_nowait holds it too
+            victim = None
+            for cand in self._pending.queue:
+                if cand.done.is_set() or cand.cancelled.is_set():
+                    continue
+                if cand.priority < priority and (
+                    victim is None or cand.priority < victim.priority
+                ):
+                    victim = cand
+            if victim is None:
+                return False
+            self._pending.queue.remove(victim)
+        self.stats["shed_priority"] += 1
+        ADMISSION_SHED.labels(reason="priority_evict").inc()
+        victim.error = AdmissionShed(
+            f"shed by a priority-{priority} request under overload "
+            f"(this request: priority {victim.priority})",
+            reason="priority_evict",
+        )
+        victim.finish()
+        return True
 
     def _resume_args(self, ids, max_new_tokens: int, resume_tokens):
         """Fold a mid-stream-failover resume prefix into the admission
@@ -651,25 +863,31 @@ class LMEngine:
     def submit(
         self, ids: list[int], *, max_new_tokens: int = 32,
         temperature: float = 0.0, timeout_s: float = 300.0,
-        deadline: float | None = None, seed: int | None = None,
-        resume_tokens: list[int] | None = None,
+        deadline: float | None = None, priority: int = 0,
+        seed: int | None = None, resume_tokens: list[int] | None = None,
+        label: str | None = None,
     ) -> list[int]:
         """Generate up to ``max_new_tokens`` after ``ids``; blocks until
         done. ``deadline`` (absolute ``time.monotonic()``) bounds queue
         wait and decode; ``timeout_s`` becomes it when none is given.
-        ``seed`` pins position-folded sampling (``serve/threefry.py``);
+        ``priority``: higher is shed last at capacity. ``seed`` pins
+        position-folded sampling (``serve/threefry.py``);
         ``resume_tokens`` (already-committed generated tokens) extend the
-        prompt and shrink the budget — only the tokens past them return."""
+        prompt and shrink the budget — only the tokens past them return.
+        ``label`` (the serving model's name) records the request's TTFT
+        and TPOT under it."""
         if deadline is None:
             deadline = time.monotonic() + timeout_s
         ids, max_new_tokens, resume = self._resume_args(
             ids, max_new_tokens, resume_tokens)
         req = self._enqueue(ids, max_new_tokens, temperature, live=False,
-                            deadline=deadline, resume=resume, seed=seed)
+                            deadline=deadline, priority=priority,
+                            resume=resume, seed=seed, label=label)
         if not req.done.wait(max(0.0, deadline - time.monotonic())):
             # hand the row back: nobody will read its tokens
             req.cancelled.set()
             self._work.set()
+            DEADLINE_EXPIRED.labels(stage="wait").inc()
             raise DeadlineExceeded("generation timed out", stage="wait")
         if req.error is not None:
             raise req.error
@@ -678,39 +896,23 @@ class LMEngine:
     def stream(
         self, ids: list[int], *, max_new_tokens: int = 32,
         temperature: float = 0.0, timeout_s: float = 300.0,
-        deadline: float | None = None, seed: int | None = None,
-        resume_tokens: list[int] | None = None,
-    ):
-        """Yields lists of new tokens as prefill and decode chunks
-        complete; every wait is charged against one deadline. ``seed`` and
-        ``resume_tokens`` as in :meth:`submit`."""
+        deadline: float | None = None, priority: int = 0,
+        seed: int | None = None, resume_tokens: list[int] | None = None,
+        label: str | None = None,
+    ) -> _TokenStream:
+        """Admit now (so a shed or overload raises here, before a caller
+        commits to a response) and return an iterator of the new tokens
+        as prefill and decode chunks complete; every wait is charged
+        against one deadline, and closing it releases the row. Arguments
+        as in :meth:`submit`."""
         if deadline is None:
             deadline = time.monotonic() + timeout_s
         ids, max_new_tokens, resume = self._resume_args(
             ids, max_new_tokens, resume_tokens)
         req = self._enqueue(ids, max_new_tokens, temperature, live=True,
-                            deadline=deadline, resume=resume, seed=seed)
-        try:
-            while True:
-                remaining = deadline - time.monotonic()
-                try:
-                    if remaining <= 0:
-                        raise queue.Empty
-                    item = req.live.get(timeout=remaining)
-                except queue.Empty:
-                    raise DeadlineExceeded(
-                        "generation timed out", stage="wait"
-                    ) from None
-                if item is None:
-                    break
-                yield item
-            if req.error is not None:
-                raise req.error
-        finally:
-            # generator closed early (client disconnect) → release the row
-            if not req.done.is_set():
-                req.cancelled.set()
-                self._work.set()
+                            deadline=deadline, priority=priority,
+                            resume=resume, seed=seed, label=label)
+        return _TokenStream(self, req, deadline)
 
     def _bucket(self, n: int) -> int:
         for b in self.prefill_buckets:
@@ -730,8 +932,11 @@ class LMEngine:
             req = self._slots[row]
             if req is None:
                 continue
+            # deadline before cancellation: a timed-out caller sets both,
+            # and the retirement is the deadline's
             if req.deadline is not None and now > req.deadline:
                 self.stats["deadline_expired_decoding"] += 1
+                DEADLINE_EXPIRED.labels(stage="decoding").inc()
                 req.error = DeadlineExceeded(
                     "deadline expired mid-decode", stage="decoding"
                 )
@@ -750,9 +955,11 @@ class LMEngine:
                 except queue.Empty:
                     return
             if req.done.is_set():
-                continue
+                continue  # priority-evicted while queued: already failed
             if req.deadline is not None and time.monotonic() > req.deadline:
+                # retired from the queue before costing a decode slot
                 self.stats["deadline_expired_queued"] += 1
+                DEADLINE_EXPIRED.labels(stage="queued").inc()
                 req.error = DeadlineExceeded(
                     "deadline expired while queued", stage="queued"
                 )
@@ -921,7 +1128,7 @@ class LMEngine:
         piece = np.full((1, C), self.pad_id, np.int64)
         piece[0, : len(piece_ids)] = piece_ids
         offset = base + i * C
-        tok = self._suffix_prefill(
+        tok, qerr = self._suffix_prefill(
             self.uploader.upload(piece), len(piece_ids), offset,
             self.pager.device_row(row, self._pages_w(offset + C)),
             req.temperature, -1 if req.seed is None else req.seed,
@@ -929,6 +1136,12 @@ class LMEngine:
             # final piece, where it is len(req.ids))
             offset + len(piece_ids), seeded=req.seed is not None,
         )
+        if qerr is not None:
+            # one sync a piece, as the final piece's int(tok) below:
+            # prefill is synchronous by design
+            e, d = qerr.tolist()
+            if d > 0:
+                self._ewma("kv_quant_error", e / d)
         self.stats["prefill_pieces"] += 1
         st["piece"] = i + 1
         if not final:
@@ -992,6 +1205,9 @@ class LMEngine:
     def _loop_inner(self) -> None:
         pending: _PendingChunk | None = None
         while not self._stop.is_set():
+            # watchdog heartbeat: stale while work exists means the loop
+            # is wedged (inside a device call or a fault hook)
+            self._beat = time.monotonic()
             self._admit_all()
             self._advance_prefills()  # one piece per prefilling row
             if not self.active.any():
@@ -1091,6 +1307,9 @@ class LMEngine:
         """Queue one decode chunk on the device carry and thread its
         per-row outputs into the carry for the next one; the outputs are
         staged for the host (copy + event) right behind it."""
+        hook = self._fault_hooks.get("pre_chunk")
+        if hook is not None:
+            hook(self)  # fault seam: a test wedges or slows the loop here
         now = time.perf_counter()
         if self._last_dispatch is not None:
             self._ewma("decode_gap_ms", (now - self._last_dispatch) * 1e3)
@@ -1185,18 +1404,68 @@ class LMEngine:
             self._ewma("spec_acceptance", chunk_acc / chunk_prop)
 
 
+class _AdmittedStream:
+    """Iterator wrapper that releases exactly one admission slot however
+    the stream ends: exhaustion, error, or close before the first next."""
+
+    def __init__(self, it, release):
+        self._it = it
+        self._release = release
+        self._released = False
+
+    def _release_once(self) -> None:
+        if not self._released:
+            self._released = True
+            self._release()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        try:
+            return next(self._it)
+        except BaseException:  # StopIteration included: the stream is over
+            self._release_once()
+            raise
+
+    def close(self) -> None:
+        try:
+            self._it.close()  # cancels the engine row
+        finally:
+            self._release_once()
+
+
+def _reject_unported_headers(headers) -> None:
+    """Request headers whose features the port lacks answer 501 (as an
+    unported engine setting raises), never a silently different result."""
+    for name in (PREFILL_PEER_HEADER, SESSION_HEADER):
+        if header_get(headers, name) is not None:
+            raise NotImplementedError(
+                f"the {name} header (disaggregated prefill and the host KV "
+                "tier) is not ported yet (ROADMAP queue 1 item 7b)"
+            )
+
+
 class LMEngineModel(Model):
     """Engine-backed serving model: rows from concurrent requests share
     one decode batch. Request rows are ``{"input_ids": [...],
     "max_new_tokens": n, "temperature": t}`` (or a bare id list);
-    responses are ``{"token_ids": [...]}``. An ``x-kft-seed`` request
-    header seeds every row's sampling (``serve/threefry.py``).
+    responses are ``{"token_ids": [...]}``. The request headers
+    (``serve/headers.py``) carry the deadline, priority and sampling seed;
+    ``x-kft-resume-tokens`` continues a stream (:meth:`stream_row_tokens`);
+    ``x-kft-prefill-peer`` and ``x-kft-session`` raise
+    ``NotImplementedError`` (501).
 
     ``load()`` builds the ``TransformerLM`` on ``device`` (``None`` = the
     CUDA card) with ``state_dict`` when given (e.g. bridged JAX params)
-    or random weights from ``seed``, then starts the engine. Engine knobs
-    (``pipeline_depth``, ``spec_draft_tokens``, ``prefix_cache_entries``,
-    ``prefill_chunk``, ...) pass through with the JAX defaults.
+    or random weights from ``seed``, and starts the engine; on the card it
+    runs :meth:`warmup` (the kernel build included) before the model
+    reports ready. Engine knobs (``pipeline_depth``,
+    ``spec_draft_tokens``, ``prefix_cache_entries``, ``prefill_chunk``,
+    ...) pass through with the JAX defaults. ``watchdog`` (default on)
+    supervises the engine (``serve/watchdog.py``) with the JAX defaults
+    of its thresholds; a trip rebuilds the engine's device state and
+    shares only the weights with the old one.
     """
 
     def __init__(
@@ -1204,7 +1473,9 @@ class LMEngineModel(Model):
         state_dict: Mapping[str, torch.Tensor] | None = None, seed: int = 0,
         device=None, max_new_tokens: int = 32, eos_id: int = 1,
         prefill_buckets: tuple[int, ...] = (32, 128), max_batch: int = 8,
-        max_seq: int | None = None, **engine_kwargs,
+        max_seq: int | None = None, watchdog: bool = True,
+        watchdog_interval_s: float = 0.5, watchdog_wedge_factor: float = 8.0,
+        watchdog_min_wedge_s: float = 30.0, **engine_kwargs,
     ):
         super().__init__(name)
         if not config.causal:
@@ -1221,12 +1492,59 @@ class LMEngineModel(Model):
             **engine_kwargs,
         )
         _reject_unported(self._engine_config)
+        self._lm: TransformerLM | None = None
         self.engine: LMEngine | None = None
         self._executor: cf.ThreadPoolExecutor | None = None
+        #: engine watchdog: supervises ``engine``, flips ``ready`` on trips
+        self.watchdog = None
+        self._watchdog_on = watchdog
+        self._watchdog_config = dict(
+            interval_s=watchdog_interval_s, wedge_factor=watchdog_wedge_factor,
+            min_wedge_s=watchdog_min_wedge_s,
+        )
+        #: what the last :meth:`warmup` did (``seconds``, ``libraries``)
+        self.warmup_report: dict | None = None
         # admission control on the caller's thread: the private executor
         # is sized max_batch, so excess rows would otherwise queue unseen
         self._inflight = 0
         self._inflight_lock = threading.Lock()
+        #: called after every supervised restart (the server zeroes its
+        #: load signals there)
+        self._restart_listeners: list = []
+
+    def add_restart_listener(self, fn) -> None:
+        self._restart_listeners.append(fn)
+
+    def _make_engine(self) -> LMEngine:
+        """One engine from the stored knobs over the shared weights: its
+        own page pool, uploader, output ring, prefix cache and
+        generator. ``load`` builds the first, a restart the next."""
+        eng = LMEngine(self._lm, config=self._engine_config)
+        eng.model_name = self.name
+        return eng
+
+    def restart_engine(self, err: Exception | None = None) -> LMEngine:
+        """Rebuild the engine's device state (the watchdog's rebuild hook;
+        operators may call it too). The old engine must already be
+        poisoned or stopped: a wedged thread of it is abandoned and exits
+        on its own."""
+        self.engine = self._make_engine().start()
+        # the fresh engine starts with zeroed stats; the admission count
+        # must match. Poisoned requests still unwinding release later,
+        # and _release clamps at zero.
+        with self._inflight_lock:
+            self._inflight = 0
+        for fn in list(self._restart_listeners):
+            try:
+                fn()
+            except Exception:  # noqa: BLE001 — a listener must not block
+                pass  # the restart; readiness recovery comes first
+        return self.engine
+
+    def _set_ready(self, ready: bool) -> None:
+        # the watchdog flips this first on a trip: /v2/health/ready says
+        # not ready while the engine rebuilds
+        self.ready = ready
 
     def load(self) -> bool:
         model = TransformerLM(self.config, device=self._device)
@@ -1234,16 +1552,34 @@ class LMEngineModel(Model):
             model.load_state_dict(self._state_dict)
         else:
             init_weights(model, self._seed)
-        model.eval().requires_grad_(False)
+        self._lm = model.eval().requires_grad_(False)
         self._executor = cf.ThreadPoolExecutor(
             max_workers=self._engine_config.max_batch,
             thread_name_prefix=f"lm-engine-{self.name}",
         )
-        self.engine = LMEngine(model, config=self._engine_config).start()
+        self.engine = self._make_engine().start()
+        if self.engine.device.type == "cuda":
+            # the first request must not pay the kernels' build
+            self.warmup()
+        if self._watchdog_on:
+            from kubeflow_tpu_torch.serve.watchdog import (
+                EngineWatchdog,
+                WatchdogConfig,
+            )
+
+            self.watchdog = EngineWatchdog(
+                lambda: self.engine, self.restart_engine,
+                on_ready=self._set_ready,
+                config=WatchdogConfig(**self._watchdog_config),
+                model_name=self.name,
+            ).start()
         self.ready = True
         return True
 
     def unload(self) -> None:
+        if self.watchdog is not None:
+            self.watchdog.stop()
+            self.watchdog = None
         if self.engine is not None:
             self.engine.stop()
             self.engine = None
@@ -1251,6 +1587,56 @@ class LMEngineModel(Model):
             self._executor.shutdown(wait=False, cancel_futures=True)
             self._executor = None
         super().unload()
+
+    def warmup(self) -> dict:
+        """Run every path the first requests would: on the card, build
+        the CUDA kernels and load each library this config launches (a
+        failed build raises); then a prompt per prefill bucket, a verify
+        when ``spec_draft_tokens > 0`` (a repeating prompt, so the drafter
+        matches), and a prefix store and hit when the prefix cache is on.
+        Eager programs have no shape-keyed compile, so one pass per path
+        warms it. Warmup traffic must not pollute production metrics:
+        ``stats`` and ``overlap`` restart at zero and ``ttft_ms`` empties;
+        warmup requests carry no label, so the TTFT/TPOT histograms never
+        see them. Returns (and keeps as ``warmup_report``) the seconds it
+        took, the kernel libraries it loaded and whether the model was
+        already reporting ready while it ran (not when ``load`` ran it)."""
+        t0 = time.perf_counter()
+        eng = self.engine
+        libraries = []
+        if eng.device.type == "cuda":
+            from kubeflow_tpu_torch.ops import _build, paged_attention
+
+            _build.build()
+            if eng.paged_attn_impl == "kernel":
+                paged_attention._lib()
+                libraries.append("paged_attention")
+        vocab = self.config.vocab_size
+        for i, s in enumerate(eng.prefill_buckets):
+            eng.submit([2 + i % (vocab - 2)] * s, max_new_tokens=2)
+        if eng.spec_k:
+            s0 = eng.prefill_buckets[0]
+            cap = eng.max_seq - s0
+            if cap >= 2:
+                eng.submit(([3, 5, 7] * s0)[:s0],
+                           max_new_tokens=min(eng.spec_k + 2, cap))
+        if eng._prefix_cache is not None and 17 + 2 <= eng.max_seq and (
+            eng.prefill_chunk or eng.prefill_buckets[-1] >= 17
+        ):
+            eng.drop_prefix_cache()
+            tok = 2 + len(eng.prefill_buckets) % (vocab - 2)
+            tail = 2 + (tok - 1) % (vocab - 2)
+            eng.submit([tok] * 17, max_new_tokens=2)      # stores 16
+            eng.submit([tok] * 16 + [tail], max_new_tokens=2)  # hits it
+            eng.drop_prefix_cache()
+        for key in eng.stats:
+            eng.stats[key] = 0
+        for key in eng.overlap:
+            eng.overlap[key] = 0 if key == "carry_uploads" else 0.0
+        eng.ttft_ms.clear()
+        self.warmup_report = {"seconds": time.perf_counter() - t0,
+                              "libraries": libraries, "ready": self.ready}
+        return self.warmup_report
 
     def preprocess(self, payload: Any, headers=None) -> list[dict]:
         if isinstance(payload, Mapping) and "instances" in payload:
@@ -1294,33 +1680,73 @@ class LMEngineModel(Model):
             return self.max_new_tokens
         return max(1, min(int(req), self.max_new_tokens))
 
-    def _submit_row(self, eng: LMEngine, row, seed: int | None = None) -> dict:
-        toks = eng.submit(
+    def _submit_row(self, row, deadline: float | None = None,
+                    priority: int = 0, seed: int | None = None) -> dict:
+        toks = self.engine.submit(
             row["ids"], max_new_tokens=self._row_budget(row),
-            temperature=row["temperature"], seed=seed,
+            temperature=row["temperature"], deadline=deadline,
+            priority=priority, seed=seed, label=self.name,
         )
         return {"token_ids": toks}
 
-    def predict(self, rows, headers=None) -> list[dict]:
+    def _admit(self, n_rows: int) -> None:
         eng = self.engine  # snapshot: unload() may clear it concurrently
         if eng is None:
             raise RuntimeError(f"model {self.name!r} is unloaded")
-        seed = seed_from_headers(headers)
         cap = self._engine_config.max_batch + eng.max_queue
         with self._inflight_lock:
-            if self._inflight + len(rows) > cap:
+            if self._inflight + n_rows > cap:
                 raise EngineOverloaded(
                     f"{self._inflight} rows in flight (capacity {cap})"
                 )
-            self._inflight += len(rows)
+            self._inflight += n_rows
+
+    def _release(self, n_rows: int) -> None:
+        with self._inflight_lock:
+            # clamped: a restart zeroes the count while poisoned requests
+            # are still unwinding toward their release
+            self._inflight = max(0, self._inflight - n_rows)
+
+    def predict(self, rows, headers=None) -> list[dict]:
+        # rows fan out so they share the decode batch with each other and
+        # everyone else's; release only after EVERY row settles, or new
+        # requests would pass the cap while siblings still run
+        _reject_unported_headers(headers)
+        deadline = deadline_from_headers(headers)
+        priority = priority_from_headers(headers)
+        seed = seed_from_headers(headers)
+        self._admit(len(rows))
         try:
-            futs = [self._executor.submit(self._submit_row, eng, r, seed)
-                    for r in rows]
+            futs = [self._executor.submit(self._submit_row, r, deadline,
+                                          priority, seed) for r in rows]
             cf.wait(futs)
         finally:
-            with self._inflight_lock:
-                self._inflight -= len(rows)
+            self._release(len(rows))
         return [f.result() for f in futs]
+
+    def stream_row_tokens(self, row, headers=None) -> _AdmittedStream:
+        """Token-chunk iterator for one preprocessed row: the server's
+        ``generate_stream``. Admission is EAGER (model cap and engine
+        admission both run here), so an overload or shed raises before
+        the server commits a 200; the wrapper releases the slot however
+        the stream ends, also when closed before its first chunk."""
+        _reject_unported_headers(headers)
+        deadline = deadline_from_headers(headers)
+        priority = priority_from_headers(headers)
+        seed = seed_from_headers(headers)
+        resume = resume_from_headers(headers)
+        self._admit(1)
+        try:
+            it = self.engine.stream(
+                row["ids"], max_new_tokens=self._row_budget(row),
+                temperature=row["temperature"], deadline=deadline,
+                priority=priority, seed=seed, resume_tokens=resume,
+                label=self.name,
+            )
+        except BaseException:
+            self._release(1)
+            raise
+        return _AdmittedStream(it, lambda: self._release(1))
 
     def postprocess(self, outputs, headers=None) -> Any:
         return {"predictions": outputs}

@@ -1,24 +1,46 @@
-"""Request headers the port's serving path reads — copies of the JAX
-package's ``obs/headers.py`` names and ``serve/deadline.py`` parsers."""
+"""The ``x-kft-*`` request headers of the serving contract, copies of the
+JAX package's ``obs/headers.py`` names.
+
+- ``x-kft-deadline-ms``: the remaining end-to-end budget in
+  milliseconds, client- or gateway-set (``serve/deadline.py``).
+- ``x-kft-deadline-abs``: this process's absolute ``time.monotonic()``
+  deadline, stamped once by the server at admission; a client's copy is
+  stripped, since it never crosses a process.
+- ``x-kft-priority``: integer tenant priority, higher is shed last.
+- ``x-kft-trace``: W3C ``traceparent``-shaped trace context. The port
+  accepts and ignores it (request tracing is ROADMAP queue 1 item 12).
+- ``x-kft-prefill-peer`` and ``x-kft-session``: disaggregated prefill
+  and the host KV tier, not ported yet (ROADMAP queue 1 item 7b): a
+  request that carries either is answered 501.
+- ``x-kft-resume-tokens``: comma-separated generated ids already
+  committed to the client; the engine continues after them.
+- ``x-kft-seed``: per-request sampling seed, token t drawn from
+  ``fold_in(PRNGKey(seed), position of t)`` (``serve/threefry.py``).
+
+Header maps may carry the lower-case name or its ``.title()`` spelling;
+:func:`header_get` probes both.
+"""
 
 from __future__ import annotations
 
 from typing import Mapping
 
-#: per-request sampling seed: token t is drawn from
-#: ``fold_in(PRNGKey(seed), position of t)`` (``serve/threefry.py``)
+DEADLINE_HEADER = "x-kft-deadline-ms"
+DEADLINE_ABS_HEADER = "x-kft-deadline-abs"
+PRIORITY_HEADER = "x-kft-priority"
+TRACE_HEADER = "x-kft-trace"
+PREFILL_PEER_HEADER = "x-kft-prefill-peer"
+SESSION_HEADER = "x-kft-session"
+RESUME_TOKENS_HEADER = "x-kft-resume-tokens"
 SEED_HEADER = "x-kft-seed"
 
 
-def seed_from_headers(headers: Mapping[str, str] | None) -> int | None:
-    """Per-request sampling seed (``x-kft-seed``), or None when unseeded
-    (the engine generator's draws). A malformed value is unseeded."""
+def header_get(headers: Mapping[str, str] | None, name: str) -> str | None:
+    """One header's value by its lower-case name or ``.title()``
+    spelling, or None."""
     if not headers:
         return None
-    raw = headers.get(SEED_HEADER) or headers.get(SEED_HEADER.title())
-    if raw is None:
-        return None
-    try:
-        return int(raw)
-    except ValueError:
-        return None
+    val = headers.get(name)
+    if val is None:
+        val = headers.get(name.title())
+    return val

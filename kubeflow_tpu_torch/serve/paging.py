@@ -107,3 +107,13 @@ class PageAllocator:
         when ``width`` is None) — a prefill piece's or a prefix copy's."""
         w = self.max_pages_per_row if width is None else width
         return self._upload(self.table[row: row + 1, :w])
+
+    def stats(self) -> dict:
+        """Pool pressure, exported on ``/metrics`` as
+        ``kubeflow_tpu_engine_kv_<key>``."""
+        return {
+            "page_size": self.page_size,
+            "pages_total": self.num_pages - 1,
+            "pages_used": self.used_pages,
+            "rows_resident": len(self._owned),
+        }

@@ -1,11 +1,12 @@
-"""Metric writers: stdout (tuner-scrapable) and JSONL.
+"""Metric writers: stdout (tuner-scrapable) and JSONL, and the training
+overlap gauges.
 
 A copy of the JAX package's ``train/metrics.py`` ``MetricWriter``,
-``NonFiniteMetricError`` and ``parse_stdout_metrics``, with the same
-stdout format (``step=3 loss=1.23 accuracy=0.9``) and the same
-``metrics.jsonl``. The Prometheus overlap gauges need ``obs/prom``, which
-the port has not copied yet (ROADMAP queue 1 item 7); TensorBoard events
-are not ported either.
+``NonFiniteMetricError``, ``parse_stdout_metrics`` and
+``set_overlap_gauges``, with the same stdout format (``step=3 loss=1.23
+accuracy=0.9``), the same ``metrics.jsonl`` and the same
+``kubeflow_tpu_train_*`` gauges on the port's registry
+(``obs/prom.py``). TensorBoard events are not ported.
 """
 
 from __future__ import annotations
@@ -17,6 +18,38 @@ import sys
 import time
 from pathlib import Path
 from typing import Any, IO, Mapping
+
+from kubeflow_tpu_torch.obs import names, prom
+
+#: The hot-loop overlap split (``train/prefetch.py``) as process gauges on
+#: the registry, mirrored from every logged line:
+#: - data_stall_ms:  mean per-batch wait for the prefetcher this window
+#: - h2d_ms:         mean per-batch host assembly + H2D copy
+#: - device_step_ms: mean device step time (ready-to-ready on the drain)
+#: - compile_ms:     the first step's build and warm-up, reported once
+#: - steps_per_sec:  steady-state training steps per second
+_OVERLAP_GAUGES = {
+    key: prom.REGISTRY.gauge(metric, help_)
+    for key, metric, help_ in (
+        ("data_stall_ms", names.TRAIN_DATA_STALL_MS,
+         "mean ms/batch the loop waited on input data"),
+        ("h2d_ms", names.TRAIN_H2D_MS,
+         "mean ms/batch of host batch assembly + H2D copy"),
+        ("device_step_ms", names.TRAIN_DEVICE_STEP_MS,
+         "mean device step ms (drain ready-to-ready)"),
+        ("compile_ms", names.TRAIN_COMPILE_MS, "first-step warm-up ms (kernel build included)"),
+        ("steps_per_sec", names.TRAIN_STEPS_PER_SEC,
+         "steady-state training steps per second"),
+    )
+}
+
+
+def set_overlap_gauges(scalars: Mapping[str, Any]) -> None:
+    """Mirror the overlap keys present in ``scalars`` onto the gauges."""
+    for k, g in _OVERLAP_GAUGES.items():
+        v = scalars.get(k)
+        if v is not None:
+            g.set(float(v))
 
 
 class NonFiniteMetricError(RuntimeError):

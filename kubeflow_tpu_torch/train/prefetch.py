@@ -31,6 +31,8 @@ from typing import Any, Callable, Iterable, Iterator, Mapping
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.train.metrics import set_overlap_gauges
+
 PREFETCH_THREAD_NAME = "kft-prefetch"
 DRAIN_THREAD_NAME = "kft-metrics-drain"
 
@@ -386,6 +388,7 @@ class MetricsDrain:
         self._step_logged = step
         extra.pop("fallback_steps_per_sec", None)
         m.update(extra)
+        set_overlap_gauges(m)
         self._writer.write(step, m)
         self._history.append({"step": step, **m})
         for h in self._hooks:

@@ -362,3 +362,22 @@ def test_orchestrator_heartbeat_wiring_raises(monkeypatch, tmp_path):
         monkeypatch.setenv(key, val)
     with pytest.raises(NotImplementedError, match="heartbeat"):
         _trainer(steps=1).fit(_data())
+
+
+def test_fit_sets_the_overlap_gauges_on_the_registry():
+    """``MetricsDrain`` mirrors every logged line onto the
+    ``kubeflow_tpu_train_*`` gauges, the JAX trainer's names."""
+    from kubeflow_tpu_torch.obs import prom
+
+    _, hist = _trainer(steps=4).fit(_data())
+    want = {g.name for g in jmetrics._overlap_gauges().values()}
+    assert {g.name for g in tmetrics._OVERLAP_GAUGES.values()} == want
+    text = prom.REGISTRY.expose()
+    values = {ln.split(" ")[0]: float(ln.split(" ")[1])
+              for ln in text.splitlines() if ln and not ln.startswith("#")}
+    assert want <= set(values)
+    last = hist[-1]
+    for key, gauge in tmetrics._OVERLAP_GAUGES.items():
+        if key in last:
+            assert values[gauge.name] == pytest.approx(last[key])
+    assert values["kubeflow_tpu_train_steps_per_sec"] > 0
