@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs seven phases:
+sm_90a, into the git-ignored ``build/``) and runs eight phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -43,7 +43,15 @@ sm_90a, into the git-ignored ``build/``) and runs seven phases:
    deadlines, an unmeetable-deadline shed, priority eviction, the
    watchdog restarting a model wedged mid-stream and the stream resumed
    with ``x-kft-resume-tokens``, and ``/metrics``;
-7. train — the full-width LM trained through the flash forward and
+7. disagg — KV movement between replicas on the bf16 model: a prefill
+   and a decode ``ModelServer`` (``role``), the decode replica pulling
+   every span over ``x-kft-prefill-peer`` and running no prefill piece,
+   against a colocated replica, over ``generate`` and
+   ``generate_stream`` (client TTFT); the same through the codec on an
+   f32 pair (exact) and on int8 pools; a prefix-cache pull between two
+   replicas; sessions parked in the host KV tier and swapped back in;
+   a dropped ship and a dead peer falling back to a local prefill;
+8. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
    whose forward, dq and dk/dv launches must all run the tensor-core
@@ -76,7 +84,8 @@ import zlib
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
-PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract", "train")
+PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
+          "disagg", "train")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -1286,7 +1295,324 @@ def phase_contract(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 7: training through Trainer.fit at full width
+# phase 7: KV movement between replicas
+# --------------------------------------------------------------------------- #
+
+#: a bf16 greedy divergence counts as a near tie when the top-2 logit
+#: margin at its first position is below this: two bf16 ulps of a logit
+#: of magnitude 16-32, the rounding that two summation orders can differ
+#: by after 12 bf16 layers
+NEAR_TIE = 0.25
+PEER_HEADER, SESSION_HEADER = "x-kft-prefill-peer", "x-kft-session"
+
+
+def _judged(torch, model, reqs, want, got):
+    """bf16 streams: identical, or each divergence a near tie."""
+    same, bad = _compare_greedy(torch, model, reqs, want, got)
+    return same or all(b["top2_margin"] < NEAR_TIE for b in bad), bad
+
+
+def _gen(port, ids, headers=None, max_new=MAX_NEW):
+    status, _, text = _http(f"http://127.0.0.1:{port}", "POST",
+                            "/v2/models/lm/generate",
+                            {"input_ids": ids, "max_new_tokens": max_new}, headers)
+    if status != 200:
+        raise RuntimeError(f"generate answered {status}: {text[:200]}")
+    return json.loads(text)["token_ids"]
+
+
+def _scrape(port):
+    _, _, text = _http(f"http://127.0.0.1:{port}", "GET", "/metrics")
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith("#"):
+            series, v = ln.rsplit(" ", 1)
+            out[series] = float(v)
+    return out
+
+
+def _wire(tree, meta, ids):
+    """A span through the port's codec, as a decode replica receives it."""
+    from kubeflow_tpu_torch.serve.kv_codec import decode_kv_entries, encode_kv_entries
+
+    blob = encode_kv_entries([(tuple(ids), tree)], meta)
+    entries, got_meta = decode_kv_entries(blob)
+    return entries[0][1], got_meta, len(blob)
+
+
+def _engine_pair(torch, model, reqs, kw):
+    """Prefill spans on one engine, shipped through the codec, decoded on
+    a second; a third engine serves colocated. Returns the colocated and
+    the disaggregated streams, the decode and prefill stats and the blob
+    bytes of each span."""
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    pre, dec, colo = (LMEngine(model, **kw).start() for _ in range(3))
+    try:
+        want = _concurrent(lambda p: colo.submit(p, max_new_tokens=MAX_NEW), reqs)
+        shipped = _concurrent(lambda p: _wire(*pre.prefill_span(p), p), reqs)
+        spans = [dec.prepare_kv_span(p, t, m) for p, (t, m, _) in zip(reqs, shipped)]
+        got = _concurrent(lambda i: dec.submit(reqs[i], max_new_tokens=MAX_NEW,
+                                               kv_span=spans[i]), list(range(len(reqs))))
+        planes = sorted(shipped[0][0]["layers_0"])
+        return (want, got, dict(dec.stats), dict(pre.stats),
+                [b for _, _, b in shipped], planes)
+    finally:
+        for e in (pre, dec, colo):
+            e.stop()
+
+
+def phase_disagg(torch, state):
+    """KV movement between replicas on the full-width model, bf16 on the
+    paged kernel unless named: (a) a prefill and a decode replica, the
+    8-prompt burst sent to the decode replica over ``generate`` and three
+    times over ``generate_stream`` with ``x-kft-prefill-peer``, against a
+    colocated replica (TTFT to the first SSE frame, in turns); then the
+    same on an f32 engine pair through the codec (exact); (b) int8 pools
+    on both sides; (c) a prefix-cache pull from replica A to replica B;
+    (d) three sessions of two turns through a host tier that holds two
+    sessions' spans; (e) a dropped ship and a dead peer. Prints span
+    bytes predicted and measured, ship times, and paged launches by span
+    S (the prefill replica runs S=32 only, the decode replica S=1)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serve import engine as teng
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    t_phase = time.perf_counter()
+    hd = MODEL["d_model"] // MODEL["n_heads"]
+    per_tok = MODEL["n_layers"] * 2 * MODEL["n_heads"] * hd * 2       # bf16 K, V
+    per_tok8 = MODEL["n_layers"] * 2 * MODEL["n_heads"] * (hd + 4)   # int8 + f32 scale
+    cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+    sd = sharpened_state(torch, torch.bfloat16)
+    common = dict(config=cfg, state_dict=sd, device="cuda", max_new_tokens=MAX_NEW,
+                  paged_attn_impl="kernel", pipeline_depth=1, **ENGINE)
+    long_kw = dict(common, prefill_buckets=(32, 128), max_seq=192)
+    # two turn-1 session spans of 64 tokens fit, three do not (d)
+    tier_bytes = int(2.9 * 64 * per_tok)
+    roles = {"colo": ("both", common), "pre": ("prefill", common),
+             "dec": ("decode", common),
+             "a": ("both", dict(long_kw, prefix_cache_entries=8)),
+             "b": ("both", dict(long_kw, prefix_cache_entries=8)),
+             "tier": ("both", dict(long_kw, host_kv_bytes=tier_bytes))}
+    srv = {}
+    out = {"phase": "disagg", "dtype": "bf16", "card": state["card"]}
+    checks = {}
+    try:
+        for key, (role, kw) in roles.items():
+            srv[key] = ModelServer([teng.LMEngineModel("lm", **kw)], http_port=0,
+                                   role=role).start()
+        port = {k: s.port for k, s in srv.items()}
+        eng = {k: s.models["lm"].engine for k, s in srv.items()}
+        model = eng["colo"].model
+        peer_url = f"http://127.0.0.1:{port['pre']}"
+        peer = {PEER_HEADER: peer_url}
+        ready = {k: json.loads(_http(f"http://127.0.0.1:{p}", "GET",
+                                     "/v2/health/ready")[2]) for k, p in port.items()}
+        reqs = prompts()
+
+        # (a) the burst, disaggregated against colocated
+        want = _concurrent(lambda ids: _gen(port["colo"], ids), reqs)
+        _gen(port["dec"], reqs[0], peer)  # warm: the ship path once
+        d0, p0 = dict(eng["dec"].stats), dict(eng["pre"].stats)
+        m0 = _scrape(port["dec"])
+        pa.LAUNCHES = 0
+        pa.LAUNCHES_BY_S.clear()
+        got = _concurrent(lambda ids: _gen(port["dec"], ids, peer), reqs)
+        launches, by_s = pa.LAUNCHES, dict(pa.LAUNCHES_BY_S)
+        m1 = _scrape(port["dec"])
+        ttft = {"colocated": [], "disaggregated": []}
+        streams = []
+        for _ in range(3):
+            for kind, p, hdr in (("colocated", port["colo"], None),
+                                 ("disaggregated", port["dec"], peer)):
+                res = _concurrent(lambda ids: _sse_tokens(p, "lm", ids, hdr), reqs)
+                ttft[kind].append(statistics.median(ms for _, _, ms in res))
+                if kind == "disaggregated":
+                    streams.append([t for t, _, _ in res])
+        d1, p1 = dict(eng["dec"].stats), dict(eng["pre"].stats)
+        dd = {k: d1[k] - d0[k] for k in ("prefill_pieces", "kv_injected",
+                                        "kv_ship_fallbacks", "kv_ship_bytes", "chunks")}
+        pd = {k: p1[k] - p0[k] for k in ("kv_spans_exported", "chunks",
+                                        "prefill_pieces")}
+        ok_a, bad_a = _judged(torch, model, reqs, want, got)
+        ok_s = all(s == got for s in streams)
+        ship_key = 'kft_engine_kv_ship_ms_{}'
+        n_ship = m1.get(ship_key.format("count"), 0) - m0.get(ship_key.format("count"), 0)
+        ship_mean = ((m1.get(ship_key.format("sum"), 0) - m0.get(ship_key.format("sum"), 0))
+                     / n_ship if n_ship else None)
+        n16 = [-(-len(p) // 16) * 16 for p in reqs]
+        n_bursts = 4
+        out["a_disagg_burst"] = {
+            "roles": {k: v["role"] for k, v in ready.items()},
+            "identical": got == want, "judged_equal": ok_a, "diverged": bad_a,
+            "sse_equals_generate": ok_s, "decode_replica": dd, "prefill_replica": pd,
+            "paged_launches": launches,
+            "paged_launches_by_s": by_s,
+            "span_bytes_predicted_burst": sum(n * per_tok for n in n16),
+            # four bursts (generate, then SSE three times) shipped
+            "span_bytes_measured_burst": dd["kv_ship_bytes"] / n_bursts,
+            "kv_ship_ms_mean_burst": ship_mean,
+            "client_ttft_ms": {k: _spread(v) for k, v in ttft.items()}}
+        checks["a"] = (ok_a and ok_s and dd["prefill_pieces"] == 0
+                       and dd["kv_injected"] == N_REQ * n_bursts
+                       and dd["kv_ship_fallbacks"] == 0
+                       and pd["kv_spans_exported"] == N_REQ * n_bursts
+                       and pd["chunks"] == 0 and launches > 0
+                       and set(by_s) == {1, 32}
+                       and by_s[32] == N_REQ * MODEL["n_layers"]
+                       and ready["pre"]["role"] == "prefill"
+                       and ready["dec"]["role"] == "decode")
+        state["disagg_paged_launches_by_s"] = by_s
+
+        # span bytes and ship time, one request at a time
+        ship = []
+        for p in reqs:
+            b0 = eng["dec"].stats["kv_ship_bytes"]
+            t0 = time.perf_counter()
+            span = teng.fetch_kv_span(eng["dec"], peer_url, "lm", p, 0.0)
+            ship.append({"tokens": len(p), "n16": -(-len(p) // 16) * 16,
+                         "ms": (time.perf_counter() - t0) * 1e3,
+                         "bytes": eng["dec"].stats["kv_ship_bytes"] - b0,
+                         "predicted_bytes": -(-len(p) // 16) * 16 * per_tok,
+                         "ok": span is not None})
+        out["a_ship_sequential"] = {
+            "ms": _spread([s["ms"] for s in ship]), "spans": ship,
+            "header_bytes": sorted({s["bytes"] - s["predicted_bytes"] for s in ship})}
+        checks["a_ship"] = all(s["ok"] and 0 < s["bytes"] - s["predicted_bytes"] < 16384
+                               for s in ship)
+
+        # (e) a dropped ship and a dead peer: local prefill, same tokens
+        fired = []
+
+        def drop(e):
+            e._fault_hooks.pop("kv_ship", None)
+            fired.append(1)
+            raise ConnectionResetError("prefill peer died mid-ship")
+
+        f0, pp0 = eng["dec"].stats["kv_ship_fallbacks"], eng["dec"].stats["prefill_pieces"]
+        eng["dec"]._fault_hooks["kv_ship"] = drop
+        e_hook = _gen(port["dec"], reqs[1], peer)
+        f1 = eng["dec"].stats["kv_ship_fallbacks"]
+        e_dead = _gen(port["dec"], reqs[2], {PEER_HEADER: "http://127.0.0.1:1"})
+        f2 = eng["dec"].stats["kv_ship_fallbacks"]
+        ok_e, bad_e = _judged(torch, model, reqs[1:3], want[1:3], [e_hook, e_dead])
+        out["e_fallbacks"] = {"hook_fired": len(fired), "fallbacks": [f1 - f0, f2 - f1],
+                              "local_prefill_pieces":
+                                  eng["dec"].stats["prefill_pieces"] - pp0,
+                              "tokens_equal": ok_e, "diverged": bad_e}
+        checks["e"] = (fired == [1] and f1 - f0 == 1 and f2 - f1 == 1 and ok_e
+                       and eng["dec"].stats["prefill_pieces"] - pp0 == 2)
+
+        # (a, f32) the pair through the codec with TF32 off: exact
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        m32 = _model(torch, torch.float32, "flash",
+                     state_dict=sharpened_state(torch, torch.float32))
+        kw_eng = dict(ENGINE, paged_attn_impl="kernel")
+        w32, g32, ds32, ps32, _, _ = _engine_pair(torch, m32, reqs, kw_eng)
+        same32, bad32 = _compare_greedy(torch, m32, reqs, w32, g32)
+        del m32
+        out["a_f32_pair"] = {"identical": same32, "diverged": bad32,
+                             "prefill_pieces": ds32["prefill_pieces"],
+                             "kv_injected": ds32["kv_injected"],
+                             "spans_exported": ps32["kv_spans_exported"]}
+        checks["a_f32"] = (same32 and ds32["prefill_pieces"] == 0
+                           and ds32["kv_injected"] == N_REQ)
+
+        # (b) int8 pools on both sides: codes and scales on the wire
+        w8, g8, ds8, _, bytes8, planes8 = _engine_pair(
+            torch, model, reqs, dict(kw_eng, kv_quant="int8"))
+        ok_b, bad_b = _judged(torch, model, reqs, w8, g8)
+        out["b_int8_pair"] = {
+            "identical": w8 == g8, "judged_equal": ok_b, "diverged": bad_b,
+            "planes": planes8, "prefill_pieces": ds8["prefill_pieces"],
+            "kv_injected": ds8["kv_injected"],
+            "span_bytes": bytes8, "predicted_bytes": [n * per_tok8 for n in n16]}
+        checks["b"] = (ok_b and ds8["prefill_pieces"] == 0
+                       and ds8["kv_injected"] == N_REQ
+                       and planes8 == ["k", "k_scale", "v", "v_scale"]
+                       and all(0 < b - n * per_tok8 < 16384
+                               for b, n in zip(bytes8, n16)))
+
+        # (c) prefix transfer: A serves 4 prompts sharing 64 tokens, B
+        # pulls A's 64-token entry, then serves the same prompts
+        rng = np.random.default_rng(11)
+        shared = [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=64)]
+        pre_reqs = [shared + [int(t) for t in rng.integers(2, MODEL["vocab_size"],
+                                                             size=n)]
+                    for n in (8, 13, 21, 30)]
+        a_out = [_gen(port["a"], p) for p in pre_reqs]
+        index = json.loads(_http(f"http://127.0.0.1:{port['a']}", "GET",
+                                 "/v2/models/lm/prefix_cache")[2])
+        pull = _http(f"http://127.0.0.1:{port['b']}", "POST",
+                     "/v2/models/lm/prefix_cache:pull",
+                     {"peer": f"http://127.0.0.1:{port['a']}", "keys": [shared]})
+        b_out = [_gen(port["b"], p) for p in pre_reqs]
+        ok_c, bad_c = _judged(torch, model, pre_reqs, a_out, b_out)
+        bpc, apc = eng["b"].prefix_cache_stats(), eng["a"].prefix_cache_stats()
+        out["c_prefix_pull"] = {
+            "a_index": {"count": index["count"], "tokens": index["tokens"]},
+            "pull": [pull[0], json.loads(pull[2])],
+            "a": apc, "b": bpc, "identical": a_out == b_out, "judged_equal": ok_c,
+            "diverged": bad_c}
+        checks["c"] = (pull[0] == 200 and ok_c and bpc["imported"] >= 1
+                       and bpc["hits"] == len(pre_reqs) and apc["exported"] >= 1)
+
+        # (d) the host tier: turn 2 = turn 1's prompt + its 48 tokens + 8
+        # new ones, 16 new tokens; the third span evicts the first, and
+        # turn 2 runs for s1, s2, then s0 (s1's and s2's new spans fit
+        # beside the one not yet taken)
+        tier = eng["tier"].host_kv_tier
+        sess = [[int(t) for t in rng.integers(2, MODEL["vocab_size"], size=24)]
+                for _ in range(3)]
+        t1 = [_gen(port["tier"], p, {SESSION_HEADER: f"s{i}"}) for i, p in enumerate(sess)]
+        flushed = eng["tier"].flush_offload()
+        res1, ev1 = tier.resident(), tier.stats["evictions"]
+        turn2 = [p + t + [int(x) for x in rng.integers(2, MODEL["vocab_size"], size=8)]
+                 for p, t in zip(sess, t1)]
+        d_rows = {}
+        for i in (1, 2, 0):
+            flushed &= eng["tier"].flush_offload()
+            s0 = dict(eng["tier"].stats)
+            toks = _gen(port["tier"], turn2[i], {SESSION_HEADER: f"s{i}"}, max_new=16)
+            d_rows[i] = {"tokens": toks,
+                         "offload_in": eng["tier"].stats["kv_offload_in"] - s0["kv_offload_in"],
+                         "prefill_pieces": eng["tier"].stats["prefill_pieces"]
+                         - s0["prefill_pieces"]}
+        fresh = teng.LMEngine(model, **dict(kw_eng, prefill_buckets=(32, 128),
+                                            max_seq=192)).start()
+        try:
+            want2 = [fresh.submit(p, max_new_tokens=16) for p in turn2]
+        finally:
+            fresh.stop()
+        got2 = [d_rows[i]["tokens"] for i in range(3)]
+        ok_d, bad_d = _judged(torch, model, turn2, want2, got2)
+        out["d_host_tier"] = {
+            "budget_bytes": tier_bytes, "resident_after_turn1": res1,
+            "evictions_after_turn1": ev1,
+            "predicted_turn1_span_bytes": 64 * per_tok,
+            "by_session": {f"s{i}": {k: v for k, v in r.items() if k != "tokens"}
+                           for i, r in d_rows.items()},
+            "identical": got2 == want2, "judged_equal": ok_d, "diverged": bad_d}
+        checks["d"] = (ok_d and flushed and res1["rows"] == 2 and ev1 == 1
+                       and d_rows[1]["offload_in"] == 1 and d_rows[2]["offload_in"] == 1
+                       and d_rows[0]["offload_in"] == 0
+                       and d_rows[0]["prefill_pieces"] > 0)
+    finally:
+        for s in srv.values():
+            s.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    out["ok"] = all(checks.values()) and len(checks) == 7
+    emit(out)
+    return out["ok"]
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: training through Trainer.fit at full width
 # --------------------------------------------------------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
@@ -1617,7 +1943,7 @@ def main(argv=None) -> int:
     runners = {"kernels": phase_kernels, "forward": phase_forward,
                "serving": phase_serving, "parity": phase_parity,
                "engine": phase_engine, "contract": phase_contract,
-               "train": phase_train,
+               "disagg": phase_disagg, "train": phase_train,
                "profile": phase_profile}
     ok = True
     for p in phases:
@@ -1653,7 +1979,8 @@ def main(argv=None) -> int:
                 "replaces": rep, "body": r["body"], "launches": launches,
                 **({"launches_by_s": state.get("paged_launches_by_s"),
                     "verify_launches_engine_phase": state.get("verify_launches"),
-                    "launches_contract_phase": state.get("contract_paged_launches")}
+                    "launches_contract_phase": state.get("contract_paged_launches"),
+                    "launches_disagg_phase_by_s": state.get("disagg_paged_launches_by_s")}
                    if key == "paged_main" else {}),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

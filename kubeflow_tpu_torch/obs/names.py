@@ -37,6 +37,19 @@ ENGINE_PREFIX_HITS_TOTAL = "kft_engine_prefix_hits_total"
 ENGINE_PREFIX_TOKENS_REUSED_TOTAL = "kft_engine_prefix_tokens_reused_total"
 ENGINE_PREFIX_ENTRIES = "kft_engine_prefix_entries"
 ENGINE_PREFIX_TOKENS_STORED = "kft_engine_prefix_tokens_stored"
+#: cross-replica prefix-KV transfer: entries imported from / exported to
+#: a peer replica
+ENGINE_PREFIX_IMPORTED_TOTAL = "kft_engine_prefix_imported_total"
+ENGINE_PREFIX_EXPORTED_TOTAL = "kft_engine_prefix_exported_total"
+#: disaggregated prefill/decode: counter{model,direction} — bytes of
+#: per-request KV spans shipped (export on the prefill replica, import
+#: on the decode replica); histogram — one ship leg end to end, ms
+ENGINE_KV_SHIP_BYTES_TOTAL = "kft_engine_kv_ship_bytes_total"
+ENGINE_KV_SHIP_MS = "kft_engine_kv_ship_ms"
+#: host-RAM KV tier: gauge{model} — encoded KV bytes resident, and the
+#: swapped-out session rows resident
+ENGINE_KV_OFFLOAD_BYTES = "kft_engine_kv_offload_bytes"
+ENGINE_KV_OFFLOAD_RESIDENT_ROWS = "kft_engine_kv_offload_resident_rows"
 #: speculative decoding: drafts proposed / accepted, EWMA acceptance
 ENGINE_SPEC_PROPOSED_TOTAL = "kft_engine_spec_proposed_total"
 ENGINE_SPEC_ACCEPTED_TOTAL = "kft_engine_spec_accepted_total"

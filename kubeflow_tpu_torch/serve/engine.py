@@ -40,6 +40,18 @@ Requests join and leave a running decode batch of ``max_batch`` rows:
   higher-priority one. The loop stamps a heartbeat each iteration and
   ``poison`` fails all work without joining a wedged thread, for the
   watchdog (``serve/watchdog.py``).
+- **KV movement between replicas** (disaggregated serving): a prefill
+  replica runs only a request's prefill (:meth:`LMEngine.prefill_span`)
+  and ships the finished KV span through the npz codec
+  (``serve/kv_codec.py``); a decode replica implants it
+  (:meth:`LMEngine.prepare_kv_span`, ``submit(kv_span=...)``) and never
+  runs a prefill piece for the request. Any failed ship falls back to a
+  local prefill (:func:`fetch_kv_span`). Prefix-cache entries move
+  between replicas the same way (:meth:`LMEngine.export_prefix_entries`,
+  :meth:`LMEngine.import_prefix_entries`). With ``host_kv_bytes`` the
+  finished rows of a session (``session=``) swap their span out to the
+  host tier (``serve/kv_tier.py``) on an offload thread, and the
+  session's next turn swaps it back in place of the prefill.
 
 Greedy token streams, and seeded sampled ones, are identical to the JAX
 engine's on the same weights (``tests/test_torch_engine*.py``,
@@ -85,6 +97,14 @@ from kubeflow_tpu_torch.serve.headers import (
     header_get,
 )
 from kubeflow_tpu_torch.serve.hostio import OutputRing, Uploader
+from kubeflow_tpu_torch.serve.kv_codec import (
+    decode_kv_entries,
+    encode_kv_entries,
+    numpy_to_pool,
+    plane_dtype_reject,
+    tree_to_numpy,
+)
+from kubeflow_tpu_torch.serve.kv_tier import HostKVTier
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.paging import PageAllocator
 from kubeflow_tpu_torch.serve.speculative import propose_draft, spec_accept
@@ -109,6 +129,17 @@ TPOT_MS = prom.REGISTRY.histogram(
     ("model",),
     buckets=prom.MS_BUCKETS,
 )
+#: disaggregated serving on the wire: span bytes by leg (``export`` on the
+#: prefill replica, ``import`` on the decode replica) and one ship's time
+KV_SHIP_BYTES = prom.REGISTRY.counter(
+    names.ENGINE_KV_SHIP_BYTES_TOTAL,
+    "bytes of per-request KV spans shipped between replicas",
+    labels=("model", "direction"),
+)
+KV_SHIP_MS = prom.REGISTRY.histogram(
+    names.ENGINE_KV_SHIP_MS,
+    "one KV-span ship leg (fetch + decode + validate), milliseconds",
+)
 
 
 @dataclass
@@ -123,7 +154,9 @@ class LMEngineConfig:
     rounded down to 16 tokens, LRU-bounded by entries and, when set,
     ``prefix_cache_tokens``. ``prefill_chunk`` (a multiple of 16):
     prompts prefill in pieces of that many tokens, interleaved with
-    decode, and are no longer bound by the largest prefill bucket."""
+    decode, and are no longer bound by the largest prefill bucket.
+    ``host_kv_bytes`` (> 0): the byte budget of the host-RAM KV tier that
+    sessioned rows swap out to when they finish."""
 
     max_batch: int = 8
     max_seq: int = 256
@@ -154,8 +187,6 @@ def _reject_unported(c: LMEngineConfig) -> None:
     unported = [
         (c.kv_pool_tokens is None,
          "dense KV mode (kv_pool_tokens=None)", "queue 1 item 3"),
-        (c.host_kv_bytes > 0,
-         "the host KV tier (host_kv_bytes>0)", "queue 1 item 7b"),
         (c.mesh is not None or c.rules is not None,
          "tensor-parallel serving (mesh/rules)", "queue 1 item 10"),
         (c.page_size is None,
@@ -217,6 +248,18 @@ class _Request:
     priority: int = 0
     # per-request sampling seed (None: the engine generator's draws)
     seed: int | None = None
+    # disaggregated prefill (prefill replica): run only the prefill, and
+    # hand the finished span back in kv_span / kv_span_meta instead of
+    # activating the row; the first token rides the meta, never pushed
+    want_kv_span: bool = False
+    kv_span: Any = None
+    kv_span_meta: dict | None = None
+    # disaggregated decode (decode replica): a peer-prefilled span, admitted
+    # by implant; this engine runs no prefill piece for the request
+    kv_inject: "PreparedKVSpan | None" = None
+    # host KV tier: finished rows swap their span out under this key, and
+    # the session's next turn swaps it back in
+    session: str | None = None
     # serving model's label: set, the request's TTFT/TPOT are recorded
     model: str | None = None
     t_enqueue: float = 0.0
@@ -288,6 +331,19 @@ class _TokenStream:
         if not self._req.done.is_set():
             self._req.cancelled.set()
             self._engine._work.set()
+
+
+@dataclass(frozen=True)
+class PreparedKVSpan:
+    """A shipped per-request KV span validated against one engine
+    (:meth:`LMEngine.prepare_kv_span`) and on its device, ready for
+    ``submit(kv_span=...)``: the per-layer tree, the ship meta
+    (``real_len``, ``first_tok``, ``valid``) and the ceil-16 window
+    width the tree covers."""
+
+    tree: Any
+    meta: dict
+    n16: int
 
 
 @dataclass
@@ -409,7 +465,18 @@ class LMEngine:
             "deadline_expired_queued": 0, "deadline_expired_decoding": 0,
             "shed_deadline": 0, "shed_priority": 0,
             "resume_admits": 0,
+            # cross-replica prefix-KV transfer
+            "prefix_imported": 0, "prefix_exported": 0,
+            # disaggregated serving: spans exported (prefill replica),
+            # spans injected without a local prefill (decode replica), ship
+            # bytes pulled, and failed ships turned into a local prefill
+            "kv_spans_exported": 0, "kv_injected": 0,
+            "kv_ship_bytes": 0, "kv_ship_fallbacks": 0,
+            # host KV tier: sessions swapped out on finish / back in
+            "kv_offload_out": 0, "kv_offload_in": 0,
         }
+        #: guards the counters that HTTP threads bump (ship and transfer)
+        self._stats_lock = threading.Lock()
         #: time to first token of recent completions, milliseconds
         #: (enqueue → first token on the host)
         self.ttft_ms: deque[float] = deque(maxlen=1024)
@@ -436,6 +503,18 @@ class LMEngine:
             # by the prefill pieces (pre-initialized: /metrics reads this
             # dict from another thread)
             self.overlap["kv_quant_error"] = 0.0
+
+        #: host-RAM KV tier: finished sessioned rows swap their span out
+        #: here; the D2H and the encode run on the ``kv-offload`` thread,
+        #: never the scheduler's
+        self.host_kv_tier = (
+            HostKVTier(config.host_kv_bytes) if config.host_kv_bytes > 0
+            else None
+        )
+        self._offload_q: "queue.Queue | None" = (
+            queue.Queue() if self.host_kv_tier is not None else None
+        )
+        self._offload_thread: threading.Thread | None = None
 
         # prefix cache: completed prompt prefills donate their KV, keyed by
         # the prompt ids rounded DOWN to a 16-token multiple
@@ -647,6 +726,11 @@ class LMEngine:
     # -- lifecycle ---------------------------------------------------------- #
 
     def start(self) -> "LMEngine":
+        if self.host_kv_tier is not None and self._offload_thread is None:
+            self._offload_thread = threading.Thread(
+                target=self._offload_loop, name="kv-offload", daemon=True
+            )
+            self._offload_thread.start()
         self._thread = threading.Thread(
             target=self._loop, name="lm-engine", daemon=True
         )
@@ -658,8 +742,21 @@ class LMEngine:
         self._work.set()
         if self._thread is not None:
             self._thread.join(30)
+        self._stop_offload()
         # anything still queued or mid-generation must not hang its caller
         self._fail_all(RuntimeError("LM engine stopped"))
+
+    def _stop_offload(self) -> None:
+        """Drain the offload queue, then end its thread."""
+        if self._offload_thread is not None:
+            self._offload_q.put(None)  # drain-then-exit sentinel
+            self._offload_thread.join(10)
+            self._offload_thread = None
+
+    def _count(self, key: str, n: int = 1) -> None:
+        """Bump a counter that threads other than the scheduler write."""
+        with self._stats_lock:
+            self.stats[key] += n
 
     def _fail_all(self, err: Exception) -> None:
         for row in range(self.max_batch):
@@ -704,6 +801,9 @@ class LMEngine:
         self._stop.set()
         self._work.set()
         self._fail_all(err)
+        if self._offload_q is not None:
+            # the offload thread is never wedged: it drains and exits
+            self._offload_q.put(None)
 
     def estimate_admission(
         self, max_new_tokens: int
@@ -738,7 +838,9 @@ class LMEngine:
     def _enqueue(self, ids, max_new_tokens, temperature, *, live: bool,
                  deadline: float, priority: int = 0, resume: int = 0,
                  seed: int | None = None, label: str | None = None,
-                 ) -> _Request:
+                 want_kv_span: bool = False,
+                 kv_inject: PreparedKVSpan | None = None,
+                 session: str | None = None) -> _Request:
         if not ids:
             raise ValueError("empty prompt")
         if self._poisoned is not None:
@@ -792,13 +894,14 @@ class LMEngine:
                 f"request needs {need} pages; pool has "
                 f"{self.pager.num_pages - 1} — raise kv_pool_tokens"
             )
-        if self.prefill_chunk is None:
+        if self.prefill_chunk is None and kv_inject is None:
             self._bucket(len(ids))  # reject over-bucket prompts now
         req = _Request(
             list(ids), max_new_tokens, temperature,
             live=queue.Queue() if live else None, deadline=deadline,
             priority=priority, seed=seed, model=label,
-            t_enqueue=time.monotonic(),
+            t_enqueue=time.monotonic(), want_kv_span=want_kv_span,
+            kv_inject=kv_inject, session=session,
         )
         if resume:  # committed tokens of a mid-stream failover joined ids
             self.stats["resume_admits"] += 1
@@ -865,7 +968,8 @@ class LMEngine:
         temperature: float = 0.0, timeout_s: float = 300.0,
         deadline: float | None = None, priority: int = 0,
         seed: int | None = None, resume_tokens: list[int] | None = None,
-        label: str | None = None,
+        label: str | None = None, kv_span: PreparedKVSpan | None = None,
+        session: str | None = None,
     ) -> list[int]:
         """Generate up to ``max_new_tokens`` after ``ids``; blocks until
         done. ``deadline`` (absolute ``time.monotonic()``) bounds queue
@@ -875,14 +979,18 @@ class LMEngine:
         ``resume_tokens`` (already-committed generated tokens) extend the
         prompt and shrink the budget — only the tokens past them return.
         ``label`` (the serving model's name) records the request's TTFT
-        and TPOT under it."""
+        and TPOT under it. ``kv_span`` (a :meth:`prepare_kv_span` result
+        for these exact ids, resume tokens included) admits by implanting
+        the peer-prefilled span: no prefill piece runs here. ``session``
+        keys the host KV tier when it is on."""
         if deadline is None:
             deadline = time.monotonic() + timeout_s
         ids, max_new_tokens, resume = self._resume_args(
             ids, max_new_tokens, resume_tokens)
         req = self._enqueue(ids, max_new_tokens, temperature, live=False,
                             deadline=deadline, priority=priority,
-                            resume=resume, seed=seed, label=label)
+                            resume=resume, seed=seed, label=label,
+                            kv_inject=kv_span, session=session)
         if not req.done.wait(max(0.0, deadline - time.monotonic())):
             # hand the row back: nobody will read its tokens
             req.cancelled.set()
@@ -898,7 +1006,8 @@ class LMEngine:
         temperature: float = 0.0, timeout_s: float = 300.0,
         deadline: float | None = None, priority: int = 0,
         seed: int | None = None, resume_tokens: list[int] | None = None,
-        label: str | None = None,
+        label: str | None = None, kv_span: PreparedKVSpan | None = None,
+        session: str | None = None,
     ) -> _TokenStream:
         """Admit now (so a shed or overload raises here, before a caller
         commits to a response) and return an iterator of the new tokens
@@ -911,8 +1020,42 @@ class LMEngine:
             ids, max_new_tokens, resume_tokens)
         req = self._enqueue(ids, max_new_tokens, temperature, live=True,
                             deadline=deadline, priority=priority,
-                            resume=resume, seed=seed, label=label)
+                            resume=resume, seed=seed, label=label,
+                            kv_inject=kv_span, session=session)
         return _TokenStream(self, req, deadline)
+
+    def prefill_span(
+        self, ids: list[int], *, temperature: float = 0.0,
+        timeout_s: float = 120.0, deadline: float | None = None,
+        seed: int | None = None,
+    ) -> tuple[dict, dict]:
+        """The prefill replica's half of disaggregated serving: run ONLY
+        the (chunked) prefill of ``ids`` and return ``(tree, meta)``: the
+        finished KV span as host arrays in the prefix-entry format
+        (ceil-16 window; positions past the prompt hold junk the decode
+        side overwrites before any query reaches them) and the meta the
+        decode replica needs (``real_len``, ``first_tok``, ``valid``).
+        The row retires when the span is extracted; no decode chunk runs
+        for it. The device-to-host copy runs here, on the caller's
+        thread."""
+        n16 = -(-len(ids) // 16) * 16
+        # the budget only reserves pages: the whole ceil-16 extract window
+        # must be backed by the row's own pages
+        budget = max(1, n16 - len(ids) + 1)
+        if deadline is None:
+            deadline = time.monotonic() + timeout_s
+        req = self._enqueue(list(ids), budget, temperature, live=False,
+                            deadline=deadline, seed=seed, want_kv_span=True)
+        if not req.done.wait(max(0.0, deadline - time.monotonic())):
+            req.cancelled.set()
+            self._work.set()
+            DEADLINE_EXPIRED.labels(stage="wait").inc()
+            raise DeadlineExceeded("prefill-span timed out", stage="wait")
+        if req.error is not None:
+            raise req.error
+        if req.kv_span is None:
+            raise RuntimeError("prefill-span request retired before extract")
+        return tree_to_numpy(req.kv_span), dict(req.kv_span_meta)
 
     def _bucket(self, n: int) -> int:
         for b in self.prefill_buckets:
@@ -1041,20 +1184,154 @@ class LMEngine:
                 del self._prefix_lens[n]
                 self._prefix_lens_sorted = None
 
+    @property
+    def prefix_cache_enabled(self) -> bool:
+        return self._prefix_cache is not None
+
     def prefix_cache_stats(self) -> dict:
         """Prefix-cache counters: cumulative hits and tokens reused, live
-        entries and stored tokens."""
+        entries and stored tokens, and the entries imported from and
+        exported to peer replicas."""
         return {
             "hits": self.stats["prefix_hits"],
             "tokens_reused": self.stats["prefix_tokens_reused"],
             "entries": len(self._prefix_cache or ()),
             "tokens_stored": self._prefix_tokens_stored,
+            "imported": self.stats["prefix_imported"],
+            "exported": self.stats["prefix_exported"],
         }
 
     def prefix_index(self) -> list[tuple[int, ...]]:
-        """The stored prefix keys, LRU → MRU."""
+        """The stored prefix keys, LRU → MRU: what a peer needs to decide
+        which entries the hash ring now assigns to it."""
         with self._prefix_lock:
             return list(self._prefix_cache or ())
+
+    # -- KV movement between replicas --------------------------------------- #
+
+    def export_prefix_entries(self, keys=None, *, limit: int | None = None):
+        """Host copies of stored entries for the wire: ``[(key, {layer:
+        {plane: np}}), ...]``. ``keys=None`` exports all (MRU last);
+        ``limit`` keeps the most recently used. The device-to-host copy
+        runs outside the lock: an export must not stall admissions."""
+        with self._prefix_lock:
+            if self._prefix_cache is None:
+                return []
+            if keys is None:
+                sel = list(self._prefix_cache.items())
+            else:
+                sel = []
+                for k in keys:
+                    k = tuple(int(t) for t in k)
+                    entry = self._prefix_cache.get(k)
+                    if entry is not None:
+                        sel.append((k, entry))
+            if limit is not None and len(sel) > limit:
+                sel = sel[-limit:]  # the OrderedDict's tail is the MRU
+        out = [(key, tree_to_numpy(stored)) for key, stored in sel]
+        self._count("prefix_exported", len(out))
+        return out
+
+    def import_prefix_entries(self, entries) -> int:
+        """Insert peer-exported entries into this engine's prefix cache.
+        Each entry is checked against this engine's layout (layers, kv
+        heads, head dim, plane dtypes, the 16-token quantum, the max_seq
+        fit); an incompatible one is skipped, never trusted. Returns the
+        entries inserted; one already present is left alone (local
+        recency wins) and does not count."""
+        if self._prefix_cache is None:
+            return 0
+        prepared = []
+        for key, tree in entries:
+            key = tuple(int(t) for t in key)
+            n16 = len(key)
+            if n16 < 16 or n16 % 16 or n16 + 1 > self.max_seq:
+                continue
+            if (self._prefix_cache_tokens is not None
+                    and n16 > self._prefix_cache_tokens):
+                continue
+            if self._span_reject(tree, n16) is not None:
+                continue
+            prepared.append((key, self._to_pool(tree)))
+        imported = 0
+        with self._prefix_lock:
+            for key, tree in prepared:
+                if key in self._prefix_cache:
+                    continue
+                self._insert_prefix_locked(key, tree)
+                imported += 1
+        self._count("prefix_imported", imported)
+        return imported
+
+    def _span_reject(self, tree, n16: int) -> str | None:
+        """Why a wire KV tree (a prefix entry, a shipped span or a host-tier
+        blob: one check guards every plane of the codec) cannot implant
+        into this engine; None when it can. The plane-name set tells the
+        quantizations apart: int8 trees carry ``k_scale``/``v_scale``
+        beside the codes, float trees must not."""
+        cfg = self.model.cfg
+        H, D = cfg.kv_heads, cfg.head_dim
+        if set(tree) != set(self.cache):
+            return "layer names differ from this engine's model"
+        quant = self.kv_quant == "int8"
+        want_keys = {"k", "v", "k_scale", "v_scale"} if quant else {"k", "v"}
+        want, want_scale = (1, H, n16, D), (1, H, n16)
+        for name, lc in tree.items():
+            if set(lc) != want_keys:
+                return (f"quantization mismatch: layer {name!r} carries "
+                        f"{sorted(lc)} but this engine's kv_quant is "
+                        f"{self.kv_quant!r}")
+            if np.shape(lc["k"]) != want or np.shape(lc["v"]) != want:
+                return (f"KV shape {np.shape(lc['k'])} != {want} "
+                        "(kv_heads / head_dim / window mismatch)")
+            if quant and (np.shape(lc["k_scale"]) != want_scale
+                          or np.shape(lc["v_scale"]) != want_scale):
+                return f"scale plane shape != {want_scale}"
+            for which, arr in lc.items():
+                reason = plane_dtype_reject(arr, self.cache[name][which])
+                if reason is not None:
+                    return f"layer {name!r} {which}: {reason}"
+        return None
+
+    def _to_pool(self, tree) -> dict:
+        """A checked wire tree as tensors of the pool's dtypes on its
+        device (a bf16 plane's ``V2`` bits read as bf16)."""
+        return {name: {which: numpy_to_pool(arr, self.cache[name][which])
+                       for which, arr in lc.items()}
+                for name, lc in tree.items()}
+
+    def prepare_kv_span(self, ids, tree, meta) -> PreparedKVSpan:
+        """Check a shipped per-request span against this engine and put it
+        on the device for ``submit(kv_span=...)``. Raises ValueError on any
+        meta, layout, quantization or dtype mismatch; callers
+        (:func:`fetch_kv_span`) then prefill locally. The upload runs on
+        the caller's thread, on the stream the scheduler's implant uses,
+        so it is ordered before the implant."""
+        try:
+            real_len = int(meta["real_len"])
+            first_tok = int(meta["first_tok"])
+            valid = bool(meta["valid"])
+        except (KeyError, TypeError, ValueError) as e:
+            raise ValueError(f"kv span meta malformed: {e}") from None
+        if real_len != len(ids):
+            raise ValueError(
+                f"kv span covers a {real_len}-token prompt; this request "
+                f"has {len(ids)} tokens"
+            )
+        n16 = -(-real_len // 16) * 16
+        if n16 + 1 > self.max_seq:
+            raise ValueError(
+                f"kv span window {n16} + 1 exceeds engine max_seq "
+                f"{self.max_seq}"
+            )
+        reason = self._span_reject(tree, n16)
+        if reason is not None:
+            raise ValueError(f"kv span rejected: {reason}")
+        return PreparedKVSpan(
+            self._to_pool(tree),
+            {"real_len": real_len, "first_tok": first_tok, "valid": valid},
+            n16,
+        )
 
     def drop_prefix_cache(self) -> int:
         """Wipe every stored prefix entry; returns the entries dropped."""
@@ -1074,9 +1351,16 @@ class LMEngine:
         """Claim a row and its pages, implant any cached prefix, lay out
         the prefill pieces and run the FIRST one when it is the only one.
         Multi-piece rows stay in ``_prefilling`` and take one piece per
-        loop iteration, between decode chunks."""
+        loop iteration, between decode chunks. A sessioned prompt with no
+        cached prefix takes its span from the host tier when it is
+        there."""
+        if req.kv_inject is not None:
+            self._admit_injected(req, row)
+            return
         base, rest = 0, req.ids
         hit = self._lookup_prefix(req.ids)
+        if hit is None and req.session and self.host_kv_tier is not None:
+            hit = self._take_swapped(req)
         self.pager.alloc(
             row, self.pager.pages_for(len(req.ids) + req.max_new_tokens)
         )
@@ -1117,6 +1401,66 @@ class LMEngine:
         if n_pieces == 1:
             self._advance_prefill(row)
 
+    def _admit_injected(self, req: _Request, row: int) -> None:
+        """Admit a peer-prefilled request: implant its span and activate
+        the row directly, without a prefill piece. The first token rides
+        the meta, so the request starts where the prefill replica left
+        it; positions [real_len, n16) hold junk that decode overwrites
+        before any query position reaches them."""
+        span = req.kv_inject
+        self.pager.alloc(
+            row, self.pager.pages_for(len(req.ids) + req.max_new_tokens)
+        )
+        self._implant_paged(span.tree, row, span.n16)
+        self._slots[row] = req
+        self.real_len[row] = len(req.ids)
+        if self.spec_k:
+            self.hist_host[row, :] = self.pad_id
+            self.hist_host[row, : len(req.ids)] = req.ids
+        self.gen_count[row] = 0
+        self.budget[row] = req.max_new_tokens
+        self.temp[row] = req.temperature
+        self.seeds[row] = -1 if req.seed is None else req.seed
+        self.stats["admitted"] += 1
+        self.stats["kv_injected"] += 1
+        self.stats["max_concurrent"] = max(
+            self.stats["max_concurrent"], sum(s is not None for s in self._slots)
+        )
+        self.stats["kv_pages_used_peak"] = max(
+            self.stats["kv_pages_used_peak"], self.pager.used_pages
+        )
+        tok, valid = int(span.meta["first_tok"]), bool(span.meta["valid"])
+        if valid:
+            req.push([tok])
+            if self.spec_k:
+                self.hist_host[row, len(req.ids)] = tok
+        self.last_tok[row] = tok
+        if not valid or req.max_new_tokens <= 1:
+            self._finish(row)
+        else:
+            self.active[row] = True
+            self.gen_count[row] = 1
+            self._carry_dirty = True  # activation epoch, as a prefill's
+
+    def _take_swapped(self, req: _Request):
+        """Consume the host tier's span for the request's session when its
+        tokens prefix the prompt, as ``(key, tree)`` in
+        :meth:`_lookup_prefix`'s format; None on a miss, a diverged
+        prompt, or a corrupt or incompatible blob (each a full prefill)."""
+        blob = self.host_kv_tier.take(req.session, req.ids)
+        if blob is None:
+            return None
+        try:
+            entries, _ = decode_kv_entries(blob)
+            key, tree = entries[0]
+        except Exception:  # noqa: BLE001 — a corrupt blob is a miss
+            return None
+        n16 = len(key)
+        if n16 < 16 or n16 % 16 or self._span_reject(tree, n16) is not None:
+            return None
+        self.stats["kv_offload_in"] += 1
+        return tuple(key), self._to_pool(tree)
+
     def _advance_prefill(self, row: int) -> None:
         """Run ONE prefill piece of a prefilling row; the final piece
         yields the first token and activates (or finishes) the request."""
@@ -1151,6 +1495,18 @@ class LMEngine:
             self._store_prefix(req.ids, row)
         tok = int(tok)  # prefill is synchronous by design
         valid = tok != self.eos_id
+        if req.want_kv_span:
+            # disaggregated prefill: extract the span (a new tensor, queued
+            # before any later write to the pages freed below) and retire
+            # the row without activating it; the first token travels in the
+            # meta, so TTFT is observed once, on the decode side
+            n16 = -(-len(req.ids) // 16) * 16
+            req.kv_span = self._extract_prefix(row, n16)
+            req.kv_span_meta = {"real_len": len(req.ids), "first_tok": tok,
+                                "valid": valid}
+            self.stats["kv_spans_exported"] += 1
+            self._finish(row)
+            return
         if valid:
             req.push([tok])
             if self.spec_k:
@@ -1175,7 +1531,13 @@ class LMEngine:
         self._slots[row] = None
         self.active[row] = False
         self.seeds[row] = -1  # a freed row no longer forces the seeded variant
-        self._prefilling.pop(row, None)
+        was_prefilling = self._prefilling.pop(row, None) is not None
+        if (req is not None and self.host_kv_tier is not None and req.session
+                and req.error is None and not req.want_kv_span
+                and not was_prefilling):  # mid-prefill KV is incomplete
+            # extract BEFORE the pages are freed: the table row is still
+            # this request's
+            self._swap_out(req, row)
         self.pager.free(row)
         # ``carry_stale=False`` is the drain's EOS/budget retirement: the
         # carry already gates the row on the card, so no epoch is needed.
@@ -1188,6 +1550,48 @@ class LMEngine:
             # count BEFORE done.set(): callers may read stats at once
             self.stats["completed"] += 1
             req.finish()
+
+    # -- host KV tier ------------------------------------------------------- #
+
+    def _swap_out(self, req: _Request, row: int) -> None:
+        """Queue a finished sessioned row's span for the host tier: the
+        first ``real_len + emitted - 1`` positions hold written KV (the
+        last token is never fed back). The extract is queued here; its
+        copy to the host and the encode run on the offload thread."""
+        written = len(req.ids) + max(0, len(req.tokens) - 1)
+        n16 = (min(written, self.max_seq) // 16) * 16
+        if n16 < 16:
+            return
+        ctx = (list(req.ids) + list(req.tokens))[:n16]
+        self._offload_q.put(
+            (req.session, tuple(ctx), self._extract_prefix(row, n16)))
+
+    def _offload_loop(self) -> None:
+        """Offload worker: each item is ``(session, key, device tree)``;
+        a ``threading.Event`` is a flush barrier, None exits."""
+        while True:
+            item = self._offload_q.get()
+            if item is None:
+                return
+            if isinstance(item, threading.Event):
+                item.set()
+                continue
+            session, key, tree = item
+            try:
+                blob = encode_kv_entries([(key, tree_to_numpy(tree))])
+            except Exception:  # noqa: BLE001 — swap-out is best-effort:
+                continue       # the session re-prefills on its next turn
+            if self.host_kv_tier.put(session, key, blob):
+                self._count("kv_offload_out")
+
+    def flush_offload(self, timeout_s: float = 10.0) -> bool:
+        """Block until every swap-out queued so far has landed in the
+        host tier (tests and drains; serving never waits)."""
+        if self._offload_q is None or self._offload_thread is None:
+            return True
+        done = threading.Event()
+        self._offload_q.put(done)
+        return done.wait(timeout_s)
 
     # -- scheduler loop ----------------------------------------------------- #
 
@@ -1435,15 +1839,50 @@ class _AdmittedStream:
             self._release_once()
 
 
-def _reject_unported_headers(headers) -> None:
-    """Request headers whose features the port lacks answer 501 (as an
-    unported engine setting raises), never a silently different result."""
-    for name in (PREFILL_PEER_HEADER, SESSION_HEADER):
-        if header_get(headers, name) is not None:
-            raise NotImplementedError(
-                f"the {name} header (disaggregated prefill and the host KV "
-                "tier) is not ported yet (ROADMAP queue 1 item 7b)"
-            )
+def fetch_kv_span(
+    engine: LMEngine, peer: str, model_name: str, ids, temperature: float,
+    *, timeout_s: float = 30.0, seed: int | None = None,
+) -> PreparedKVSpan | None:
+    """The decode replica's half of a disaggregated dispatch: pull the
+    finished span for ``ids`` from the prefill replica at ``peer`` (the
+    ``x-kft-prefill-peer`` URL) and check it against ``engine``. Returns
+    the :class:`PreparedKVSpan`, or None on ANY failure (peer down or
+    gone mid-ship, bad payload, layout or quantization mismatch, the
+    ``kv_ship`` fault hook), counted in ``kv_ship_fallbacks``: the caller
+    then prefills locally, and the client sees the same tokens. Runs on
+    an HTTP thread (blocking ``urllib``), never the scheduler's."""
+    import json
+    import urllib.request
+
+    t0 = time.monotonic()
+    try:
+        hook = engine._fault_hooks.get("kv_ship")
+        if hook is not None:
+            hook(engine)  # fault seam: a test drops the ship here
+        payload = {"ids": [int(t) for t in ids],
+                   "temperature": float(temperature)}
+        if seed is not None:
+            # the peer's first token (in the meta) must come from the same
+            # seeded stream as the rest
+            payload["seed"] = int(seed)
+        req = urllib.request.Request(
+            f"{peer.rstrip('/')}/v2/models/{model_name}/kv_span:prefill",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"}, method="POST",
+        )
+        with urllib.request.urlopen(req, timeout=timeout_s) as resp:
+            blob = resp.read()
+        entries, meta = decode_kv_entries(blob)
+        if not entries or meta is None:
+            raise ValueError("span payload missing entries or meta")
+        prepared = engine.prepare_kv_span(ids, entries[0][1], meta)
+    except Exception:  # noqa: BLE001 — every failed ship degrades to a
+        engine._count("kv_ship_fallbacks")  # local prefill
+        return None
+    KV_SHIP_BYTES.labels(model=model_name, direction="import").inc(len(blob))
+    KV_SHIP_MS.observe((time.monotonic() - t0) * 1e3)
+    engine._count("kv_ship_bytes", len(blob))
+    return prepared
 
 
 class LMEngineModel(Model):
@@ -1453,8 +1892,10 @@ class LMEngineModel(Model):
     responses are ``{"token_ids": [...]}``. The request headers
     (``serve/headers.py``) carry the deadline, priority and sampling seed;
     ``x-kft-resume-tokens`` continues a stream (:meth:`stream_row_tokens`);
-    ``x-kft-prefill-peer`` and ``x-kft-session`` raise
-    ``NotImplementedError`` (501).
+    ``x-kft-prefill-peer`` (a prefill replica's URL) has each row's span
+    pulled from that replica (:func:`fetch_kv_span`) so that this one runs
+    no prefill, and ``x-kft-session`` keys the host KV tier
+    (``host_kv_bytes``).
 
     ``load()`` builds the ``TransformerLM`` on ``device`` (``None`` = the
     CUDA card) with ``state_dict`` when given (e.g. bridged JAX params)
@@ -1680,12 +2121,32 @@ class LMEngineModel(Model):
             return self.max_new_tokens
         return max(1, min(int(req), self.max_new_tokens))
 
+    def _pull_kv_span(self, row, peer, deadline, *, ids=None, seed=None):
+        """The row's span from its prefill peer; None without a peer or on
+        any failed ship (then the engine prefills locally). ``ids``
+        overrides the row's prompt: a resumed dispatch pulls the span of
+        prompt + committed tokens, so this replica runs no prefill."""
+        eng = self.engine
+        if not peer or eng is None:
+            return None
+        timeout_s = 30.0
+        if deadline is not None:
+            timeout_s = max(0.1, min(timeout_s, deadline - time.monotonic()))
+        return fetch_kv_span(
+            eng, peer, self.name, row["ids"] if ids is None else ids,
+            row["temperature"], timeout_s=timeout_s, seed=seed,
+        )
+
     def _submit_row(self, row, deadline: float | None = None,
-                    priority: int = 0, seed: int | None = None) -> dict:
+                    priority: int = 0, seed: int | None = None,
+                    peer: str | None = None,
+                    session: str | None = None) -> dict:
+        kv_span = self._pull_kv_span(row, peer, deadline, seed=seed)
         toks = self.engine.submit(
             row["ids"], max_new_tokens=self._row_budget(row),
             temperature=row["temperature"], deadline=deadline,
-            priority=priority, seed=seed, label=self.name,
+            priority=priority, seed=seed, label=self.name, kv_span=kv_span,
+            session=session,
         )
         return {"token_ids": toks}
 
@@ -1711,14 +2172,16 @@ class LMEngineModel(Model):
         # rows fan out so they share the decode batch with each other and
         # everyone else's; release only after EVERY row settles, or new
         # requests would pass the cap while siblings still run
-        _reject_unported_headers(headers)
         deadline = deadline_from_headers(headers)
         priority = priority_from_headers(headers)
         seed = seed_from_headers(headers)
+        peer = header_get(headers, PREFILL_PEER_HEADER)
+        session = header_get(headers, SESSION_HEADER)
         self._admit(len(rows))
         try:
             futs = [self._executor.submit(self._submit_row, r, deadline,
-                                          priority, seed) for r in rows]
+                                          priority, seed, peer, session)
+                    for r in rows]
             cf.wait(futs)
         finally:
             self._release(len(rows))
@@ -1729,19 +2192,26 @@ class LMEngineModel(Model):
         ``generate_stream``. Admission is EAGER (model cap and engine
         admission both run here), so an overload or shed raises before
         the server commits a 200; the wrapper releases the slot however
-        the stream ends, also when closed before its first chunk."""
-        _reject_unported_headers(headers)
+        the stream ends, also when closed before its first chunk. With a
+        prefill peer the span is pulled here too, for prompt + resume
+        tokens, on the server's request thread."""
         deadline = deadline_from_headers(headers)
         priority = priority_from_headers(headers)
         seed = seed_from_headers(headers)
         resume = resume_from_headers(headers)
+        peer = header_get(headers, PREFILL_PEER_HEADER)
+        session = header_get(headers, SESSION_HEADER)
         self._admit(1)
         try:
+            kv_span = self._pull_kv_span(
+                row, peer, deadline, seed=seed,
+                ids=list(row["ids"]) + list(resume or ()),
+            )
             it = self.engine.stream(
                 row["ids"], max_new_tokens=self._row_budget(row),
                 temperature=row["temperature"], deadline=deadline,
                 priority=priority, seed=seed, resume_tokens=resume,
-                label=self.name,
+                label=self.name, kv_span=kv_span, session=session,
             )
         except BaseException:
             self._release(1)

@@ -9,9 +9,10 @@ JAX package's ``obs/headers.py`` names.
 - ``x-kft-priority``: integer tenant priority, higher is shed last.
 - ``x-kft-trace``: W3C ``traceparent``-shaped trace context. The port
   accepts and ignores it (request tracing is ROADMAP queue 1 item 12).
-- ``x-kft-prefill-peer`` and ``x-kft-session``: disaggregated prefill
-  and the host KV tier, not ported yet (ROADMAP queue 1 item 7b): a
-  request that carries either is answered 501.
+- ``x-kft-prefill-peer``: the URL of a prefill replica; the decode
+  replica pulls each row's finished KV span from it (``kv_span:prefill``)
+  and runs no prefill, or prefills locally when the ship fails.
+- ``x-kft-session``: the session id that keys the host KV tier.
 - ``x-kft-resume-tokens``: comma-separated generated ids already
   committed to the client; the engine continues after them.
 - ``x-kft-seed``: per-request sampling seed, token t drawn from

@@ -5,7 +5,7 @@ replica, with the same routes, JSON shapes, status codes and metric
 lines.
 
 - ``GET  /`` → ``{"status": "alive"}``; ``GET /v2/health/live``
-- ``GET  /v2/health/ready`` → ``{"ready": bool, "role": "both"}`` (503
+- ``GET  /v2/health/ready`` → ``{"ready": bool, "role": role}`` (503
   with ``"draining": true`` once :meth:`ModelServer.stop` began)
 - ``GET  /v1/models``, ``/v1/models/{m}``, ``/v2/models/{m}`` (metadata,
   ``"platform": "torch-cuda"``)
@@ -17,7 +17,21 @@ lines.
   "n_tokens": n}``, or ``{"error": ..., "resumable": true}`` when the
   watchdog restarted the engine mid-stream (resend with
   ``x-kft-resume-tokens`` holding the tokens received)
+- ``GET  /v2/models/{m}/prefix_cache`` → ``{"keys", "count", "tokens"}``
+  of the stored prefix entries
+- ``POST /v2/models/{m}/prefix_cache:export`` ``{"keys"?, "limit"?}`` →
+  the entries as an npz body (``serve/kv_codec.py``)
+- ``POST /v2/models/{m}/prefix_cache:pull`` ``{"peer", "keys"?}`` →
+  ``{"imported", "peer"}``: the entries exported by ``peer``, imported
+  here (502 when the peer fails)
+- ``POST /v2/models/{m}/kv_span:prefill`` ``{"ids", "temperature",
+  "seed"?}`` → the finished KV span of ``ids`` with its ``__meta__``, an
+  npz body: the prefill replica's half of disaggregated serving
 - ``GET  /metrics`` → Prometheus text
+
+``role`` (``"both"``, ``"prefill"`` or ``"decode"``, the ``kft serve
+--role`` split) is advertised by readiness; every replica answers every
+route, and a gateway steers by the role.
 
 Request headers reach the model with lower-cased names. The deadline
 contract is normalized once at admission (:meth:`ModelServer.
@@ -25,7 +39,8 @@ effective_headers`): a client's ``x-kft-deadline-abs`` is stripped, the
 budget (``x-kft-deadline-ms``, else ``default_deadline_ms``) is stamped
 as this process's absolute deadline, and an expired one fails at once.
 
-Errors: malformed input 400, unknown model 404, an unported feature 501,
+Errors: malformed input 400, unknown model 404, an unported feature or a
+model without an engine (or prefix cache) for a KV route 501,
 ``EngineOverloaded`` 429, ``AdmissionShed`` 503 with ``Retry-After`` =
 ceil(its estimate), ``DeadlineExceeded`` 503 with ``Retry-After: 1``,
 ``EngineRestarting`` a bare 503 (retry elsewhere).
@@ -40,6 +55,8 @@ import sys
 import threading
 import time
 import traceback
+import urllib.error
+import urllib.request
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -51,7 +68,14 @@ from kubeflow_tpu_torch.serve.deadline import (
     DeadlineExceeded,
     deadline_from_headers,
 )
-from kubeflow_tpu_torch.serve.engine import TPOT_MS, TTFT_MS, EngineOverloaded
+from kubeflow_tpu_torch.serve.engine import (
+    KV_SHIP_BYTES,
+    KV_SHIP_MS,
+    TPOT_MS,
+    TTFT_MS,
+    EngineOverloaded,
+)
+from kubeflow_tpu_torch.serve.kv_codec import decode_kv_entries, encode_kv_entries
 from kubeflow_tpu_torch.serve.model import Model
 from kubeflow_tpu_torch.serve.watchdog import EngineRestarting
 
@@ -60,6 +84,10 @@ _GENERATE = re.compile(r"^/v2/models/([^/]+)/generate$")
 _GENERATE_STREAM = re.compile(r"^/v2/models/([^/]+)/generate_stream$")
 _V1_MODEL = re.compile(r"^/v1/models/([^/:]+)$")
 _V2_MODEL = re.compile(r"^/v2/models/([^/]+)$")
+_PREFIX_INDEX = re.compile(r"^/v2/models/([^/]+)/prefix_cache$")
+_PREFIX_EXPORT = re.compile(r"^/v2/models/([^/]+)/prefix_cache:export$")
+_PREFIX_PULL = re.compile(r"^/v2/models/([^/]+)/prefix_cache:pull$")
+_KV_SPAN_PREFILL = re.compile(r"^/v2/models/([^/]+)/kv_span:prefill$")
 
 
 class _HTTPError(Exception):
@@ -112,11 +140,18 @@ class ModelServer:
     ``default_deadline_ms`` bounds requests that carry no
     ``x-kft-deadline-ms`` (KServe's request timeout). ``drain_grace_s``:
     on :meth:`stop`, readiness answers 503 first, then in-flight requests
-    get this long to finish before the listener closes."""
+    get this long to finish before the listener closes. ``role``: the
+    replica's pool in disaggregated serving, reported by readiness."""
 
     def __init__(self, models: list[Model], *, http_port: int = 8080,
                  host: str = "127.0.0.1", drain_grace_s: float = 10.0,
-                 default_deadline_ms: float | None = None):
+                 default_deadline_ms: float | None = None,
+                 role: str = "both"):
+        if role not in ("both", "prefill", "decode"):
+            raise ValueError(
+                f"role must be 'both', 'prefill' or 'decode'; got {role!r}"
+            )
+        self.role = role
         self.host, self.http_port = host, http_port
         self.drain_grace_s = drain_grace_s
         self.default_deadline_ms = default_deadline_ms
@@ -175,6 +210,8 @@ class ModelServer:
                     return
                 if isinstance(payload, str):
                     data, ctype = payload.encode(), "text/plain; version=0.0.4"
+                elif isinstance(payload, bytes):
+                    data, ctype = payload, "application/octet-stream"
                 else:
                     data = json.dumps(payload).encode()
                 self.send_response(status)
@@ -278,13 +315,17 @@ class ModelServer:
             return 200, {"live": True}
         if path == "/v2/health/ready":
             if self._draining:
-                return 503, {"ready": False, "draining": True, "role": "both"}
+                return 503, {"ready": False, "draining": True, "role": self.role}
             ready = all(m.ready for m in self.models.values())
-            return 200, {"ready": ready, "role": "both"}
+            return 200, {"ready": ready, "role": self.role}
         if path == "/v1/models":
             return 200, {"models": sorted(self.models)}
         if path == "/metrics":
             return 200, self._metrics_text()
+        if m := _PREFIX_INDEX.match(path):
+            keys = self._prefix_engine(m.group(1)).prefix_index()
+            return 200, {"keys": [list(k) for k in keys], "count": len(keys),
+                         "tokens": sum(len(k) for k in keys)}
         if m := _V1_MODEL.match(path):
             model = self._model(m.group(1))
             return 200, {"name": model.name, "ready": model.ready}
@@ -306,6 +347,17 @@ class ModelServer:
             return 200, out["predictions"][0]
         if m := _GENERATE_STREAM.match(path):
             return 200, self._open_stream(m.group(1), body, headers)
+        if m := _PREFIX_EXPORT.match(path):
+            eng = self._prefix_engine(m.group(1))
+            req = self._json(body) if body else {}
+            if not isinstance(req, dict):
+                raise _HTTPError(400, "export body must be a JSON object")
+            return 200, encode_kv_entries(eng.export_prefix_entries(
+                req.get("keys"), limit=req.get("limit")))
+        if m := _PREFIX_PULL.match(path):
+            return 200, self._prefix_pull(m.group(1), body)
+        if m := _KV_SPAN_PREFILL.match(path):
+            return 200, self._kv_span_prefill(m.group(1), body, headers)
         raise _HTTPError(404, f"no route POST {path}")
 
     @staticmethod
@@ -343,6 +395,64 @@ class ModelServer:
         row = model.preprocess({"instances": [self._json(body)]})[0]
         headers, _ = self.effective_headers(headers)
         return _Stream(name, stream_rows(row, headers))
+
+    # -- KV movement between replicas --------------------------------------- #
+
+    def _prefix_engine(self, name: str):
+        eng = getattr(self._model(name), "engine", None)
+        if eng is None or not eng.prefix_cache_enabled:
+            raise _HTTPError(501, f"model '{name}' has no prefix cache to transfer")
+        return eng
+
+    def _prefix_pull(self, name: str, body: bytes) -> dict:
+        """Import the entries that ``peer`` exports into this replica's
+        prefix cache: the new owner's side of a hash-ring remap."""
+        eng = self._prefix_engine(name)
+        req = self._json(body)
+        try:
+            peer = str(req["peer"]).rstrip("/")
+            keys = req.get("keys")
+        except (KeyError, TypeError, AttributeError) as e:
+            raise _HTTPError(400, f"pull body needs a 'peer': {e!r}") from None
+        export = urllib.request.Request(
+            f"{peer}/v2/models/{name}/prefix_cache:export",
+            data=json.dumps({"keys": keys} if keys is not None else {}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST",
+        )
+        try:
+            with urllib.request.urlopen(export, timeout=120.0) as resp:
+                blob = resp.read()
+        except urllib.error.HTTPError as e:
+            raise _HTTPError(502, f"peer export returned {e.code}") from None
+        except (urllib.error.URLError, OSError) as e:
+            raise _HTTPError(502, f"peer {peer} unreachable: {e}") from None
+        entries, _ = decode_kv_entries(blob)
+        return {"imported": eng.import_prefix_entries(entries), "peer": peer}
+
+    def _kv_span_prefill(self, name: str, body: bytes, headers) -> bytes:
+        """Prefill ``ids`` on this replica's engine and answer the
+        finished span through the npz codec (``__meta__``: ``real_len``,
+        ``first_tok``, ``valid``); the caller is a decode replica's
+        ``fetch_kv_span``."""
+        eng = getattr(self._model(name), "engine", None)
+        if eng is None:
+            raise _HTTPError(501, f"model '{name}' has no engine to prefill spans")
+        req = self._json(body)
+        try:
+            ids = [int(t) for t in req["ids"]]
+            temperature = float(req.get("temperature", 0.0))
+            seed = req.get("seed")
+            seed = None if seed is None else int(seed)
+        except (KeyError, TypeError, ValueError, AttributeError) as e:
+            raise _HTTPError(400, f"bad kv_span request: {e!r}") from None
+        if not ids:
+            raise _HTTPError(400, "empty ids")
+        _, deadline = self.effective_headers(headers)
+        tree, meta = eng.prefill_span(ids, temperature=temperature,
+                                      deadline=deadline, seed=seed)
+        blob = encode_kv_entries([(tuple(ids), tree)], meta)
+        KV_SHIP_BYTES.labels(model=name, direction="export").inc(len(blob))
+        return blob
 
     def _send_stream(self, handler: BaseHTTPRequestHandler, s: _Stream) -> None:
         """Server-sent events over chunked transfer encoding, one frame per
@@ -423,12 +533,15 @@ class ModelServer:
                              f'{wd.stats["restarts"]}')
         lines.extend(TTFT_MS.expose())
         lines.extend(TPOT_MS.expose())
+        lines.extend(KV_SHIP_BYTES.expose())
+        lines.extend(KV_SHIP_MS.expose())
         return "\n".join(lines) + "\n"
 
 
 def _engine_lines(name: str, eng) -> list[str]:
     """An engine's scheduler stats, active rows, overlap gauges, spec and
-    prefix counters, pager stats, read-path flag and int8 error."""
+    prefix counters (transfers included), host-tier occupancy, pager
+    stats, read-path flag and int8 error."""
     label = f'{{model="{name}"}}'
     lines = [f"{names.ENGINE_PREFIX}{key}{label} {val}"
              for key, val in dict(eng.stats).items()]  # snapshot: the loop writes
@@ -449,7 +562,14 @@ def _engine_lines(name: str, eng) -> list[str]:
         f'{names.ENGINE_PREFIX_TOKENS_REUSED_TOTAL}{label} {pc["tokens_reused"]}',
         f'{names.ENGINE_PREFIX_ENTRIES}{label} {pc["entries"]}',
         f'{names.ENGINE_PREFIX_TOKENS_STORED}{label} {pc["tokens_stored"]}',
+        f'{names.ENGINE_PREFIX_IMPORTED_TOTAL}{label} {pc["imported"]}',
+        f'{names.ENGINE_PREFIX_EXPORTED_TOTAL}{label} {pc["exported"]}',
     ]
+    tier = getattr(eng, "host_kv_tier", None)
+    if tier is not None:
+        res = tier.resident()
+        lines += [f'{names.ENGINE_KV_OFFLOAD_BYTES}{label} {res["bytes"]}',
+                  f'{names.ENGINE_KV_OFFLOAD_RESIDENT_ROWS}{label} {res["rows"]}']
     lines += [f"{names.ENGINE_KV_PREFIX}{key}{label} {val}"
               for key, val in eng.pager.stats().items()]
     lines.append(f"{names.ENGINE_PAGED_ATTN_KERNEL}{label} "

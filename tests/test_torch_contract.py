@@ -15,8 +15,8 @@ must pass inside a wedge is set on the request, never waited out.
 Then the port's own surface: SSE streaming (frames equal the JAX engine's
 greedy stream, a resumed stream continues it, a disconnect frees the
 row), ``/metrics`` against the JAX server's exposition, the int8
-``kv_quant_error`` against the JAX engine's EWMA, warmup, and 501 for the
-headers of unported features.
+``kv_quant_error`` against the JAX engine's EWMA, warmup, and the
+disaggregation and session headers served on both routes.
 """
 
 from __future__ import annotations
@@ -622,11 +622,23 @@ def served():
 
 @pytest.mark.parametrize("header", [PREFILL_PEER_HEADER, SESSION_HEADER])
 @pytest.mark.parametrize("route", ["generate", "generate_stream"])
-def test_unported_headers_answer_501(served, header, route):
+def test_kv_movement_headers_are_honoured(served, header, route):
+    """The disaggregation and session headers are served on both routes:
+    a prefill peer (here the replica itself) ships the span, and a
+    session without a host tier decodes as a plain request."""
     server, model = served
+    eng = model.engine
+    injected0 = eng.stats["kv_injected"]
+    value = f"http://127.0.0.1:{server.port}" if header == PREFILL_PEER_HEADER \
+        else "chat-1"
+    plain = _torch_call(server, "POST", f"/v2/models/lm/{route}",
+                        {"input_ids": [3, 4, 5]})
     status, _, text = _torch_call(server, "POST", f"/v2/models/lm/{route}",
-                                  {"input_ids": [3, 4]}, {header: "x"})
-    assert status == 501 and "queue 1 item 7b" in json.loads(text)["error"]
+                                  {"input_ids": [3, 4, 5]}, {header: value})
+    assert status == plain[0] == 200
+    assert _tokens(status, text) == _tokens(200, plain[2])
+    assert eng.stats["kv_injected"] - injected0 == (header == PREFILL_PEER_HEADER)
+    assert eng.stats["kv_ship_fallbacks"] == 0
     assert model._inflight == 0
 
 
@@ -786,15 +798,9 @@ def _family(series):
     return name
 
 
-#: JAX /metrics lines of features the port has not ported (item 7b: KV
-#: transfer and the host tier)
-NOT_PORTED = {
-    "kft_engine_prefix_imported_total", "kft_engine_prefix_exported_total",
-    *(f"kubeflow_tpu_engine_{k}" for k in (
-        "prefix_imported", "prefix_exported", "kv_spans_exported",
-        "kv_injected", "kv_ship_bytes", "kv_ship_fallbacks",
-        "kv_offload_out", "kv_offload_in")),
-}
+#: JAX /metrics lines of features the port has not ported (none since
+#: the KV transfer and the host tier were)
+NOT_PORTED: set[str] = set()
 
 #: series whose values are fixed by the request sequence alone
 DETERMINISTIC = [

@@ -162,7 +162,6 @@ def test_request_validation():
 
 UNPORTED = [
     ("dense_mode", dict(kv_pool_tokens=None), "dense KV"),
-    ("host_kv_tier", dict(host_kv_bytes=1 << 20), "host KV"),
     ("mesh", dict(mesh=object()), "tensor-parallel"),
     ("measured_page_size", dict(page_size=None), "page-size"),
 ]
@@ -175,6 +174,24 @@ def test_unported_engine_knobs_raise(name, knob, what):
         LMEngine(tmodel, **{**ENGINE, **knob})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LMEngine(tmodel, config=LMEngineConfig(**{**ENGINE, **knob}))
+
+
+def test_host_kv_bytes_starts_the_tier():
+    """``host_kv_bytes`` builds the host tier; ``start`` runs its offload
+    thread and ``stop`` drains and ends it (``tests/test_torch_kv_span.py``
+    holds the swaps against the JAX engine)."""
+    _, tmodel = _models()
+    assert LMEngine(tmodel, **ENGINE).host_kv_tier is None
+    eng = LMEngine(tmodel, **{**ENGINE, "host_kv_bytes": 1 << 20})
+    assert eng.host_kv_tier.max_bytes == 1 << 20
+    eng.start()
+    thread = eng._offload_thread
+    try:
+        assert thread.is_alive() and eng.flush_offload(timeout_s=30)
+    finally:
+        eng.stop()
+    thread.join(10)
+    assert not thread.is_alive() and eng._offload_thread is None
 
 
 UNPORTED_MODEL = [
