@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs eight phases:
+sm_90a, into the git-ignored ``build/``) and runs nine phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -51,7 +51,17 @@ sm_90a, into the git-ignored ``build/``) and runs eight phases:
    f32 pair (exact) and on int8 pools; a prefix-cache pull between two
    replicas; sessions parked in the host KV tier and swapped back in;
    a dropped ship and a dead peer falling back to a local prefill;
-8. train — the full-width LM trained through the flash forward and
+8. dense — the dense KV cache at the same width, bf16: the ``causal-lm``
+   runtime (``LMRuntimeModel``) behind ``ModelServer`` with the JAX
+   ``bench_generate`` traffic (8 prompts of 128 tokens, 64 and 16 new
+   tokens in turns: whole-generation ms, decode step ms, streams against
+   the paged engine, text rows against their tokenizer ids), the dense
+   ``LMEngine`` with ``bench_engine``'s traffic at depths 1 and 0 against
+   the paged kernel engine (tokens/s, TTFT, decode gap), no paged kernel
+   launched by a dense run; then in f32 the dense engine's K=4, chunked
+   prefill with a prefix cache, seeded resume, a window and a paged
+   prefill engine feeding it spans, each identical to the paged engine;
+9. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
    whose forward, dq and dk/dv launches must all run the tensor-core
@@ -85,7 +95,7 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
-          "disagg", "train")
+          "disagg", "dense", "train")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -1612,7 +1622,290 @@ def phase_disagg(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 8: training through Trainer.fit at full width
+# phase 8: the dense KV cache — the causal-lm runtime and the dense engine
+# --------------------------------------------------------------------------- #
+
+#: bench_engine's dense engine (``bench.py:990-993``)
+DENSE_ENGINE = dict(max_batch=8, max_seq=192, chunk_steps=8,
+                    prefill_buckets=(128,), eos_id=1)
+#: the paged twin of DENSE_ENGINE: every row's whole context fits at once
+DENSE_PAGED = dict(DENSE_ENGINE, kv_pool_tokens=8 * 192 + 32, page_size=32,
+                   paged_attn_impl="kernel")
+GEN_BATCH, GEN_PROMPT, GEN_LONG, GEN_SHORT = 8, 128, 64, 16
+DENSE_NEW = 48
+DENSE_TEXTS = ["hello world", "The [MASK] sat on the mat.",
+               "naive cafe, unicode: üé✓", "a.b,c;d:e?f!"]
+
+
+def bench_engine_requests():
+    """bench_engine's traffic (``bench.py:966-972``): 16 prompts of
+    ``rng.integers(16, 120)`` tokens, seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [[int(t) for t in rng.integers(2, MODEL["vocab_size"], size=int(n))]
+            for n in rng.integers(16, 120, size=16)]
+
+
+def _engine_burst(eng, reqs, max_new):
+    """All requests at once on a started engine: streams, and tokens/s,
+    TTFT p50 and the decode-gap EWMA of this burst alone."""
+    eng.overlap["decode_gap_ms"] = 0.0
+    eng.ttft_ms.clear()
+    t0 = time.perf_counter()
+    outs = _concurrent(lambda p: eng.submit(p, max_new_tokens=max_new), reqs)
+    wall = time.perf_counter() - t0
+    ttft = sorted(eng.ttft_ms)
+    n_tok = sum(map(len, outs))
+    return outs, {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+                  "ttft_ms_p50": ttft[len(ttft) // 2] if ttft else None,
+                  "decode_gap_ms": eng.overlap["decode_gap_ms"]}
+
+
+def phase_dense(torch, state):
+    """The dense KV cache at the width of the JAX ``bench_generate`` model
+    (the serving model; ``sharpened_state`` weights). (a) The
+    ``causal-lm`` runtime behind ``ModelServer`` with bench_generate's
+    traffic, 8 prompts of 128 tokens, generating 64 and 16 tokens in
+    turns (three each): the whole generation's ms at each length, the
+    decode step from their difference / 48; the greedy streams against
+    the paged engine's on the same weights; text rows over v1 against
+    their tokenizer ids. (b) bench_engine's traffic (16 prompts, 48 new
+    tokens) on the dense engine at depths 1 and 0 and on the paged kernel
+    engine, three bursts each in turns: tokens/s, TTFT p50, decode gap;
+    dense against paged streams. (a) and (b)'s dense runs must launch no
+    paged kernel. (c) f32, TF32 off: the dense engine with K=4, with
+    chunked prefill and a prefix cache, seeded with resume, and with a
+    window must give the f32 paged engine's streams; a dense decode
+    engine fed spans by a paged prefill engine runs no prefill piece."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+    from kubeflow_tpu_torch.serve.generate import LMRuntimeModel
+    from kubeflow_tpu_torch.serve.model import BucketSpec
+    from kubeflow_tpu_torch.serve.runtimes import SimpleTokenizer
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    t_phase = time.perf_counter()
+    out = {"phase": "dense", "card": state["card"],
+           "cache_bytes": 8 * MODEL["n_heads"] * 192 * 64 * 2 * 2 * MODEL["n_layers"]}
+    checks = {}
+    cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+    sd = sharpened_state(torch, torch.bfloat16)
+    rts = {n: LMRuntimeModel(
+        f"gen{n}", config=cfg, state_dict=sd, device="cuda", max_new_tokens=n,
+        buckets=BucketSpec(batch_sizes=(GEN_BATCH,), seq_lens=(GEN_PROMPT,)))
+        for n in (GEN_LONG, GEN_SHORT)}
+    rng = np.random.default_rng(5)
+    gen_reqs = [[int(t) for t in rng.integers(2, MODEL["vocab_size"], size=GEN_PROMPT)]
+                for _ in range(GEN_BATCH)]
+    server = ModelServer(list(rts.values()), http_port=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def predict(name, instances):
+        status, _, text = _http(base, "POST", f"/v1/models/{name}:predict",
+                                {"instances": instances})
+        if status != 200:
+            raise RuntimeError(f"{name} answered {status}: {text[:200]}")
+        return [p["token_ids"] for p in json.loads(text)["predictions"]]
+
+    try:
+        # (a) the runtime, bench_generate's traffic
+        ids_rows = [{"input_ids": p} for p in gen_reqs]
+        for n in (GEN_LONG, GEN_SHORT):  # warm: cuBLAS handles, allocator
+            predict(f"gen{n}", ids_rows[:1])
+        torch.cuda.synchronize()
+        pa.LAUNCHES = 0
+        gen_ms = {GEN_LONG: [], GEN_SHORT: []}
+        streams = None
+        for _ in range(3):
+            for n in (GEN_LONG, GEN_SHORT):
+                got = predict(f"gen{n}", ids_rows)
+                gen_ms[n].append(rts[n].stats["generate_ms"][-1])
+                if n == GEN_LONG:
+                    streams = streams or got
+        tok = SimpleTokenizer(MODEL["vocab_size"])
+        text_tokens = predict(f"gen{GEN_SHORT}", DENSE_TEXTS)
+        id_tokens = predict(f"gen{GEN_SHORT}",
+                            [{"input_ids": tok.encode(t)} for t in DENSE_TEXTS])
+        dense_launches_a = pa.LAUNCHES
+        model = rts[GEN_LONG]._lm  # kept past the server's unload
+    finally:
+        server.stop()
+    eng = LMEngine(model, **DENSE_PAGED).start()
+    try:
+        paged = _concurrent(lambda p: eng.submit(p, max_new_tokens=GEN_LONG), gen_reqs)
+    finally:
+        eng.stop()
+    ok_a, bad_a = _judged(torch, model, gen_reqs, paged, streams)
+    med = {n: statistics.median(v) for n, v in gen_ms.items()}
+    out["a_runtime"] = {
+        "dtype": "bf16", "batch": GEN_BATCH, "prompt": GEN_PROMPT,
+        "generate_ms": {str(n): _spread(v) for n, v in gen_ms.items()},
+        "ms_per_decode_step": (med[GEN_LONG] - med[GEN_SHORT]) / (GEN_LONG - GEN_SHORT),
+        "tokens_per_s_long": GEN_BATCH * GEN_LONG / (med[GEN_LONG] / 1e3),
+        "tokens": sum(map(len, streams)), "identical_to_paged": streams == paged,
+        "judged_equal": ok_a, "diverged": bad_a,
+        "text_rows_equal_ids": text_tokens == id_tokens,
+        "paged_launches": dense_launches_a}
+    checks["a"] = (ok_a and text_tokens == id_tokens and dense_launches_a == 0
+                   and all(1 <= len(s) <= GEN_LONG for s in streams))
+
+    # (b) the dense engine, bench_engine's traffic, against the paged one
+    reqs = bench_engine_requests()
+    engines = {"dense_1": LMEngine(model, **DENSE_ENGINE, pipeline_depth=1),
+               "dense_0": LMEngine(model, **DENSE_ENGINE, pipeline_depth=0),
+               "paged_1": LMEngine(model, **DENSE_PAGED, pipeline_depth=1)}
+    runs = {k: [] for k in engines}
+    outs = {}
+    dense_launches_b = 0
+    try:
+        for e in engines.values():
+            e.start()
+            e.submit(reqs[0][:16], max_new_tokens=8)  # warm
+        torch.cuda.synchronize()
+        for _ in range(3):
+            for key, e in engines.items():
+                pa.LAUNCHES = 0
+                got, r = _engine_burst(e, reqs, DENSE_NEW)
+                torch.cuda.synchronize()
+                if key.startswith("dense"):
+                    dense_launches_b += pa.LAUNCHES
+                runs[key].append(r)
+                outs.setdefault(key, got)
+    finally:
+        for e in engines.values():
+            e.stop()
+    ok_b, bad_b = _judged(torch, model, reqs, outs["paged_1"], outs["dense_1"])
+    out["b_engine"] = {
+        "dtype": "bf16", "requests": len(reqs), "max_new_tokens": DENSE_NEW,
+        "by_engine": {k: {m: _spread([r[m] for r in v])
+                          for m in ("tokens_per_s", "ttft_ms_p50", "decode_gap_ms")}
+                      for k, v in runs.items()},
+        "depth1_equals_depth0": outs["dense_1"] == outs["dense_0"],
+        "identical_to_paged": outs["dense_1"] == outs["paged_1"],
+        "judged_equal": ok_b, "diverged": bad_b,
+        "paged_launches_dense_runs": dense_launches_b}
+    checks["b"] = (ok_b and outs["dense_1"] == outs["dense_0"]
+                   and dense_launches_b == 0)
+    state["dense_paged_launches"] = dense_launches_a + dense_launches_b
+    del model
+    torch.cuda.empty_cache()
+
+    # (c) f32 correctness: each dense run against the f32 paged engine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sd32 = sharpened_state(torch, torch.float32)
+    m32 = _model(torch, torch.float32, "flash", state_dict=sd32)
+
+    def streams_of(model_, kw, reqs_, warm=(), **submit):
+        e = LMEngine(model_, **kw).start()
+        try:
+            for p in warm:
+                e.submit(p, max_new_tokens=MAX_NEW, **submit)
+            got = _concurrent(lambda p: e.submit(p, max_new_tokens=MAX_NEW, **submit),
+                              reqs_)
+            return got, dict(e.stats)
+        finally:
+            e.stop()
+
+    c = {}
+    mot = np.random.default_rng(3)
+    motif_reqs = []
+    for i in range(N_REQ):
+        motif = [int(t) for t in mot.integers(2, MODEL["vocab_size"], size=8)]
+        motif_reqs.append((motif * 4)[: 16 + i])
+    k4_kw = dict(max_batch=8, max_seq=128, chunk_steps=8, prefill_buckets=(32,),
+                 eos_id=1, spec_draft_tokens=4)
+    dk4, sk4 = streams_of(m32, k4_kw, motif_reqs)
+    pk4, _ = streams_of(m32, dict(ENGINE, paged_attn_impl="kernel",
+                                  spec_draft_tokens=4), motif_reqs)
+    c["k4"] = {"identical": dk4 == pk4, "spec_accepted": sk4["spec_accepted"]}
+
+    shared = [int(t) for t in mot.integers(2, MODEL["vocab_size"], size=64)]
+    pre_reqs = []
+    for n in (70, 40, 100, 66, 88, 52, 95, 77):
+        tail = [int(t) for t in mot.integers(2, MODEL["vocab_size"], size=n)]
+        pre_reqs.append((shared + tail)[:n])
+    long_kw = dict(max_batch=8, max_seq=192, chunk_steps=8, prefill_buckets=(32, 128),
+                   eos_id=1)
+    dc, sc = streams_of(m32, dict(long_kw, prefill_chunk=32, prefix_cache_entries=8),
+                        pre_reqs[1:], warm=pre_reqs[:1])
+    pc, _ = streams_of(m32, dict(long_kw, kv_pool_tokens=48 * 32, page_size=32,
+                                 paged_attn_impl="kernel"),
+                       pre_reqs[1:], warm=pre_reqs[:1])
+    c["chunked_prefix"] = {"identical": dc == pc, "prefix_hits": sc["prefix_hits"],
+                           "prefill_pieces": sc["prefill_pieces"]}
+
+    ids = prompts()[0]
+    samp = dict(max_new_tokens=MAX_NEW, temperature=0.9, seed=1234)
+    seeded = {}
+    for kind, kw in (("dense", dict(long_kw)),
+                     ("paged", dict(long_kw, kv_pool_tokens=48 * 32, page_size=32,
+                                    paged_attn_impl="kernel"))):
+        e = LMEngine(m32, **kw).start()
+        try:
+            first = e.submit(ids, **samp)
+            cut = len(first) // 2
+            seeded[kind] = (first, e.submit(ids, resume_tokens=first[:cut], **samp), cut)
+        finally:
+            e.stop()
+    (df, dr, cut), (pf, _, _) = seeded["dense"], seeded["paged"]
+    c["seeded_resume"] = {"identical": df == pf, "resume_identical": dr == df[cut:],
+                          "tokens": len(df)}
+
+    cfg_w = TransformerConfig(dtype=torch.float32, attn_impl="flash", attn_window=32,
+                              **MODEL)
+    from kubeflow_tpu_torch.models.transformer import TransformerLM
+
+    mw = TransformerLM(cfg_w, device="cuda")
+    mw.load_state_dict(sd32)
+    mw.eval().requires_grad_(False)
+    win_reqs = prompts()
+    dw, _ = streams_of(mw, dict(ENGINE, kv_pool_tokens=None), win_reqs)
+    pw, _ = streams_of(mw, dict(ENGINE, paged_attn_impl="kernel"), win_reqs)
+    c["window"] = {"identical": dw == pw, "window": 32, "tokens": sum(map(len, dw))}
+    del mw
+
+    # a dense decode engine fed by a paged prefill engine, through the codec
+    pre = LMEngine(m32, **dict(ENGINE, paged_attn_impl="kernel")).start()
+    dec = LMEngine(m32, **dict(ENGINE, kv_pool_tokens=None)).start()
+    try:
+        reqs8 = prompts()
+        shipped = [_wire(*pre.prefill_span(p), p) for p in reqs8]
+        spans = [dec.prepare_kv_span(p, t, m) for p, (t, m, _) in zip(reqs8, shipped)]
+        got = _concurrent(lambda i: dec.submit(reqs8[i], max_new_tokens=MAX_NEW,
+                                               kv_span=spans[i]), list(range(N_REQ)))
+        dstats = dict(dec.stats)
+    finally:
+        pre.stop()
+        dec.stop()
+    colo, _ = streams_of(m32, dict(ENGINE, paged_attn_impl="kernel"), reqs8)
+    c["paged_prefill_to_dense_decode"] = {
+        "identical": got == colo, "prefill_pieces": dstats["prefill_pieces"],
+        "kv_injected": dstats["kv_injected"]}
+    del m32
+    out["c_f32"] = c
+    checks["c"] = (c["k4"]["identical"] and c["k4"]["spec_accepted"] > 0
+                   and c["chunked_prefix"]["identical"]
+                   and c["chunked_prefix"]["prefix_hits"] > 0
+                   and c["seeded_resume"]["identical"]
+                   and c["seeded_resume"]["resume_identical"]
+                   and c["window"]["identical"]
+                   and c["paged_prefill_to_dense_decode"]["identical"]
+                   and c["paged_prefill_to_dense_decode"]["prefill_pieces"] == 0
+                   and c["paged_prefill_to_dense_decode"]["kv_injected"] == N_REQ)
+    out["seconds"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    out["ok"] = all(checks.values()) and len(checks) == 3
+    emit(out)
+    return out["ok"]
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: training through Trainer.fit at full width
 # --------------------------------------------------------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
@@ -1943,7 +2236,8 @@ def main(argv=None) -> int:
     runners = {"kernels": phase_kernels, "forward": phase_forward,
                "serving": phase_serving, "parity": phase_parity,
                "engine": phase_engine, "contract": phase_contract,
-               "disagg": phase_disagg, "train": phase_train,
+               "disagg": phase_disagg, "dense": phase_dense,
+               "train": phase_train,
                "profile": phase_profile}
     ok = True
     for p in phases:
@@ -1980,7 +2274,9 @@ def main(argv=None) -> int:
                 **({"launches_by_s": state.get("paged_launches_by_s"),
                     "verify_launches_engine_phase": state.get("verify_launches"),
                     "launches_contract_phase": state.get("contract_paged_launches"),
-                    "launches_disagg_phase_by_s": state.get("disagg_paged_launches_by_s")}
+                    "launches_disagg_phase_by_s": state.get("disagg_paged_launches_by_s"),
+                    # the dense runs of the dense phase: none, by design
+                    "launches_dense_phase": state.get("dense_paged_launches")}
                    if key == "paged_main" else {}),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -8,6 +8,13 @@ ported:
 - the **no-cache** forward, through :func:`dispatch_attention` with the
   single-device ``reference`` and ``flash`` strategies (``flash`` runs the
   CUDA kernel of ``ops/flash_attention.py`` on the card);
+- the **dense** cache branch of ``make_generate_fn`` and the dense
+  serving engine: this call's keys/values are written in place into a
+  ``(B, kv_heads, max_len, head_dim)`` cache from :func:`init_kv_cache`
+  at slot ``cache_index`` (one slot for every row, or one a row), and
+  the query attends every slot through the default causal mask over
+  absolute slots (with ``attn_window``) or the caller's ``kv_mask``, by
+  torch ops (the JAX branch is XLA einsums, no Pallas kernel);
 - the **paged** branch the serving engine uses: this call's keys/values
   are written into a flat ``(kv_heads, pool_tokens, head_dim)`` pool
   through a block table (in place — the pool is engine-owned state), then
@@ -241,6 +248,7 @@ class Attention(nn.Module):
 
     def forward(
         self, x, positions, segment_ids=None, layer_cache=None,
+        cache_index=None, kv_mask=None,
         page_table=None, page_size=None, page_write_ok=None,
         paged_attn_impl="gather", kv_quant="none", quant_stats=None,
     ):
@@ -260,10 +268,8 @@ class Attention(nn.Module):
                 page_write_ok, paged_attn_impl, kv_quant, quant_stats,
             )
         elif layer_cache is not None:
-            raise NotImplementedError(
-                "the dense layer_cache decode branch is not ported yet "
-                "(ROADMAP queue 1 item 3); use the paged pool"
-            )
+            o, new_cache = self._dense(q, k, v, layer_cache, cache_index,
+                                       kv_mask)
         else:
             if groups > 1:
                 k = k.repeat_interleave(groups, dim=1)
@@ -274,6 +280,50 @@ class Attention(nn.Module):
         if layer_cache is not None:
             return out, new_cache
         return out
+
+    def _dense(self, q, k, v, layer_cache, cache_index, kv_mask):
+        """DENSE decode/prefill: write this call's keys/values into the
+        ``(B, kv_heads, T, D)`` cache IN PLACE at slots ``[cache_index,
+        cache_index + S)`` (a scalar: every row at that slot; ``(B,)``:
+        each row at its own), then attend all T slots. As JAX's
+        ``dynamic_update_slice``, a write start is clamped into ``[0, T -
+        S]``. With no ``kv_mask`` the mask is causal over absolute slots
+        (slot == token position) with ``attn_window``; a caller's
+        ``(B, T)`` mask applies to every query, a ``(B, S, T)`` one per
+        query (the speculative verify span), and then the caller owns
+        the window."""
+        cfg = self.cfg
+        B, Hkv, S, D = k.shape
+        K, V = layer_cache["k"], layer_cache["v"]
+        T = K.shape[2]
+        dev = q.device
+        per_row = torch.is_tensor(cache_index) and cache_index.ndim == 1
+        if per_row:
+            span = torch.arange(S, device=dev)
+            slots = cache_index.clamp(0, T - S)[:, None] + span      # (B, S)
+            idx = slots[:, None, :, None].expand(B, Hkv, S, D)
+            K.scatter_(2, idx, k.to(K.dtype))
+            V.scatter_(2, idx, v.to(V.dtype))
+        else:
+            start = min(max(int(cache_index), 0), T - S)
+            K[:, :, start:start + S] = k.to(K.dtype)
+            V[:, :, start:start + S] = v.to(V.dtype)
+        if kv_mask is not None:
+            kvm = kv_mask if kv_mask.ndim == 3 else kv_mask[:, None, :]
+            mask = kvm.expand(B, S, T)
+        else:
+            span = torch.arange(S, device=dev)
+            kpos = torch.arange(T, device=dev)
+            if per_row:
+                qpos = cache_index[:, None] + span                   # (B, S)
+            else:
+                qpos = (int(cache_index) + span)[None, :].expand(B, S)
+            mask = kpos[None, None, :] <= qpos[:, :, None]           # (B, S, T)
+            if cfg.attn_window is not None:
+                mask = mask & (kpos[None, None, :]
+                               > qpos[:, :, None] - cfg.attn_window)
+        o = _grouped_cache_attention(q, K, V, mask, cfg.n_heads // Hkv)
+        return o, layer_cache
 
     def _paged(self, q, k, v, positions, layer_cache, page_table, P,
                page_write_ok, paged_attn_impl, kv_quant, quant_stats):
@@ -368,12 +418,12 @@ class Block(nn.Module):
         self.ln2 = RMSNorm(cfg.d_model, device)
         self.mlp = Mlp(cfg, device, param_dtype)
 
-    def forward(self, x, positions, segment_ids=None, layer_cache=None, **paged):
+    def forward(self, x, positions, segment_ids=None, layer_cache=None, **cached):
         new_cache = None
         if layer_cache is not None:
             h, new_cache = self.attn(
                 self.ln1(x), positions, segment_ids, layer_cache=layer_cache,
-                **paged,
+                **cached,
             )
         else:
             h = self.attn(self.ln1(x), positions, segment_ids)
@@ -387,7 +437,11 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """Decoder LM (causal=True) or encoder (causal=False).
 
-    ``forward(tokens) -> logits`` scores a batch with no cache. Paged
+    ``forward(tokens) -> logits`` scores a batch with no cache. Dense
+    serving passes a cache from :func:`init_kv_cache` plus
+    ``cache_index`` (and optionally ``kv_mask``) and gets ``(logits,
+    cache)``: prefill writes slots ``[idx, idx + S)``, decode steps pass
+    S=1, and the cache is updated in place. Paged
     serving passes a pool from :func:`init_paged_kv_cache` plus
     ``page_table``/``page_size``/``page_write_ok`` and explicit
     ``positions`` and gets ``(logits, cache)``; the pool is updated in
@@ -426,22 +480,24 @@ class TransformerLM(nn.Module):
 
     def forward(
         self, tokens, *, segment_ids=None, positions=None, cache=None,
+        cache_index=None, kv_mask=None,
         page_table=None, page_size=None, page_write_ok=None,
         paged_attn_impl="gather", kv_quant="none", quant_stats=None,
     ):
         cfg = self.cfg
         B, S = tokens.shape
-        if cache is not None and page_table is None:
-            raise NotImplementedError(
-                "the dense KV cache is not ported yet (ROADMAP queue 1 "
-                "item 3); pass a paged pool with page_table"
-            )
         if positions is None:
-            positions = torch.arange(S, device=tokens.device).expand(B, S)
+            ar = torch.arange(S, device=tokens.device)
+            if torch.is_tensor(cache_index) and cache_index.ndim == 1:
+                positions = cache_index[:, None] + ar
+            else:
+                start = 0 if cache_index is None else int(cache_index)
+                positions = (start + ar).expand(B, S)
         x = self.embed(tokens)
         if not cfg.use_rope:
             x = x + self.pos_embedding[positions].to(cfg.dtype)
-        paged = dict(
+        cached = dict(
+            cache_index=cache_index, kv_mask=kv_mask,
             page_table=page_table, page_size=page_size,
             page_write_ok=page_write_ok, paged_attn_impl=paged_attn_impl,
             kv_quant=kv_quant, quant_stats=quant_stats,
@@ -450,7 +506,8 @@ class TransformerLM(nn.Module):
             if cache is not None:
                 name = f"layers_{i}"
                 x, cache[name] = block(
-                    x, positions, segment_ids, layer_cache=cache[name], **paged
+                    x, positions, segment_ids, layer_cache=cache[name],
+                    **cached,
                 )
             else:
                 x = block(x, positions, segment_ids)
@@ -458,6 +515,29 @@ class TransformerLM(nn.Module):
         if cache is not None:
             return logits, cache
         return logits
+
+
+def init_kv_cache(
+    cfg: TransformerConfig,
+    batch: int,
+    max_len: int,
+    dtype: torch.dtype | None = None,
+    *,
+    device=None,
+) -> dict:
+    """Zeroed DENSE decode cache: one ``(batch, kv_heads, max_len,
+    head_dim)`` K and V per layer in ``dtype`` (default the model's), so
+    GQA configs pay for kv_heads, not n_heads."""
+    dev = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
+    return {
+        f"layers_{i}": {
+            "k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+        }
+        for i in range(cfg.n_layers)
+    }
 
 
 def init_paged_kv_cache(

@@ -1,14 +1,28 @@
-"""Continuous-batching LM engine over a paged KV pool — the port of
-``kubeflow_tpu/serve/engine.py:LMEngine`` in paged mode.
+"""Continuous-batching LM engine — the port of
+``kubeflow_tpu/serve/engine.py:LMEngine``, in both of its KV layouts:
+
+- **paged** (``kv_pool_tokens`` set): one pool of pages shared by every
+  row through a block table; a row's token space is contiguous, so
+  position == token index and the model's paged branch derives causal
+  and window masks from positions;
+- **dense** (``kv_pool_tokens=None``, the JAX default): a ``(max_batch,
+  kv_heads, max_seq, head_dim)`` cache, one row a request. A row is laid
+  out ``[prompt | gap | gen]``: the prompt's prefill pieces pad it to
+  ``gen_start`` (its bucket, or a multiple of ``prefill_chunk``), and
+  decode writes generated tokens from there; ``decode_kv_mask`` (and
+  ``decode_span_kv_mask`` for a speculative span) keeps the gap out of
+  every attention. It reads by torch ops, as the JAX branch reads by XLA
+  einsums: no kernel, so ``paged_attn_impl="kernel"`` and
+  ``kv_quant="int8"`` need a pool, as in JAX.
 
 Requests join and leave a running decode batch of ``max_batch`` rows:
 
-- **Admission** claims a free row and the request's whole page budget
-  (prompt + max_new_tokens) from the pool; when the pool is short the
-  request is HELD (FIFO: nothing admits past it) until completions free
-  pages. A stored prompt prefix (the prefix cache) is copied into the
-  row's pages, and the rest of the prompt is prefilled — in one piece,
-  or with ``prefill_chunk`` in pieces interleaved with decode chunks, one
+- **Admission** claims a free row (paged: and the request's whole page
+  budget, prompt + max_new_tokens, from the pool; when the pool is short
+  the request is HELD, FIFO: nothing admits past it, until completions
+  free pages). A stored prompt prefix (the prefix cache) is copied into
+  the row, and the rest of the prompt is prefilled — in one piece, or
+  with ``prefill_chunk`` in pieces interleaved with decode chunks, one
   piece per loop iteration. The final piece samples the first token.
 - **Decode runs in chunks** of ``chunk_steps`` steps for all rows (dead
   rows step too and write to the scratch page). With
@@ -26,8 +40,6 @@ Requests join and leave a running decode batch of ``max_batch`` rows:
   through pinned memory (``serve/hostio.py``), so nothing the host does
   between chunks stalls the card's stream. ``pipeline_depth=0`` keeps the
   synchronous loop (upload, dispatch, drain) for parity and debugging.
-- A row's token space is contiguous, so position == token index and the
-  model's paged branch derives causal and window masks from positions.
 - **Seeded requests** (``seed=``) draw the token at position p from
   ``fold_in(PRNGKey(seed), p)`` (``serve/threefry.py``), identically to
   the JAX engine, so a stream resumed with ``resume_tokens`` on any
@@ -76,8 +88,8 @@ import torch
 from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
+    init_kv_cache,
     init_paged_kv_cache,
-    init_weights,
 )
 from kubeflow_tpu_torch.obs import names, prom
 from kubeflow_tpu_torch.serve.deadline import (
@@ -90,7 +102,12 @@ from kubeflow_tpu_torch.serve.deadline import (
     resume_from_headers,
     seed_from_headers,
 )
-from kubeflow_tpu_torch.serve.generate import sample_logits
+from kubeflow_tpu_torch.serve.generate import (
+    LMRuntimeModel,
+    decode_kv_mask,
+    decode_span_kv_mask,
+    sample_logits,
+)
 from kubeflow_tpu_torch.serve.headers import (
     PREFILL_PEER_HEADER,
     SESSION_HEADER,
@@ -105,7 +122,7 @@ from kubeflow_tpu_torch.serve.kv_codec import (
     tree_to_numpy,
 )
 from kubeflow_tpu_torch.serve.kv_tier import HostKVTier
-from kubeflow_tpu_torch.serve.model import Model
+from kubeflow_tpu_torch.serve.model import BucketSpec
 from kubeflow_tpu_torch.serve.paging import PageAllocator
 from kubeflow_tpu_torch.serve.speculative import propose_draft, spec_accept
 from kubeflow_tpu_torch.serve.threefry import seeded_sample
@@ -156,7 +173,9 @@ class LMEngineConfig:
     prompts prefill in pieces of that many tokens, interleaved with
     decode, and are no longer bound by the largest prefill bucket.
     ``host_kv_bytes`` (> 0): the byte budget of the host-RAM KV tier that
-    sessioned rows swap out to when they finish."""
+    sessioned rows swap out to when they finish. ``kv_pool_tokens``
+    (None: the dense cache) sizes the paged pool, ``page_size`` its
+    pages."""
 
     max_batch: int = 8
     max_seq: int = 256
@@ -185,8 +204,6 @@ def _reject_unported(c: LMEngineConfig) -> None:
     """Settings of the JAX engine this port does not implement raise;
     the JAX constructor's own checks run after them."""
     unported = [
-        (c.kv_pool_tokens is None,
-         "dense KV mode (kv_pool_tokens=None)", "queue 1 item 3"),
         (c.mesh is not None or c.rules is not None,
          "tensor-parallel serving (mesh/rules)", "queue 1 item 10"),
         (c.page_size is None,
@@ -219,6 +236,13 @@ def _reject_unported(c: LMEngineConfig) -> None:
         )
     if c.kv_quant not in ("none", "int8"):
         raise ValueError(f"kv_quant must be 'none' or 'int8'; got {c.kv_quant!r}")
+    if c.kv_pool_tokens is None and (
+        c.paged_attn_impl != "gather" or c.kv_quant != "none"
+    ):
+        raise ValueError(
+            "paged_attn_impl='kernel' / kv_quant='int8' require paged "
+            "mode (set kv_pool_tokens)"
+        )
     if c.prefill_chunk is not None and (
         c.prefill_chunk < 16 or c.prefill_chunk % 16
     ):
@@ -396,26 +420,38 @@ class LMEngine:
         self.uploader = Uploader(self.device)
         #: one pinned output buffer per chunk in flight
         self._outputs = OutputRing(self.device, slots=self.pipeline_depth + 1)
-        self.pager = PageAllocator(
-            pool_tokens=config.kv_pool_tokens,
-            page_size=config.page_size,
-            max_batch=config.max_batch,
-            max_pages_per_row=-(-config.max_seq // config.page_size),
-            upload=self.uploader.upload,
-        )
-        self.cache = init_paged_kv_cache(
-            cfg, config.kv_pool_tokens, kv_quant=self.kv_quant,
-            device=self.device,
-        )
+        #: paged KV mode: a page pool shared through a block table; dense
+        #: mode: one (max_seq)-slot cache row per batch row
+        self.paged = config.kv_pool_tokens is not None
+        if self.paged:
+            self.pager: PageAllocator | None = PageAllocator(
+                pool_tokens=config.kv_pool_tokens,
+                page_size=config.page_size,
+                max_batch=config.max_batch,
+                max_pages_per_row=-(-config.max_seq // config.page_size),
+                upload=self.uploader.upload,
+            )
+            self.cache = init_paged_kv_cache(
+                cfg, config.kv_pool_tokens, kv_quant=self.kv_quant,
+                device=self.device,
+            )
+        else:
+            self.pager = None
+            self.cache = init_kv_cache(cfg, config.max_batch, config.max_seq,
+                                       device=self.device)
+            #: cache slot indices, the key axis of the dense decode masks
+            self._kpos = torch.arange(config.max_seq, device=self.device)
         #: noise for unseeded temperature > 0 rows (threefry's engine-key
         #: stream is not reproduced; greedy and seeded rows never read it)
         self._gen = torch.Generator(device=self.device).manual_seed(config.seed)
         #: the decode chunk program (tests may wrap it to inject faults)
-        self._chunk = self._chunk_spec_paged if self.spec_k else self._chunk_paged
+        self._chunk = self._chunk_spec if self.spec_k else self._chunk_plain
 
         B = config.max_batch
         # per-row host mirrors; they ride to the device once per epoch
         self.real_len = np.zeros((B,), np.int64)   # prompt length
+        # dense rows: the first generated token's slot (paged: real_len)
+        self.gen_start = np.zeros((B,), np.int64)
         self.gen_count = np.zeros((B,), np.int64)  # tokens so far
         self.budget = np.zeros((B,), np.int64)     # max_new_tokens
         self.last_tok = np.zeros((B,), np.int64)
@@ -459,8 +495,7 @@ class LMEngine:
         self.stats = {
             "admitted": 0, "completed": 0, "chunks": 0, "max_concurrent": 0,
             "prefix_hits": 0, "prefix_tokens_reused": 0,
-            "prefill_pieces": 0, "idle_wakes": 0, "page_holds": 0,
-            "kv_pages_used_peak": 0,
+            "prefill_pieces": 0, "idle_wakes": 0,
             "spec_proposed": 0, "spec_accepted": 0,
             "deadline_expired_queued": 0, "deadline_expired_decoding": 0,
             "shed_deadline": 0, "shed_priority": 0,
@@ -475,6 +510,10 @@ class LMEngine:
             # host KV tier: sessions swapped out on finish / back in
             "kv_offload_out": 0, "kv_offload_in": 0,
         }
+        if self.paged:
+            # pre-initialized: /metrics iterates this dict from another
+            # thread, so a first-admission key insert would race it
+            self.stats.update(page_holds=0, kv_pages_used_peak=0)
         #: guards the counters that HTTP threads bump (ship and transfer)
         self._stats_lock = threading.Lock()
         #: time to first token of recent completions, milliseconds
@@ -487,9 +526,9 @@ class LMEngine:
         self._carry: dict[str, Any] | None = None
         self._carry_dirty = True
         self._carry_chunks = 0   # chunks dispatched since the last upload
-        self._carry_h0 = 0       # max(real_len + gen_count) at upload
-        self._carry_hcap = 0     # max(real_len + budget) at upload
-        self._carry_pages_w = 0  # uploaded table width (pages)
+        self._carry_h0 = 0       # paged: max(real_len + gen_count) at upload
+        self._carry_hcap = 0     # paged: max(real_len + budget) at upload
+        self._carry_pages_w = 0  # paged: uploaded table width (pages)
         self._last_dispatch: float | None = None
         self.overlap = {
             "decode_gap_ms": 0.0,    # EWMA host time between dispatches
@@ -551,23 +590,33 @@ class LMEngine:
         )
         return logits
 
-    def _suffix_prefill(self, piece, slen: int, offset: int, table,
+    def _suffix_prefill(self, piece, slen: int, offset: int, row: int,
                         temperature: float, seed: int, pos: int, *,
                         seeded: bool):
-        """One row's prefill piece writes tokens [offset, offset + S)
-        through its block table (pad positions >= slen go to the scratch
-        page) and samples the token after the last real one — by the
-        seeded draw at absolute position ``pos`` when ``seeded``. Returns
+        """One prefill piece of row ``row`` writes tokens [offset, offset
+        + S) and samples the token after the last real one — by the
+        seeded draw at absolute position ``pos`` when ``seeded``. Paged,
+        the piece goes through the row's block table (pad positions >=
+        slen to the scratch page); dense, through the row's slice of the
+        cache at ``cache_index=offset`` (the default causal mask over
+        absolute slots: bit for bit the tail of a full prefill). Returns
         ``(token, qerr)``: under ``kv_quant="int8"`` qerr is the layers'
         summed ``[quantization error, magnitude]`` of the piece's K and V
         (the only program that measures it: decode chunks stay free of
         telemetry), else None."""
         S = piece.shape[1]
         dev = self.device
-        ar = torch.arange(S, device=dev)
         qs: list | None = [] if self.kv_quant == "int8" else None
-        logits = self._forward(piece, (offset + ar)[None, :], table,
-                               (ar < slen)[None, :], quant_stats=qs)
+        if self.paged:
+            ar = torch.arange(S, device=dev)
+            table = self.pager.device_row(row, self._pages_w(offset + S))
+            logits = self._forward(piece, (offset + ar)[None, :], table,
+                                   (ar < slen)[None, :], quant_stats=qs)
+        else:
+            row_cache = {name: {which: arr[row:row + 1]
+                                for which, arr in lc.items()}
+                         for name, lc in self.cache.items()}
+            logits, _ = self.model(piece, cache=row_cache, cache_index=offset)
         last = logits[:, slen - 1]
         temp = torch.full((1,), temperature, dtype=torch.float32, device=dev)
         tok = sample_logits(last, temp, self._gen)
@@ -578,19 +627,45 @@ class LMEngine:
             )
         return tok[0], (torch.stack(qs).sum(0) if qs else None)
 
-    def _chunk_paged(self, c: dict, *, seeded: bool):
+    def _step_logits(self, c: dict, x, positions, gen_count, write_ok):
+        """One decode step's forward of ``x (B, S)`` at ``positions``:
+        S=1 the carry token, S=K+1 a speculative span. Paged, through the
+        block table (positions where ``write_ok`` is False write to the
+        scratch page). Dense, at each row's slot ``gen_start + gen_count
+        - 1`` under ``decode_kv_mask`` (``decode_span_kv_mask`` for a
+        span); a dead row writes at its frozen slot, which the row's next
+        owner overwrites before reading, and a speculative span's
+        rejected drafts land past the accepted slot, overwritten before
+        they are attended."""
+        if self.paged:
+            return self._forward(x, positions, c["table"], write_ok)
+        S = x.shape[1]
+        real_len, gen_start = c["real_len"], c["gen_start"]
+        slot0 = gen_start + gen_count - 1
+        window = self.model.cfg.attn_window
+        if S == 1:
+            kv_mask = decode_kv_mask(self._kpos, real_len, gen_start, slot0,
+                                     window)
+        else:
+            kv_mask = decode_span_kv_mask(self._kpos, real_len, gen_start,
+                                          slot0, S, window)
+        logits, _ = self.model(x, cache=self.cache, cache_index=slot0,
+                               positions=positions, kv_mask=kv_mask)
+        return logits
+
+    def _chunk_plain(self, c: dict, *, seeded: bool):
         """``chunk_steps`` decode steps for all rows (a Python loop where
         the JAX engine scans; nothing in it waits for the card). Dead
-        rows still step, but their writes go to the scratch page — their
-        pages may belong to another row."""
+        rows still step, but never advance: paged, their writes go to the
+        scratch page (their pages may belong to another row)."""
         tok, gen_count, active = c["last_tok"], c["gen_count"], c["active"]
         real_len, budget, temp = c["real_len"], c["budget"], c["temp"]
         toks, valids = [], []
         for _ in range(self.chunk_steps):
             live = active & (gen_count < budget)
             cur = real_len + gen_count - 1                    # token index
-            lg = self._forward(tok[:, None], cur[:, None], c["table"],
-                               live[:, None])
+            lg = self._step_logits(c, tok[:, None], cur[:, None], gen_count,
+                                   live[:, None])
             nxt = sample_logits(lg[:, 0], temp, self._gen)
             if seeded:
                 # the new token's absolute position is real_len + gen_count
@@ -649,13 +724,14 @@ class LMEngine:
         win = torch.gather(hist, 1, idx)
         return hist.scatter(1, idx, torch.where(live_i, emitted, win))
 
-    def _chunk_spec_paged(self, c: dict, *, seeded: bool):
-        """Speculative twin of :meth:`_chunk_paged`: each step drafts up
+    def _chunk_spec(self, c: dict, *, seeded: bool):
+        """Speculative twin of :meth:`_chunk_plain`: each step drafts up
         to K tokens from the row's device history and verifies them in ONE
         (K+1)-position forward at positions ``L-1 .. L-1+K`` (through the
         paged kernel under ``paged_attn_impl="kernel"``, ``S = K+1`` with
-        each row's own ``pos0``). Span positions past the row's budgeted
-        region write to the scratch page. Rows with no match draft 0
+        each row's own ``pos0``). Paged, span positions past the row's
+        budgeted region write to the scratch page; dense rows hold K slots
+        of headroom for them (``_enqueue``). Rows with no match draft 0
         tokens and take the one-token step."""
         K = self.spec_k
         tok, gen_count, active = c["last_tok"], c["gen_count"], c["active"]
@@ -678,7 +754,7 @@ class LMEngine:
             x = torch.cat([tok[:, None], draft], dim=1)
             positions = (L - 1)[:, None] + span
             write_ok = live0[:, None] & (positions < (real_len + budget)[:, None])
-            lg = self._forward(x, positions, c["table"], write_ok)
+            lg = self._step_logits(c, x, positions, gen_count, write_ok)
             emitted, n_emit, n_acc = spec_accept(lg, draft, draft_len,
                                                  self._gen, temp)
             if seeded:
@@ -698,18 +774,30 @@ class LMEngine:
         return res
 
     def _extract_prefix(self, row: int, n16: int) -> dict:
-        """Copy row ``row``'s first n16 KV tokens out through its block
-        table: ``(1, kv_heads, n16, D)`` per layer, plus ``(1, kv_heads,
-        n16)`` scales for an int8 pool (the JAX entry format)."""
+        """Copy row ``row``'s first n16 KV tokens out (paged: through its
+        block table; dense: a slice of its cache row) as new tensors:
+        ``(1, kv_heads, n16, D)`` per layer, plus ``(1, kv_heads, n16)``
+        scales for an int8 pool (the JAX entry format, the same in both
+        layouts)."""
+        if not self.paged:
+            return {name: {which: arr[row:row + 1, :, :n16].clone()
+                           for which, arr in lc.items()}
+                    for name, lc in self.cache.items()}
         idx = self._token_index(row, n16)
         out = {}
         for name, lc in self.cache.items():
             out[name] = {which: arr[:, idx][None] for which, arr in lc.items()}
         return out
 
-    def _implant_paged(self, stored: dict, row: int, n16: int) -> None:
-        """Scatter a stored prefix into row ``row``'s pages at token
-        indices [0, n16)."""
+    def _implant(self, stored: dict, row: int, n16: int) -> None:
+        """Copy a stored prefix into row ``row`` at token indices [0,
+        n16): paged, scattered into its pages; dense, into the front of
+        its cache row."""
+        if not self.paged:
+            for name, lc in self.cache.items():
+                for which, arr in lc.items():
+                    arr[row:row + 1, :, :n16] = stored[name][which].to(arr.dtype)
+            return
         idx = self._token_index(row, n16)
         for name, lc in self.cache.items():
             for which, arr in lc.items():
@@ -881,21 +969,46 @@ class LMEngine:
                 f"{self._pending.qsize() + held} queued, "
                 f"max_queue={self.max_queue})"
             )
-        # max_seq first: a request over the per-row bound must say so; the
-        # token space is contiguous, so the layout is the prompt itself
-        if len(ids) + max_new_tokens > self.max_seq:
+        if self.paged:
+            # the token space is contiguous: the layout is the prompt itself
+            layout = len(ids)
+        elif kv_inject is not None:
+            # an injected span occupies its ceil-16 window; no prefill runs
+            layout = kv_inject.n16
+        elif self.prefill_chunk is not None:
+            # chunked prefill frees prompts from the bucket bound: the only
+            # limit is the piece layout fitting max_seq
+            C = self.prefill_chunk
+            layout = -(-len(ids) // C) * C
+        else:
+            layout = self._bucket(len(ids))
+        # max_seq first: a request over the per-row bound must say so
+        if layout + max_new_tokens > self.max_seq:
             raise ValueError(
-                f"prompt layout {len(ids)} + max_new_tokens {max_new_tokens} "
+                f"prompt layout {layout} + max_new_tokens {max_new_tokens} "
                 f"exceeds engine max_seq {self.max_seq}"
             )
-        need = self.pager.pages_for(len(ids) + max_new_tokens)
-        if need > self.pager.num_pages - 1:
+        if self.spec_k and not self.paged and (
+            layout + max_new_tokens + self.spec_k > self.max_seq
+        ):
+            # dense speculative decode writes rejected-draft KV up to K
+            # slots past the row's budgeted region (overwritten, never
+            # attended): the row must hold that headroom
             raise ValueError(
-                f"request needs {need} pages; pool has "
-                f"{self.pager.num_pages - 1} — raise kv_pool_tokens"
+                f"prompt layout {layout} + max_new_tokens {max_new_tokens} "
+                f"+ spec_draft_tokens {self.spec_k} exceeds engine "
+                f"max_seq {self.max_seq} (speculative decode reserves K "
+                f"scratch slots per row)"
             )
-        if self.prefill_chunk is None and kv_inject is None:
-            self._bucket(len(ids))  # reject over-bucket prompts now
+        if self.paged:
+            need = self.pager.pages_for(len(ids) + max_new_tokens)
+            if need > self.pager.num_pages - 1:
+                raise ValueError(
+                    f"request needs {need} pages; pool has "
+                    f"{self.pager.num_pages - 1} — raise kv_pool_tokens"
+                )
+            if self.prefill_chunk is None and kv_inject is None:
+                self._bucket(len(ids))  # reject over-bucket prompts now
         req = _Request(
             list(ids), max_new_tokens, temperature,
             live=queue.Queue() if live else None, deadline=deadline,
@@ -1040,8 +1153,10 @@ class LMEngine:
         thread."""
         n16 = -(-len(ids) // 16) * 16
         # the budget only reserves pages: the whole ceil-16 extract window
-        # must be backed by the row's own pages
-        budget = max(1, n16 - len(ids) + 1)
+        # must be backed by the row's own pages. A dense row is max_seq
+        # wide whatever its bucket, so 1 keeps small bucket + max_seq
+        # configurations admissible
+        budget = max(1, n16 - len(ids) + 1) if self.paged else 1
         if deadline is None:
             deadline = time.monotonic() + timeout_s
         req = self._enqueue(list(ids), budget, temperature, live=False,
@@ -1111,8 +1226,9 @@ class LMEngine:
             if req.cancelled.is_set():
                 req.finish()  # consumer already gone: never admit
                 continue
-            need = self.pager.pages_for(len(req.ids) + req.max_new_tokens)
-            if not self.pager.can_alloc(need):
+            if self.paged and not self.pager.can_alloc(
+                self.pager.pages_for(len(req.ids) + req.max_new_tokens)
+            ):
                 # page backpressure: hold THIS request (FIFO — nothing
                 # admits past it) until completions free pages
                 self._held = req
@@ -1347,40 +1463,15 @@ class LMEngine:
 
     # -- prefill ------------------------------------------------------------ #
 
-    def _admit(self, req: _Request, row: int) -> None:
-        """Claim a row and its pages, implant any cached prefix, lay out
-        the prefill pieces and run the FIRST one when it is the only one.
-        Multi-piece rows stay in ``_prefilling`` and take one piece per
-        loop iteration, between decode chunks. A sessioned prompt with no
-        cached prefix takes its span from the host tier when it is
-        there."""
-        if req.kv_inject is not None:
-            self._admit_injected(req, row)
-            return
-        base, rest = 0, req.ids
-        hit = self._lookup_prefix(req.ids)
-        if hit is None and req.session and self.host_kv_tier is not None:
-            hit = self._take_swapped(req)
-        self.pager.alloc(
-            row, self.pager.pages_for(len(req.ids) + req.max_new_tokens)
-        )
-        if hit is not None:
-            key, stored = hit
-            base = len(key)
-            rest = req.ids[base:]
-            self._implant_paged(stored, row, base)
-            # suffixes pad to the 16-token quantum, not a prefill bucket
-            C = self.prefill_chunk or -(-len(rest) // 16) * 16
-            self.stats["prefix_hits"] += 1
-            self.stats["prefix_tokens_reused"] += base
-        else:
-            C = self.prefill_chunk or self._bucket(len(rest))
-        n_pieces = -(-len(rest) // C)
+    def _occupy(self, req: _Request, row: int, gen_start: int) -> None:
+        """Seat ``req`` in row ``row``: the host mirrors (the drafter's
+        history gets the prompt), the seat counters."""
         self._slots[row] = req
         self.real_len[row] = len(req.ids)
         if self.spec_k:
             self.hist_host[row, :] = self.pad_id
             self.hist_host[row, : len(req.ids)] = req.ids
+        self.gen_start[row] = gen_start
         self.gen_count[row] = 0
         self.budget[row] = req.max_new_tokens
         self.temp[row] = req.temperature
@@ -1389,9 +1480,53 @@ class LMEngine:
         self.stats["max_concurrent"] = max(
             self.stats["max_concurrent"], sum(s is not None for s in self._slots)
         )
-        self.stats["kv_pages_used_peak"] = max(
-            self.stats["kv_pages_used_peak"], self.pager.used_pages
-        )
+        if self.paged:
+            self.stats["kv_pages_used_peak"] = max(
+                self.stats["kv_pages_used_peak"], self.pager.used_pages
+            )
+
+    def _admit(self, req: _Request, row: int) -> None:
+        """Claim a row (paged: and its pages), implant any cached prefix,
+        lay out the prefill pieces and run the FIRST one when it is the
+        only one. Multi-piece rows stay in ``_prefilling`` and take one
+        piece per loop iteration, between decode chunks. A sessioned
+        prompt with no cached prefix takes its span from the host tier
+        when it is there. A dense row generates from ``gen_start``, past
+        its padded pieces; a prefix whose padded layout would not fit
+        ``max_seq`` is not implanted (the prompt prefills whole)."""
+        if req.kv_inject is not None:
+            self._admit_injected(req, row)
+            return
+        base, rest = 0, req.ids
+        hit = self._lookup_prefix(req.ids)
+        if hit is None and req.session and self.host_kv_tier is not None:
+            hit = self._take_swapped(req)
+        implanted = None
+        if hit is not None:
+            key, stored = hit
+            n16 = len(key)
+            suffix = req.ids[n16:]
+            # suffixes pad to the 16-token quantum, not a prefill bucket
+            C = self.prefill_chunk or -(-len(suffix) // 16) * 16
+            n_pieces = -(-len(suffix) // C)
+            if self.paged or (n16 + n_pieces * C + req.max_new_tokens
+                              + self.spec_k <= self.max_seq):
+                implanted = (n16, stored, suffix, C, n_pieces)
+        if self.paged:
+            self.pager.alloc(
+                row, self.pager.pages_for(len(req.ids) + req.max_new_tokens)
+            )
+        if implanted is not None:
+            base, stored, rest, C, n_pieces = implanted
+            self._implant(stored, row, base)
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += base
+        else:
+            # the layout was checked against max_seq at enqueue
+            C = self.prefill_chunk or self._bucket(len(rest))
+            n_pieces = -(-len(rest) // C)
+        self._occupy(req, row, len(req.ids) if self.paged
+                     else base + n_pieces * C)
         self._prefilling[row] = {
             "req": req, "rest": rest, "base": base, "C": C,
             "n_pieces": n_pieces, "piece": 0,
@@ -1405,30 +1540,17 @@ class LMEngine:
         """Admit a peer-prefilled request: implant its span and activate
         the row directly, without a prefill piece. The first token rides
         the meta, so the request starts where the prefill replica left
-        it; positions [real_len, n16) hold junk that decode overwrites
-        before any query position reaches them."""
+        it. Positions [real_len, n16) hold junk: a paged row overwrites
+        them before any query reaches them, a dense row generates from
+        slot n16 and ``decode_kv_mask`` keeps the gap out."""
         span = req.kv_inject
-        self.pager.alloc(
-            row, self.pager.pages_for(len(req.ids) + req.max_new_tokens)
-        )
-        self._implant_paged(span.tree, row, span.n16)
-        self._slots[row] = req
-        self.real_len[row] = len(req.ids)
-        if self.spec_k:
-            self.hist_host[row, :] = self.pad_id
-            self.hist_host[row, : len(req.ids)] = req.ids
-        self.gen_count[row] = 0
-        self.budget[row] = req.max_new_tokens
-        self.temp[row] = req.temperature
-        self.seeds[row] = -1 if req.seed is None else req.seed
-        self.stats["admitted"] += 1
+        if self.paged:
+            self.pager.alloc(
+                row, self.pager.pages_for(len(req.ids) + req.max_new_tokens)
+            )
+        self._implant(span.tree, row, span.n16)
+        self._occupy(req, row, len(req.ids) if self.paged else span.n16)
         self.stats["kv_injected"] += 1
-        self.stats["max_concurrent"] = max(
-            self.stats["max_concurrent"], sum(s is not None for s in self._slots)
-        )
-        self.stats["kv_pages_used_peak"] = max(
-            self.stats["kv_pages_used_peak"], self.pager.used_pages
-        )
         tok, valid = int(span.meta["first_tok"]), bool(span.meta["valid"])
         if valid:
             req.push([tok])
@@ -1473,8 +1595,7 @@ class LMEngine:
         piece[0, : len(piece_ids)] = piece_ids
         offset = base + i * C
         tok, qerr = self._suffix_prefill(
-            self.uploader.upload(piece), len(piece_ids), offset,
-            self.pager.device_row(row, self._pages_w(offset + C)),
+            self.uploader.upload(piece), len(piece_ids), offset, row,
             req.temperature, -1 if req.seed is None else req.seed,
             # the sampled token's absolute position (kept only from the
             # final piece, where it is len(req.ids))
@@ -1538,7 +1659,8 @@ class LMEngine:
             # extract BEFORE the pages are freed: the table row is still
             # this request's
             self._swap_out(req, row)
-        self.pager.free(row)
+        if self.paged:
+            self.pager.free(row)
         # ``carry_stale=False`` is the drain's EOS/budget retirement: the
         # carry already gates the row on the card, so no epoch is needed.
         # Host-only retirements (cancel, deadline) dirty the carry.
@@ -1554,11 +1676,16 @@ class LMEngine:
     # -- host KV tier ------------------------------------------------------- #
 
     def _swap_out(self, req: _Request, row: int) -> None:
-        """Queue a finished sessioned row's span for the host tier: the
-        first ``real_len + emitted - 1`` positions hold written KV (the
-        last token is never fed back). The extract is queued here; its
-        copy to the host and the encode run on the offload thread."""
-        written = len(req.ids) + max(0, len(req.tokens) - 1)
+        """Queue a finished sessioned row's span for the host tier. A paged
+        row's first ``real_len + emitted - 1`` positions hold written KV
+        (the last token is never fed back); a dense row's are contiguous
+        over the prompt only (its generated KV sits past the gap), so it
+        stores the prompt's window. The extract is queued here; its copy
+        to the host and the encode run on the offload thread."""
+        if self.paged:
+            written = len(req.ids) + max(0, len(req.tokens) - 1)
+        else:
+            written = len(req.ids)
         n16 = (min(written, self.max_seq) // 16) * 16
         if n16 < 16:
             return
@@ -1691,17 +1818,20 @@ class LMEngine:
         self._carry_seeded = bool((self.seeds >= 0).any())
         if self.spec_k:
             c["hist"] = up(self.hist_host)
-        act = self.active
-        if act.any():
-            self._carry_h0 = int((self.real_len + self.gen_count)[act].max())
-            self._carry_hcap = int((self.real_len + self.budget)[act].max())
+        if self.paged:
+            act = self.active
+            if act.any():
+                self._carry_h0 = int((self.real_len + self.gen_count)[act].max())
+                self._carry_hcap = int((self.real_len + self.budget)[act].max())
+            else:
+                self._carry_h0 = self._carry_hcap = 0
+            w = self._pages_w(
+                max(min(self._carry_h0 + self._chunk_span, self._carry_hcap), 1)
+            )
+            c["table"] = self.pager.device_table(w)
+            self._carry_pages_w = w
         else:
-            self._carry_h0 = self._carry_hcap = 0
-        w = self._pages_w(
-            max(min(self._carry_h0 + self._chunk_span, self._carry_hcap), 1)
-        )
-        c["table"] = self.pager.device_table(w)
-        self._carry_pages_w = w
+            c["gen_start"] = up(self.gen_start)
         self._carry = c
         self._carry_dirty = False
         self._carry_chunks = 0
@@ -1724,19 +1854,20 @@ class LMEngine:
         )
         c = self._carry
         active_in = c["active"]
-        # page-horizon growth across chunks: active rows advance at most
-        # chunk_span tokens a chunk; when the bound crosses a pow2 page
-        # bucket, widen the device table (the host table is constant
-        # within an epoch)
-        horizon = min(
-            self._carry_h0 + (self._carry_chunks + 1) * self._chunk_span,
-            self._carry_hcap,
-        )
-        w = self._pages_w(max(horizon, 1))
-        if w > self._carry_pages_w:
-            c["table"] = self.pager.device_table(w)
-            self._carry_pages_w = w
-            self.overlap["carry_uploads"] += 1
+        if self.paged:
+            # page-horizon growth across chunks: active rows advance at most
+            # chunk_span tokens a chunk; when the bound crosses a pow2 page
+            # bucket, widen the device table (the host table is constant
+            # within an epoch)
+            horizon = min(
+                self._carry_h0 + (self._carry_chunks + 1) * self._chunk_span,
+                self._carry_hcap,
+            )
+            w = self._pages_w(max(horizon, 1))
+            if w > self._carry_pages_w:
+                c["table"] = self.pager.device_table(w)
+                self._carry_pages_w = w
+                self.overlap["carry_uploads"] += 1
         res = self._chunk(c, seeded=self._carry_seeded)
         for k in ("last_tok", "gen_count", "active", "hist"):
             if k in res:
@@ -1885,55 +2016,67 @@ def fetch_kv_span(
     return prepared
 
 
-class LMEngineModel(Model):
-    """Engine-backed serving model: rows from concurrent requests share
-    one decode batch. Request rows are ``{"input_ids": [...],
-    "max_new_tokens": n, "temperature": t}`` (or a bare id list);
-    responses are ``{"token_ids": [...]}``. The request headers
-    (``serve/headers.py``) carry the deadline, priority and sampling seed;
-    ``x-kft-resume-tokens`` continues a stream (:meth:`stream_row_tokens`);
-    ``x-kft-prefill-peer`` (a prefill replica's URL) has each row's span
-    pulled from that replica (:func:`fetch_kv_span`) so that this one runs
-    no prefill, and ``x-kft-session`` keys the host KV tier
-    (``host_kv_bytes``).
+class LMEngineModel(LMRuntimeModel):
+    """Engine-backed serving model (``causal-lm-engine``): the
+    ``causal-lm`` runtime's data path (tokenizer, preprocess,
+    postprocess; see :class:`LMRuntimeModel`) with continuous batching
+    underneath, so rows from concurrent requests share one decode batch.
+    Request rows are text, ``{"text": ...}``, ``{"input_ids": [...]}`` or
+    a bare id list, with optional ``max_new_tokens`` (clamped to the
+    model's) and ``temperature``; responses are ``{"token_ids": [...]}``.
+    The request headers (``serve/headers.py``) carry the deadline,
+    priority and sampling seed; ``x-kft-resume-tokens`` continues a
+    stream (:meth:`stream_row_tokens`); ``x-kft-prefill-peer`` (a prefill
+    replica's URL) has each row's span pulled from that replica
+    (:func:`fetch_kv_span`) so that this one runs no prefill, and
+    ``x-kft-session`` keys the host KV tier (``host_kv_bytes``).
 
-    ``load()`` builds the ``TransformerLM`` on ``device`` (``None`` = the
-    CUDA card) with ``state_dict`` when given (e.g. bridged JAX params)
-    or random weights from ``seed``, and starts the engine; on the card it
-    runs :meth:`warmup` (the kernel build included) before the model
-    reports ready. Engine knobs (``pipeline_depth``,
+    Weights, ``device`` and ``seed`` as in :class:`LMRuntimeModel`;
+    ``prefill_buckets`` (or ``buckets.seq_lens``) are the engine's prefill
+    buckets. ``load()`` builds the model and starts the engine; on the card
+    it runs :meth:`warmup` (the kernel build included) before the model
+    reports ready. Engine knobs (``kv_pool_tokens``, ``pipeline_depth``,
     ``spec_draft_tokens``, ``prefix_cache_entries``, ``prefill_chunk``,
-    ...) pass through with the JAX defaults. ``watchdog`` (default on)
-    supervises the engine (``serve/watchdog.py``) with the JAX defaults
-    of its thresholds; a trip rebuilds the engine's device state and
-    shares only the weights with the old one.
+    ...) pass through with the JAX defaults: without ``kv_pool_tokens``
+    the engine runs the dense cache. ``max_seq`` defaults to the largest
+    bucket plus ``max_new_tokens`` (plus K in dense speculative mode).
+    ``watchdog`` (default on) supervises the engine
+    (``serve/watchdog.py``) with the JAX defaults of its thresholds; a
+    trip rebuilds the engine's device state and shares only the weights
+    with the old one.
     """
 
     def __init__(
-        self, name: str, *, config: TransformerConfig,
-        state_dict: Mapping[str, torch.Tensor] | None = None, seed: int = 0,
-        device=None, max_new_tokens: int = 32, eos_id: int = 1,
-        prefill_buckets: tuple[int, ...] = (32, 128), max_batch: int = 8,
-        max_seq: int | None = None, watchdog: bool = True,
+        self, name: str, storage_path: str | None = None, *,
+        config: TransformerConfig | None = None,
+        buckets: BucketSpec | None = None,
+        prefill_buckets: tuple[int, ...] | None = None,
+        max_new_tokens: int = 32, eos_id: int = 1, seed: int = 0,
+        state_dict: Mapping[str, torch.Tensor] | None = None, device=None,
+        max_batch: int = 8, max_seq: int | None = None, watchdog: bool = True,
         watchdog_interval_s: float = 0.5, watchdog_wedge_factor: float = 8.0,
         watchdog_min_wedge_s: float = 30.0, **engine_kwargs,
     ):
-        super().__init__(name)
-        if not config.causal:
-            raise ValueError("LMEngineModel needs a causal TransformerConfig")
-        self.config = config
-        self.max_new_tokens = max_new_tokens
-        self._state_dict = state_dict
-        self._seed = seed
-        self._device = device
+        if prefill_buckets is not None:
+            if buckets is not None:
+                raise ValueError("give buckets or prefill_buckets, not both")
+            buckets = BucketSpec(batch_sizes=(1,),
+                                 seq_lens=tuple(sorted(prefill_buckets)))
+        super().__init__(
+            name, storage_path, config=config, buckets=buckets,
+            max_new_tokens=max_new_tokens, eos_id=eos_id, seed=seed,
+            state_dict=state_dict, device=device,
+        )
+        seq_lens = self.buckets.seq_lens
+        dense_k = (engine_kwargs.get("spec_draft_tokens", 0)
+                   if engine_kwargs.get("kv_pool_tokens") is None else 0)
         self._engine_config = LMEngineConfig(
             max_batch=max_batch,
-            max_seq=max_seq or max(prefill_buckets) + max_new_tokens,
-            prefill_buckets=tuple(prefill_buckets), eos_id=eos_id, seed=seed,
+            max_seq=max_seq or seq_lens[-1] + max_new_tokens + dense_k,
+            prefill_buckets=tuple(seq_lens), eos_id=eos_id, seed=seed,
             **engine_kwargs,
         )
         _reject_unported(self._engine_config)
-        self._lm: TransformerLM | None = None
         self.engine: LMEngine | None = None
         self._executor: cf.ThreadPoolExecutor | None = None
         #: engine watchdog: supervises ``engine``, flips ``ready`` on trips
@@ -1988,12 +2131,7 @@ class LMEngineModel(Model):
         self.ready = ready
 
     def load(self) -> bool:
-        model = TransformerLM(self.config, device=self._device)
-        if self._state_dict is not None:
-            model.load_state_dict(self._state_dict)
-        else:
-            init_weights(model, self._seed)
-        self._lm = model.eval().requires_grad_(False)
+        self._lm = self._build_lm()
         self._executor = cf.ThreadPoolExecutor(
             max_workers=self._engine_config.max_batch,
             thread_name_prefix=f"lm-engine-{self.name}",
@@ -2078,41 +2216,6 @@ class LMEngineModel(Model):
         self.warmup_report = {"seconds": time.perf_counter() - t0,
                               "libraries": libraries, "ready": self.ready}
         return self.warmup_report
-
-    def preprocess(self, payload: Any, headers=None) -> list[dict]:
-        if isinstance(payload, Mapping) and "instances" in payload:
-            payload = payload["instances"]
-        rows = []
-        for inst in payload:
-            temperature, budget = 0.0, None
-            if isinstance(inst, str) or (
-                isinstance(inst, Mapping) and "input_ids" not in inst
-            ):
-                raise NotImplementedError(
-                    "text prompts need the tokenizer, which is not ported "
-                    "yet; send input_ids"
-                )
-            if isinstance(inst, Mapping):
-                temperature = float(inst.get("temperature", 0.0))
-                if inst.get("max_new_tokens") is not None:
-                    budget = int(inst["max_new_tokens"])
-                    if budget < 1:
-                        raise ValueError(
-                            f"max_new_tokens must be >= 1, got {budget}"
-                        )
-                ids = list(inst["input_ids"])
-            else:
-                ids = list(inst)
-            ids = [int(t) % self.config.vocab_size for t in ids]
-            if not ids:
-                raise ValueError("empty prompt")
-            rows.append({
-                "ids": ids, "temperature": temperature,
-                "max_new_tokens": budget,
-            })
-        if not rows:
-            raise ValueError("empty request")
-        return rows
 
     def _row_budget(self, row) -> int:
         """The row's ``max_new_tokens`` clamped to the model cap."""
@@ -2220,3 +2323,14 @@ class LMEngineModel(Model):
 
     def postprocess(self, outputs, headers=None) -> Any:
         return {"predictions": outputs}
+
+
+def engine_from_runtime(
+    runtime: LMRuntimeModel, *, max_batch: int = 8, max_seq: int = 256, **kw
+) -> LMEngine:
+    """A started engine over a loaded runtime's model (loading it first
+    when it is not ready); ``kw`` are engine knobs."""
+    if not runtime.ready:
+        runtime.load()
+    return LMEngine(runtime._lm, max_batch=max_batch, max_seq=max_seq,
+                    eos_id=runtime.eos_id, **kw).start()

@@ -11,8 +11,10 @@ lines.
   ``"platform": "torch-cuda"``)
 - ``POST /v1/models/{m}:predict`` ``{"instances": [...]}`` →
   ``{"predictions": [...]}``
-- ``POST /v2/models/{m}/generate`` (one row) → ``{"token_ids": [...]}``
-- ``POST /v2/models/{m}/generate_stream`` → server-sent events: one
+- ``POST /v2/models/{m}/generate`` (one row) → ``{"token_ids": [...]}``,
+  from an engine model or a ``causal-lm`` runtime (``LMRuntimeModel``)
+- ``POST /v2/models/{m}/generate_stream`` (engine models; 501 for a
+  ``causal-lm`` runtime, as in JAX) → server-sent events: one
   ``data: {"token_ids": [...]}`` frame per chunk, then ``{"done": true,
   "n_tokens": n}``, or ``{"error": ..., "resumable": true}`` when the
   watchdog restarted the engine mid-stream (resend with
@@ -540,8 +542,8 @@ class ModelServer:
 
 def _engine_lines(name: str, eng) -> list[str]:
     """An engine's scheduler stats, active rows, overlap gauges, spec and
-    prefix counters (transfers included), host-tier occupancy, pager
-    stats, read-path flag and int8 error."""
+    prefix counters (transfers included), host-tier occupancy and, for a
+    paged engine, pager stats, read-path flag and int8 error."""
     label = f'{{model="{name}"}}'
     lines = [f"{names.ENGINE_PREFIX}{key}{label} {val}"
              for key, val in dict(eng.stats).items()]  # snapshot: the loop writes
@@ -570,11 +572,12 @@ def _engine_lines(name: str, eng) -> list[str]:
         res = tier.resident()
         lines += [f'{names.ENGINE_KV_OFFLOAD_BYTES}{label} {res["bytes"]}',
                   f'{names.ENGINE_KV_OFFLOAD_RESIDENT_ROWS}{label} {res["rows"]}']
-    lines += [f"{names.ENGINE_KV_PREFIX}{key}{label} {val}"
-              for key, val in eng.pager.stats().items()]
-    lines.append(f"{names.ENGINE_PAGED_ATTN_KERNEL}{label} "
-                 f"{int(eng.paged_attn_impl == 'kernel')}")
-    if "kv_quant_error" in ov:
-        lines.append(f'{names.ENGINE_KV_QUANT_ERROR}{label} '
-                     f'{ov["kv_quant_error"]:.6f}')
+    if eng.pager is not None:  # paged engines: pool pressure, read path
+        lines += [f"{names.ENGINE_KV_PREFIX}{key}{label} {val}"
+                  for key, val in eng.pager.stats().items()]
+        lines.append(f"{names.ENGINE_PAGED_ATTN_KERNEL}{label} "
+                     f"{int(eng.paged_attn_impl == 'kernel')}")
+        if "kv_quant_error" in ov:
+            lines.append(f'{names.ENGINE_KV_QUANT_ERROR}{label} '
+                         f'{ov["kv_quant_error"]:.6f}')
     return lines

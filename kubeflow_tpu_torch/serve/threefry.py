@@ -10,8 +10,13 @@ module reproduces those draws bit for bit — the key, ``fold_in``, the
 default), ``uniform`` and Gumbel-max ``categorical`` — so seeded streams
 of the port and of the JAX engine are token-identical.
 
-Everything is batched: one key per row, ``(B, 2)``, with ``(B,)`` seeds
-and positions, and runs on the tensors' device without a host sync.
+The engine's draws are batched: one key per row, ``(B, 2)``, with
+``(B,)`` seeds and positions, on the tensors' device without a host
+sync. ``make_generate_fn`` instead threads ONE key through a
+generation, as the JAX function does: :func:`split` derives the next
+keys on the host (a key is two words), and :func:`categorical_one_key`
+draws a whole ``(B, V)`` batch from one key, its counters running flat
+over ``B·V`` as ``jax.random.categorical`` partitions them.
 Words are ``int64`` tensors holding unsigned 32-bit values (masked after
 every add and shift), since torch's ``uint32`` lacks shifts and xors on
 CUDA. Seeds are 32-bit, as the engine's int32 seed mirror holds them.
@@ -73,14 +78,23 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), float32, minval, maxval)``: the top
-    23 bits of each word become a mantissa in ``[1, 2)``, minus 1, scaled
-    and floored at ``minval``. XLA fuses the scaling into one f32 FMA
-    (one rounding); the f64 product of two f32 values is exact, so
-    computing it in f64 and rounding once reproduces it."""
-    bits = (random_bits(key, n) >> 9) | _F32_ONE_BITS
+def split(key, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` under partitionable threefry: key
+    ``i`` is the cipher of counter ``(0, i)`` (so ``fold_in(key, i)``).
+    ``key`` is a ``(2,)`` tensor or a pair of words; the ``(num, 2)``
+    result is computed with Python integers and returned on the CPU."""
+    k1, k2 = (int(w) for w in (key.tolist() if torch.is_tensor(key) else key))
+    return torch.tensor([threefry2x32(k1, k2, 0, i) for i in range(num)],
+                        dtype=torch.int64)
+
+
+def _to_uniform(bits: torch.Tensor, minval: float, maxval: float) -> torch.Tensor:
+    """32-bit words to ``jax.random.uniform`` floats: the top 23 bits of
+    each word become a mantissa in ``[1, 2)``, minus 1, scaled and
+    floored at ``minval``. XLA fuses the scaling into one f32 FMA (one
+    rounding); the f64 product of two f32 values is exact, so computing
+    it in f64 and rounding once reproduces it."""
+    bits = (bits >> 9) | _F32_ONE_BITS
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
     span = float(np.float32(maxval) - np.float32(minval))
     lo = float(np.float32(minval))
@@ -88,11 +102,33 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
     return torch.clamp(scaled, min=lo)
 
 
+def uniform(key: torch.Tensor, n: int, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), float32, minval, maxval)``, one
+    row a key: ``key (B, 2)`` gives ``(B, n)``."""
+    return _to_uniform(random_bits(key, n), minval, maxval)
+
+
 def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical(key, logits)`` over the last axis of f32
     ``logits (B, V)`` by Gumbel-max (JAX's "low" mode): ``argmax(g +
     logits)`` with ``g = -log(-log(uniform(key, V, tiny, 1)))``."""
     u = uniform(key, logits.shape[-1], TINY, 1.0)
+    return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
+
+
+def categorical_one_key(key, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1)`` of ONE key over
+    f32 ``logits (B, V)``: the Gumbel noise of element ``(b, v)`` comes
+    from counter ``(0, b·V + v)``, the flat row-major index that
+    partitionable threefry gives a ``(B, V)`` draw. ``key`` is a ``(2,)``
+    tensor or a pair of words; the bits are computed on the logits'
+    device."""
+    k1, k2 = (int(w) for w in (key.tolist() if torch.is_tensor(key) else key))
+    B, V = logits.shape
+    lo = torch.arange(B * V, device=logits.device, dtype=torch.int64)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    u = _to_uniform(b1 ^ b2, TINY, 1.0).reshape(B, V)
     return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
 
 

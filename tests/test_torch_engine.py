@@ -30,11 +30,13 @@ from kubeflow_tpu_torch.models.bridge import params_to_state_dict
 from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
+    init_kv_cache,
 )
 from kubeflow_tpu_torch.serve.engine import (
     EngineOverloaded,
     LMEngine,
     LMEngineConfig,
+    LMEngineModel,
 )
 
 KW = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -161,19 +163,67 @@ def test_request_validation():
 
 
 UNPORTED = [
-    ("dense_mode", dict(kv_pool_tokens=None), "dense KV"),
     ("mesh", dict(mesh=object()), "tensor-parallel"),
     ("measured_page_size", dict(page_size=None), "page-size"),
 ]
+#: dense mode (``kv_pool_tokens=None``, the JAX default) is ported; like
+#: the JAX engine it rejects the paged kernel and the int8 pool, which
+#: need a pool, with a ValueError
+POOL_ONLY = [
+    ("dense_mode", dict(kv_pool_tokens=None, paged_attn_impl="kernel")),
+    ("dense_mode_int8", dict(kv_pool_tokens=None, kv_quant="int8")),
+]
 
 
-@pytest.mark.parametrize("name,knob,what", UNPORTED, ids=[u[0] for u in UNPORTED])
+@pytest.mark.parametrize(
+    "name,knob,what",
+    UNPORTED + [(n, k, "require paged mode") for n, k in POOL_ONLY],
+    ids=[u[0] for u in UNPORTED + POOL_ONLY])
 def test_unported_engine_knobs_raise(name, knob, what):
     _, tmodel = _models()
-    with pytest.raises(NotImplementedError, match=what):
+    err = ValueError if knob.get("kv_pool_tokens", 0) is None else NotImplementedError
+    with pytest.raises(err, match=what):
         LMEngine(tmodel, **{**ENGINE, **knob})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else what):
         LMEngine(tmodel, config=LMEngineConfig(**{**ENGINE, **knob}))
+    if err is ValueError:  # the reference raises the same
+        jmodel, jcfg, params = _models()[0]
+        with pytest.raises(ValueError, match=what):
+            JaxEngine(jmodel, jcfg, params, **{**ENGINE, **knob})
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_dense_mode_serves_with_jax_defaults(depth):
+    """The knobs of the old ``dense_mode`` row (``kv_pool_tokens=None``)
+    build a dense engine that serves a request with the JAX dense
+    engine's tokens; ``LMEngineModel`` with the JAX defaults serves too."""
+    (jmodel, jcfg, params), tmodel = _models()
+    kw = {**ENGINE, "kv_pool_tokens": None, "pipeline_depth": depth}
+    prompt = _prompts(11, (13,))[0]
+    jeng = JaxEngine(jmodel, jcfg, params, **kw).start()
+    try:
+        want = jeng.submit(prompt, max_new_tokens=10)
+    finally:
+        jeng.stop()
+    eng = LMEngine(tmodel, **kw)
+    assert eng.pager is None and eng.cache["layers_0"]["k"].shape == (
+        2, KW["n_kv_heads"], 64, KW["d_model"] // KW["n_heads"])
+    eng.start()
+    try:
+        assert eng.submit(prompt, max_new_tokens=10) == want
+    finally:
+        eng.stop()
+    lm = LMEngineModel("lm", config=TransformerConfig(**KW), device="cpu",
+                       state_dict=tmodel.state_dict(), max_new_tokens=10,
+                       prefill_buckets=(16, 32), pipeline_depth=depth,
+                       watchdog=False)
+    lm.load()
+    try:
+        assert lm.engine.pager is None
+        out = lm({"instances": [{"input_ids": prompt}]})
+        assert out == {"predictions": [{"token_ids": want}]}
+    finally:
+        lm.unload()
 
 
 def test_host_kv_bytes_starts_the_tier():
@@ -212,6 +262,16 @@ def test_unported_model_knobs_raise(name, knob):
 
 
 def test_dense_cache_branch_raises():
+    """The dense ``layer_cache`` branch (which raised before it was
+    ported) now serves: a prefill into a cache from ``init_kv_cache``
+    and a decode step give the no-cache logits, f32 within 1e-5
+    (``tests/test_torch_generate.py`` holds it against JAX)."""
     _, tmodel = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodel(torch.zeros((1, 4), dtype=torch.long), cache={})
+    toks = torch.tensor(_prompts(12, (9,)))
+    full = tmodel(toks)
+    cache = init_kv_cache(tmodel.cfg, 1, 16, device="cpu")
+    lg, cache = tmodel(toks[:, :6], cache=cache, cache_index=0)
+    torch.testing.assert_close(lg, full[:, :6], rtol=2e-5, atol=1e-5)
+    for t in range(6, 9):
+        lg, cache = tmodel(toks[:, t:t + 1], cache=cache, cache_index=t)
+        torch.testing.assert_close(lg[:, 0], full[:, t], rtol=2e-5, atol=1e-5)

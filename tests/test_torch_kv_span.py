@@ -11,8 +11,7 @@ bytes for the same f32, int8 and bf16 trees. Spans whose quantization,
 layout, dtype or meta do not fit are rejected. The host tier swaps a
 session's KV out and back in byte for byte, and its LRU keeps the JAX
 tier's counts. A failed ship falls back to a local prefill with the
-same tokens. Dense mode is not covered: the port has no dense cache yet
-(ROADMAP queue 1 item 3).
+same tokens. Dense mode is covered in ``test_torch_engine_dense.py``.
 """
 
 from __future__ import annotations

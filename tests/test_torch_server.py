@@ -24,7 +24,8 @@ from kubeflow_tpu.serve.engine import LMEngine as JaxEngine
 from kubeflow_tpu_torch.models.bridge import params_to_state_dict
 from kubeflow_tpu_torch.models.transformer import TransformerConfig
 from kubeflow_tpu_torch.serve.engine import EngineOverloaded, LMEngineModel
-from kubeflow_tpu_torch.serve.model import Model
+from kubeflow_tpu_torch.serve.generate import LMRuntimeModel
+from kubeflow_tpu_torch.serve.model import BucketSpec, Model
 from kubeflow_tpu_torch.serve.server import ModelServer
 
 KW = dict(vocab_size=97, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
@@ -50,7 +51,12 @@ def served():
         state_dict=params_to_state_dict(params), device="cpu",
         max_new_tokens=MAX_NEW, prefill_buckets=BUCKETS, eos_id=1, **ENGINE,
     )
-    server = ModelServer([lm, _Overloaded("busy")], http_port=0).start()
+    clm = LMRuntimeModel(
+        "clm", config=TransformerConfig(**KW),
+        state_dict=params_to_state_dict(params), device="cpu",
+        buckets=BucketSpec(batch_sizes=(1,), seq_lens=BUCKETS), max_new_tokens=4,
+    )
+    server = ModelServer([lm, clm, _Overloaded("busy")], http_port=0).start()
     try:
         yield server, (jmodel, jcfg, params)
     finally:
@@ -106,17 +112,23 @@ def test_v1_predict_and_health(served):
     assert 1 <= len(body["predictions"][1]["token_ids"]) <= MAX_NEW
 
 
-@pytest.mark.parametrize("method,path,body,status", [
-    ("POST", "/v2/models/nope/generate", {"input_ids": [3]}, 404),
-    ("POST", "/v2/models/lm/generate", b"{not json", 400),
-    ("POST", "/v2/models/lm/generate", {"input_ids": []}, 400),
-    ("POST", "/v2/models/lm/generate", {"text": "hello"}, 501),
-    ("POST", "/v1/models/lm:predict", {"rows": []}, 400),
-    ("POST", "/v2/models/busy/generate", {"input_ids": [3]}, 429),
-    ("GET", "/nowhere", None, 404),
+@pytest.mark.parametrize("method,path,body,status,key", [
+    ("POST", "/v2/models/nope/generate", {"input_ids": [3]}, 404, "error"),
+    ("POST", "/v2/models/lm/generate", b"{not json", 400, "error"),
+    ("POST", "/v2/models/lm/generate", {"input_ids": []}, 400, "error"),
+    # text goes through the tokenizer (tests/test_torch_generate.py holds
+    # its ids against JAX's)
+    ("POST", "/v2/models/lm/generate", {"text": "hello"}, 200, "token_ids"),
+    ("POST", "/v1/models/lm:predict", {"rows": []}, 400, "error"),
+    ("POST", "/v2/models/busy/generate", {"input_ids": [3]}, 429, "error"),
+    ("GET", "/nowhere", None, 404, "error"),
+    # a causal-lm runtime generates but does not stream, as in JAX
+    ("POST", "/v2/models/clm/generate", {"text": "hello"}, 200, "token_ids"),
+    ("POST", "/v2/models/clm/generate_stream", {"input_ids": [3]}, 501, "error"),
 ], ids=["unknown_model", "bad_json", "empty_prompt", "text_prompt",
-        "v1_no_instances", "overloaded", "unknown_route"])
-def test_error_statuses(served, method, path, body, status):
+        "v1_no_instances", "overloaded", "unknown_route", "causal_lm_generate",
+        "causal_lm_stream"])
+def test_error_statuses(served, method, path, body, status, key):
     server, _ = served
     got, payload = _call(server, method, path, body)
-    assert got == status and "error" in payload
+    assert got == status and key in payload
