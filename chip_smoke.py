@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs nine phases:
+sm_90a, into the git-ignored ``build/``) and runs ten phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -61,7 +61,17 @@ sm_90a, into the git-ignored ``build/``) and runs nine phases:
    launched by a dense run; then in f32 the dense engine's K=4, chunked
    prefill with a prefix cache, seeded resume, a window and a paged
    prefill engine feeding it spans, each identical to the paged engine;
-9. train — the full-width LM trained through the flash forward and
+9. bert — the KServe BERT predictor on bert-base (random weights, seed
+   0) through the flash forward, non-causal with padding segments:
+   ``BertRuntimeModel`` behind ``ModelServer`` with the JAX
+   ``bench_serving`` traffic (cold start, 3 + 40 sequential ``:predict``
+   requests, p50/p99) in f32 and bf16; a burst of 32 concurrent clients
+   through the dynamic batcher (requests/s, occupancy, each answer equal
+   to the text served alone); f32 flash against plain attention and the
+   padding invariance on the card; v2 ``/infer`` against v1; the flash
+   launches (12 a forward, the scalar body in f32 and ``mma`` in bf16)
+   and no paged launch;
+10. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
    whose forward, dq and dk/dv launches must all run the tensor-core
@@ -95,7 +105,7 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
-          "disagg", "dense", "train")
+          "disagg", "dense", "bert", "train")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -356,7 +366,18 @@ def flash_cases(torch):
                                      dtype=torch.bfloat16)),
         ("causal_s512_d128_bf16", dict(B=4, H=8, D=128, S=512,
                                        dtype=torch.bfloat16)),
+        # bert-base serving: non-causal, padding masks as segment ids
+        # (valid lengths BERT_VALID_LENS), the f32 default and bf16
+        ("bert_s128_f32", dict(B=8, H=12, D=64, S=128, causal=False, pad=True,
+                               dtype=torch.float32)),
+        ("bert_s128_bf16", dict(B=8, H=12, D=64, S=128, causal=False, pad=True,
+                                dtype=torch.bfloat16)),
     ]
+
+
+#: the BERT kernel cases' valid lengths a row: full, ragged across tile
+#: edges, a single token
+BERT_VALID_LENS = (128, 97, 64, 33, 16, 128, 5, 1)
 
 
 def run_flash_case(torch, name, c, flush):
@@ -375,6 +396,11 @@ def run_flash_case(torch, name, c, flush):
         cuts = torch.rand(B, S, generator=g, device="cuda") < 3.0 / S
         cuts[:, 0] = False
         seg = kseg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
+    if c.get("pad"):
+        # BERT's attention_mask as segments: valid tokens 1, pads 0
+        lens = torch.tensor(BERT_VALID_LENS, device="cuda")
+        seg = kseg = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
+                      ).to(torch.int32).contiguous()
     if c.get("dead"):
         kseg = torch.randint(0, 2, (B, S), generator=g, device="cuda",
                              dtype=torch.int32)
@@ -490,6 +516,11 @@ def run_bwd_case(torch, name, c, flush):
         cuts = torch.rand(B, S, generator=g, device="cuda") < 3.0 / S
         cuts[:, 0] = False
         qseg = kseg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
+    if c.get("pad"):
+        # BERT's attention_mask as segments: valid tokens 1, pads 0
+        lens = torch.tensor(BERT_VALID_LENS, device="cuda")
+        seg = kseg = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
+                      ).to(torch.int32).contiguous()
     if c.get("dead"):
         kseg = torch.randint(0, 2, (B, S), generator=g, device="cuda",
                              dtype=torch.int32)
@@ -595,6 +626,8 @@ def phase_kernels(torch, state):
         ok &= r["ok"]
         if name == "causal_s512_bf16":
             state["flash_main"] = r
+        elif name.startswith("bert_"):
+            state.setdefault("flash_bert", {})[name] = r
     return ok
 
 
@@ -1905,7 +1938,293 @@ def phase_dense(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 9: training through Trainer.fit at full width
+# phase 9: the KServe BERT predictor
+# --------------------------------------------------------------------------- #
+
+#: the JAX ``bench_serving`` request (``bench.py:736-744``) and its counts
+BERT_TEXT = "the quick brown fox [MASK] over the lazy dog in the bright morning"
+BERT_WARM, BERT_REQ, BERT_CLIENTS = 3, 40, 32
+BERT_BUCKETS = dict(batch_sizes=(1, 8), seq_lens=(128,))
+#: f32 logits of flash and plain attention, or of two batch shapes, sum
+#: in other orders through 12 layers: a few 1e-6 on the CPU at bert-tiny
+BERT_LOGIT_TOL = 1e-3
+#: an f32 argmax divergence counts as a tie when the reference's top-2
+#: margin at that position is below this (the logits' own tolerance)
+F32_TIE = BERT_LOGIT_TOL
+BERT_WORDS = ("the", "a", "cat", "dog", "sat", "on", "mat", "model", "served",
+              "quick", "brown", "fox", "jumps", "over", "lazy", "river", "city",
+              "of", "and", "to", "in", "is", "was", "bright", "morning", "paris",
+              "capital", "france", "[MASK]", ",", ".", "?")
+
+
+def bert_texts():
+    """The burst's texts: one a client, 8-100 words each, seed 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [" ".join(rng.choice(BERT_WORDS, size=int(n)))
+            for n in rng.integers(8, 101, size=BERT_CLIENTS)]
+
+
+def _bert_post(base, path, body):
+    status, _, text = _http(base, "POST", path, body)
+    if status != 200:
+        raise RuntimeError(f"{path} answered {status}: {text[:200]}")
+    return json.loads(text)
+
+
+def _pct(ms, q):
+    srt = sorted(ms)
+    return srt[min(len(srt) - 1, int(len(srt) * q))]
+
+
+def _bert_rows(torch, tok, texts, S):
+    """Token ids and masks of ``texts`` padded to S, on the card."""
+    ids = torch.zeros(len(texts), S, dtype=torch.int32)
+    mask = torch.zeros_like(ids)
+    for i, t in enumerate(texts):
+        row = tok.encode(t)
+        ids[i, :len(row)] = torch.tensor(row)
+        mask[i, :len(row)] = 1
+    return ids.cuda(), mask.cuda()
+
+
+def _tie_judged(torch, ref_logits, want, got, valid):
+    """Argmax rows ``got`` against ``want`` on the ``valid`` positions:
+    ``(equal, divergences)``, where a divergence is allowed only at an
+    f32 tie (the reference's top-2 margin below ``F32_TIE``)."""
+    diff = (want != got) & valid
+    top2 = ref_logits.float().topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1])[diff].tolist()
+    return all(m < F32_TIE for m in margins), margins
+
+
+def _bert_window(fa, pa):
+    fa.LAUNCHES = 0
+    for k in fa.LAUNCHES_BY_BODY:
+        fa.LAUNCHES_BY_BODY[k] = 0
+    pa.LAUNCHES = 0
+
+
+def _bert_profile(torch, mod, tok, texts):
+    """Where a predictor forward's time goes: the f32 forward and argmax
+    of one bucket (B=1 and B=8, S=128), its wall ms unprofiled (median
+    of 5, synchronized) and under ``torch.profiler``: kernels, device
+    busy ms and share, the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    with torch.inference_mode():
+        for B in (1, 8):
+            ids, mask = _bert_rows(torch, tok, (texts * 8)[:B], 128)
+
+            def fwd():
+                mod(ids, mask).argmax(-1).to(torch.int32).cpu()
+
+            fwd()
+            walls = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                fwd()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fwd()
+            n, busy, top = _device_summary(prof)
+            wall = statistics.median(walls)
+            out[f"b{B}"] = {
+                "wall_ms": wall, "kernels": n, "device_busy_ms": busy,
+                "busy_share": busy / wall,
+                "top": [{"name": k, "count": c, "ms": ms}
+                        for k, (c, ms) in top[:6]]}
+    return out
+
+
+def phase_bert(torch, state):
+    """The KServe BERT predictor at bert-base width (random weights from
+    seed 0, the flash forward non-causal with padding segments). (a)
+    ``BertRuntimeModel`` behind ``ModelServer`` with the JAX
+    ``bench_serving`` traffic: cold start (``load`` + ``warmup``), 3 + 40
+    sequential ``:predict`` requests, p50/p99 and the model's
+    ``predict_ms``, in f32 (the default) and bf16. (b) f32: 32 concurrent
+    clients, one text each, through a second server with a batcher
+    (max 8, 5 ms): requests/s, p50/p99, mean occupancy > 1, each answer
+    equal on its valid positions to the text served alone (f32 ties
+    allowed). (d) v2 ``/infer`` with ``input_ids`` and ``attention_mask``
+    equals the v1 answer. (e) every forward of the f32 window ((a), (b),
+    (d)) and of the bf16 one launches the flash forward 12 times, on the
+    scalar body in f32 and ``mma`` in bf16, and no paged kernel. (c) f32
+    flash against plain attention on the same weights, and a row's answer
+    alone (S=32) against beside a longer row (S=128)."""
+    from kubeflow_tpu_torch.models.bert import BertForMaskedLM, bert_base
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serve.batcher import BatcherConfig
+    from kubeflow_tpu_torch.serve.model import BucketSpec
+    from kubeflow_tpu_torch.serve.runtimes import BertRuntimeModel
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+    L = bert_base().num_layers
+    out = {"phase": "bert", "card": state["card"], "model": "bert-base, seed 0",
+           "buckets": BERT_BUCKETS}
+    checks = {}
+    launches = {}
+    texts = bert_texts()
+    servers = []
+    m32 = None
+    try:
+        for dn, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            t0 = time.perf_counter()
+            m = BertRuntimeModel("bert", None, config=bert_base(dtype=dt),
+                                 buckets=BucketSpec(**BERT_BUCKETS), device="cuda")
+            m.load()
+            m.warmup()
+            torch.cuda.synchronize()
+            cold_s = time.perf_counter() - t0
+            server = ModelServer([m], http_port=0).start()
+            servers.append(server)
+            base = f"http://127.0.0.1:{server.port}"
+            req0 = m.stats["requests"]
+            _bert_window(fa, pa)
+            # (a) bench_serving: sequential single-text requests
+            for _ in range(BERT_WARM):
+                _bert_post(base, "/v1/models/bert:predict", {"instances": [BERT_TEXT]})
+            n_ms0 = len(m.stats["predict_ms"])
+            lat, answer = [], None
+            for _ in range(BERT_REQ):
+                t = time.perf_counter()
+                answer = _bert_post(base, "/v1/models/bert:predict",
+                                    {"instances": [BERT_TEXT]})["predictions"]
+                lat.append((time.perf_counter() - t) * 1e3)
+            pred_ms = list(m.stats["predict_ms"])[n_ms0:]
+            out.setdefault("a", {})[dn] = {
+                "cold_start_s": cold_s, "p50_ms": statistics.median(lat),
+                "p99_ms": _pct(lat, 0.99), "min_ms": min(lat),
+                "predict_ms_median": statistics.median(pred_ms),
+                "requests": BERT_REQ}
+            n_tok = len(m.tokenizer.encode(BERT_TEXT))
+            checks[f"a_{dn}"] = (len(answer) == 1 and len(answer[0]) == 128
+                                 and all(0 <= t < m.config.vocab_size
+                                         for t in answer[0]))
+            if dn == "f32":
+                m32 = m
+                # (b) the batched burst, and each text alone
+                bserver = ModelServer([m], http_port=0, batcher=BatcherConfig(
+                    max_batch_size=8, max_latency_ms=5)).start()
+                servers.append(bserver)
+                bbase = f"http://127.0.0.1:{bserver.port}"
+
+                def client(text, url=bbase):
+                    t = time.perf_counter()
+                    p = _bert_post(url, "/v1/models/bert:predict",
+                                   {"instances": [text]})["predictions"][0]
+                    return p, (time.perf_counter() - t) * 1e3
+
+                t0 = time.perf_counter()
+                burst = _concurrent(client, texts)
+                wall = time.perf_counter() - t0
+                alone = [client(t, base)[0] for t in texts]
+                batcher = bserver.batchers["bert"]
+                blat = [ms for _, ms in burst]
+                out["b"] = {
+                    "clients": BERT_CLIENTS, "wall_s": wall,
+                    "requests_per_s": BERT_CLIENTS / wall,
+                    "p50_ms": statistics.median(blat), "p99_ms": _pct(blat, 0.99),
+                    "batches": batcher.stats["batches"],
+                    "mean_occupancy": batcher.mean_occupancy,
+                    "tokens": [len(m.tokenizer.encode(t)) for t in texts]}
+                # (d) v2 /infer with input_ids + attention_mask against v1
+                ids = m.tokenizer.encode(BERT_TEXT)
+                v2 = _bert_post(base, "/v2/models/bert/infer", {"inputs": [
+                    {"name": "input_ids", "shape": [1, len(ids)],
+                     "datatype": "INT32", "data": ids},
+                    {"name": "attention_mask", "shape": [1, len(ids)],
+                     "datatype": "INT32", "data": [1] * len(ids)}]})
+                o = v2["outputs"][0]
+                out["d"] = {"shape": o["shape"], "datatype": o["datatype"],
+                            "equal_v1": o["data"] == answer[0] and o["shape"] == [1, 128]}
+                checks["d"] = out["d"]["equal_v1"]
+            torch.cuda.synchronize()
+            fwd = m.stats["requests"] - req0
+            launches[dn] = {"forwards": fwd, "flash": fa.LAUNCHES,
+                            "by_body": dict(fa.LAUNCHES_BY_BODY),
+                            "paged": pa.LAUNCHES}
+            body = "scalar" if dn == "f32" else "mma"
+            checks[f"e_{dn}"] = (fwd > 0 and fa.LAUNCHES == L * fwd
+                                 and fa.LAUNCHES_BY_BODY[body] == L * fwd
+                                 and pa.LAUNCHES == 0)
+            out["a"][dn]["tokens"] = n_tok
+        mod = m32.module  # kept past the servers' unload
+    finally:
+        for s in servers:
+            s.stop()
+    out["e"] = launches
+    state["bert_flash_launches"] = sum(v["flash"] for v in launches.values())
+    state["bert_flash_by_body"] = {dn: v["by_body"] for dn, v in launches.items()}
+    state["bert_paged_launches"] = sum(v["paged"] for v in launches.values())
+
+    # (b)'s judgement: each burst answer against the text alone, on its
+    # valid positions; a divergence only at an f32 tie of the text's logits
+    tok = m32.tokenizer
+    rows_equal, margins = 0, []
+    with torch.inference_mode():
+        for i, (text, (got, _), want) in enumerate(zip(texts, burst, alone)):
+            n = len(tok.encode(text))
+            if got[:n] == want[:n]:
+                rows_equal += 1
+                continue
+            ids, mask = _bert_rows(torch, tok, [text], 128)
+            logits = mod(ids, mask)[0]
+            ok_row, mg = _tie_judged(
+                torch, logits, torch.tensor(want, device="cuda"),
+                torch.tensor(got, device="cuda"), mask[0].bool())
+            margins.append({"text": i, "margins": mg, "ok": ok_row})
+    out["b"].update(rows_equal=rows_equal, diverged=margins)
+    checks["b"] = (out["b"]["mean_occupancy"] > 1
+                   and all(d["ok"] for d in margins))
+
+    # (c) f32 parity on the card: flash against plain attention, and a
+    # row's answer alone against beside a longer row
+    ref = BertForMaskedLM(bert_base(attn_impl="reference"), device="cuda")
+    ref.load_state_dict(mod.state_dict())
+    ref.eval().requires_grad_(False)
+    c = {}
+    with torch.inference_mode():
+        ids, mask = _bert_rows(torch, tok, texts[:8], 128)
+        lf, lr = mod(ids, mask), ref(ids, mask)
+        valid = mask.bool()
+        err = (lf - lr).abs()[valid].max().item()
+        same, mg = _tie_judged(torch, lr, lr.argmax(-1), lf.argmax(-1), valid)
+        c["flash_vs_reference"] = {"max_abs_err": err, "tol": BERT_LOGIT_TOL,
+                                   "argmax_ok": same, "tie_margins": mg}
+        longest = max(texts, key=len)
+        ids1, mask1 = _bert_rows(torch, tok, [BERT_TEXT], 32)
+        ids2, mask2 = _bert_rows(torch, tok, [BERT_TEXT, longest], 128)
+        alone_l = mod(ids1, mask1)[0]
+        beside_l = mod(ids2, mask2)[0, :32]
+        v1 = mask1[0].bool()
+        err_pad = (alone_l - beside_l).abs()[v1].max().item()
+        same_pad, mg_pad = _tie_judged(torch, alone_l, alone_l.argmax(-1),
+                                       beside_l.argmax(-1), v1)
+        c["padding_invariance"] = {"max_abs_err": err_pad, "tol": BERT_LOGIT_TOL,
+                                   "argmax_ok": same_pad, "tie_margins": mg_pad,
+                                   "finite": bool(torch.isfinite(lf).all())}
+    out["c"] = c
+    checks["c"] = (err <= BERT_LOGIT_TOL and same and err_pad <= BERT_LOGIT_TOL
+                   and same_pad and c["padding_invariance"]["finite"])
+    out["profile_f32"] = _bert_profile(torch, mod, tok, texts)
+    del ref, mod
+    out["seconds"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    out["ok"] = all(checks.values()) and len(checks) == 7
+    emit(out)
+    return out["ok"]
+
+
+# --------------------------------------------------------------------------- #
+# phase 10: training through Trainer.fit at full width
 # --------------------------------------------------------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
@@ -2237,7 +2556,7 @@ def main(argv=None) -> int:
                "serving": phase_serving, "parity": phase_parity,
                "engine": phase_engine, "contract": phase_contract,
                "disagg": phase_disagg, "dense": phase_dense,
-               "train": phase_train,
+               "bert": phase_bert, "train": phase_train,
                "profile": phase_profile}
     ok = True
     for p in phases:
@@ -2276,8 +2595,18 @@ def main(argv=None) -> int:
                     "launches_contract_phase": state.get("contract_paged_launches"),
                     "launches_disagg_phase_by_s": state.get("disagg_paged_launches_by_s"),
                     # the dense runs of the dense phase: none, by design
-                    "launches_dense_phase": state.get("dense_paged_launches")}
-                   if key == "paged_main" else {}),
+                    "launches_dense_phase": state.get("dense_paged_launches"),
+                    "launches_bert_phase": state.get("bert_paged_launches")}
+                   if key == "paged_main" else {
+                    # the BERT predictor: 12 a forward, by body and dtype,
+                    # and the kernel at its serving shapes
+                    "launches_bert_phase": state.get("bert_flash_launches"),
+                    "launches_bert_phase_by_body": state.get("bert_flash_by_body"),
+                    "bert_cases": {
+                        n: {k: c[k] for k in ("dtype", "body", "max_abs_err", "ms",
+                                              "plain_ms", "library_ms", "bound_ms",
+                                              "bound_by")}
+                        for n, c in state.get("flash_bert", {}).items()}}),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],

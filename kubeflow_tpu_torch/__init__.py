@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of ``kubeflow_tpu``'s LM serving path, for one H100.
+"""PyTorch + CUDA port of ``kubeflow_tpu``'s serving (LM and BERT) and
+training paths, for one H100.
 
 The layout mirrors the JAX package (``models/``, ``ops/``, ``serve/``) so
 each module's counterpart is easy to find; ``kubeflow_tpu`` stays the

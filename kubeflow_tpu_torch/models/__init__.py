@@ -1,1 +1,2 @@
-"""Models of the port: the decoder LM and the bridge from JAX params."""
+"""Models of the port: the decoder LM, BERT, the bridge from JAX params
+and the HF checkpoint conversion."""

@@ -16,6 +16,21 @@ arrays (or anything ``np.asarray`` takes). Paths map one to one:
 Flax ``Dense`` kernels are ``(in, out)`` and ``nn.Linear.weight`` is
 ``(out, in)``, so kernels are transposed. The bridge is pure numpy and
 host-side; ``TransformerLM.load_state_dict`` casts to the model's dtypes.
+
+:func:`bert_params_to_state_dict` and :func:`bert_state_dict_to_params`
+do the same for the JAX ``BertForMaskedLM`` and
+``BertForSequenceClassification`` trees (``kubeflow_tpu/models/
+bert.py``), or a bare ``BertEncoder`` tree, against
+``models/bert.py``'s modules: the path is the key (``layers_{i}`` ->
+``layers.{i}``, ``kernel`` -> ``weight``, transposed), and ``bias``, the
+LayerNorm ``scale``/``bias``, ``pos_embedding`` and each table's
+``embedding`` keep their names:
+
+    encoder/embed/embedding            -> encoder.embed.embedding
+    encoder/type_embed/embedding       -> encoder.type_embed.embedding
+    encoder/layers_{i}/attn/q_proj/kernel -> encoder.layers.{i}.attn.q_proj.weight
+    encoder/layers_{i}/ln1/scale       -> encoder.layers.{i}.ln1.scale
+    mlm_transform/bias, unembed/kernel -> mlm_transform.bias, unembed.weight
 """
 
 from __future__ import annotations
@@ -35,6 +50,17 @@ _KNOWN = re.compile(
 )
 
 
+_BERT_KNOWN = re.compile(
+    r"^((encoder\.)?(embed\.embedding|type_embed\.embedding|pos_embedding|"
+    r"ln_embed\.(scale|bias)|pooler\.(weight|bias)|"
+    r"layers\.\d+\.attn\.[qkvo]_proj\.(weight|bias)|"
+    r"layers\.\d+\.(up|down)_proj\.(weight|bias)|"
+    r"layers\.\d+\.ln[12]\.(scale|bias))|"
+    r"(mlm_transform|unembed|classifier)\.(weight|bias)|"
+    r"mlm_ln\.(scale|bias))$"
+)
+
+
 def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, Any]:
     out = {}
     for k, v in tree.items():
@@ -45,14 +71,9 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple = ()) -> dict[tuple, Any]:
     return out
 
 
-def params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX param tree → port ``state_dict`` (f32 CPU tensors)."""
+def _to_state_dict(params: Mapping[str, Any], known) -> dict[str, torch.Tensor]:
     sd = {}
     for path, arr in _flatten(params).items():
-        if any(p == "experts" for p in path):
-            raise NotImplementedError(
-                "MoE expert params are not ported yet (ROADMAP queue 1 item 10)"
-            )
         parts = [
             f"layers.{m.group(1)}" if (m := _LAYER.match(p)) else p
             for p in path
@@ -62,21 +83,23 @@ def params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
             parts[-1] = "weight"
             a = a.T
         name = ".".join(parts)
-        if not _KNOWN.match(name):
+        if not known.match(name):
             raise ValueError(f"unknown param path {'/'.join(path)!r}")
         sd[name] = torch.tensor(np.ascontiguousarray(a))
     return sd
 
 
-def state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
-    """Port ``state_dict`` → JAX param tree (nested dict of f32 numpy)."""
+def _to_params(sd: Mapping[str, torch.Tensor], known) -> dict[str, Any]:
     tree: dict[str, Any] = {}
     for name, t in sd.items():
-        if not _KNOWN.match(name):
+        if not known.match(name):
             raise ValueError(f"unknown state_dict key {name!r}")
-        parts = name.split(".")
-        if parts[0] == "layers":
-            parts = [f"layers_{parts[1]}"] + parts[2:]
+        parts = []
+        for p in name.split("."):
+            if p.isdigit() and parts and parts[-1] == "layers":
+                parts[-1] = f"layers_{p}"
+            else:
+                parts.append(p)
         a = t.detach().float().cpu().numpy()
         if parts[-1] == "weight":
             parts[-1] = "kernel"
@@ -86,3 +109,31 @@ def state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.ascontiguousarray(a)
     return tree
+
+
+def params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``TransformerLM`` param tree → port ``state_dict`` (f32 CPU
+    tensors)."""
+    if any(p == "experts" for path in _flatten(params) for p in path):
+        raise NotImplementedError(
+            "MoE expert params are not ported yet (ROADMAP queue 1 item 10)"
+        )
+    return _to_state_dict(params, _KNOWN)
+
+
+def state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """Port ``TransformerLM`` ``state_dict`` → JAX param tree (nested dict
+    of f32 numpy)."""
+    return _to_params(sd, _KNOWN)
+
+
+def bert_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX BERT param tree (MLM, classifier or bare encoder) → the port's
+    ``state_dict`` (f32 CPU tensors); an unknown path raises."""
+    return _to_state_dict(params, _BERT_KNOWN)
+
+
+def bert_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The port's BERT ``state_dict`` → JAX param tree (nested dict of f32
+    numpy); an unknown key raises."""
+    return _to_params(sd, _BERT_KNOWN)

@@ -18,6 +18,14 @@ TRAIN_STEPS_PER_SEC = "kubeflow_tpu_train_steps_per_sec"
 
 #: gauge{model} — requests currently executing in the server
 SERVER_INFLIGHT = "kft_server_inflight"
+#: gauge{model} — instances waiting in the batcher queue
+SERVER_QUEUE_DEPTH = "kft_server_queue_depth"
+#: gauges{model} — batcher occupancy (``serve/batcher.py``)
+BATCHER_BATCHES = "kubeflow_tpu_batcher_batches"
+BATCHER_INSTANCES = "kubeflow_tpu_batcher_instances"
+BATCHER_MEAN_OCCUPANCY = "kubeflow_tpu_batcher_mean_occupancy"
+#: gauge{model} — co-batched failures re-run per caller (offender isolation)
+BATCHER_FAIL_ISOLATIONS = "kubeflow_tpu_batcher_fail_isolations"
 #: server request metrics (ModelServer /metrics exposition)
 REQUESTS_TOTAL = "kubeflow_tpu_requests_total"
 LATENCY_P50_MS = "kubeflow_tpu_latency_p50_ms"

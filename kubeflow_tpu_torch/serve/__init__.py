@@ -1,1 +1,2 @@
-"""LM serving of the port: paged engine, model wrapper, HTTP server."""
+"""Serving of the port: LM engine and runtimes, the BERT predictor,
+batcher, protocol codecs and the HTTP server."""

@@ -214,7 +214,7 @@ def make_generate_fn(
     return generate
 
 
-def _restore_lm_state(storage_path: str) -> dict:
+def restore_state(storage_path: str) -> dict:
     """The model ``state_dict`` under ``storage_path``, in either layout a
     user will have:
 
@@ -236,7 +236,7 @@ def _restore_lm_state(storage_path: str) -> dict:
     path = os.path.abspath(storage_path)
     if not os.path.exists(path):
         raise RuntimeError(
-            f"LM storage_path {path!r} does not exist (failed mount / typo?)"
+            f"storage_path {path!r} does not exist (failed mount / typo?)"
         )
     if os.path.isdir(path):
         steps = [p for p in os.listdir(path)
@@ -246,7 +246,7 @@ def _restore_lm_state(storage_path: str) -> dict:
                 state = Checkpointer(CheckpointConfig(directory=path)).restore()
             except Exception as e:
                 raise RuntimeError(
-                    f"LM storage_path {path!r} is a train checkpoint (latest "
+                    f"storage_path {path!r} is a train checkpoint (latest "
                     f"step {max(map(int, steps))}) but restoring it failed: {e}"
                 ) from e
         elif os.path.isfile(os.path.join(path, STATE_NAME)):
@@ -254,7 +254,7 @@ def _restore_lm_state(storage_path: str) -> dict:
                                map_location="cpu", weights_only=True)
         else:
             raise RuntimeError(
-                f"LM storage_path {path!r} holds neither checkpoint steps "
+                f"storage_path {path!r} holds neither checkpoint steps "
                 f"nor a {STATE_NAME}"
             )
     else:
@@ -274,7 +274,7 @@ class LMRuntimeModel(Model):
     (0 = greedy). Response rows: ``{"token_ids": [...]}``.
 
     Weights: ``storage_path`` (a port checkpoint, see
-    :func:`_restore_lm_state`), else ``state_dict`` (e.g. bridged JAX
+    :func:`restore_state`), else ``state_dict`` (e.g. bridged JAX
     params), else random from ``seed``. The model is built on ``device``
     (``None`` = the CUDA card). Sampling keys come from
     ``PRNGKey(seed)``, split once a request as in JAX.
@@ -330,7 +330,7 @@ class LMRuntimeModel(Model):
     def _build_lm(self) -> TransformerLM:
         """The weights (restored first: a bad ``storage_path`` fails before
         anything is allocated) in a ``TransformerLM`` on the device."""
-        state = (_restore_lm_state(self._storage_path)
+        state = (restore_state(self._storage_path)
                  if self._storage_path is not None else self._state_dict)
         model = TransformerLM(self.config, device=self._device)
         if state is not None:

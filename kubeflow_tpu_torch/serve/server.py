@@ -11,6 +11,10 @@ lines.
   ``"platform": "torch-cuda"``)
 - ``POST /v1/models/{m}:predict`` ``{"instances": [...]}`` →
   ``{"predictions": [...]}``
+- ``POST /v2/models/{m}/infer`` ``{"inputs": [{name, shape, datatype,
+  data}]}`` → ``{"model_name", "outputs": [...]}`` (``serve/protocol.py``;
+  named tensors become per-instance rows, so ``attention_mask`` and
+  ``token_type_ids`` reach the model)
 - ``POST /v2/models/{m}/generate`` (one row) → ``{"token_ids": [...]}``,
   from an engine model or a ``causal-lm`` runtime (``LMRuntimeModel``)
 - ``POST /v2/models/{m}/generate_stream`` (engine models; 501 for a
@@ -33,7 +37,10 @@ lines.
 
 ``role`` (``"both"``, ``"prefill"`` or ``"decode"``, the ``kft serve
 --role`` split) is advertised by readiness; every replica answers every
-route, and a gateway steers by the role.
+route, and a gateway steers by the role. ``batcher`` (a
+``BatcherConfig``) puts a dynamic batcher (``serve/batcher.py``) in
+front of every model: ``:predict``, ``/infer`` and ``/generate`` rows
+are coalesced across requests, up to the model's top batch bucket.
 
 Request headers reach the model with lower-cased names. The deadline
 contract is normalized once at admission (:meth:`ModelServer.
@@ -62,7 +69,10 @@ import urllib.request
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+import numpy as np
+
 from kubeflow_tpu_torch.obs import names
+from kubeflow_tpu_torch.serve.batcher import Batcher, BatcherConfig
 from kubeflow_tpu_torch.serve.deadline import (
     DEADLINE_ABS_HEADER,
     DEADLINE_EXPIRED,
@@ -78,10 +88,12 @@ from kubeflow_tpu_torch.serve.engine import (
     EngineOverloaded,
 )
 from kubeflow_tpu_torch.serve.kv_codec import decode_kv_entries, encode_kv_entries
-from kubeflow_tpu_torch.serve.model import Model
+from kubeflow_tpu_torch.serve.model import Model, TorchModel
+from kubeflow_tpu_torch.serve.protocol import decode_v2, encode_v2
 from kubeflow_tpu_torch.serve.watchdog import EngineRestarting
 
 _PREDICT = re.compile(r"^/v1/models/([^/:]+):predict$")
+_INFER = re.compile(r"^/v2/models/([^/]+)/infer$")
 _GENERATE = re.compile(r"^/v2/models/([^/]+)/generate$")
 _GENERATE_STREAM = re.compile(r"^/v2/models/([^/]+)/generate_stream$")
 _V1_MODEL = re.compile(r"^/v1/models/([^/:]+)$")
@@ -121,6 +133,10 @@ def _error_status(e: Exception) -> tuple[int, dict]:
 
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
+    #: the listen backlog (socketserver's default is 5): a burst of
+    #: concurrent clients must not have its connections dropped and
+    #: retried by TCP while the accept loop spawns their threads
+    request_queue_size = 128
 
     def handle_error(self, request, client_address):
         if isinstance(sys.exc_info()[1], ConnectionError):
@@ -143,12 +159,14 @@ class ModelServer:
     ``x-kft-deadline-ms`` (KServe's request timeout). ``drain_grace_s``:
     on :meth:`stop`, readiness answers 503 first, then in-flight requests
     get this long to finish before the listener closes. ``role``: the
-    replica's pool in disaggregated serving, reported by readiness."""
+    replica's pool in disaggregated serving, reported by readiness.
+    ``batcher``: a dynamic batcher in front of each model, its
+    ``max_batch_size`` clamped to the model's top batch bucket."""
 
     def __init__(self, models: list[Model], *, http_port: int = 8080,
                  host: str = "127.0.0.1", drain_grace_s: float = 10.0,
                  default_deadline_ms: float | None = None,
-                 role: str = "both"):
+                 role: str = "both", batcher: BatcherConfig | None = None):
         if role not in ("both", "prefill", "decode"):
             raise ValueError(
                 f"role must be 'both', 'prefill' or 'decode'; got {role!r}"
@@ -167,15 +185,26 @@ class ModelServer:
         self.metrics: dict[str, dict] = {"requests_total": {}, "latency_ms": {}}
         self._lock = threading.Lock()  # guards inflight and metrics
         self.models: dict[str, Model] = {}
+        self.batchers: dict[str, Batcher] = {}
         for m in models:
             if not m.ready:
                 m.load()
             self.models[m.name] = m
+            if batcher is not None:
+                self.batchers[m.name] = self._batcher_for(m, batcher)
             if hasattr(m, "add_restart_listener"):
                 # a supervised restart fails all pre-restart work: the load
                 # signal must restart with it
                 m.add_restart_listener(
                     lambda name=m.name: self.reset_load_signals(name))
+
+    def _batcher_for(self, model: Model, cfg: BatcherConfig) -> Batcher:
+        buckets = getattr(model, "buckets", None)
+        if buckets is not None and cfg.max_batch_size > buckets.batch_sizes[-1]:
+            # a chunk larger than the top bucket would fail every caller
+            cfg = BatcherConfig(max_batch_size=buckets.batch_sizes[-1],
+                                max_latency_ms=cfg.max_latency_ms)
+        return Batcher(lambda flat, m=model: self._predict_flat(m, flat), cfg)
 
     # -- lifecycle ---------------------------------------------------------- #
 
@@ -235,7 +264,7 @@ class ModelServer:
     def stop(self) -> None:
         """Graceful drain: readiness goes 503 first (balancers stop
         sending), in-flight work gets ``drain_grace_s`` to finish, then
-        the listener closes and the models unload."""
+        the listener closes, the batchers stop and the models unload."""
         self._draining = True
         deadline = time.monotonic() + self.drain_grace_s
         while self.total_inflight() > 0 and time.monotonic() < deadline:
@@ -247,6 +276,8 @@ class ModelServer:
         if self._thread is not None:
             self._thread.join(10)
             self._thread = None
+        for b in self.batchers.values():
+            b.close()
         for m in self.models.values():
             m.unload()
 
@@ -343,6 +374,8 @@ class ModelServer:
             if not isinstance(payload, dict) or "instances" not in payload:
                 raise _HTTPError(400, "v1 request must contain 'instances'")
             return 200, self._infer(m.group(1), payload, headers)
+        if m := _INFER.match(path):
+            return 200, self._v2_infer(m.group(1), body, headers)
         if m := _GENERATE.match(path):
             row = self._json(body)
             out = self._infer(m.group(1), {"instances": [row]}, headers)
@@ -369,15 +402,53 @@ class ModelServer:
         except ValueError as e:
             raise _HTTPError(400, f"bad JSON: {e}") from None
 
+    def _v2_infer(self, name: str, body: bytes, headers: dict[str, str]) -> dict:
+        """``/infer``: a malformed body is a 400 before the model is
+        touched; the answer is the predictions as one v2 tensor."""
+        payload = self._json(body)
+        try:
+            tensors = decode_v2(payload)
+            if not tensors:
+                raise ValueError("v2 request has no input tensors")
+        except Exception as e:  # noqa: BLE001 — any malformed body is a 400
+            raise _HTTPError(400, f"bad v2 request: {e!r}") from None
+        result = self._infer(name, {"inputs": tensors}, headers)
+        preds = result["predictions"] if isinstance(result, dict) else result
+        return encode_v2(name, np.asarray(preds))
+
+    def _predict_flat(self, model: Model, flat: list) -> list:
+        """The batcher's handler: one batch of rows through the model's
+        lifecycle, one prediction a row."""
+        out = model.postprocess(model.predict(model.preprocess({"instances": flat})))
+        if isinstance(out, dict) and "predictions" in out:
+            out = out["predictions"]
+        out = list(out)
+        if len(out) != len(flat):
+            # a silent mismatch would slice wrong results back to callers
+            raise RuntimeError(
+                f"model '{model.name}' returned {len(out)} predictions "
+                f"for {len(flat)} instances"
+            )
+        return out
+
     def _infer(self, name: str, payload: dict, headers: dict[str, str]) -> dict:
         model = self._model(name)
         if not model.ready:
             raise _HTTPError(503, f"model '{name}' not ready")
-        headers, _ = self.effective_headers(headers)
+        if isinstance(payload.get("inputs"), dict):
+            # v2 named tensors -> per-instance rows, so multi-input requests
+            # batch correctly and keep attention_mask/token_type_ids
+            payload = {"instances": TorchModel.payload_rows(payload)}
+        headers, deadline = self.effective_headers(headers)
         t0 = time.perf_counter()
         self._enter(name)
         try:
-            result = model(payload, headers)
+            batcher = self.batchers.get(name)
+            if batcher is not None and "instances" in payload:
+                result = {"predictions": batcher.submit(
+                    list(payload["instances"]), deadline=deadline)}
+            else:
+                result = model(payload, headers)
         except BaseException:
             self._leave(name, None)
             raise
@@ -521,6 +592,18 @@ class ModelServer:
         for name in sorted(self.models):
             lines.append(
                 f'{names.SERVER_INFLIGHT}{{model="{name}"}} {inflight.get(name, 0)}')
+        for name, b in sorted(self.batchers.items()):
+            lines.append(f'{names.SERVER_QUEUE_DEPTH}{{model="{name}"}} '
+                         f'{b.queue_depth}')
+        for name, b in sorted(self.batchers.items()):
+            label = f'{{model="{name}"}}'
+            lines += [
+                f'{names.BATCHER_BATCHES}{label} {b.stats["batches"]}',
+                f'{names.BATCHER_INSTANCES}{label} {b.stats["instances"]}',
+                f'{names.BATCHER_MEAN_OCCUPANCY}{label} {b.mean_occupancy:.3f}',
+                f'{names.BATCHER_FAIL_ISOLATIONS}{label} '
+                f'{b.stats["fail_isolations"]}',
+            ]
         for name in sorted(self.models):
             model = self.models[name]
             eng = getattr(model, "engine", None)

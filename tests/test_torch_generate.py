@@ -367,8 +367,18 @@ def test_lm_runtime_through_default_registry():
     eng_rt = reg.resolve(PredictorSpec(model_format="vllm"))
     assert eng_rt.name == "kubeflow-tpu-causal-lm-engine"
     assert reg.resolve(PredictorSpec(runtime="kubeflow-tpu-causal-lm")) is rt
-    for fmt, item in (("bert", "item 8"), ("huggingface", "item 8"),
-                      ("sklearn", "item 11"), ("xgboost", "item 11"),
+    # BERT resolves to the predictor runtime (ROADMAP item 8 is ported)
+    for fmt, name in (("bert", "kubeflow-tpu-bert"),
+                      ("huggingface", "kubeflow-tpu-bert"),
+                      ("bert-tiny", "kubeflow-tpu-bert-tiny")):
+        assert reg.resolve(PredictorSpec(model_format=fmt)).name == name
+    bert = reg.resolve(PredictorSpec(model_format="bert-tiny")).factory(
+        "b", None, device="cpu",
+        buckets=BucketSpec(batch_sizes=(1, 2), seq_lens=(16,)))
+    bert.load()
+    preds = _predict(bert, ["hello [MASK] world", "the cat sat"])["predictions"]
+    assert len(preds) == 2 and len(preds[0]) == 16
+    for fmt, item in (("sklearn", "item 11"), ("xgboost", "item 11"),
                       ("lightgbm", "item 11"), ("pmml", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             reg.resolve(PredictorSpec(model_format=fmt))
