@@ -14,9 +14,11 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    dropped because the enqueue outran the timer's sleep) for kernel,
    plain version and (for flash, forward and backward)
    ``F.scaled_dot_product_attention`` as a yardstick only, and the body
-   that ran (flash forward, dq and dk/dv: ``"mma"``, tensor cores, for
-   bf16/f16, ``"scalar"`` for f32; paged attention: ``"split"``, pages
-   split across warps), the paged cases including the speculative verify
+   that ran (flash forward: ``"mma"``, tensor cores, for bf16/f16 with D
+   a multiple of 16, else ``"fma"``, register-tiled f32 FMAs; dq and
+   dk/dv: ``"mma"`` on the same rule, else ``"scalar"``; paged attention:
+   ``"split"``, pages split across warps), the paged cases including the
+   speculative verify
    (S = K+1 = 5, a different ``pos0`` per row) and a prefill piece at an
    offset;
 2. forward — the full-width bf16 ``TransformerLM`` no-cache forward with
@@ -69,7 +71,7 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    through the dynamic batcher (requests/s, occupancy, each answer equal
    to the text served alone); f32 flash against plain attention and the
    padding invariance on the card; v2 ``/infer`` against v1; the flash
-   launches (12 a forward, the scalar body in f32 and ``mma`` in bf16)
+   launches (12 a forward, the ``fma`` body in f32 and ``mma`` in bf16)
    and no paged launch;
 10. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
@@ -351,7 +353,8 @@ def run_paged_case(torch, name, c, flush):
 
 def flash_cases(torch):
     """The training shape first (B=8, H=16, S=512, D=64, causal bf16). The
-    bf16 cases run the tensor-core body, the f32 case the scalar one."""
+    bf16 cases at D a multiple of 16 run the tensor-core body; the f32
+    cases and ``ragged_d40_bf16`` the ``fma`` body."""
     base = dict(B=8, H=16, D=64)
     return [
         ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
@@ -368,10 +371,18 @@ def flash_cases(torch):
                                        dtype=torch.bfloat16)),
         # bert-base serving: non-causal, padding masks as segment ids
         # (valid lengths BERT_VALID_LENS), the f32 default and bf16
-        ("bert_s128_f32", dict(B=8, H=12, D=64, S=128, causal=False, pad=True,
-                               dtype=torch.float32)),
-        ("bert_s128_bf16", dict(B=8, H=12, D=64, S=128, causal=False, pad=True,
-                                dtype=torch.bfloat16)),
+        ("bert_s128_f32", dict(B=8, H=12, D=64, S=128, causal=False,
+                               pad=BERT_VALID_LENS, dtype=torch.float32)),
+        ("bert_s128_bf16", dict(B=8, H=12, D=64, S=128, causal=False,
+                                pad=BERT_VALID_LENS, dtype=torch.bfloat16)),
+        # the f32 p50 path: one request, 97 valid tokens
+        ("bert_s128_b1_f32", dict(B=1, H=12, D=64, S=128, causal=False,
+                                  pad=(97,), dtype=torch.float32)),
+        # dead rows in f32: the fma body's segment-tile skip must keep them
+        ("dead_rows_s128_f32", dict(base, S=128, causal=False, dead=True,
+                                    dtype=torch.float32)),
+        # a half type at a head dim no tensor-core tile fits: the fma body
+        ("ragged_d40_bf16", dict(B=2, H=4, D=40, S=200, dtype=torch.bfloat16)),
     ]
 
 
@@ -398,7 +409,7 @@ def run_flash_case(torch, name, c, flush):
         seg = kseg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
     if c.get("pad"):
         # BERT's attention_mask as segments: valid tokens 1, pads 0
-        lens = torch.tensor(BERT_VALID_LENS, device="cuda")
+        lens = torch.tensor(c["pad"], device="cuda")
         seg = kseg = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
                       ).to(torch.int32).contiguous()
     if c.get("dead"):
@@ -2053,7 +2064,7 @@ def phase_bert(torch, state):
     allowed). (d) v2 ``/infer`` with ``input_ids`` and ``attention_mask``
     equals the v1 answer. (e) every forward of the f32 window ((a), (b),
     (d)) and of the bf16 one launches the flash forward 12 times, on the
-    scalar body in f32 and ``mma`` in bf16, and no paged kernel. (c) f32
+    ``fma`` body in f32 and ``mma`` in bf16, and no paged kernel. (c) f32
     flash against plain attention on the same weights, and a row's answer
     alone (S=32) against beside a longer row (S=128)."""
     from kubeflow_tpu_torch.models.bert import BertForMaskedLM, bert_base
@@ -2151,7 +2162,7 @@ def phase_bert(torch, state):
             launches[dn] = {"forwards": fwd, "flash": fa.LAUNCHES,
                             "by_body": dict(fa.LAUNCHES_BY_BODY),
                             "paged": pa.LAUNCHES}
-            body = "scalar" if dn == "f32" else "mma"
+            body = "fma" if dn == "f32" else "mma"
             checks[f"e_{dn}"] = (fwd > 0 and fa.LAUNCHES == L * fwd
                                  and fa.LAUNCHES_BY_BODY[body] == L * fwd
                                  and pa.LAUNCHES == 0)
@@ -2253,11 +2264,26 @@ def train_flops_per_step():
     return 6 * n_matmul * tokens + attn
 
 
+def _zero_flash_counts(fa, fb):
+    fa.LAUNCHES = fb.DQ_LAUNCHES = fb.DKV_LAUNCHES = 0
+    for counts in (fa.LAUNCHES_BY_BODY, fb.DQ_LAUNCHES_BY_BODY, fb.DKV_LAUNCHES_BY_BODY):
+        for k in counts:
+            counts[k] = 0
+
+
+def _flash_counts_by_body(fa, fb):
+    return {"flash_forward": dict(fa.LAUNCHES_BY_BODY),
+            "flash_bwd_dq": dict(fb.DQ_LAUNCHES_BY_BODY),
+            "flash_bwd_dkv": dict(fb.DKV_LAUNCHES_BY_BODY)}
+
+
 def phase_train(torch, state):
     """(a) f32 parity with TF32 off: the same initial weights and batches
     through flash attention (forward and backward kernels) and through
     plain attention under autograd, 5 steps of adamw(1e-3): step-1
-    gradients of every parameter and the per-step losses must agree. (b)
+    gradients of every parameter and the per-step losses must agree, and
+    the flash run's forward launches all run the ``fma`` body and its dq
+    and dk/dv launches the ``scalar`` ones, once per layer per step. (b)
     ``Trainer.fit`` in bf16 over f32 master weights, 3 warm-up and 20
     timed steps: finite, falling loss, and each attention kernel launched
     once per layer per step."""
@@ -2285,6 +2311,7 @@ def phase_train(torch, state):
             model.load_state_dict(sd0)
         opt = adamw(1e-3)(model.parameters())
         losses, grads = [], None
+        _zero_flash_counts(fa, fb)
         for i, batch in enumerate(batches):
             opt.zero_grad(set_to_none=True)
             loss, _ = loss_fn(model, batch)
@@ -2294,6 +2321,9 @@ def phase_train(torch, state):
             opt.step()
             losses.append(loss.item())
         runs[impl] = (losses, grads)
+        if impl == "flash":
+            torch.cuda.synchronize()
+            parity_launches = _flash_counts_by_body(fa, fb)
         del model, opt
         torch.cuda.empty_cache()
     (fl, fg), (rl, rg) = runs["flash"], runs["reference"]
@@ -2302,14 +2332,20 @@ def phase_train(torch, state):
                 for n in rg}
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(fl, rl)]
     worst = max(grad_rel, key=grad_rel.get)
+    want_p = MODEL["n_layers"] * PARITY_STEPS
     parity_ok = (max(grad_rel.values()) <= grad_tol
-                 and max(loss_rel) <= loss_rtol)
+                 and max(loss_rel) <= loss_rtol
+                 and parity_launches == {
+                     "flash_forward": {"mma": 0, "fma": want_p},
+                     "flash_bwd_dq": {"mma": 0, "scalar": want_p},
+                     "flash_bwd_dkv": {"mma": 0, "scalar": want_p}})
     emit({"phase": "train_parity", "dtype": "f32", "tf32": False,
           "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": PARITY_STEPS,
           "losses_flash": fl, "losses_reference": rl,
           "loss_rel_err_max": max(loss_rel), "loss_rtol": loss_rtol,
           "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst_param": worst,
-          "grad_tol": grad_tol, "ok": parity_ok})
+          "grad_tol": grad_tol, "launches_by_body": parity_launches,
+          "launches_wanted": want_p, "ok": parity_ok})
     del runs, fg, rg, sd0, batches
     torch.cuda.empty_cache()
 
@@ -2326,17 +2362,13 @@ def phase_train(torch, state):
         ready[step] = time.perf_counter()
 
     torch.cuda.reset_peak_memory_stats()
-    fa.LAUNCHES = fb.DQ_LAUNCHES = fb.DKV_LAUNCHES = 0
-    for counts in (fa.LAUNCHES_BY_BODY, fb.DQ_LAUNCHES_BY_BODY, fb.DKV_LAUNCHES_BY_BODY):
-        counts.update(mma=0, scalar=0)
+    _zero_flash_counts(fa, fb)
     _, history = trainer.fit(_train_data, hooks=[stamp])
     torch.cuda.synchronize()
     launches = {"flash_forward": fa.LAUNCHES, "flash_bwd_dq": fb.DQ_LAUNCHES,
                 "flash_bwd_dkv": fb.DKV_LAUNCHES}
     # the bf16 step's forward, dq and dk/dv launches all ran the tensor cores
-    by_body = {"flash_forward": dict(fa.LAUNCHES_BY_BODY),
-               "flash_bwd_dq": dict(fb.DQ_LAUNCHES_BY_BODY),
-               "flash_bwd_dkv": dict(fb.DKV_LAUNCHES_BY_BODY)}
+    by_body = _flash_counts_by_body(fa, fb)
     state["train_launches"] = launches
     losses = [h["loss"] for h in history]
     timed_s = ready[steps] - ready[TRAIN_WARM]
@@ -2346,7 +2378,9 @@ def phase_train(torch, state):
     finite = all(map(math.isfinite, losses))
     ok = (parity_ok and finite and len(losses) == steps and losses[-1] < losses[0]
           and all(n == want for n in launches.values())
-          and all(b == {"mma": want, "scalar": 0} for b in by_body.values())
+          and by_body == {"flash_forward": {"mma": want, "fma": 0},
+                          "flash_bwd_dq": {"mma": want, "scalar": 0},
+                          "flash_bwd_dkv": {"mma": want, "scalar": 0}}
           and live_kft_threads() == [])
     emit({"phase": "train", "dtype": "bf16", "param_dtype": "f32",
           "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps,
@@ -2475,7 +2509,7 @@ def phase_profile(torch, state):
     n_kernels, busy_ms, top = _device_summary(prof)
     device_ms = sum(ms for _, (_, ms) in top)
     names = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-             "flash_bwd_dkv_mma_kernel", "flash_fwd_kernel", "flash_bwd_dq_kernel",
+             "flash_bwd_dkv_mma_kernel", "flash_fwd_fma_kernel", "flash_bwd_dq_kernel",
              "flash_bwd_dkv_kernel")
     attn = {k: ms for k, (_, ms) in top if k.split(" ")[-1] in names}
     # bf16 training runs the tensor-core forward, dq and dk/dv
@@ -2607,6 +2641,20 @@ def main(argv=None) -> int:
                                               "plain_ms", "library_ms", "bound_ms",
                                               "bound_by")}
                         for n, c in state.get("flash_bert", {}).items()}}),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
+        # the forward's f32 body on its own: timed at the BERT serving
+        # shape, launched by the bert phase's f32 forwards
+        r = state.get("flash_bert", {}).get("bert_s128_f32")
+        if r is not None:
+            kernels.append({
+                "name": "flash_attention_fma", "route": "cuda",
+                "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
+                "replaces": "kubeflow_tpu/ops/flash_attention.py:120",
+                "body": r["body"], "case": "bert_s128_f32",
+                "launches": state.get("bert_flash_by_body", {}).get("f32", {}).get("fma", 0),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],

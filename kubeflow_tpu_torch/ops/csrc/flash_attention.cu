@@ -36,9 +36,47 @@
 //   is latency-bound long before the tensor-core rate matters, and
 //   mma.sync's fixed register fragments let P feed P.V from registers
 //   without descriptors or a second warpgroup layout.
-// * f32 (and any other D): `flash_fwd_kernel`, scalar f32 FMAs out of
-//   shared memory. A tensor-core f32 product would be TF32, about three
-//   decimal digits, and would break the f32 parity gates.
+// * f32, and bf16 / f16 at any other D: `flash_fwd_fma_kernel`, f32 FMAs
+//   only. A tensor-core f32 product would be TF32 (or 3xTF32), about
+//   three decimal digits, and would break the f32 parity gates, so this
+//   body is bound by the f32 FMA pipe: 4 * D flops a visible pair at 67
+//   TFLOP/s against one read of q, k, v and one write of out and lse at
+//   3.35 TB/s. At the BERT serving shape (B = 8, H = 12, S = 128, D = 64,
+//   padding segments, 105,528 visible pairs a head) that is 0.324 GFLOP,
+//   0.0048385 ms, against 12.64 MB, 0.0038 ms: bound by operations. So
+//   the design keeps the FMA pipe fed and enough warps in flight:
+//   - Scores as register micro-tiles. Each lane owns 2 query rows x 4
+//     keys and forms them by outer products over d from 16-byte shared
+//     loads: 6 loads for 32 FMAs. The rows (or 8 keys) one load reads
+//     sit in distinct bank groups (rows padded by 4 floats), and the
+//     lanes that share a row read one address.
+//   - Softmax in registers. A row's 32 keys of a tile lie on the 8 lanes
+//     of its row group: max by __shfl_xor_sync, every lane works, and l
+//     stays a per-lane partial summed once at the end.
+//   - P.V. p (rounded to the input dtype) goes once a tile through the
+//     warp's own p tile in shared memory; the 2 x 8 (D <= 64) output
+//     micro-tile, the row max and sum stay in registers across kv tiles,
+//     rescaled by alpha there: no shared-memory accumulator.
+//   - K/V ring. 32-key tiles fill a 2-stage ring by 16-byte cp.async
+//     (tile_mma.cuh), so tile ik + 1 loads while ik computes, with the
+//     ragged last tile and columns past D zero-filled. f32 rows that are
+//     not whole 16-byte chunks take 4-byte copies; bf16 / f16 (this body
+//     takes them only at a D no tensor-core tile fits) are widened to f32
+//     by the threads on load, without overlap. Two barriers a tile.
+//   - Block shape. 4 warps of 8 query rows share one k/v ring: 46.3 KB
+//     of shared memory at D <= 64 (86.3 KB at D <= 128), 4 (2) blocks an
+//     SM, which `__launch_bounds__` states so ptxas may use the registers
+//     that occupancy leaves. At B = 1, H = 12, S = 128 one warp's serial
+//     chain over the kv tiles sets the time, so the rows a warp are few:
+//     48 blocks run 192 warps (16 rows a warp took 1.8x as long on an
+//     H100); B = 8 (384 blocks) fits in one wave.
+//   - Segment-tile skip. A warp skips a kv tile in which none of its
+//     rows sees a key (segments, causal, window): exact for a row that
+//     sees some key. A dead row (its segment id at no visible kv
+//     position) must keep out = mean(v) over every key it walks and lse
+//     at the -1e30 sentinel, so a warp skips only when each of its rows
+//     is live, which it decides from one pass over the kv segment ids.
+//     Causal and window tiles outside a block's reach are not loaded.
 //
 // TPU grid -> CUDA blocks: the Pallas grid (B, H, q blocks, kv blocks)
 // ran the kv axis sequentially ("arbitrary") with the accumulator in VMEM
@@ -71,8 +109,6 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per kv tile
-constexpr int THREADS = 256;
-constexpr size_t MAX_SMEM = 232448;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -87,8 +123,92 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
   return __float2half(x);
 }
 
-template <typename T, bool SEG>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
+// ---------------------------------------------------------------- fma body
+
+constexpr int FMA_RPW = 8;                 // query rows a warp
+constexpr int FMA_WARPS = 4;               // warps a block
+constexpr int FMA_THREADS = 32 * FMA_WARPS;
+constexpr int FMA_BQ = FMA_RPW * FMA_WARPS;  // query rows a block
+constexpr int FMA_BK = 32;                 // keys a kv tile
+constexpr int FMA_PST = FMA_BK + 4;        // row stride (floats) of a warp's p tile
+constexpr unsigned FULL = 0xffffffffu;
+
+// floats of the fma body's shared memory at head-dim tile DP: the q tile
+// and a 2-stage k ring (rows of DP + 4), a 2-stage v ring (rows of DP),
+// one p tile a warp and a 2-stage ring of kv segment ids
+constexpr size_t fma_smem_floats(int DP) {
+  return (size_t)FMA_BQ * (DP + 4) + 2 * (size_t)FMA_BK * (DP + 4) +
+         2 * (size_t)FMA_BK * DP + (size_t)FMA_BQ * FMA_PST + 2 * FMA_BK;
+}
+
+// The causal / window tile skip at the fma body's kv tile width.
+__device__ __forceinline__ bool fma_tile_runs(int q_start, int R, int k_start,
+                                              int off, int causal, int window) {
+  bool run = true;
+  if (causal) run = k_start <= q_start + R - 1 + off;
+  if (window > 0) run = run && (k_start + FMA_BK - 1 >= q_start + off - window + 1);
+  return run;
+}
+
+__device__ __forceinline__ float part(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
+}
+
+// Rows [0, valid) x columns [0, D) of a row-major (rows x D) source into
+// a ROWS x DP f32 tile of row stride LD floats in shared memory, zeros
+// elsewhere. f32 with `vec` (D % 4 == 0, 16-byte aligned rows): 16-byte
+// cp.async; other f32: 4-byte cp.async; bf16 / f16: loaded, widened to
+// f32 and stored by the thread (a copy cannot widen).
+template <typename T, int ROWS, int DP, int LD>
+__device__ __forceinline__ void fma_load(float* dst, const T* src, int valid, int D,
+                                         bool vec, int tid) {
+  if constexpr (sizeof(T) == 4) {
+    if (vec) {
+      constexpr int CH = DP / 4;
+      static_assert(ROWS * CH % FMA_THREADS == 0, "whole chunks per thread");
+      const int dch = D / 4;
+#pragma unroll
+      for (int i = 0; i < ROWS * CH / FMA_THREADS; ++i) {
+        const int e = tid + i * FMA_THREADS;
+        const int r = e / CH;
+        const int c = e - r * CH;
+        const bool in = r < valid && c < dch;
+        tile::cp_async16(tile::smem_addr(dst + r * LD + 4 * c),
+                         in ? src + (size_t)r * D + 4 * c : src, in);
+      }
+      return;
+    }
+    for (int e = tid; e < ROWS * DP; e += FMA_THREADS) {
+      const int r = e / DP;
+      const int d = e - r * DP;
+      const bool in = r < valid && d < D;
+      tile::cp_async4(tile::smem_addr(dst + r * LD + d), in ? src + (size_t)r * D + d : src,
+                      in);
+    }
+  } else {
+    constexpr int N = ROWS * DP / FMA_THREADS;
+    static_assert(N % 8 == 0, "whole batches per thread");
+#pragma unroll 1
+    for (int i0 = 0; i0 < N; i0 += 8) {  // 8 loads in flight, then their stores
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = tid + (i0 + i) * FMA_THREADS;
+        const int r = e / DP;
+        const int d = e - r * DP;
+        x[i] = r < valid && d < D ? to_f32(src[(size_t)r * D + d]) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int e = tid + (i0 + i) * FMA_THREADS;
+        dst[(e / DP) * LD + e % DP] = x[i];
+      }
+    }
+  }
+}
+
+template <typename T, int DP, bool SEG>
+__global__ void __launch_bounds__(FMA_THREADS, DP == 64 ? 4 : 2) flash_fwd_fma_kernel(
     const T* __restrict__ q,       // (B, H, Sq, D)
     const T* __restrict__ k,       // (B, H, Skv, D)
     const T* __restrict__ v,       // (B, H, Skv, D)
@@ -96,146 +216,321 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const int* __restrict__ kseg,  // (B, Skv) when SEG
     T* __restrict__ out,           // (B, H, Sq, D)
     float* __restrict__ lse,       // (B, H, Sq)
-    int H, int Sq, int Skv, int D, int causal, int window, float scale) {
-  const int iq = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q_start = iq * BQ;
-  const int R = min(BQ, Sq - q_start);
+    int H, int Sq, int Skv, int D, int causal, int window, float scale, int vec) {
+  constexpr int KST = DP + 4;  // q and k rows: the 4 rows or 8 keys one load reads
+                               // fall in distinct 16-byte bank groups
+  constexpr int VST = DP;      // v rows: a load reads 8 neighbouring chunks of one row
+  constexpr int NC = DP / 32;  // float4 output chunks a lane: kg + 8c
+  constexpr int RI = FMA_RPW / 4;  // query rows a lane: rg + 4i
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int iq = gridDim.z - 1 - blockIdx.z;  // most kv tiles first
+  const int q_start = iq * FMA_BQ;
+  const int R = min(FMA_BQ, Sq - q_start);
   const int off = Skv - Sq;
   const int tid = threadIdx.x;
-  const int KS = D + 1;  // padded K row: neighbouring keys hit distinct banks
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rg = lane >> 3;  // this lane's rows: rg + 4i of its warp's FMA_RPW
+  const int kg = lane & 7;   // its keys: kg + 8jj of a tile; its output chunks kg + 8c
+  const int w0 = warp * FMA_RPW;  // the warp's first row in the block
+  const bool vec4 = vec != 0;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;              // BQ x D
-  float* acc = q_s + BQ * D;      // BQ x D
-  float* k_s = acc + BQ * D;      // BK x KS
-  float* v_s = k_s + BK * KS;     // BK x D
-  float* s_s = v_s + BK * D;      // BQ x BK
-  float* m_s = s_s + BQ * BK;     // BQ
-  float* l_s = m_s + BQ;          // BQ
-  float* a_s = l_s + BQ;          // BQ
-  int* qseg_s = reinterpret_cast<int*>(a_s + BQ);  // BQ
-  int* kseg_s = qseg_s + BQ;                        // BK
+  extern __shared__ __align__(16) float fsmem[];
+  float* q_s = fsmem;                          // FMA_BQ x KST
+  float* k_s = q_s + FMA_BQ * KST;             // 2 stages x FMA_BK x KST
+  float* v_s = k_s + 2 * FMA_BK * KST;         // 2 stages x FMA_BK x VST
+  float* p_s = v_s + 2 * FMA_BK * VST;         // FMA_WARPS x FMA_RPW x FMA_PST
+  int* kseg_s = reinterpret_cast<int*>(p_s + FMA_BQ * FMA_PST);  // 2 stages x FMA_BK
+  float* p_w = p_s + w0 * FMA_PST;             // this warp's p tile
 
   const size_t bh = (size_t)b * H + h;
-  const T* qb = q + (bh * Sq + q_start) * D;
   const T* kb = k + bh * Skv * D;
   const T* vb = v + bh * Skv * D;
 
-  for (int e = tid; e < R * D; e += THREADS) {
-    q_s[e] = to_f32(qb[e]);
-    acc[e] = 0.f;
-  }
-  for (int r = tid; r < R; r += THREADS) {
-    m_s[r] = NEG_INF;
-    l_s[r] = 0.f;
-    if (SEG) qseg_s[r] = qseg[(size_t)b * Sq + q_start + r];
+  // the kv tiles that run (causal and window skips) form one range [lo, hi]
+  const int nk = (Skv + FMA_BK - 1) / FMA_BK;
+  int lo = nk, hi = -1;
+  for (int ik = 0; ik < nk; ++ik) {
+    if (fma_tile_runs(q_start, R, ik * FMA_BK, off, causal, window)) {
+      lo = min(lo, ik);
+      hi = ik;
+    }
   }
 
-  const int nk = (Skv + BK - 1) / BK;
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k_start = ik * BK;
-    bool run = true;
-    if (causal) run = k_start <= q_start + R - 1 + off;
-    if (window > 0) run = run && (k_start + BK - 1 >= q_start + off - window + 1);
-    if (!run) continue;  // block-uniform
-    const int C = min(BK, Skv - k_start);
-    __syncthreads();  // the previous tile's readers are done
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int j = e / D;
-      const int d = e - j * D;
-      const bool in = j < C;
-      k_s[j * KS + d] = in ? to_f32(kb[(size_t)k_start * D + e]) : 0.f;
-      v_s[e] = in ? to_f32(vb[(size_t)k_start * D + e]) : 0.f;
-    }
+  auto load_kv = [&](int ik, int st) {
+    const int k0 = ik * FMA_BK;
+    const int C = min(FMA_BK, Skv - k0);
+    fma_load<T, FMA_BK, DP, KST>(k_s + st * FMA_BK * KST, kb + (size_t)k0 * D, C, D, vec4, tid);
+    fma_load<T, FMA_BK, DP, VST>(v_s + st * FMA_BK * VST, vb + (size_t)k0 * D, C, D, vec4, tid);
     if (SEG) {
-      for (int j = tid; j < BK; j += THREADS) {
-        kseg_s[j] = j < C ? kseg[(size_t)b * Skv + k_start + j] : 0;
-      }
+      tile::load_words<FMA_THREADS>(tile::smem_addr(kseg_s + st * FMA_BK),
+                                    kseg + (size_t)b * Skv + k0, FMA_BK, C, tid);
     }
-    __syncthreads();
-    for (int e = tid; e < R * BK; e += THREADS) {
-      const int r = e / BK;
-      const int j = e - r * BK;
-      float sc = NEG_INF;
-      if (j < C) {
-        const float* qr = q_s + r * D;
-        const float* kr = k_s + j * KS;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        sc = dot * scale;
-        bool keep = true;
-        if (causal) {
-          const int qpos = q_start + r + off;
-          const int kpos = k_start + j;
-          keep = kpos <= qpos;
-          if (window > 0) keep = keep && (qpos - kpos < window);
+  };
+  fma_load<T, FMA_BQ, DP, KST>(q_s, q + (bh * Sq + q_start) * D, R, D, vec4, tid);
+  if (lo <= hi) load_kv(lo, 0);
+  tile::cp_async_commit();
+
+  int qs[RI], qpos[RI];
+  bool rin[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int lr = w0 + rg + 4 * i;
+    rin[i] = lr < R;
+    qpos[i] = q_start + lr + off;
+    qs[i] = SEG && rin[i] ? qseg[(size_t)b * Sq + q_start + lr] : 0;
+  }
+
+  // `live`: every valid row of this warp sees some key. Only then does
+  // the warp skip a kv tile in which none of its rows sees a key: such a
+  // tile adds exactly nothing to a live row (before the row's first
+  // visible key its p = 1 terms are wiped by alpha = exp(-1e30 - m) = 0,
+  // after it they are exp(-1e30 - m) = 0), but it is part of a dead row's
+  // mean(v). With segments this takes one pass over the kv segment ids.
+  const int Rw = R - w0;  // valid rows of this warp (none when <= 0)
+  bool live = true;
+  if (SEG) {
+    int qw[FMA_RPW];
+#pragma unroll
+    for (int r = 0; r < FMA_RPW; ++r) qw[r] = __shfl_sync(FULL, qs[r >> 2], (r & 3) << 3);
+    unsigned seen = 0;
+    for (int j0 = lane; j0 < Skv; j0 += 128) {
+      int ks[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + 32 * u;
+        ks[u] = j < Skv ? kseg[(size_t)b * Skv + j] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int j = j0 + 32 * u;
+#pragma unroll
+        for (int r = 0; r < FMA_RPW; ++r) {
+          if (j < Skv &&
+              tile::visible<true>(q_start + w0 + r + off, j, causal, window, qw[r], ks[u])) {
+            seen |= 1u << r;
+          }
         }
-        if (SEG) keep = keep && (qseg_s[r] == kseg_s[j]);
-        if (!keep) sc = NEG_INF;
       }
-      s_s[e] = sc;
     }
-    __syncthreads();
-    for (int r = tid; r < R; r += THREADS) {
-      float* sr = s_s + r * BK;
-      float mx = NEG_INF;
-      for (int j = 0; j < C; ++j) mx = fmaxf(mx, sr[j]);
-      const float m_prev = m_s[r];
-      const float m_cur = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int j = 0; j < BK; ++j) {
-        const float p = j < C ? expf(sr[j] - m_cur) : 0.f;
-        sum += p;
-        sr[j] = to_f32(from_f32<T>(p));  // p.astype(v.dtype) for p.v
-      }
-      const float alpha = expf(m_prev - m_cur);
-      l_s[r] = l_s[r] * alpha + sum;
-      m_s[r] = m_cur;
-      a_s[r] = alpha;
-    }
-    __syncthreads();
-    for (int e = tid; e < R * D; e += THREADS) {
-      const int r = e / D;
-      const int d = e - r * D;
-      const float* pr = s_s + r * BK;
-      float o = 0.f;
-      for (int j = 0; j < BK; ++j) o = fmaf(pr[j], v_s[j * D + d], o);
-      acc[e] = acc[e] * a_s[r] + o;
-    }
+#pragma unroll
+    for (int w = 16; w >= 1; w >>= 1) seen |= __shfl_xor_sync(FULL, seen, w);
+    const unsigned need = (1u << max(0, min(Rw, FMA_RPW))) - 1;
+    live = (seen & need) == need;
+  } else if (causal) {
+    live = Rw <= 0 || q_start + w0 + off >= 0;  // a row sees its own position
   }
-  __syncthreads();
+
+  float4 o[RI][NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) o[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m[RI], l[RI];  // the row's running max; this lane's part of its running sum
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+  }
+
+  for (int ik = lo; ik <= hi; ++ik) {
+    const int st = (ik - lo) & 1;
+    if (ik < hi) {
+      load_kv(ik + 1, st ^ 1);
+      tile::cp_async_commit();
+      tile::cp_async_wait<1>();
+    } else {
+      tile::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile ik has landed for every thread
+    const int k_start = ik * FMA_BK;
+    const int C = min(FMA_BK, Skv - k_start);
+
+    // this lane's visible pairs, bit 4i + jj
+    unsigned vis = 0;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int kj = kg + 8 * jj;
+        if (rin[i] && kj < C &&
+            tile::visible<SEG>(qpos[i], k_start + kj, causal, window, qs[i],
+                               SEG ? kseg_s[st * FMA_BK + kj] : 0)) {
+          vis |= 1u << (4 * i + jj);
+        }
+      }
+    }
+    const bool any = __any_sync(FULL, vis != 0);
+    if (any || !live) {  // warp-uniform
+      // S = Q.K^T: a RI x 4 micro-tile of outer products over d, from
+      // 16-byte loads (RI + 4 loads for 16 RI FMAs)
+      float s[RI][4];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
+      }
+      const float* qr = q_s + (w0 + rg) * KST;
+      const float* kr = k_s + (st * FMA_BK + kg) * KST;
+#pragma unroll
+      for (int c = 0; c < DP / 4; ++c) {
+        float4 a[RI], bk[4];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) a[i] = *reinterpret_cast<const float4*>(qr + 4 * i * KST + 4 * c);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          bk[jj] = *reinterpret_cast<const float4*>(kr + 8 * jj * KST + 4 * c);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // 4 RI independent FMAs in a row
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              s[i][jj] = fmaf(part(a[i], e), part(bk[jj], e), s[i][jj]);
+            }
+          }
+        }
+      }
+
+      // scale in f32, the masks, then the online softmax: a row's 32 keys
+      // lie on the 8 lanes of its row group
+      float mx[RI];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        mx[i] = m[i];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          float x = s[i][jj] * scale;
+          if (!((vis >> (4 * i + jj)) & 1u)) {
+            // -1e30 where masked; -inf past Skv, so exp gives exactly 0
+            x = kg + 8 * jj < C ? NEG_INF : __uint_as_float(0xff800000u);
+          }
+          s[i][jj] = x;
+          mx[i] = fmaxf(mx[i], x);
+        }
+      }
+#pragma unroll
+      for (int w = 1; w < 8; w <<= 1) {
+#pragma unroll
+        for (int i = 0; i < RI; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], w));
+      }
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float alpha = expf(m[i] - mx[i]);
+        m[i] = mx[i];
+        float sum = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float p = expf(s[i][jj] - mx[i]);
+          sum += p;
+          s[i][jj] = to_f32(from_f32<T>(p));  // p.astype(v.dtype) for p.v
+        }
+        l[i] = l[i] * alpha + sum;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          o[i][c].x *= alpha;
+          o[i][c].y *= alpha;
+          o[i][c].z *= alpha;
+          o[i][c].w *= alpha;
+        }
+      }
+
+      // O += P.V through the warp's p tile
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) p_w[(rg + 4 * i) * FMA_PST + kg + 8 * jj] = s[i][jj];
+      }
+      __syncwarp();
+      const float* pr = p_w + rg * FMA_PST;
+      const float* vr = v_s + st * FMA_BK * VST + 4 * kg;
+#pragma unroll
+      for (int j = 0; j < FMA_BK; j += 4) {
+        float4 pp[RI];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) pp[i] = *reinterpret_cast<const float4*>(pr + 4 * i * FMA_PST + j);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float4 vv = *reinterpret_cast<const float4*>(vr + (j + jj) * VST + 32 * c);
+#pragma unroll
+            for (int i = 0; i < RI; ++i) {
+              const float p = part(pp[i], jj);
+              o[i][c].x = fmaf(p, vv.x, o[i][c].x);
+              o[i][c].y = fmaf(p, vv.y, o[i][c].y);
+              o[i][c].z = fmaf(p, vv.z, o[i][c].z);
+              o[i][c].w = fmaf(p, vv.w, o[i][c].w);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage st and the p tiles are free for the next tiles
+  }
+
+  // epilogue: out = acc / l in q's dtype, lse = m + log(l) in f32; rows
+  // with l == 0 (no tile ran) give zeros
+  tile::cp_async_wait<0>();  // the q copy, when no kv tile ran
   T* ob = out + (bh * Sq + q_start) * D;
-  for (int e = tid; e < R * D; e += THREADS) {
-    const float l = l_s[e / D];
-    ob[e] = from_f32<T>(acc[e] / (l == 0.f ? 1.f : l));
-  }
-  for (int r = tid; r < R; r += THREADS) {
-    const float l = l_s[r];
-    lse[bh * Sq + q_start + r] = m_s[r] + logf(l == 0.f ? 1.f : l);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    float li = l[i];
+#pragma unroll
+    for (int w = 1; w < 8; w <<= 1) li += __shfl_xor_sync(FULL, li, w);
+    const float dn = li == 0.f ? 1.f : li;
+    const int lr = w0 + rg + 4 * i;
+    if (lr >= R) continue;
+    T* orow = ob + (size_t)lr * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = 4 * (kg + 8 * c);
+      const float x[4] = {o[i][c].x / dn, o[i][c].y / dn, o[i][c].z / dn, o[i][c].w / dn};
+      if constexpr (sizeof(T) == 4) {
+        if (vec4) {
+          if (col < D) *reinterpret_cast<float4*>(orow + col) = make_float4(x[0], x[1], x[2], x[3]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < D) orow[col + e] = from_f32<T>(x[e]);
+      }
+    }
+    if (kg == 0) lse[bh * Sq + q_start + lr] = m[i] + logf(dn);
   }
 }
 
-template <typename T, bool SEG>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const int* qseg, const int* kseg, void* out, float* lse,
-                   int B, int H, int Sq, int Skv, int D, int causal,
-                   int window, float scale, cudaStream_t stream) {
-  const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  const size_t smem = sizeof(float) *
-      (2 * BQ * D + BK * (D + 1) + BK * D + BQ * BK + 3 * BQ) +
-      sizeof(int) * (BQ + BK);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
-  auto kern = flash_fwd_kernel<T, SEG>;
+template <typename T, int DP, bool SEG>
+cudaError_t launch_fma(const void* q, const void* k, const void* v,
+                       const int* qseg, const int* kseg, void* out, float* lse,
+                       int B, int H, int Sq, int Skv, int D, int causal,
+                       int window, float scale, int vec, cudaStream_t stream) {
+  const dim3 grid(H, B, (Sq + FMA_BQ - 1) / FMA_BQ);
+  const size_t smem = sizeof(float) * fma_smem_floats(DP);
+  auto kern = flash_fwd_fma_kernel<T, DP, SEG>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, THREADS, smem, stream>>>(
+  kern<<<grid, FMA_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), qseg, kseg, static_cast<T*>(out), lse, H, Sq,
-      Skv, D, causal, window, scale);
+      Skv, D, causal, window, scale, vec);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_fma_any(bool seg, const void* q, const void* k, const void* v,
+                           const int* qseg, const int* kseg, void* out, float* lse,
+                           int B, int H, int Sq, int Skv, int D, int causal,
+                           int window, float scale, int vec, cudaStream_t stream) {
+#define KFT_ARGS q, k, v, qseg, kseg, out, lse, B, H, Sq, Skv, D, causal, window, scale, vec, stream
+  if (D <= 64) return seg ? launch_fma<T, 64, true>(KFT_ARGS) : launch_fma<T, 64, false>(KFT_ARGS);
+  return seg ? launch_fma<T, 128, true>(KFT_ARGS) : launch_fma<T, 128, false>(KFT_ARGS);
+#undef KFT_ARGS
 }
 
 // ---------------------------------------------------------------- mma body
@@ -524,12 +819,16 @@ extern "C" int kft_flash_forward(
                                     : launch_mma_any<__half>(seg, KFT_ARGS);
     return (int)err;
   }
+  if (D > 128) return (int)cudaErrorInvalidValue;
+  // f32 rows of whole 16-byte chunks: 16-byte copies and stores
+  const int vec = dtype == F32 && D % 4 == 0 && tile::aligned16(q) && tile::aligned16(k) &&
+                  tile::aligned16(v) && tile::aligned16(out);
+#define KFT_ARGS_FMA q, k, v, qs, ks, out, l, B, H, Sq, Skv, D, causal, window, scale, vec, st
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == F32) err = seg ? launch<float, true>(KFT_ARGS) : launch<float, false>(KFT_ARGS);
-  if (dtype == BF16) {
-    err = seg ? launch<__nv_bfloat16, true>(KFT_ARGS) : launch<__nv_bfloat16, false>(KFT_ARGS);
-  }
-  if (dtype == F16) err = seg ? launch<__half, true>(KFT_ARGS) : launch<__half, false>(KFT_ARGS);
+  if (dtype == F32) err = launch_fma_any<float>(seg, KFT_ARGS_FMA);
+  if (dtype == BF16) err = launch_fma_any<__nv_bfloat16>(seg, KFT_ARGS_FMA);
+  if (dtype == F16) err = launch_fma_any<__half>(seg, KFT_ARGS_FMA);
+#undef KFT_ARGS_FMA
 #undef KFT_ARGS
   return (int)err;
 }

@@ -15,9 +15,11 @@ counts it) and ``csrc/flash_attention_bwd.cu`` (dq and dk/dv, counted by
 ``flash_attention_bwd.DQ_LAUNCHES`` / ``DKV_LAUNCHES``); CPU tensors run
 :func:`flash_attention_reference` and :func:`flash_attention_bwd_reference`.
 Each kernel has two bodies, chosen by dtype and head dim alone
-(:func:`body`): tensor cores for bf16/f16 with D a multiple of 16 up to
-128, scalar f32 arithmetic otherwise (f32 inputs stay exact f32; a
-tensor-core f32 product would be TF32).
+(:func:`tensor_cores`): tensor cores for bf16/f16 with D a multiple of 16
+up to 128, f32 arithmetic otherwise (f32 inputs stay exact f32; a
+tensor-core f32 product would be TF32). The forward's f32 body is the
+register-tiled ``"fma"`` one (:func:`body`), the backward's the
+``"scalar"`` ones (``flash_attention_bwd.dq_body`` / ``dkv_body``).
 """
 
 from __future__ import annotations
@@ -33,21 +35,25 @@ NEG_INF = -1e30  # large-but-finite: keeps exp() defined on masked rows
 #: kernel launches since the counter was last set to 0
 LAUNCHES = 0
 #: the same launches split by the body that ran (see :func:`body`)
-LAUNCHES_BY_BODY = {"mma": 0, "scalar": 0}
+LAUNCHES_BY_BODY = {"mma": 0, "fma": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 128  # the kernel's shared-memory tiles hold D <= 128
 
 
+def tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
+    """Whether a launch runs a tensor-core body, as the C entry points
+    decide (``mma_body``): bf16/f16 with ``head_dim`` a multiple of 16 up
+    to 128. The forward and both backward kernels share the rule."""
+    return dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0 \
+        and 0 < head_dim <= _MAX_HEAD_DIM
+
+
 def body(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel body a launch runs, as the C entry points choose it:
-    ``"mma"`` (tensor cores) for bf16/f16 with ``head_dim`` a multiple of
-    16 up to 128, else ``"scalar"``. Shared by the forward and both
-    backward kernels (dq, dk/dv)."""
-    if dtype in (torch.bfloat16, torch.float16) and head_dim % 16 == 0 \
-            and 0 < head_dim <= _MAX_HEAD_DIM:
-        return "mma"
-    return "scalar"
+    """The forward kernel body a launch runs: ``"mma"`` (tensor cores)
+    where :func:`tensor_cores`, else ``"fma"`` (register-tiled f32
+    FMAs, ``flash_fwd_fma_kernel``)."""
+    return "mma" if tensor_cores(dtype, head_dim) else "fma"
 
 
 def _full_mask(q_shape, k_shape, q_seg, kv_seg, causal, window, device):

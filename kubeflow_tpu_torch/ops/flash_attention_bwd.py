@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from kubeflow_tpu_torch.ops import _build
-from kubeflow_tpu_torch.ops.flash_attention import _DTYPE_CODES, _check_launch, body
+from kubeflow_tpu_torch.ops.flash_attention import _DTYPE_CODES, _check_launch, tensor_cores
 
 #: dq kernel launches since the counter was last set to 0
 DQ_LAUNCHES = 0
@@ -33,14 +33,16 @@ DKV_LAUNCHES_BY_BODY = {"mma": 0, "scalar": 0}
 
 def dq_body(dtype: torch.dtype, head_dim: int) -> str:
     """The dq kernel body a launch runs, as ``kft_flash_bwd_dq`` chooses
-    it: the forward's rule, :func:`flash_attention.body`."""
-    return body(dtype, head_dim)
+    it: ``"mma"`` where :func:`flash_attention.tensor_cores`, else
+    ``"scalar"``."""
+    return "mma" if tensor_cores(dtype, head_dim) else "scalar"
 
 
 def dkv_body(dtype: torch.dtype, head_dim: int) -> str:
     """The dk/dv kernel body a launch runs, as ``kft_flash_bwd_dkv``
-    chooses it: the forward's rule, :func:`flash_attention.body`."""
-    return body(dtype, head_dim)
+    chooses it: ``"mma"`` where :func:`flash_attention.tensor_cores`,
+    else ``"scalar"``."""
+    return "mma" if tensor_cores(dtype, head_dim) else "scalar"
 
 
 def _checked(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids):

@@ -146,7 +146,29 @@ FLASH_CASES = [
     # q segment 2 appears in no kv row: those rows see no key and end with
     # out = mean(v) and lse at the -1e30 sentinel (the backward's dead rows)
     ("dead_rows", dict(causal=False, dead=True)),
+    # BERT's attention mask as segment ids (valid tokens 1, pads 0): the
+    # valid lengths cross the 16-wide tiles, row 0 has a single token, and
+    # its q tiles past the first are all padding
+    ("padding", dict(causal=False, pad=(1, 37))),
+    # segment 1 lies wholly inside one kv tile (keys 20..27) and a dead
+    # row shares a q tile with its rows: skipping the kv tiles none of
+    # those live rows sees must leave the dead row's mean(v) as it is
+    ("dead_rows_disjoint_tiles", dict(causal=False, disjoint=True)),
 ]
+
+
+def _disjoint_ids(B, S):
+    """(q ids, kv ids) of ``dead_rows_disjoint_tiles``: kv segment 1 at
+    keys 20..27, 0 elsewhere; in row 0, q rows 0..31 are segment 1 but
+    row 5 is segment 2 (dead), the rest 0; in row 1, q rows 0..31 are
+    segment 1, row 40 is segment 3 (dead), the rest 0."""
+    kv = np.zeros((B, S), np.int32)
+    kv[:, 20:28] = 1
+    q = np.zeros((B, S), np.int32)
+    q[:, :32] = 1
+    q[0, 5] = 2
+    q[1, 40] = 3
+    return q, kv
 
 
 def _flash_inputs(seed, *, seg=False, B=2, H=2, S=64, D=32):
@@ -168,12 +190,17 @@ def test_flash_attention_matches_jax(name, kw):
     window = kw.get("window")
     seed = sum(map(ord, name))
     q, k, v, ids = _flash_inputs(seed, seg=kw.get("seg", False))
+    B, _, S, _ = q.shape
     kv_ids = ids
     if kw.get("dead"):
         rng = np.random.default_rng(seed)
-        B, _, S, _ = q.shape
         kv_ids = rng.integers(0, 2, size=(B, S)).astype(np.int32)
         ids = rng.integers(0, 3, size=(B, S)).astype(np.int32)
+    if kw.get("pad"):
+        lens = np.asarray(kw["pad"])[:, None]
+        ids = kv_ids = (np.arange(S)[None, :] < lens).astype(np.int32)
+    if kw.get("disjoint"):
+        ids, kv_ids = _disjoint_ids(B, S)
     jseg = None if ids is None else jnp.asarray(ids)
     jkseg = None if kv_ids is None else jnp.asarray(kv_ids)
     tseg = None if ids is None else _t(ids)
@@ -189,7 +216,7 @@ def test_flash_attention_matches_jax(name, kw):
         jq, jk, jv, causal=causal, window=window, q_segment_ids=jseg,
         kv_segment_ids=jkseg,
     )
-    if kw.get("dead"):
+    if kw.get("dead") or kw.get("disjoint"):
         dead = np.asarray(want_lse) <= tfa.NEG_INF / 2
         assert dead.any() and not dead.all()
         np.testing.assert_allclose(np.asarray(want)[dead],
@@ -214,34 +241,42 @@ def test_flash_attention_matches_jax(name, kw):
     )
 
 
+#: (dtype, head dim, the forward's body, the backward's dq and dk/dv body)
 BODY_CASES = [
-    (torch.bfloat16, 16, "mma"), (torch.bfloat16, 64, "mma"),
-    (torch.bfloat16, 128, "mma"), (torch.float16, 16, "mma"),
-    (torch.float16, 64, "mma"), (torch.float16, 128, "mma"),
-    (torch.float32, 64, "scalar"), (torch.float32, 128, "scalar"),
-    (torch.bfloat16, 40, "scalar"), (torch.float16, 40, "scalar"),
-    (torch.bfloat16, 8, "scalar"),
+    (torch.bfloat16, 16, "mma", "mma"), (torch.bfloat16, 64, "mma", "mma"),
+    (torch.bfloat16, 128, "mma", "mma"), (torch.float16, 16, "mma", "mma"),
+    (torch.float16, 64, "mma", "mma"), (torch.float16, 128, "mma", "mma"),
+    (torch.float32, 64, "fma", "scalar"), (torch.float32, 128, "fma", "scalar"),
+    (torch.bfloat16, 40, "fma", "scalar"), (torch.float16, 40, "fma", "scalar"),
+    (torch.bfloat16, 8, "fma", "scalar"),
 ]
 
 
-@pytest.mark.parametrize("dtype,head_dim,want", BODY_CASES,
+@pytest.mark.parametrize("dtype,head_dim,fwd,bwd", BODY_CASES,
                          ids=[f"{c[0]}-{c[1]}" for c in BODY_CASES])
-def test_kernel_body_dispatch(dtype, head_dim, want):
+def test_kernel_body_dispatch(dtype, head_dim, fwd, bwd):
     """The Python mirror of the C entry points' choice of body: tensor
-    cores for bf16/f16 with D a multiple of 16 up to 128, scalar f32
-    arithmetic for f32 (a tensor-core f32 product would be TF32) and any
-    other D; the forward and dk/dv kernels share the rule."""
+    cores for bf16/f16 with D a multiple of 16 up to 128; otherwise f32
+    arithmetic (a tensor-core f32 product would be TF32), the
+    register-tiled ``fma`` body in the forward and the ``scalar`` ones in
+    dq and dk/dv. The three kernels share the tensor-core rule."""
     from kubeflow_tpu_torch.ops import flash_attention_bwd as tfb
 
-    assert tfa.body(dtype, head_dim) == want
-    assert tfb.dq_body(dtype, head_dim) == want
-    assert tfb.dkv_body(dtype, head_dim) == want
+    assert tfa.tensor_cores(dtype, head_dim) is (fwd == "mma")
+    assert tfa.body(dtype, head_dim) == fwd
+    assert tfb.dq_body(dtype, head_dim) == bwd
+    assert tfb.dkv_body(dtype, head_dim) == bwd
+    assert tfa.LAUNCHES_BY_BODY.keys() == {"mma", "fma"}
+    assert tfb.DQ_LAUNCHES_BY_BODY.keys() == tfb.DKV_LAUNCHES_BY_BODY.keys() \
+        == {"mma", "scalar"}
 
 
 def test_kernel_body_dispatch_matches_the_c_sources():
     """Both sources dispatch on the same condition the mirror states, and
     each of the three C entry points (forward, dq, dk/dv) takes its
-    tensor-core body on exactly that condition."""
+    tensor-core body on exactly that condition. Past that branch the
+    forward launches ``flash_fwd_fma_kernel`` for every dtype; the old
+    scalar forward is gone."""
     import re
 
     rule = "(dtype == BF16 || dtype == F16) && D % 16 == 0 && D <= 128"
@@ -258,6 +293,13 @@ def test_kernel_body_dispatch_matches_the_c_sources():
         branch = re.search(r"if \(mma_body\(dtype, D\)\) \{(.*?)\n  \}", body, re.S)
         assert branch is not None, entry
         assert launcher in branch.group(1), entry
+        if entry == "kft_flash_forward":
+            rest = body[branch.end():]
+            for dt, ty in (("F32", "float"), ("BF16", "__nv_bfloat16"), ("F16", "__half")):
+                assert f"if (dtype == {dt}) err = launch_fma_any<{ty}>(" in rest, dt
+    src = (_build.CSRC / "flash_attention.cu").read_text()
+    assert "flash_fwd_fma_kernel<T, DP, SEG>" in src
+    assert not re.search(r"\bflash_fwd_kernel\b", src)
 
 
 def test_paged_kernel_body_and_shapes():
