@@ -16,7 +16,9 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    ``F.scaled_dot_product_attention`` as a yardstick only, and the body
    that ran (flash forward: ``"mma"``, tensor cores, for bf16/f16 with D
    a multiple of 16, else ``"fma"``, register-tiled f32 FMAs; dq and
-   dk/dv: ``"mma"`` on the same rule, else ``"scalar"``; paged attention:
+   dk/dv: ``"mma"`` on the same rule, else ``"fma"``, register-tiled f32
+   FMAs too; the f32 backward cases launched twice and bitwise equal;
+   paged attention:
    ``"split"``, pages split across warps), the paged cases including the
    speculative verify
    (S = K+1 = 5, a different ``pos0`` per row) and a prefill piece at an
@@ -465,11 +467,14 @@ def run_flash_case(torch, name, c, flush):
 def bwd_cases(torch):
     """The training shape first (B=8, H=16, S=512, D=64, causal bf16). The
     dq and dk/dv kernels run their tensor-core bodies on the bf16 and f16
-    cases and their scalar bodies on the f32 ones."""
+    cases at D a multiple of 16 and their ``fma`` bodies on the f32 ones
+    and ``ragged_d40_bf16``."""
     base = dict(B=8, H=16, D=64, causal=True)
     return [
         ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
         ("causal_s128_f32", dict(base, S=128, dtype=torch.float32)),
+        # the f32 parity steps' shape (the train phase's 60 launches each)
+        ("causal_s512_f32", dict(base, S=512, dtype=torch.float32)),
         ("causal_s512_f16", dict(base, S=512, dtype=torch.float16)),
         ("window_s512_bf16", dict(base, S=512, window=128, dtype=torch.bfloat16)),
         ("segment_s512_bf16", dict(base, S=512, seg=True, dtype=torch.bfloat16)),
@@ -483,6 +488,16 @@ def bwd_cases(torch):
                                      dtype=torch.bfloat16)),
         ("causal_s512_d128_bf16", dict(base, B=4, H=8, D=128, S=512,
                                        dtype=torch.bfloat16)),
+        # bert-base MLM training: non-causal, padding masks as segment ids
+        # (valid lengths BERT_VALID_LENS): the segment-tile skip
+        ("bert_s128_f32", dict(B=8, H=12, D=64, S=128, causal=False,
+                               pad=BERT_VALID_LENS, dtype=torch.float32)),
+        # the fma bodies' D <= 128 instantiation
+        ("causal_s256_d128_f32", dict(base, B=4, H=8, D=128, S=256,
+                                      dtype=torch.float32)),
+        # a half type at a head dim no tensor-core tile fits: the fma bodies
+        ("ragged_d40_bf16", dict(base, B=2, H=4, D=40, S=200,
+                                 dtype=torch.bfloat16)),
     ]
 
 
@@ -529,9 +544,9 @@ def run_bwd_case(torch, name, c, flush):
         qseg = kseg = torch.cumsum(cuts.int(), dim=1).to(torch.int32).contiguous()
     if c.get("pad"):
         # BERT's attention_mask as segments: valid tokens 1, pads 0
-        lens = torch.tensor(BERT_VALID_LENS, device="cuda")
-        seg = kseg = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
-                      ).to(torch.int32).contiguous()
+        lens = torch.tensor(c["pad"], device="cuda")
+        qseg = kseg = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
+                       ).to(torch.int32).contiguous()
     if c.get("dead"):
         kseg = torch.randint(0, 2, (B, S), generator=g, device="cuda",
                              dtype=torch.int32)
@@ -558,6 +573,13 @@ def run_bwd_case(torch, name, c, flush):
         dead = {"rows": int((lse <= fa.NEG_INF / 2).sum().item()),
                 "dq_zero": bool((got[0][rows] == 0).all())}
         oks.append(dead["rows"] > 0 and dead["dq_zero"])
+    repeat = None
+    if dt == torch.float32:  # no atomics: a second launch gives the same bits
+        again = (fb.launch_dq(q, k, v, dout, lse, delta, **kw),
+                 *fb.launch_dkv(q, k, v, dout, lse, delta, **kw))
+        torch.cuda.synchronize()
+        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+        oks.append(repeat)
     ms_dq = time_ms(torch, lambda: fb.launch_dq(q, k, v, dout, lse, delta, **kw),
                     flush=flush)
     ms_dkv = time_ms(torch, lambda: fb.launch_dkv(q, k, v, dout, lse, delta, **kw),
@@ -594,6 +616,7 @@ def run_bwd_case(torch, name, c, flush):
         "body": {"dq": fb.dq_body(dt, D), "dkv": fb.dkv_body(dt, D)},
         "causal": causal, "window": window,
         "segments": qseg is not None, "dead_rows": dead,
+        "bitwise_repeat": repeat,
         "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
         "tol_max": {"dq": float(torch.as_tensor(tols[0]).max()),
                     "dk": float(torch.as_tensor(tols[1]).max()),
@@ -623,6 +646,8 @@ def phase_kernels(torch, state):
         ok &= r["ok"]
         if name == "causal_s512_bf16":
             state["bwd_main"] = r
+        elif name == "causal_s128_f32":
+            state["bwd_f32"] = r
     for name, c in paged_cases(torch):
         r = run_paged_case(torch, name, c, flush)
         emit(r)
@@ -2282,8 +2307,8 @@ def phase_train(torch, state):
     through flash attention (forward and backward kernels) and through
     plain attention under autograd, 5 steps of adamw(1e-3): step-1
     gradients of every parameter and the per-step losses must agree, and
-    the flash run's forward launches all run the ``fma`` body and its dq
-    and dk/dv launches the ``scalar`` ones, once per layer per step. (b)
+    the flash run's forward, dq and dk/dv launches all run the ``fma``
+    bodies, once per layer per step. (b)
     ``Trainer.fit`` in bf16 over f32 master weights, 3 warm-up and 20
     timed steps: finite, falling loss, and each attention kernel launched
     once per layer per step."""
@@ -2337,8 +2362,9 @@ def phase_train(torch, state):
                  and max(loss_rel) <= loss_rtol
                  and parity_launches == {
                      "flash_forward": {"mma": 0, "fma": want_p},
-                     "flash_bwd_dq": {"mma": 0, "scalar": want_p},
-                     "flash_bwd_dkv": {"mma": 0, "scalar": want_p}})
+                     "flash_bwd_dq": {"mma": 0, "fma": want_p},
+                     "flash_bwd_dkv": {"mma": 0, "fma": want_p}})
+    state["train_parity_launches"] = parity_launches
     emit({"phase": "train_parity", "dtype": "f32", "tf32": False,
           "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": PARITY_STEPS,
           "losses_flash": fl, "losses_reference": rl,
@@ -2379,8 +2405,8 @@ def phase_train(torch, state):
     ok = (parity_ok and finite and len(losses) == steps and losses[-1] < losses[0]
           and all(n == want for n in launches.values())
           and by_body == {"flash_forward": {"mma": want, "fma": 0},
-                          "flash_bwd_dq": {"mma": want, "scalar": 0},
-                          "flash_bwd_dkv": {"mma": want, "scalar": 0}}
+                          "flash_bwd_dq": {"mma": want, "fma": 0},
+                          "flash_bwd_dkv": {"mma": want, "fma": 0}}
           and live_kft_threads() == [])
     emit({"phase": "train", "dtype": "bf16", "param_dtype": "f32",
           "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps,
@@ -2509,8 +2535,8 @@ def phase_profile(torch, state):
     n_kernels, busy_ms, top = _device_summary(prof)
     device_ms = sum(ms for _, (_, ms) in top)
     names = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
-             "flash_bwd_dkv_mma_kernel", "flash_fwd_fma_kernel", "flash_bwd_dq_kernel",
-             "flash_bwd_dkv_kernel")
+             "flash_bwd_dkv_mma_kernel", "flash_fwd_fma_kernel", "flash_bwd_dq_fma_kernel",
+             "flash_bwd_dkv_fma_kernel")
     attn = {k: ms for k, (_, ms) in top if k.split(" ")[-1] in names}
     # bf16 training runs the tensor-core forward, dq and dk/dv
     train_ok = n_kernels > 0 and sorted(k.split(" ")[-1] for k in attn) == sorted(names[:3])
@@ -2675,6 +2701,27 @@ def main(argv=None) -> int:
                 "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                 "replaces": rep, "body": r["body"][part],
                 "launches": train.get(launch_key, 0),
+                "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
+                "ms": r["ms"][part], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],
+                "library_ms": r["library_ms"],
+            })
+        # the backward's f32 bodies on their own: timed at the f32 causal
+        # case, launched by the train phase's f32 parity steps
+        r = state["bwd_f32"]
+        parity = state.get("train_parity_launches", {})
+        for name, part, launch_key, rep in (
+            ("flash_attention_bwd_dq_fma", "dq", "flash_bwd_dq",
+             "kubeflow_tpu/ops/flash_attention.py:453"),
+            ("flash_attention_bwd_dkv_fma", "dkv", "flash_bwd_dkv",
+             "kubeflow_tpu/ops/flash_attention.py:484"),
+        ):
+            err = r["max_abs_err"]
+            kernels.append({
+                "name": name, "route": "cuda",
+                "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                "replaces": rep, "body": r["body"][part], "case": "causal_s128_f32",
+                "launches": parity.get(launch_key, {}).get("fma", 0),
                 "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
                 "ms": r["ms"][part], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],

@@ -58,7 +58,8 @@
 //     micro-tile, the row max and sum stay in registers across kv tiles,
 //     rescaled by alpha there: no shared-memory accumulator.
 //   - K/V ring. 32-key tiles fill a 2-stage ring by 16-byte cp.async
-//     (tile_mma.cuh), so tile ik + 1 loads while ik computes, with the
+//     (`fma_tile::load`, shared with the backward's `fma` bodies in
+//     fma_tile.cuh), so tile ik + 1 loads while ik computes, with the
 //     ragged last tile and columns past D zero-filled. f32 rows that are
 //     not whole 16-byte chunks take 4-byte copies; bf16 / f16 (this body
 //     takes them only at a D no tensor-core tile fits) are widened to f32
@@ -102,6 +103,7 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "fma_tile.cuh"
 #include "tile_mma.cuh"
 
 namespace {
@@ -109,10 +111,6 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per kv tile
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -125,13 +123,13 @@ template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
 
 // ---------------------------------------------------------------- fma body
 
+using fma_tile::FULL;
+using fma_tile::part;
+constexpr int FMA_THREADS = fma_tile::THREADS;  // 4 warps
 constexpr int FMA_RPW = 8;                 // query rows a warp
-constexpr int FMA_WARPS = 4;               // warps a block
-constexpr int FMA_THREADS = 32 * FMA_WARPS;
-constexpr int FMA_BQ = FMA_RPW * FMA_WARPS;  // query rows a block
-constexpr int FMA_BK = 32;                 // keys a kv tile
+constexpr int FMA_BQ = FMA_RPW * fma_tile::WARPS;  // query rows a block
+constexpr int FMA_BK = fma_tile::BK;       // keys a kv tile
 constexpr int FMA_PST = FMA_BK + 4;        // row stride (floats) of a warp's p tile
-constexpr unsigned FULL = 0xffffffffu;
 
 // floats of the fma body's shared memory at head-dim tile DP: the q tile
 // and a 2-stage k ring (rows of DP + 4), a 2-stage v ring (rows of DP),
@@ -139,72 +137,6 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t fma_smem_floats(int DP) {
   return (size_t)FMA_BQ * (DP + 4) + 2 * (size_t)FMA_BK * (DP + 4) +
          2 * (size_t)FMA_BK * DP + (size_t)FMA_BQ * FMA_PST + 2 * FMA_BK;
-}
-
-// The causal / window tile skip at the fma body's kv tile width.
-__device__ __forceinline__ bool fma_tile_runs(int q_start, int R, int k_start,
-                                              int off, int causal, int window) {
-  bool run = true;
-  if (causal) run = k_start <= q_start + R - 1 + off;
-  if (window > 0) run = run && (k_start + FMA_BK - 1 >= q_start + off - window + 1);
-  return run;
-}
-
-__device__ __forceinline__ float part(const float4& x, int e) {
-  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
-}
-
-// Rows [0, valid) x columns [0, D) of a row-major (rows x D) source into
-// a ROWS x DP f32 tile of row stride LD floats in shared memory, zeros
-// elsewhere. f32 with `vec` (D % 4 == 0, 16-byte aligned rows): 16-byte
-// cp.async; other f32: 4-byte cp.async; bf16 / f16: loaded, widened to
-// f32 and stored by the thread (a copy cannot widen).
-template <typename T, int ROWS, int DP, int LD>
-__device__ __forceinline__ void fma_load(float* dst, const T* src, int valid, int D,
-                                         bool vec, int tid) {
-  if constexpr (sizeof(T) == 4) {
-    if (vec) {
-      constexpr int CH = DP / 4;
-      static_assert(ROWS * CH % FMA_THREADS == 0, "whole chunks per thread");
-      const int dch = D / 4;
-#pragma unroll
-      for (int i = 0; i < ROWS * CH / FMA_THREADS; ++i) {
-        const int e = tid + i * FMA_THREADS;
-        const int r = e / CH;
-        const int c = e - r * CH;
-        const bool in = r < valid && c < dch;
-        tile::cp_async16(tile::smem_addr(dst + r * LD + 4 * c),
-                         in ? src + (size_t)r * D + 4 * c : src, in);
-      }
-      return;
-    }
-    for (int e = tid; e < ROWS * DP; e += FMA_THREADS) {
-      const int r = e / DP;
-      const int d = e - r * DP;
-      const bool in = r < valid && d < D;
-      tile::cp_async4(tile::smem_addr(dst + r * LD + d), in ? src + (size_t)r * D + d : src,
-                      in);
-    }
-  } else {
-    constexpr int N = ROWS * DP / FMA_THREADS;
-    static_assert(N % 8 == 0, "whole batches per thread");
-#pragma unroll 1
-    for (int i0 = 0; i0 < N; i0 += 8) {  // 8 loads in flight, then their stores
-      float x[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = tid + (i0 + i) * FMA_THREADS;
-        const int r = e / DP;
-        const int d = e - r * DP;
-        x[i] = r < valid && d < D ? to_f32(src[(size_t)r * D + d]) : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int e = tid + (i0 + i) * FMA_THREADS;
-        dst[(e / DP) * LD + e % DP] = x[i];
-      }
-    }
-  }
 }
 
 template <typename T, int DP, bool SEG>
@@ -252,7 +184,7 @@ __global__ void __launch_bounds__(FMA_THREADS, DP == 64 ? 4 : 2) flash_fwd_fma_k
   const int nk = (Skv + FMA_BK - 1) / FMA_BK;
   int lo = nk, hi = -1;
   for (int ik = 0; ik < nk; ++ik) {
-    if (fma_tile_runs(q_start, R, ik * FMA_BK, off, causal, window)) {
+    if (fma_tile::tile_runs(q_start, R, ik * FMA_BK, off, causal, window)) {
       lo = min(lo, ik);
       hi = ik;
     }
@@ -261,14 +193,14 @@ __global__ void __launch_bounds__(FMA_THREADS, DP == 64 ? 4 : 2) flash_fwd_fma_k
   auto load_kv = [&](int ik, int st) {
     const int k0 = ik * FMA_BK;
     const int C = min(FMA_BK, Skv - k0);
-    fma_load<T, FMA_BK, DP, KST>(k_s + st * FMA_BK * KST, kb + (size_t)k0 * D, C, D, vec4, tid);
-    fma_load<T, FMA_BK, DP, VST>(v_s + st * FMA_BK * VST, vb + (size_t)k0 * D, C, D, vec4, tid);
+    fma_tile::load<T, FMA_BK, DP, KST>(k_s + st * FMA_BK * KST, kb + (size_t)k0 * D, C, D, vec4, tid);
+    fma_tile::load<T, FMA_BK, DP, VST>(v_s + st * FMA_BK * VST, vb + (size_t)k0 * D, C, D, vec4, tid);
     if (SEG) {
       tile::load_words<FMA_THREADS>(tile::smem_addr(kseg_s + st * FMA_BK),
                                     kseg + (size_t)b * Skv + k0, FMA_BK, C, tid);
     }
   };
-  fma_load<T, FMA_BQ, DP, KST>(q_s, q + (bh * Sq + q_start) * D, R, D, vec4, tid);
+  fma_tile::load<T, FMA_BQ, DP, KST>(q_s, q + (bh * Sq + q_start) * D, R, D, vec4, tid);
   if (lo <= hi) load_kv(lo, 0);
   tile::cp_async_commit();
 
@@ -426,7 +358,7 @@ __global__ void __launch_bounds__(FMA_THREADS, DP == 64 ? 4 : 2) flash_fwd_fma_k
         for (int jj = 0; jj < 4; ++jj) {
           const float p = expf(s[i][jj] - mx[i]);
           sum += p;
-          s[i][jj] = to_f32(from_f32<T>(p));  // p.astype(v.dtype) for p.v
+          s[i][jj] = fma_tile::to_f32(from_f32<T>(p));  // p.astype(v.dtype) for p.v
         }
         l[i] = l[i] * alpha + sum;
 #pragma unroll

@@ -60,11 +60,10 @@
 //     loop; at D <= 128 they are re-read from shared memory per kv tile,
 //     since S, dP and dQ fill the register file there. Blocks are launched
 //     with the q tiles that see the most kv tiles first, as the forward's.
-//     What bounds it: bytes (15 us at the training shape, above). The
-//     scalar body re-read K and V from shared memory in f32 once per
-//     query row and per output element; here each K and V element is read
-//     from device memory once per q tile, the products run on the tensor
-//     cores, and copies overlap the math. Shared memory: 49 KB at
+//     What bounds it: bytes (15 us at the training shape, above). Each K
+//     and V element is read from device memory once per q tile, the
+//     products run on the tensor cores, and copies overlap the math.
+//     Shared memory: 49 KB at
 //     D <= 64, 97 KB at D <= 128.
 //   - `flash_bwd_dkv_mma_kernel`, in the transposed (keys x queries)
 //     orientation. 4 warps, each owning 16 of the block's 64 keys. The K
@@ -78,40 +77,62 @@
 //     D <= 128 two passes of 32 (the 128 accumulator registers of dK and
 //     dV leave room for no more). Shared memory: 50 KB at D <= 64, 98 KB
 //     at D <= 128.
-// * f32 (and any other D): `flash_bwd_dq_kernel` and
-//   `flash_bwd_dkv_kernel`, scalar f32 FMAs out of shared memory: a
-//   tensor-core f32 product would be TF32, about three decimal digits,
-//   and would break the f32 parity gates.
-//
-// Scalar tiles: 64 query rows by 64 keys, 256 threads. Shared memory
-// holds the tiles in f32 (rows of K and V padded to D + 1 floats so that
-// the 32 lanes of a warp, which walk 32 keys, hit 32 banks):
-//   dq:    q, dO, dq acc (3 x 64 x D) + K, V (2 x 64 x (D + 1)) + ds (64 x 64)
-//          = 97 KB at D = 64, 178 KB at D = 128;
-//   dk/dv: K, V (2 x 64 x (D + 1)) + dk, dv acc (2 x 64 x D) + q, dO
-//          (2 x 64 x D) + p, ds (2 x 64 x 64) = 130 KB at D = 64, 226 KB
-//          at D = 128;
-// both under the 227 KB a block may have (dynamic shared memory, set per
-// launch with cudaFuncSetAttribute). f32, bf16 and f16 inputs, D <= 128.
+// * f32, and bf16 / f16 at any other D: `flash_bwd_dq_fma_kernel` and
+//   `flash_bwd_dkv_fma_kernel`, f32 FMAs only. A tensor-core f32 product
+//   would be TF32, about three decimal digits, and would break the f32
+//   parity gates, so these bodies are bound by the f32 FMA pipe: at the
+//   f32 parity steps' shape (B = 8, H = 16, S = 512, D = 64, causal) dq's
+//   6 * D flops a visible pair are 6.45 GFLOP, 0.096 ms at 67 TFLOP/s,
+//   and dk/dv's 8 * D 0.128 ms, against 0.015 / 0.020 ms of bytes. The
+//   design is the forward's `fma` body (csrc/flash_attention.cu; tile
+//   loads and the tile skip shared through fma_tile.cuh):
+//   - `flash_bwd_dq_fma_kernel`, in the forward's (queries x keys)
+//     orientation. 4 warps of 8 query rows. The q and dO tiles are copied
+//     once; each row's lse, delta and segment id sit in registers. K and
+//     V tiles of 32 keys with their segment ids stream through a 2-stage
+//     ring of 16-byte cp.async copies, rows padded by 4 floats since both
+//     are read key-wise. S = Q.K^T and dP = dO.V^T are 2-row x 4-key
+//     register micro-tiles a lane, outer products over d from 16-byte
+//     shared loads (12 loads for 64 FMAs). p and ds are formed in
+//     registers in the twin's order, and ds goes once a tile through the
+//     warp's own 8 x 36 tile. dQ += dS.K is a 2 x 8 (D <= 64) or 2 x 16
+//     (D <= 128) micro-tile in registers over every kv tile, reading K
+//     from the same ring stage, written once in 16-byte stores. Blocks
+//     are launched with the q tiles that see the most kv tiles first.
+//   - `flash_bwd_dkv_fma_kernel`, in the transposed (keys x queries)
+//     orientation. 4 warps of 8 keys. The K and V tiles are copied once
+//     and the keys' segment ids sit in registers; q and dO tiles of 32
+//     rows with their lse, delta and segment ids stream through the same
+//     kind of ring. S^T and dP^T are 2-key x 4-query micro-tiles; P^T
+//     (rounded to dO's dtype) and dS^T (to q's) go through the warp's own
+//     two tiles, and dV += P^T.dO and dK += dS^T.Q are 2-key x 8-d (16 at
+//     D <= 128) micro-tiles in registers over every q tile.
+//   - Tile skips. A block neither loads nor computes a tile outside its
+//     causal / window reach, and a warp skips a tile in which none of its
+//     rows (dq) or keys (dk/dv) has a visible pair. Masked pairs and dead
+//     rows (lse at the -1e30 sentinel) add exactly 0 to p and ds, so the
+//     skip is exact for every row and key; unlike the forward, a dead row
+//     needs no pass over the tiles it cannot see.
+//   - Occupancy. Shared memory: 55.75 KB (dq) and 60.75 KB (dk/dv) at
+//     D <= 64, 103.75 / 108.75 KB at D <= 128. `__launch_bounds__` states
+//     the blocks an SM that leaves (4 and 3, then 2 and 2), so that ptxas
+//     may use the registers occupancy leaves.
+// f32, bf16 and f16 inputs, D <= 128.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include "fma_tile.cuh"
 #include "tile_mma.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BK = 64;   // keys per tile
-constexpr int THREADS = 256;
+constexpr int BQ = 64;   // query rows per mma tile
+constexpr int BK = 64;   // keys per mma tile
 constexpr size_t MAX_SMEM = 232448;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ float round_to(float x);
 template <> __device__ __forceinline__ float round_to<float>(float x) { return x; }
@@ -124,224 +145,6 @@ template <> __device__ __forceinline__ float round_to<__half>(float x) {
 
 using tile::tile_runs;
 using tile::visible;
-
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ld, const T* src,
-                                          int rows, int valid, int D, int tid) {
-  for (int e = tid; e < rows * D; e += THREADS) {
-    const int j = e / D;
-    const int d = e - j * D;
-    dst[j * ld + d] = j < valid ? to_f32(src[e]) : 0.f;
-  }
-}
-
-template <typename T, bool SEG>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout,          // (B, H, Sq, D)
-    const float* __restrict__ lse,       // (B, H, Sq)
-    const float* __restrict__ delta,     // (B, H, Sq)
-    const int* __restrict__ qseg, const int* __restrict__ kseg,
-    float* __restrict__ dq,              // (B, H, Sq, D)
-    int H, int Sq, int Skv, int D, int causal, int window, float scale) {
-  const int iq = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int q_start = iq * BQ;
-  const int R = min(BQ, Sq - q_start);
-  const int off = Skv - Sq;
-  const int tid = threadIdx.x;
-  const int KS = D + 1;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;               // BQ x D
-  float* do_s = q_s + BQ * D;      // BQ x D
-  float* acc = do_s + BQ * D;      // BQ x D
-  float* k_s = acc + BQ * D;       // BK x KS
-  float* v_s = k_s + BK * KS;      // BK x KS
-  float* ds_s = v_s + BK * KS;     // BQ x BK
-  float* lse_s = ds_s + BQ * BK;   // BQ
-  float* dl_s = lse_s + BQ;        // BQ
-  int* qseg_s = reinterpret_cast<int*>(dl_s + BQ);  // BQ
-  int* kseg_s = qseg_s + BQ;                        // BK
-
-  const size_t bh = (size_t)b * H + h;
-  const size_t row0 = bh * Sq + q_start;
-  load_rows(q_s, D, q + row0 * D, R, R, D, tid);
-  load_rows(do_s, D, dout + row0 * D, R, R, D, tid);
-  for (int e = tid; e < R * D; e += THREADS) acc[e] = 0.f;
-  for (int r = tid; r < R; r += THREADS) {
-    lse_s[r] = lse[row0 + r];
-    dl_s[r] = delta[row0 + r];
-    if (SEG) qseg_s[r] = qseg[(size_t)b * Sq + q_start + r];
-  }
-  const T* kb = k + bh * Skv * D;
-  const T* vb = v + bh * Skv * D;
-
-  const int nk = (Skv + BK - 1) / BK;
-  for (int ik = 0; ik < nk; ++ik) {
-    const int k_start = ik * BK;
-    if (!tile_runs(q_start, R, k_start, off, causal, window)) continue;  // block-uniform
-    const int C = min(BK, Skv - k_start);
-    __syncthreads();  // the previous tile's readers are done
-    load_rows(k_s, KS, kb + (size_t)k_start * D, BK, C, D, tid);
-    load_rows(v_s, KS, vb + (size_t)k_start * D, BK, C, D, tid);
-    if (SEG) {
-      for (int j = tid; j < BK; j += THREADS) {
-        kseg_s[j] = j < C ? kseg[(size_t)b * Skv + k_start + j] : 0;
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < R * BK; e += THREADS) {
-      const int r = e / BK;
-      const int j = e - r * BK;
-      float ds = 0.f;
-      if (j < C && lse_s[r] > NEG_INF / 2 &&
-          visible<SEG>(q_start + r + off, k_start + j, causal, window,
-                       SEG ? qseg_s[r] : 0, SEG ? kseg_s[j] : 0)) {
-        const float* qr = q_s + r * D;
-        const float* dr = do_s + r * D;
-        const float* kr = k_s + j * KS;
-        const float* vr = v_s + j * KS;
-        float s = 0.f, dp = 0.f;
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(qr[d], kr[d], s);
-          dp = fmaf(dr[d], vr[d], dp);
-        }
-        const float p = expf(s * scale - lse_s[r]);
-        ds = round_to<T>(p * (dp - dl_s[r]) * scale);
-      }
-      ds_s[e] = ds;
-    }
-    __syncthreads();
-    for (int e = tid; e < R * D; e += THREADS) {
-      const int r = e / D;
-      const int d = e - r * D;
-      const float* dsr = ds_s + r * BK;
-      float sum = 0.f;
-      for (int j = 0; j < BK; ++j) sum = fmaf(dsr[j], k_s[j * KS + d], sum);
-      acc[e] += sum;
-    }
-  }
-  __syncthreads();
-  float* dqb = dq + row0 * D;
-  for (int e = tid; e < R * D; e += THREADS) dqb[e] = acc[e];
-}
-
-template <typename T, bool SEG>
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ qseg,
-    const int* __restrict__ kseg,
-    float* __restrict__ dk, float* __restrict__ dv,  // (B, H, Skv, D)
-    int H, int Sq, int Skv, int D, int causal, int window, float scale) {
-  const int ik = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k_start = ik * BK;
-  const int C = min(BK, Skv - k_start);
-  const int off = Skv - Sq;
-  const int tid = threadIdx.x;
-  const int KS = D + 1;
-
-  extern __shared__ float smem[];
-  float* k_s = smem;               // BK x KS
-  float* v_s = k_s + BK * KS;      // BK x KS
-  float* dk_acc = v_s + BK * KS;   // BK x D
-  float* dv_acc = dk_acc + BK * D; // BK x D
-  float* q_s = dv_acc + BK * D;    // BQ x D
-  float* do_s = q_s + BQ * D;      // BQ x D
-  float* p_s = do_s + BQ * D;      // BQ x BK, p rounded to dO's dtype
-  float* ds_s = p_s + BQ * BK;     // BQ x BK
-  float* lse_s = ds_s + BQ * BK;   // BQ
-  float* dl_s = lse_s + BQ;        // BQ
-  int* qseg_s = reinterpret_cast<int*>(dl_s + BQ);  // BQ
-  int* kseg_s = qseg_s + BQ;                        // BK
-
-  const size_t bh = (size_t)b * H + h;
-  const size_t krow0 = bh * Skv + k_start;
-  load_rows(k_s, KS, k + krow0 * D, BK, C, D, tid);
-  load_rows(v_s, KS, v + krow0 * D, BK, C, D, tid);
-  for (int e = tid; e < BK * D; e += THREADS) {
-    dk_acc[e] = 0.f;
-    dv_acc[e] = 0.f;
-  }
-  if (SEG) {
-    for (int j = tid; j < BK; j += THREADS) {
-      kseg_s[j] = j < C ? kseg[(size_t)b * Skv + k_start + j] : 0;
-    }
-  }
-
-  const int nq = (Sq + BQ - 1) / BQ;
-  for (int iq = 0; iq < nq; ++iq) {
-    const int q_start = iq * BQ;
-    const int R = min(BQ, Sq - q_start);
-    if (!tile_runs(q_start, R, k_start, off, causal, window)) continue;  // block-uniform
-    const size_t row0 = bh * Sq + q_start;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows(q_s, D, q + row0 * D, R, R, D, tid);
-    load_rows(do_s, D, dout + row0 * D, R, R, D, tid);
-    for (int r = tid; r < R; r += THREADS) {
-      lse_s[r] = lse[row0 + r];
-      dl_s[r] = delta[row0 + r];
-      if (SEG) qseg_s[r] = qseg[(size_t)b * Sq + q_start + r];
-    }
-    __syncthreads();
-    for (int e = tid; e < R * BK; e += THREADS) {
-      const int r = e / BK;
-      const int j = e - r * BK;
-      float p = 0.f, ds = 0.f;
-      if (j < C && lse_s[r] > NEG_INF / 2 &&
-          visible<SEG>(q_start + r + off, k_start + j, causal, window,
-                       SEG ? qseg_s[r] : 0, SEG ? kseg_s[j] : 0)) {
-        const float* qr = q_s + r * D;
-        const float* dr = do_s + r * D;
-        const float* kr = k_s + j * KS;
-        const float* vr = v_s + j * KS;
-        float s = 0.f, dp = 0.f;
-        for (int d = 0; d < D; ++d) {
-          s = fmaf(qr[d], kr[d], s);
-          dp = fmaf(dr[d], vr[d], dp);
-        }
-        p = expf(s * scale - lse_s[r]);
-        ds = round_to<T>(p * (dp - dl_s[r]) * scale);
-      }
-      p_s[e] = round_to<T>(p);  // p.astype(do.dtype) for dv
-      ds_s[e] = ds;
-    }
-    __syncthreads();
-    for (int e = tid; e < BK * D; e += THREADS) {
-      const int j = e / D;
-      const int d = e - j * D;
-      float sv = 0.f, sk = 0.f;
-      for (int r = 0; r < R; ++r) {
-        sv = fmaf(p_s[r * BK + j], do_s[r * D + d], sv);
-        sk = fmaf(ds_s[r * BK + j], q_s[r * D + d], sk);
-      }
-      dv_acc[e] += sv;
-      dk_acc[e] += sk;
-    }
-  }
-  __syncthreads();
-  float* dkb = dk + krow0 * D;
-  float* dvb = dv + krow0 * D;
-  for (int e = tid; e < C * D; e += THREADS) {
-    dkb[e] = dk_acc[e];
-    dvb[e] = dv_acc[e];
-  }
-}
-
-size_t dq_smem(int D) {
-  return sizeof(float) * (3 * BQ * D + 2 * BK * (D + 1) + BQ * BK + 2 * BQ) +
-         sizeof(int) * (BQ + BK);
-}
-
-size_t dkv_smem(int D) {
-  return sizeof(float) * (2 * BK * (D + 1) + 2 * BK * D + 2 * BQ * D +
-                          2 * BQ * BK + 2 * BQ) +
-         sizeof(int) * (BQ + BK);
-}
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -359,34 +162,566 @@ cudaError_t prepare(K kern, size_t smem) {
                               (int)smem);
 }
 
-template <typename T, bool SEG>
-cudaError_t launch_dq(const Args& a, float* dq) {
-  auto kern = flash_bwd_dq_kernel<T, SEG>;
-  const size_t smem = dq_smem(a.D);
+// ------------------------------------------------------------- fma bodies
+
+using fma_tile::FULL;
+using fma_tile::part;
+constexpr int FMA_THREADS = fma_tile::THREADS;  // 4 warps
+constexpr int FMA_BT = fma_tile::BK;  // rows of a streamed tile: keys (dq), queries (dk/dv)
+constexpr int DQ_RPW = 8;             // dq: query rows a warp
+constexpr int DKV_KPW = 8;            // dk/dv: keys a warp
+// row stride (floats) of a warp's ds / p tile; at + 8 its writes would
+// not conflict, but dq would no longer fit 4 blocks an SM
+constexpr int FMA_PST = FMA_BT + 4;
+constexpr size_t SM_SMEM = 233472;    // shared memory of an SM; a block reserves 1 KB more
+
+// bytes of the dq body's shared memory at head-dim tile DP: the q and dO
+// tiles, 2-stage K and V rings (rows of DP + 4 floats), one ds tile a
+// warp and a 2-stage ring of kv segment ids
+__host__ __device__ constexpr size_t dq_fma_smem(int DP) {
+  return sizeof(float) * ((size_t)2 * DQ_RPW * fma_tile::WARPS * (DP + 4) +
+                          (size_t)4 * FMA_BT * (DP + 4) +
+                          (size_t)DQ_RPW * fma_tile::WARPS * FMA_PST) +
+         sizeof(int) * 2 * FMA_BT;
+}
+
+// dk/dv: the K and V tiles, 2-stage q and dO rings, a p and a ds tile a
+// warp, 2-stage rings of lse, delta and q segment ids
+__host__ __device__ constexpr size_t dkv_fma_smem(int DP) {
+  return sizeof(float) * ((size_t)2 * DKV_KPW * fma_tile::WARPS * (DP + 4) +
+                          (size_t)4 * FMA_BT * (DP + 4) +
+                          (size_t)2 * DKV_KPW * fma_tile::WARPS * FMA_PST +
+                          (size_t)4 * FMA_BT) +
+         sizeof(int) * 2 * FMA_BT;
+}
+
+__host__ __device__ constexpr int blocks_per_sm(size_t smem) {
+  return (int)(SM_SMEM / (smem + 1024));
+}
+
+template <typename T, int DP, bool SEG>
+__global__ void __launch_bounds__(FMA_THREADS, blocks_per_sm(dq_fma_smem(DP)))
+flash_bwd_dq_fma_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout,          // (B, H, Sq, D)
+    const float* __restrict__ lse,       // (B, H, Sq)
+    const float* __restrict__ delta,     // (B, H, Sq)
+    const int* __restrict__ qseg, const int* __restrict__ kseg,
+    float* __restrict__ dq,              // (B, H, Sq, D)
+    int H, int Sq, int Skv, int D, int causal, int window, float scale, int vec) {
+  constexpr int ST = DP + 4;           // row stride: the 4 rows or 8 keys one load
+                                       // reads fall in distinct 16-byte bank groups
+  constexpr int NC = DP / 32;          // float4 dQ chunks a lane: kg + 8c
+  constexpr int RI = DQ_RPW / 4;       // query rows a lane: rg + 4i
+  constexpr int BR = DQ_RPW * fma_tile::WARPS;  // query rows a block
+  static_assert(blocks_per_sm(dq_fma_smem(DP)) >= 1, "a block fits an SM");
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int iq = gridDim.z - 1 - blockIdx.z;  // most kv tiles first
+  const int q_start = iq * BR;
+  const int R = min(BR, Sq - q_start);
+  const int off = Skv - Sq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int rg = lane >> 3;  // this lane's rows: rg + 4i of its warp's DQ_RPW
+  const int kg = lane & 7;   // its keys: kg + 8jj of a tile; its dQ chunks kg + 8c
+  const int w0 = warp * DQ_RPW;
+  const bool vec4 = vec != 0;
+
+  extern __shared__ __align__(16) float fsmem[];
+  float* q_s = fsmem;                     // BR x ST
+  float* do_s = q_s + BR * ST;            // BR x ST
+  float* k_s = do_s + BR * ST;            // 2 stages x FMA_BT x ST
+  float* v_s = k_s + 2 * FMA_BT * ST;     // 2 stages x FMA_BT x ST
+  float* ds_s = v_s + 2 * FMA_BT * ST;    // BR x FMA_PST, DQ_RPW rows a warp
+  int* kseg_s = reinterpret_cast<int*>(ds_s + BR * FMA_PST);  // 2 stages x FMA_BT
+  float* ds_w = ds_s + w0 * FMA_PST;      // this warp's ds tile
+
+  const size_t bh = (size_t)b * H + h;
+  const size_t row0 = bh * Sq + q_start;
+  const T* kb = k + bh * Skv * D;
+  const T* vb = v + bh * Skv * D;
+
+  // the kv tiles that run (causal and window skips) form one range [lo, hi]
+  const int nk = (Skv + FMA_BT - 1) / FMA_BT;
+  int lo = nk, hi = -1;
+  for (int ik = 0; ik < nk; ++ik) {
+    if (fma_tile::tile_runs(q_start, R, ik * FMA_BT, off, causal, window)) {
+      lo = min(lo, ik);
+      hi = ik;
+    }
+  }
+
+  auto load_kv = [&](int ik, int st) {
+    const int k0 = ik * FMA_BT;
+    const int C = min(FMA_BT, Skv - k0);
+    fma_tile::load<T, FMA_BT, DP, ST>(k_s + st * FMA_BT * ST, kb + (size_t)k0 * D, C, D,
+                                      vec4, tid);
+    fma_tile::load<T, FMA_BT, DP, ST>(v_s + st * FMA_BT * ST, vb + (size_t)k0 * D, C, D,
+                                      vec4, tid);
+    if (SEG) {
+      tile::load_words<FMA_THREADS>(tile::smem_addr(kseg_s + st * FMA_BT),
+                                    kseg + (size_t)b * Skv + k0, FMA_BT, C, tid);
+    }
+  };
+  fma_tile::load<T, BR, DP, ST>(q_s, q + row0 * D, R, D, vec4, tid);
+  fma_tile::load<T, BR, DP, ST>(do_s, dout + row0 * D, R, D, vec4, tid);
+  if (lo <= hi) load_kv(lo, 0);
+  tile::cp_async_commit();
+
+  // this lane's rows; past R the lse sentinel keeps a row dead
+  float ls[RI], dl[RI];
+  int qs[RI], qpos[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int lr = w0 + rg + 4 * i;
+    const bool in = lr < R;
+    ls[i] = in ? lse[row0 + lr] : NEG_INF;
+    dl[i] = in ? delta[row0 + lr] : 0.f;
+    qpos[i] = q_start + lr + off;
+    qs[i] = SEG && in ? qseg[(size_t)b * Sq + q_start + lr] : 0;
+  }
+
+  float4 acc[RI][NC];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) acc[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  for (int ik = lo; ik <= hi; ++ik) {
+    const int st = (ik - lo) & 1;
+    if (ik < hi) {
+      load_kv(ik + 1, st ^ 1);
+      tile::cp_async_commit();
+      tile::cp_async_wait<1>();
+    } else {
+      tile::cp_async_wait<0>();
+    }
+    __syncthreads();  // kv tile ik (and q, dO) have landed for every thread
+    const int k_start = ik * FMA_BT;
+    const int C = min(FMA_BT, Skv - k_start);
+
+    // this lane's visible pairs of live rows, bit 4i + jj
+    unsigned vis = 0;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int kj = kg + 8 * jj;
+        if (ls[i] > NEG_INF / 2 && kj < C &&
+            visible<SEG>(qpos[i], k_start + kj, causal, window, qs[i],
+                         SEG ? kseg_s[st * FMA_BT + kj] : 0)) {
+          vis |= 1u << (4 * i + jj);
+        }
+      }
+    }
+    if (__any_sync(FULL, vis != 0)) {  // warp-uniform: else p = ds = 0 here
+      // S = Q.K^T and dP = dO.V^T: RI x 4 micro-tiles of outer products
+      // over d from 16-byte loads
+      float s[RI][4], dp[RI][4];
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+      }
+      const float* qr = q_s + (w0 + rg) * ST;
+      const float* gr = do_s + (w0 + rg) * ST;
+      const float* kr = k_s + (st * FMA_BT + kg) * ST;
+      const float* vr = v_s + (st * FMA_BT + kg) * ST;
+#pragma unroll
+      for (int c = 0; c < DP / 4; ++c) {
+        float4 a[RI], g[RI], bk[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(qr + 4 * i * ST + 4 * c);
+          g[i] = *reinterpret_cast<const float4*>(gr + 4 * i * ST + 4 * c);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          bk[jj] = *reinterpret_cast<const float4*>(kr + 8 * jj * ST + 4 * c);
+          bv[jj] = *reinterpret_cast<const float4*>(vr + 8 * jj * ST + 4 * c);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              s[i][jj] = fmaf(part(a[i], e), part(bk[jj], e), s[i][jj]);
+              dp[i][jj] = fmaf(part(g[i], e), part(bv[jj], e), dp[i][jj]);
+            }
+          }
+        }
+      }
+
+      // p = exp(s * scale - lse), 0 where masked, ragged or dead;
+      // ds = p * (dp - delta) * scale rounded to q's dtype, in the twin's
+      // order, into the warp's ds tile
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const float p = (vis >> (4 * i + jj)) & 1u ? expf(s[i][jj] * scale - ls[i]) : 0.f;
+          ds_w[(rg + 4 * i) * FMA_PST + kg + 8 * jj] =
+              round_to<T>(p * (dp[i][jj] - dl[i]) * scale);
+        }
+      }
+      __syncwarp();
+
+      // dQ += dS.K (K rows past the tile's keys are zeros, as their ds)
+      const float* dr = ds_w + rg * FMA_PST;
+      const float* kc = k_s + st * FMA_BT * ST + 4 * kg;
+#pragma unroll
+      for (int j = 0; j < FMA_BT; j += 4) {
+        float4 pp[RI];
+#pragma unroll
+        for (int i = 0; i < RI; ++i) {
+          pp[i] = *reinterpret_cast<const float4*>(dr + 4 * i * FMA_PST + j);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float4 kk = *reinterpret_cast<const float4*>(kc + (j + jj) * ST + 32 * c);
+#pragma unroll
+            for (int i = 0; i < RI; ++i) {
+              const float x = part(pp[i], jj);
+              acc[i][c].x = fmaf(x, kk.x, acc[i][c].x);
+              acc[i][c].y = fmaf(x, kk.y, acc[i][c].y);
+              acc[i][c].z = fmaf(x, kk.z, acc[i][c].z);
+              acc[i][c].w = fmaf(x, kk.w, acc[i][c].w);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage st and the ds tiles are free for the next tiles
+  }
+
+  tile::cp_async_wait<0>();  // the q/dO copies, when no kv tile ran
+  float* dqb = dq + row0 * D;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int lr = w0 + rg + 4 * i;
+    if (lr >= R) continue;
+    float* row = dqb + (size_t)lr * D;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = 4 * (kg + 8 * c);
+      if (vec4) {
+        if (col < D) *reinterpret_cast<float4*>(row + col) = acc[i][c];
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < D) row[col + e] = part(acc[i][c], e);
+      }
+    }
+  }
+}
+
+template <typename T, int DP, bool SEG>
+__global__ void __launch_bounds__(FMA_THREADS, blocks_per_sm(dkv_fma_smem(DP)))
+flash_bwd_dkv_fma_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const T* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ qseg,
+    const int* __restrict__ kseg,
+    float* __restrict__ dk, float* __restrict__ dv,  // (B, H, Skv, D)
+    int H, int Sq, int Skv, int D, int causal, int window, float scale, int vec) {
+  constexpr int ST = DP + 4;           // row stride, as in dq
+  constexpr int NC = DP / 32;          // float4 dK / dV chunks a lane: qg + 8c
+  constexpr int KI = DKV_KPW / 4;      // keys a lane: kr + 4i
+  constexpr int BC = DKV_KPW * fma_tile::WARPS;  // keys a block
+  static_assert(blocks_per_sm(dkv_fma_smem(DP)) >= 1, "a block fits an SM");
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int ik = blockIdx.z;  // causal: the kv tiles seen by the most q tiles first
+  const int k_start = ik * BC;
+  const int C = min(BC, Skv - k_start);
+  const int off = Skv - Sq;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int kr = lane >> 3;  // this lane's keys: kr + 4i of its warp's DKV_KPW
+  const int qg = lane & 7;   // its queries: qg + 8jj of a tile; its d chunks qg + 8c
+  const int w0 = warp * DKV_KPW;
+  const bool vec4 = vec != 0;
+
+  extern __shared__ __align__(16) float fsmem[];
+  float* k_s = fsmem;                     // BC x ST
+  float* v_s = k_s + BC * ST;             // BC x ST
+  float* q_s = v_s + BC * ST;             // 2 stages x FMA_BT x ST
+  float* do_s = q_s + 2 * FMA_BT * ST;    // 2 stages x FMA_BT x ST
+  float* p_s = do_s + 2 * FMA_BT * ST;    // BC x FMA_PST, DKV_KPW keys a warp
+  float* ds_s = p_s + BC * FMA_PST;       // BC x FMA_PST
+  float* lse_s = ds_s + BC * FMA_PST;     // 2 stages x FMA_BT
+  float* dl_s = lse_s + 2 * FMA_BT;       // 2 stages x FMA_BT
+  int* qseg_s = reinterpret_cast<int*>(dl_s + 2 * FMA_BT);  // 2 stages x FMA_BT
+  float* p_w = p_s + w0 * FMA_PST;        // this warp's P^T tile
+  float* ds_w = ds_s + w0 * FMA_PST;      // this warp's dS^T tile
+
+  const size_t bh = (size_t)b * H + h;
+  const size_t krow0 = bh * Skv + k_start;
+
+  // the q tiles that run form one range [lo, hi]
+  const int nq = (Sq + FMA_BT - 1) / FMA_BT;
+  int lo = nq, hi = -1;
+  for (int iq = 0; iq < nq; ++iq) {
+    if (fma_tile::tile_runs(iq * FMA_BT, min(FMA_BT, Sq - iq * FMA_BT), k_start, off, causal,
+                            window)) {
+      lo = min(lo, iq);
+      hi = iq;
+    }
+  }
+
+  auto load_q = [&](int iq, int st) {
+    const int q_start = iq * FMA_BT;
+    const int R = min(FMA_BT, Sq - q_start);
+    const size_t row0 = bh * Sq + q_start;
+    fma_tile::load<T, FMA_BT, DP, ST>(q_s + st * FMA_BT * ST, q + row0 * D, R, D, vec4, tid);
+    fma_tile::load<T, FMA_BT, DP, ST>(do_s + st * FMA_BT * ST, dout + row0 * D, R, D, vec4,
+                                      tid);
+    tile::load_words<FMA_THREADS>(tile::smem_addr(lse_s + st * FMA_BT), lse + row0, FMA_BT,
+                                  R, tid);
+    tile::load_words<FMA_THREADS>(tile::smem_addr(dl_s + st * FMA_BT), delta + row0, FMA_BT,
+                                  R, tid);
+    if (SEG) {
+      tile::load_words<FMA_THREADS>(tile::smem_addr(qseg_s + st * FMA_BT),
+                                    qseg + (size_t)b * Sq + q_start, FMA_BT, R, tid);
+    }
+  };
+  fma_tile::load<T, BC, DP, ST>(k_s, k + krow0 * D, C, D, vec4, tid);
+  fma_tile::load<T, BC, DP, ST>(v_s, v + krow0 * D, C, D, vec4, tid);
+  if (lo <= hi) load_q(lo, 0);
+  tile::cp_async_commit();
+
+  // this lane's keys
+  bool kin[KI];
+  int kpos[KI], ks[KI];
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    const int key = w0 + kr + 4 * i;
+    kin[i] = key < C;
+    kpos[i] = k_start + key;
+    ks[i] = SEG && kin[i] ? kseg[(size_t)b * Skv + k_start + key] : 0;
+  }
+
+  float4 dka[KI][NC], dva[KI][NC];
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      dka[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+      dva[i][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+
+  for (int iq = lo; iq <= hi; ++iq) {
+    const int st = (iq - lo) & 1;
+    if (iq < hi) {
+      load_q(iq + 1, st ^ 1);
+      tile::cp_async_commit();
+      tile::cp_async_wait<1>();
+    } else {
+      tile::cp_async_wait<0>();
+    }
+    __syncthreads();  // q tile iq (and K, V) have landed for every thread
+    const int q_start = iq * FMA_BT;
+    const int R = min(FMA_BT, Sq - q_start);
+    const float* lse_t = lse_s + st * FMA_BT;
+    const float* dl_t = dl_s + st * FMA_BT;
+
+    // this lane's visible pairs with live queries, bit 4i + jj
+    unsigned vis = 0;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int qc = qg + 8 * jj;
+      const bool qok = qc < R && lse_t[qc] > NEG_INF / 2;
+      const int qsg = SEG ? qseg_s[st * FMA_BT + qc] : 0;
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+        if (qok && kin[i] &&
+            visible<SEG>(q_start + qc + off, kpos[i], causal, window, qsg, ks[i])) {
+          vis |= 1u << (4 * i + jj);
+        }
+      }
+    }
+    if (__any_sync(FULL, vis != 0)) {  // warp-uniform: else p = ds = 0 here
+      // S^T = K.Q^T and dP^T = V.dO^T: KI x 4 micro-tiles over d
+      float s[KI][4], dp[KI][4];
+#pragma unroll
+      for (int i = 0; i < KI; ++i) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) s[i][jj] = dp[i][jj] = 0.f;
+      }
+      const float* ar = k_s + (w0 + kr) * ST;
+      const float* gr = v_s + (w0 + kr) * ST;
+      const float* qr = q_s + (st * FMA_BT + qg) * ST;
+      const float* orr = do_s + (st * FMA_BT + qg) * ST;
+#pragma unroll
+      for (int c = 0; c < DP / 4; ++c) {
+        float4 a[KI], g[KI], bq[4], bo[4];
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          a[i] = *reinterpret_cast<const float4*>(ar + 4 * i * ST + 4 * c);
+          g[i] = *reinterpret_cast<const float4*>(gr + 4 * i * ST + 4 * c);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          bq[jj] = *reinterpret_cast<const float4*>(qr + 8 * jj * ST + 4 * c);
+          bo[jj] = *reinterpret_cast<const float4*>(orr + 8 * jj * ST + 4 * c);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+#pragma unroll
+          for (int i = 0; i < KI; ++i) {
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) {
+              s[i][jj] = fmaf(part(a[i], e), part(bq[jj], e), s[i][jj]);
+              dp[i][jj] = fmaf(part(g[i], e), part(bo[jj], e), dp[i][jj]);
+            }
+          }
+        }
+      }
+
+      // P^T = exp(S^T * scale - lse), 0 where masked, ragged or dead;
+      // dS^T = P^T * (dP^T - delta) * scale, in the twin's order; P^T
+      // rounded to dO's dtype and dS^T to q's into the warp's tiles
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int qc = qg + 8 * jj;
+        const float l = lse_t[qc];
+        const float dlt = dl_t[qc];
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          const float p = (vis >> (4 * i + jj)) & 1u ? expf(s[i][jj] * scale - l) : 0.f;
+          p_w[(kr + 4 * i) * FMA_PST + qc] = round_to<T>(p);
+          ds_w[(kr + 4 * i) * FMA_PST + qc] = round_to<T>(p * (dp[i][jj] - dlt) * scale);
+        }
+      }
+      __syncwarp();
+
+      // dV += P^T.dO and dK += dS^T.Q (rows past R are zeros, as their p)
+      const float* pr = p_w + kr * FMA_PST;
+      const float* sr = ds_w + kr * FMA_PST;
+      const float* qcol = q_s + st * FMA_BT * ST + 4 * qg;
+      const float* ocol = do_s + st * FMA_BT * ST + 4 * qg;
+#pragma unroll
+      for (int j = 0; j < FMA_BT; j += 4) {
+        float4 pp[KI], ss[KI];
+#pragma unroll
+        for (int i = 0; i < KI; ++i) {
+          pp[i] = *reinterpret_cast<const float4*>(pr + 4 * i * FMA_PST + j);
+          ss[i] = *reinterpret_cast<const float4*>(sr + 4 * i * FMA_PST + j);
+        }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const float4 od = *reinterpret_cast<const float4*>(ocol + (j + jj) * ST + 32 * c);
+            const float4 qq = *reinterpret_cast<const float4*>(qcol + (j + jj) * ST + 32 * c);
+#pragma unroll
+            for (int i = 0; i < KI; ++i) {
+              const float x = part(pp[i], jj);
+              const float y = part(ss[i], jj);
+              dva[i][c].x = fmaf(x, od.x, dva[i][c].x);
+              dva[i][c].y = fmaf(x, od.y, dva[i][c].y);
+              dva[i][c].z = fmaf(x, od.z, dva[i][c].z);
+              dva[i][c].w = fmaf(x, od.w, dva[i][c].w);
+              dka[i][c].x = fmaf(y, qq.x, dka[i][c].x);
+              dka[i][c].y = fmaf(y, qq.y, dka[i][c].y);
+              dka[i][c].z = fmaf(y, qq.z, dka[i][c].z);
+              dka[i][c].w = fmaf(y, qq.w, dka[i][c].w);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage st and the p / ds tiles are free for the next tiles
+  }
+
+  tile::cp_async_wait<0>();  // the K/V copies, when no q tile ran
+  float* dkb = dk + krow0 * D;
+  float* dvb = dv + krow0 * D;
+#pragma unroll
+  for (int i = 0; i < KI; ++i) {
+    const int key = w0 + kr + 4 * i;
+    if (key >= C) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = 4 * (qg + 8 * c);
+      const size_t at = (size_t)key * D + col;
+      if (vec4) {
+        if (col < D) {
+          *reinterpret_cast<float4*>(dkb + at) = dka[i][c];
+          *reinterpret_cast<float4*>(dvb + at) = dva[i][c];
+        }
+        continue;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < D) {
+          dkb[at + e] = part(dka[i][c], e);
+          dvb[at + e] = part(dva[i][c], e);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int DP, bool SEG>
+cudaError_t launch_dq_fma(const Args& a, float* dq, int vec) {
+  auto kern = flash_bwd_dq_fma_kernel<T, DP, SEG>;
+  const size_t smem = dq_fma_smem(DP);
   cudaError_t err = prepare(kern, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, a.B);
-  kern<<<grid, THREADS, smem, a.stream>>>(
+  constexpr int BR = DQ_RPW * fma_tile::WARPS;
+  const dim3 grid(a.H, a.B, (a.Sq + BR - 1) / BR);
+  kern<<<grid, FMA_THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.qseg, a.kseg, dq, a.H, a.Sq, a.Skv, a.D, a.causal, a.window,
-      a.scale);
+      a.scale, vec);
   return cudaGetLastError();
 }
 
-template <typename T, bool SEG>
-cudaError_t launch_dkv(const Args& a, float* dk, float* dv) {
-  auto kern = flash_bwd_dkv_kernel<T, SEG>;
-  const size_t smem = dkv_smem(a.D);
+template <typename T>
+cudaError_t launch_dq_fma_any(const Args& a, float* dq, int vec) {
+  const bool seg = a.qseg != nullptr;
+  if (a.D <= 64) {
+    return seg ? launch_dq_fma<T, 64, true>(a, dq, vec) : launch_dq_fma<T, 64, false>(a, dq, vec);
+  }
+  return seg ? launch_dq_fma<T, 128, true>(a, dq, vec) : launch_dq_fma<T, 128, false>(a, dq, vec);
+}
+
+template <typename T, int DP, bool SEG>
+cudaError_t launch_dkv_fma(const Args& a, float* dk, float* dv, int vec) {
+  auto kern = flash_bwd_dkv_fma_kernel<T, DP, SEG>;
+  const size_t smem = dkv_fma_smem(DP);
   cudaError_t err = prepare(kern, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Skv + BK - 1) / BK, a.H, a.B);
-  kern<<<grid, THREADS, smem, a.stream>>>(
+  constexpr int BC = DKV_KPW * fma_tile::WARPS;
+  const dim3 grid(a.H, a.B, (a.Skv + BC - 1) / BC);
+  kern<<<grid, FMA_THREADS, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
       a.delta, a.qseg, a.kseg, dk, dv, a.H, a.Sq, a.Skv, a.D, a.causal,
-      a.window, a.scale);
+      a.window, a.scale, vec);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dkv_fma_any(const Args& a, float* dk, float* dv, int vec) {
+  const bool seg = a.qseg != nullptr;
+  if (a.D <= 64) {
+    return seg ? launch_dkv_fma<T, 64, true>(a, dk, dv, vec)
+               : launch_dkv_fma<T, 64, false>(a, dk, dv, vec);
+  }
+  return seg ? launch_dkv_fma<T, 128, true>(a, dk, dv, vec)
+             : launch_dkv_fma<T, 128, false>(a, dk, dv, vec);
 }
 
 // ---------------------------------------------------------- dk/dv mma body
@@ -887,13 +1222,14 @@ extern "C" int kft_flash_bwd_dq(KFT_BWD_ARGS, void* dq, KFT_BWD_DIMS) {
     return (int)(dtype == BF16 ? launch_dq_mma_any<__nv_bfloat16>(a, out)
                                : launch_dq_mma_any<__half>(a, out));
   }
-  const bool seg = a.qseg != nullptr;
+  if (D > 128) return (int)cudaErrorInvalidValue;
+  // rows of whole 16-byte chunks: 16-byte f32 copies and stores
+  const int vec = D % 4 == 0 && tile::aligned16(q) && tile::aligned16(k) &&
+                  tile::aligned16(v) && tile::aligned16(dout) && tile::aligned16(dq);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == F32) err = seg ? launch_dq<float, true>(a, out) : launch_dq<float, false>(a, out);
-  if (dtype == BF16) {
-    err = seg ? launch_dq<__nv_bfloat16, true>(a, out) : launch_dq<__nv_bfloat16, false>(a, out);
-  }
-  if (dtype == F16) err = seg ? launch_dq<__half, true>(a, out) : launch_dq<__half, false>(a, out);
+  if (dtype == F32) err = launch_dq_fma_any<float>(a, out, vec);
+  if (dtype == BF16) err = launch_dq_fma_any<__nv_bfloat16>(a, out, vec);
+  if (dtype == F16) err = launch_dq_fma_any<__half>(a, out, vec);
   return (int)err;
 }
 
@@ -914,18 +1250,15 @@ extern "C" int kft_flash_bwd_dkv(KFT_BWD_ARGS, void* dk, void* dv,
     return (int)(dtype == BF16 ? launch_dkv_mma_any<__nv_bfloat16>(a, gk, gv)
                                : launch_dkv_mma_any<__half>(a, gk, gv));
   }
-  const bool seg = a.qseg != nullptr;
+  if (D > 128) return (int)cudaErrorInvalidValue;
+  // rows of whole 16-byte chunks: 16-byte f32 copies and stores
+  const int vec = D % 4 == 0 && tile::aligned16(q) && tile::aligned16(k) &&
+                  tile::aligned16(v) && tile::aligned16(dout) && tile::aligned16(dk) &&
+                  tile::aligned16(dv);
   cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == F32) {
-    err = seg ? launch_dkv<float, true>(a, gk, gv) : launch_dkv<float, false>(a, gk, gv);
-  }
-  if (dtype == BF16) {
-    err = seg ? launch_dkv<__nv_bfloat16, true>(a, gk, gv)
-              : launch_dkv<__nv_bfloat16, false>(a, gk, gv);
-  }
-  if (dtype == F16) {
-    err = seg ? launch_dkv<__half, true>(a, gk, gv) : launch_dkv<__half, false>(a, gk, gv);
-  }
+  if (dtype == F32) err = launch_dkv_fma_any<float>(a, gk, gv, vec);
+  if (dtype == BF16) err = launch_dkv_fma_any<__nv_bfloat16>(a, gk, gv, vec);
+  if (dtype == F16) err = launch_dkv_fma_any<__half>(a, gk, gv, vec);
   return (int)err;
 }
 

@@ -17,9 +17,9 @@ counts it) and ``csrc/flash_attention_bwd.cu`` (dq and dk/dv, counted by
 Each kernel has two bodies, chosen by dtype and head dim alone
 (:func:`tensor_cores`): tensor cores for bf16/f16 with D a multiple of 16
 up to 128, f32 arithmetic otherwise (f32 inputs stay exact f32; a
-tensor-core f32 product would be TF32). The forward's f32 body is the
-register-tiled ``"fma"`` one (:func:`body`), the backward's the
-``"scalar"`` ones (``flash_attention_bwd.dq_body`` / ``dkv_body``).
+tensor-core f32 product would be TF32): the register-tiled ``"fma"``
+bodies, in the forward (:func:`body`) as in dq and dk/dv
+(``flash_attention_bwd.dq_body`` / ``dkv_body``).
 """
 
 from __future__ import annotations

@@ -246,9 +246,9 @@ BODY_CASES = [
     (torch.bfloat16, 16, "mma", "mma"), (torch.bfloat16, 64, "mma", "mma"),
     (torch.bfloat16, 128, "mma", "mma"), (torch.float16, 16, "mma", "mma"),
     (torch.float16, 64, "mma", "mma"), (torch.float16, 128, "mma", "mma"),
-    (torch.float32, 64, "fma", "scalar"), (torch.float32, 128, "fma", "scalar"),
-    (torch.bfloat16, 40, "fma", "scalar"), (torch.float16, 40, "fma", "scalar"),
-    (torch.bfloat16, 8, "fma", "scalar"),
+    (torch.float32, 64, "fma", "fma"), (torch.float32, 128, "fma", "fma"),
+    (torch.bfloat16, 40, "fma", "fma"), (torch.float16, 40, "fma", "fma"),
+    (torch.bfloat16, 8, "fma", "fma"),
 ]
 
 
@@ -258,8 +258,8 @@ def test_kernel_body_dispatch(dtype, head_dim, fwd, bwd):
     """The Python mirror of the C entry points' choice of body: tensor
     cores for bf16/f16 with D a multiple of 16 up to 128; otherwise f32
     arithmetic (a tensor-core f32 product would be TF32), the
-    register-tiled ``fma`` body in the forward and the ``scalar`` ones in
-    dq and dk/dv. The three kernels share the tensor-core rule."""
+    register-tiled ``fma`` bodies in the forward and in dq and dk/dv. The
+    three kernels share the tensor-core rule."""
     from kubeflow_tpu_torch.ops import flash_attention_bwd as tfb
 
     assert tfa.tensor_cores(dtype, head_dim) is (fwd == "mma")
@@ -268,24 +268,27 @@ def test_kernel_body_dispatch(dtype, head_dim, fwd, bwd):
     assert tfb.dkv_body(dtype, head_dim) == bwd
     assert tfa.LAUNCHES_BY_BODY.keys() == {"mma", "fma"}
     assert tfb.DQ_LAUNCHES_BY_BODY.keys() == tfb.DKV_LAUNCHES_BY_BODY.keys() \
-        == {"mma", "scalar"}
+        == {"mma", "fma"}
 
 
 def test_kernel_body_dispatch_matches_the_c_sources():
     """Both sources dispatch on the same condition the mirror states, and
     each of the three C entry points (forward, dq, dk/dv) takes its
-    tensor-core body on exactly that condition. Past that branch the
-    forward launches ``flash_fwd_fma_kernel`` for every dtype; the old
-    scalar forward is gone."""
+    tensor-core body on exactly that condition. Past that branch each
+    entry point launches its ``fma`` body for every dtype
+    (``flash_fwd_fma_kernel``, ``flash_bwd_dq_fma_kernel``,
+    ``flash_bwd_dkv_fma_kernel``); the old scalar kernels are gone."""
     import re
 
     rule = "(dtype == BF16 || dtype == F16) && D % 16 == 0 && D <= 128"
     for name in ("flash_attention", "flash_attention_bwd"):
         assert rule in (_build.CSRC / f"{name}.cu").read_text(), name
-    for name, entry, launcher in (
-        ("flash_attention", "kft_flash_forward", "launch_mma_any"),
-        ("flash_attention_bwd", "kft_flash_bwd_dq", "launch_dq_mma_any"),
-        ("flash_attention_bwd", "kft_flash_bwd_dkv", "launch_dkv_mma_any"),
+    for name, entry, launcher, fma in (
+        ("flash_attention", "kft_flash_forward", "launch_mma_any", "launch_fma_any"),
+        ("flash_attention_bwd", "kft_flash_bwd_dq", "launch_dq_mma_any",
+         "launch_dq_fma_any"),
+        ("flash_attention_bwd", "kft_flash_bwd_dkv", "launch_dkv_mma_any",
+         "launch_dkv_fma_any"),
     ):
         src = (_build.CSRC / f"{name}.cu").read_text()
         body = src[src.index(f'extern "C" int {entry}('):]
@@ -293,13 +296,16 @@ def test_kernel_body_dispatch_matches_the_c_sources():
         branch = re.search(r"if \(mma_body\(dtype, D\)\) \{(.*?)\n  \}", body, re.S)
         assert branch is not None, entry
         assert launcher in branch.group(1), entry
-        if entry == "kft_flash_forward":
-            rest = body[branch.end():]
-            for dt, ty in (("F32", "float"), ("BF16", "__nv_bfloat16"), ("F16", "__half")):
-                assert f"if (dtype == {dt}) err = launch_fma_any<{ty}>(" in rest, dt
+        rest = body[branch.end():]
+        for dt, ty in (("F32", "float"), ("BF16", "__nv_bfloat16"), ("F16", "__half")):
+            assert f"if (dtype == {dt}) err = {fma}<{ty}>(" in rest, (entry, dt)
     src = (_build.CSRC / "flash_attention.cu").read_text()
     assert "flash_fwd_fma_kernel<T, DP, SEG>" in src
     assert not re.search(r"\bflash_fwd_kernel\b", src)
+    src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert f"{kernel}_fma_kernel<T, DP, SEG>" in src
+        assert not re.search(rf"\b{kernel}_kernel\b", src), kernel
 
 
 def test_paged_kernel_body_and_shapes():
@@ -388,10 +394,22 @@ BWD_CASES = [
     # q segment 2 appears in no kv row: those query rows are dead (lse at
     # the -1e30 sentinel) and contribute exactly 0
     ("dead_rows", dict(causal=False, dead=True)),
+    # BERT's attention mask as segment ids (valid tokens 1, pads 0): the
+    # valid lengths cross the 32-wide tiles, row 0 has a single token, and
+    # its q tiles past the first are all padding
+    ("padding", dict(causal=False, pad=(1, 61))),
+    # a live segment inside one kv tile (keys 20..27) beside dead rows:
+    # skipping the tiles a warp's rows do not see must leave them exact
+    ("dead_rows_disjoint_tiles", dict(causal=False, disjoint=True)),
+    # kv segment 7 (keys 30..69, across three tiles) that no query has:
+    # those keys get dk = dv = 0 exactly, which the kernels' skip of tiles
+    # without a visible pair relies on
+    ("dead_keys", dict(causal=False, dead_keys=True)),
 ]
 
 
-def _bwd_inputs(name, *, seg=False, dead=False, B=2, H=2, S=96, D=32):
+def _bwd_inputs(name, *, seg=False, dead=False, pad=None, disjoint=False,
+                dead_keys=False, B=2, H=2, S=96, D=32):
     rng = np.random.default_rng(sum(map(ord, name)))
     q, k, v, dout = (rng.normal(size=(B, H, S, D)).astype(np.float32)
                      for _ in range(4))
@@ -405,6 +423,15 @@ def _bwd_inputs(name, *, seg=False, dead=False, B=2, H=2, S=96, D=32):
     if dead:
         kids = rng.integers(0, 2, size=(B, S)).astype(np.int32)
         qids = rng.integers(0, 3, size=(B, S)).astype(np.int32)
+    if pad is not None:
+        qids = kids = (np.arange(S)[None, :] < np.asarray(pad)[:, None]).astype(np.int32)
+    if disjoint:
+        qids, kids = _disjoint_ids(B, S)
+    if dead_keys:
+        qids = np.zeros((B, S), np.int32)
+        qids[:, 60:] = 1
+        kids = qids.copy()
+        kids[:, 30:70] = 7
     return q, k, v, dout, qids, kids
 
 
@@ -417,7 +444,7 @@ def test_flash_attention_bwd_reference_matches_jax_kernels(name, kw):
     causal = kw.get("causal", True)
     window = kw.get("window")
     q, k, v, dout, qids, kids = _bwd_inputs(
-        name, seg=kw.get("seg", False), dead=kw.get("dead", False))
+        name, **{k: v for k, v in kw.items() if k not in ("causal", "window")})
     jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, dout))
     jseg = {} if qids is None else dict(
         q_segment_ids=jnp.asarray(qids), kv_segment_ids=jnp.asarray(kids))
@@ -436,10 +463,15 @@ def test_flash_attention_bwd_reference_matches_jax_kernels(name, kw):
         assert g.dtype == torch.float32 and g.shape == q.shape
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5,
                                    rtol=0, err_msg=n)
-    if kw.get("dead"):
+    if kw.get("dead") or kw.get("disjoint"):
         dead = np.asarray(lse) <= tfa.NEG_INF / 2
         assert dead.any()
         assert (got[0].numpy()[dead] == 0).all()
+    if kw.get("dead_keys"):
+        keys = kids[:, None, :] == 7  # (B, 1, Skv): every head
+        keys = np.broadcast_to(keys, k.shape[:3])
+        for g, w in zip(got[1:], want[1:]):
+            assert (g.numpy()[keys] == 0).all() and (np.asarray(w)[keys] == 0).all()
 
 
 GRAD_CASES = [
