@@ -14,10 +14,12 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    dropped because the enqueue outran the timer's sleep) for kernel,
    plain version and (for flash, forward and backward)
    ``F.scaled_dot_product_attention`` as a yardstick only, and the body
-   that ran (flash forward: ``"mma"``, tensor cores, for bf16/f16 with D
-   a multiple of 16, else ``"fma"``, register-tiled f32 FMAs; dq and
-   dk/dv: ``"mma"`` on the same rule, else ``"fma"``, register-tiled f32
-   FMAs too; the f32 backward cases launched twice and bitwise equal;
+   that ran (flash forward: ``"wgmma"``, TMA-fed warpgroup tensor-core
+   products, for bf16/f16 with D a multiple of 16, else ``"fma"``,
+   register-tiled f32 FMAs; its bf16/f16 cases launched twice and bitwise
+   equal; dq and dk/dv: ``"mma"`` on the same rule, else ``"fma"``,
+   register-tiled f32 FMAs too; the f32 backward cases launched twice and
+   bitwise equal;
    paged attention:
    ``"split"``, pages split across warps), the paged cases including the
    speculative verify
@@ -73,7 +75,7 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    through the dynamic batcher (requests/s, occupancy, each answer equal
    to the text served alone); f32 flash against plain attention and the
    padding invariance on the card; v2 ``/infer`` against v1; the flash
-   launches (12 a forward, the ``fma`` body in f32 and ``mma`` in bf16)
+   launches (12 a forward, the ``fma`` body in f32 and ``wgmma`` in bf16)
    and no paged launch;
 10. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
@@ -355,8 +357,10 @@ def run_paged_case(torch, name, c, flush):
 
 def flash_cases(torch):
     """The training shape first (B=8, H=16, S=512, D=64, causal bf16). The
-    bf16 cases at D a multiple of 16 run the tensor-core body; the f32
-    cases and ``ragged_d40_bf16`` the ``fma`` body."""
+    bf16 and f16 cases at D a multiple of 16 run the tensor-core
+    (``wgmma``) body; the f32 cases and ``ragged_d40_bf16`` the ``fma``
+    body. ``Sq`` (default ``S``) sets a query length apart from the kv
+    length ``S``."""
     base = dict(B=8, H=16, D=64)
     return [
         ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
@@ -385,6 +389,24 @@ def flash_cases(torch):
                                     dtype=torch.float32)),
         # a half type at a head dim no tensor-core tile fits: the fma body
         ("ragged_d40_bf16", dict(B=2, H=4, D=40, S=200, dtype=torch.bfloat16)),
+        # the f16 instantiation of the tensor-core body
+        ("causal_s512_f16", dict(base, S=512, dtype=torch.float16)),
+        # bf16 BERT at one request, 97 valid tokens: the smallest grid
+        ("bert_s128_b1_bf16", dict(B=1, H=12, D=64, S=128, causal=False,
+                                   pad=(97,), dtype=torch.bfloat16)),
+        # D=48 in a 64-column tile: the columns past D come back as zeros
+        ("causal_s512_d48_bf16", dict(base, D=48, S=512, dtype=torch.bfloat16)),
+        # 128 queries against 512 keys, causal bottom-right (query i at
+        # position i + 384): a suffix, as a prefill piece after a prefix
+        ("cross_q128_kv512_bf16", dict(base, Sq=128, S=512, dtype=torch.bfloat16)),
+        # more queries than keys, causal: the first Sq - S queries sit
+        # before the first key and see none; as the twin, they end at
+        # mean(v) over every key and lse at the -1e30 sentinel. 128 against
+        # 64: the first q tile reaches no kv tile; 160 against 100: a q
+        # tile of dead and live rows, a ragged last kv tile
+        ("cross_q128_kv64_bf16", dict(base, Sq=128, S=64, dtype=torch.bfloat16)),
+        ("cross_q160_kv100_bf16", dict(base, Sq=160, S=100, dtype=torch.bfloat16)),
+        ("cross_q160_kv100_f32", dict(base, Sq=160, S=100, dtype=torch.float32)),
     ]
 
 
@@ -393,16 +415,15 @@ def flash_cases(torch):
 BERT_VALID_LENS = (128, 97, 64, 33, 16, 128, 5, 1)
 
 
-def run_flash_case(torch, name, c, flush):
-    import torch.nn.functional as F
-
-    from kubeflow_tpu_torch.ops import flash_attention as fa
-
+def flash_case_inputs(torch, name, c):
+    """``(q, k, v, kw)`` of flash case ``name``: random inputs from a
+    generator seeded by the name, and the mask arguments."""
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
     B, H, S, D, dt = c["B"], c["H"], c["S"], c["D"], c["dtype"]
+    Sq = c.get("Sq", S)
     causal = c.get("causal", True)
-    q, k, v = (torch.randn(B, H, S, D, generator=g, device="cuda").to(dt)
-               for _ in range(3))
+    q, k, v = (torch.randn(B, H, n, D, generator=g, device="cuda").to(dt)
+               for n in (Sq, S, S))
     seg = kseg = None
     if c.get("seg"):
         # packed rows: 1..4 segments per row at random boundaries
@@ -419,9 +440,21 @@ def run_flash_case(torch, name, c, flush):
                              dtype=torch.int32)
         seg = torch.randint(0, 3, (B, S), generator=g, device="cuda",
                             dtype=torch.int32)
-    window = c.get("window")
-    kw = dict(causal=causal, window=window, q_segment_ids=seg,
+    kw = dict(causal=causal, window=c.get("window"), q_segment_ids=seg,
               kv_segment_ids=kseg)
+    return q, k, v, kw
+
+
+def run_flash_case(torch, name, c, flush):
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, kw = flash_case_inputs(torch, name, c)
+    B, H, Sq, D, dt = *q.shape, q.dtype
+    S = k.shape[2]
+    causal, window = kw["causal"], kw["window"]
+    seg, kseg = kw["q_segment_ids"], kw["kv_segment_ids"]
     out, lse = fa.flash_attention(q, k, v, return_residuals=True, **kw)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -433,31 +466,38 @@ def run_flash_case(torch, name, c, flush):
     lse_err = (lse - ref_lse).abs().max().item()
     lse_tol = 2e-4  # f32 in both; exp/log and summation order only
     dead = None
-    if c.get("dead"):  # rows that see no key: lse at the sentinel in both
+    if c.get("dead") or Sq > S:  # rows that see no key: lse at the sentinel in both
         rows = ref_lse <= fa.NEG_INF / 2
         dead = {"rows": int(rows.sum().item()),
                 "lse_sentinel": bool((lse[rows] <= fa.NEG_INF / 2).all())}
+    repeat = None
+    if dt != torch.float32:  # no atomics: a second launch gives the same bits
+        out2, lse2 = fa.flash_attention(q, k, v, return_residuals=True, **kw)
+        torch.cuda.synchronize()
+        repeat = torch.equal(out, out2) and torch.equal(lse, lse2)
     ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, **kw), flush=flush)
     plain = time_ms(torch, lambda: fa.flash_attention_reference(q, k, v, **kw),
                     flush=flush)
     mask = fa._full_mask(q.shape, k.shape, seg, kseg, causal, window, q.device)
-    if window is None and seg is None:
+    if window is None and seg is None and Sq == S:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)  # noqa: E731
-    else:
+    else:  # SDPA's is_causal aligns top-left: the mask says bottom-right
         lib = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
     library = time_ms(torch, lib, flush=flush)
-    visible = B * S * S if mask is None else int(mask.expand(B, 1, S, S).sum().item())
-    nbytes = 4 * q.numel() * q.element_size() + B * H * S * 4 + (
-        2 * seg.numel() * 4 if seg is not None else 0)
+    visible = B * Sq * S if mask is None else int(mask.expand(B, 1, Sq, S).sum().item())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + B * H * Sq * 4 + (
+        (seg.numel() + kseg.numel()) * 4 if seg is not None else 0)
     flops = 4 * D * H * visible
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[_dtname(torch, dt)] * 1e3
     return {
-        "kernel": "flash_attention", "case": name, "shape": [B, H, S, D],
+        "kernel": "flash_attention", "case": name,
+        "shape": [B, H, S, D] if Sq == S else [B, H, Sq, S, D],
         "dtype": _dtname(torch, dt), "body": fa.body(dt, D), "causal": causal,
         "window": window, "segments": seg is not None, "dead_rows": dead,
+        "bitwise_repeat": repeat,
         "max_abs_err": err, "tol": tol, "lse_err": lse_err, "lse_tol": lse_tol,
-        "ok": close and lse_err <= lse_tol and (
+        "ok": close and lse_err <= lse_tol and repeat is not False and (
             dead is None or (dead["rows"] > 0 and dead["lse_sentinel"])),
         **_times(ms, plain, library), "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2089,7 +2129,7 @@ def phase_bert(torch, state):
     allowed). (d) v2 ``/infer`` with ``input_ids`` and ``attention_mask``
     equals the v1 answer. (e) every forward of the f32 window ((a), (b),
     (d)) and of the bf16 one launches the flash forward 12 times, on the
-    ``fma`` body in f32 and ``mma`` in bf16, and no paged kernel. (c) f32
+    ``fma`` body in f32 and ``wgmma`` in bf16, and no paged kernel. (c) f32
     flash against plain attention on the same weights, and a row's answer
     alone (S=32) against beside a longer row (S=128)."""
     from kubeflow_tpu_torch.models.bert import BertForMaskedLM, bert_base
@@ -2187,7 +2227,7 @@ def phase_bert(torch, state):
             launches[dn] = {"forwards": fwd, "flash": fa.LAUNCHES,
                             "by_body": dict(fa.LAUNCHES_BY_BODY),
                             "paged": pa.LAUNCHES}
-            body = "fma" if dn == "f32" else "mma"
+            body = "fma" if dn == "f32" else "wgmma"
             checks[f"e_{dn}"] = (fwd > 0 and fa.LAUNCHES == L * fwd
                                  and fa.LAUNCHES_BY_BODY[body] == L * fwd
                                  and pa.LAUNCHES == 0)
@@ -2361,7 +2401,7 @@ def phase_train(torch, state):
     parity_ok = (max(grad_rel.values()) <= grad_tol
                  and max(loss_rel) <= loss_rtol
                  and parity_launches == {
-                     "flash_forward": {"mma": 0, "fma": want_p},
+                     "flash_forward": {"wgmma": 0, "fma": want_p},
                      "flash_bwd_dq": {"mma": 0, "fma": want_p},
                      "flash_bwd_dkv": {"mma": 0, "fma": want_p}})
     state["train_parity_launches"] = parity_launches
@@ -2404,7 +2444,7 @@ def phase_train(torch, state):
     finite = all(map(math.isfinite, losses))
     ok = (parity_ok and finite and len(losses) == steps and losses[-1] < losses[0]
           and all(n == want for n in launches.values())
-          and by_body == {"flash_forward": {"mma": want, "fma": 0},
+          and by_body == {"flash_forward": {"wgmma": want, "fma": 0},
                           "flash_bwd_dq": {"mma": want, "fma": 0},
                           "flash_bwd_dkv": {"mma": want, "fma": 0}}
           and live_kft_threads() == [])
@@ -2534,7 +2574,7 @@ def phase_profile(torch, state):
         train_prof_ms = (time.perf_counter() - t0) * 1e3
     n_kernels, busy_ms, top = _device_summary(prof)
     device_ms = sum(ms for _, (_, ms) in top)
-    names = ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+    names = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_mma_kernel",
              "flash_bwd_dkv_mma_kernel", "flash_fwd_fma_kernel", "flash_bwd_dq_fma_kernel",
              "flash_bwd_dkv_fma_kernel")
     attn = {k: ms for k, (_, ms) in top if k.split(" ")[-1] in names}
@@ -2557,11 +2597,12 @@ def phase_profile(torch, state):
 
 def ptxas_report(log):
     """``{kernel instantiation: "N registers, S bytes spill"}`` from the
-    ``-Xptxas -v`` log nvcc leaves beside each library; names demangled
-    by ``c++filt`` where the toolchain has it."""
+    ``-Xptxas -v`` log nvcc leaves beside each library, with ptxas's
+    reason where it makes a kernel wait for each wgmma in turn; names
+    demangled by ``c++filt`` where the toolchain has it."""
     import re
 
-    raw, name, spill = {}, None, 0
+    raw, name, spill, serial = {}, None, 0, {}
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
@@ -2572,6 +2613,12 @@ def ptxas_report(log):
         m = re.search(r"Used (\d+) registers", ln)
         if m and name:
             raw[name] = f"{m.group(1)} registers, {spill} bytes spill"
+        m = re.search(r"wgmma.* serialized due to (.*) in the function '(\w+)'", ln)
+        if m:
+            serial[m.group(2)] = m.group(1)
+    for fn, why in serial.items():
+        if fn in raw:
+            raw[fn] += f", wgmma serialized: {why}"
     names = list(raw)
     try:
         out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,

@@ -11,31 +11,64 @@
 // lse. At the training shape (B = 8, H = 16, S = 512, D = 64, causal,
 // bf16) that is 33.6 MB, 10.0 us at 3.35 TB/s, against 4.3 GFLOP, 4.4 us
 // of the 989 TFLOP/s bf16 tensor-core rate: bound by bytes, but so short
-// that latency (up to 8 kv tiles a block in sequence, two waves of
-// blocks) sets the pace.
+// that latency (up to 8 kv tiles in sequence for a q tile) and the
+// exponentials of the softmax set the pace.
 //
 // Two bodies, chosen in the C entry point by dtype and D only (mirrored
 // by `body()` in ops/flash_attention.py):
 //
-// * bf16 / f16 with D a multiple of 16 up to 128: `flash_fwd_mma_kernel`,
-//   on the tensor cores. 4 warps, each owning 16 of the block's 64 query
-//   rows. The q tile is copied once and held in registers as mma A
-//   fragments; k/v tiles of 64 keys stream through a 2-stage shared-memory
-//   ring filled by 16-byte cp.async copies, so the next tile loads while
-//   this one computes. S = Q.K^T runs as mma.sync.m16n8k16 (bf16/f16
-//   operands, f32 accumulators), then `* scale` in f32 and the masks on
-//   the accumulator fragment. The online softmax stays in registers (row
-//   max and sum over the 4 lanes of a quad with __shfl_xor_sync); p is
-//   rounded to the input dtype as the A operand of P.V straight from the
-//   accumulators (tile_mma.cuh), and V is read with ldmatrix.trans. Scores
-//   and probabilities never leave registers. The epilogue stages the
-//   output through shared memory for 16-byte stores. Shared memory: 41 KB
-//   at D <= 64, 81 KB at D <= 128, so several blocks share an SM. Blocks
-//   are launched with the q tiles that see the most kv tiles first.
-//   mma.sync rather than wgmma: at 64-row tiles and S <= 512 the kernel
-//   is latency-bound long before the tensor-core rate matters, and
-//   mma.sync's fixed register fragments let P feed P.V from registers
-//   without descriptors or a second warpgroup layout.
+// * bf16 / f16 with D a multiple of 16 up to 128: `flash_fwd_wgmma_kernel`,
+//   on the tensor cores through Hopper's warpgroup path (wgmma_tile.cuh).
+//   - Warp specialisation. A block is one consumer warpgroup of 64 query
+//     rows and one producer warpgroup. The producer keeps 32 registers a
+//     thread (`setmaxnreg.dec`), and one of its warps issues every copy;
+//     the consumers take the rest (`setmaxnreg.inc`: 128 at D <= 64, 224
+//     at D <= 128) and only compute. One consumer warpgroup (3 blocks an
+//     SM at D <= 64) against two (128 rows sharing one K/V stream, 2
+//     blocks an SM): two are 3% faster at S = 512 but lose the BERT
+//     shapes and D = 128, and their consumers get 104 registers and
+//     spill; scripts/chip_fwd_tiles.py carries the two-warpgroup variant
+//     as a patch and times both (PERF.md).
+//   - Persistent blocks. The launch has as many blocks as the SMs hold at
+//     once; block c takes the q tiles c, 2G - 1 - c, 2G + c, ... of the
+//     heaviest-first order (G blocks), so blocks get even work. Each q
+//     tile has two buffers: the producer loads the next tile's q and k/v
+//     while the consumers finish this one.
+//   - TMA and an mbarrier ring. q, k, v and out are 3-D tensor maps (D, S,
+//     B * H) of 64 x 64 boxes with the 128-byte swizzle, encoded on the
+//     host for each call (cuTensorMapEncodeTiled, fetched through the
+//     runtime's driver entry point). k/v tiles of 64 keys stream through
+//     3 stages at D <= 64, 2 at D <= 128, with a full and an empty
+//     barrier a stage. A box reads zeros past D (D = 16, 48, ... in a
+//     tile of 64 or 128 columns) and past S (the ragged last tile), and
+//     never the next head's rows; `expect_tx` counts the whole box. The kv
+//     segment ids of a stage come by plain loads of the producer warp's
+//     lanes, each of which arrives on the full barrier after its stores (a
+//     2-D map of int32 ids would need Skv * 4 to be a multiple of 16).
+//   - S = Q.K^T as wgmma m64n64k16 (f32 accumulators) over D/16 steps,
+//     both operands K-major in shared memory. The accumulator layout is
+//     the mma.sync m16n8 one repeated along n, so the scale, the masks
+//     and the quad-shuffle online softmax work on it thread for thread as
+//     on mma.sync fragments. Tiles of 64 keys: at S <= 512 a causal
+//     diagonal tile masks less, the masks' tile helpers are shared with
+//     the backward, and S, P and O fit the consumer's registers.
+//   - O += P.V as wgmma m64nDk16 with A in registers: p rounded to the
+//     input type and packed from the accumulators (the m16n8k16 A
+//     layout); V from shared memory, MN-major with the transpose bit.
+//     Tile j's S is issued with tile j - 1's P.V behind it, so tile j's
+//     softmax runs while the tensor cores add tile j - 1 to O; a consumer
+//     arrives on a stage's empty barrier once the P.V wait_group has
+//     retired its reads.
+//   - ptxas waits for every wgmma right after its issue if anything in
+//     the kernel makes it unsure (a call, as IEEE division's slow path; a
+//     branch it cannot see is uniform; an ordinary instruction writing an
+//     accumulator between a fence and its wgmma): `build` in chip_smoke.py
+//     reports that as "wgmma serialized".
+//   - Epilogue: out = acc / l in T staged in the tile's q buffer and
+//     written by TMA stores (rows past Sq and columns past D are not
+//     written), lse in f32. The shared-memory opt-in is set once a
+//     device, and __launch_bounds__ states the blocks an SM from the same
+//     arithmetic as the shared memory.
 // * f32, and bf16 / f16 at any other D: `flash_fwd_fma_kernel`, f32 FMAs
 //   only. A tensor-core f32 product would be TF32 (or 3xTF32), about
 //   three decimal digits, and would break the f32 parity gates, so this
@@ -96,20 +129,26 @@
 // row whose visible keys so far are all masked (s = m = -1e30) gets
 // p = exp(0) = 1 as in the reference, and a dead row (no visible key at
 // all) ends with out = mean(v) and lse at the -1e30 sentinel the backward
-// kernels test.
+// kernels test. A causal row before the first key (Sq > Skv) is such a
+// row: both bodies walk every kv tile for its q tile, so its mean runs
+// over all Skv keys, as in the twin.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+#include <type_traits>
+
 #include "fma_tile.cuh"
 #include "tile_mma.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int BQ = 64;   // query rows per block
 constexpr int BK = 64;   // keys per kv tile
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
@@ -180,11 +219,15 @@ __global__ void __launch_bounds__(FMA_THREADS, DP == 64 ? 4 : 2) flash_fwd_fma_k
   const T* kb = k + bh * Skv * D;
   const T* vb = v + bh * Skv * D;
 
-  // the kv tiles that run (causal and window skips) form one range [lo, hi]
+  // the kv tiles that run (causal and window skips) form one range [lo, hi];
+  // a block with a row before the first key (causal, Sq > Skv) walks every
+  // kv tile, so that row ends at mean(v) over all Skv keys, as the twin's
+  // (written as one test in the loop: a separate widening after it made
+  // ptxas spill 4 bytes at f32, DP = 64)
   const int nk = (Skv + FMA_BK - 1) / FMA_BK;
   int lo = nk, hi = -1;
   for (int ik = 0; ik < nk; ++ik) {
-    if (fma_tile::tile_runs(q_start, R, ik * FMA_BK, off, causal, window)) {
+    if (q_start + off < 0 || fma_tile::tile_runs(q_start, R, ik * FMA_BK, off, causal, window)) {
       lo = min(lo, ik);
       hi = ik;
     }
@@ -465,256 +508,491 @@ cudaError_t launch_fma_any(bool seg, const void* q, const void* k, const void* v
 #undef KFT_ARGS
 }
 
-// ---------------------------------------------------------------- mma body
+// -------------------------------------------------------------- wgmma body
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int WG_BQ = 64;        // query rows a block: its consumer warpgroup's
+constexpr int WG_THREADS = 256;  // the consumer warpgroup, then the producer warpgroup
+static_assert(BK == wg::BOX, "a kv tile is one box of rows");
 
-template <typename T, int DP, bool SEG>
-__global__ void __launch_bounds__(MMA_THREADS) flash_fwd_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ qseg, const int* __restrict__ kseg,
-    T* __restrict__ out, float* __restrict__ lse,
-    int H, int Sq, int Skv, int D, int causal, int window, float scale) {
-  constexpr int KC = DP / 16;                // k16 steps over the head dim
-  constexpr int NT = BK / 8;                 // n8 tiles of a score row
-  constexpr int DT = DP / 8;                 // n8 tiles of an output row
-  constexpr int CH = DP / 8;                 // 16-byte chunks of a tile row
-  constexpr uint32_t TILE = BK * DP * 2;     // bytes of one q, k or v tile
-  static_assert(BQ == BK, "q and kv tiles share the tile size");
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int iq = gridDim.z - 1 - blockIdx.z;  // most kv tiles first
-  const int q_start = iq * BQ;
-  const int R = min(BQ, Sq - q_start);
-  const int off = Skv - Sq;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+// stages of the k/v ring: 3 at DP = 64, 2 at DP = 128
+__host__ __device__ constexpr int wg_stages(int DP) { return DP == 64 ? 3 : 2; }
 
-  extern __shared__ __align__(128) unsigned char tsmem[];
-  const uint32_t q_s = tile::smem_addr(tsmem);  // q tile; the output at the end
-  const uint32_t k_s = q_s + TILE;             // 2 stages
-  const uint32_t v_s = k_s + 2 * TILE;         // 2 stages
-  int* qseg_s = reinterpret_cast<int*>(tsmem + 5 * TILE);  // BQ
-  int* kseg_s = qseg_s + BQ;                               // 2 stages x BK
+// dynamic shared memory: 1024 bytes of alignment slack, two q buffers,
+// the k and v rings, the barriers (full and empty a q buffer, then a
+// stage) and the kv segment ids a stage
+__host__ __device__ constexpr int wg_smem_bytes(int DP) {
+  return 1024 + (2 + 2 * wg_stages(DP)) * (DP / wg::BOX) * (int)wg::BOX_BYTES +
+         8 * (4 + 2 * wg_stages(DP)) + 4 * BK * wg_stages(DP);
+}
 
-  const size_t bh = (size_t)b * H + h;
-  const T* kb = k + bh * Skv * D;
-  const T* vb = v + bh * Skv * D;
+// blocks an SM: what the shared memory holds
+__host__ __device__ constexpr int wg_blocks(int DP) { return DP == 64 ? 3 : 2; }
+static_assert(wg_blocks(64) * (wg_smem_bytes(64) + 1024) <= 233472, "DP 64 fits");
+static_assert(wg_blocks(128) * (wg_smem_bytes(128) + 1024) <= 233472, "DP 128 fits");
 
-  // the kv tiles that run form one range [lo, hi]
-  const int nk = (Skv + BK - 1) / BK;
-  int lo = nk, hi = -1;
-  for (int ik = 0; ik < nk; ++ik) {
-    if (tile::tile_runs(q_start, R, ik * BK, off, causal, window)) {
-      lo = min(lo, ik);
-      hi = ik;
-    }
-  }
-
-  auto load_kv = [&](int ik, int st) {
-    const int k0 = ik * BK;
-    const int C = min(BK, Skv - k0);
-    tile::load_tile<BK, DP, MMA_THREADS>(k_s + st * TILE, kb + (size_t)k0 * D, C, D, tid);
-    tile::load_tile<BK, DP, MMA_THREADS>(v_s + st * TILE, vb + (size_t)k0 * D, C, D, tid);
-    if (SEG) {
-      tile::load_words<MMA_THREADS>(tile::smem_addr(kseg_s + st * BK),
-                                    kseg + (size_t)b * Skv + k0, BK, C, tid);
-    }
-  };
-  tile::load_tile<BQ, DP, MMA_THREADS>(q_s, q + (bh * Sq + q_start) * D, R, D, tid);
-  if (SEG) {
-    tile::load_words<MMA_THREADS>(tile::smem_addr(qseg_s), qseg + (size_t)b * Sq + q_start,
-                                  BQ, R, tid);
-  }
-  if (lo <= hi) load_kv(lo, 0);
-  tile::cp_async_commit();
-
-  float o[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m0 = NEG_INF, m1 = NEG_INF;  // running max of rows r0, r0 + 8
-  float l0 = 0.f, l1 = 0.f;          // this lane's part of the running sum
-  uint32_t qf[KC][4];
-
-  for (int ik = lo; ik <= hi; ++ik) {
-    const int st = (ik - lo) & 1;
-    if (ik < hi) {
-      load_kv(ik + 1, st ^ 1);
-      tile::cp_async_commit();
-      tile::cp_async_wait<1>();
-    } else {
-      tile::cp_async_wait<0>();
-    }
-    __syncthreads();  // tile ik has landed for every thread
-    if (ik == lo) {
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        tile::ldsm_x4(qf[kk], q_s + tile::swz<DP>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
-      }
-    }
-    const int k_start = ik * BK;
-    const int C = min(BK, Skv - k_start);
-    const uint32_t ks = k_s + st * TILE;
-    const uint32_t vs = v_s + st * TILE;
-
-    // S = Q . K^T (keys of the tile along n)
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t bf[4];
-        tile::ldsm_x4(bf, ks + tile::swz<DP>(16 * p + (lane & 7) + ((lane >> 4) << 3),
-                                             2 * kk + ((lane >> 3) & 1)));
-        tile::mma<T>(s[2 * p], qf[kk], bf[0], bf[1]);
-        tile::mma<T>(s[2 * p + 1], qf[kk], bf[2], bf[3]);
-      }
-    }
-
-    // scale in f32, then the masks: -1e30 where masked, -inf past Skv
-    const bool whole = !SEG && C == BK &&
-                       tile::tile_whole(q_start, R, k_start, off, causal, window);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * scale;
-        if (!whole) {
-          const int r = r0 + ((e >> 1) << 3);
-          const int kj = j * 8 + 2 * t + (e & 1);
-          if (kj >= C) {
-            x = __uint_as_float(0xff800000u);  // -inf: exp gives exactly 0, even on a dead row
-          } else if (!tile::visible<SEG>(q_start + r + off, k_start + kj, causal, window,
-                                         SEG ? qseg_s[r] : 0,
-                                         SEG ? kseg_s[st * BK + kj] : 0)) {
-            x = NEG_INF;
-          }
-        }
-        s[j][e] = x;
-      }
-    }
-
-    // online softmax over the quad that shares a row
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int w = 1; w < 4; w <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
-    }
-    const float a0 = __expf(m0 - mx0);
-    const float a1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = __expf(s[j][0] - mx0);
-      s[j][1] = __expf(s[j][1] - mx0);
-      s[j][2] = __expf(s[j][2] - mx1);
-      s[j][3] = __expf(s[j][3] - mx1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-    l0 = l0 * a0 + sum0;
-    l1 = l1 * a1 + sum1;
-#pragma unroll
-    for (int d = 0; d < DT; ++d) {
-      o[d][0] *= a0;
-      o[d][1] *= a0;
-      o[d][2] *= a1;
-      o[d][3] *= a1;
-    }
-
-    // O += P . V, P rounded to the input dtype as the A operand
-#pragma unroll
-    for (int kc = 0; kc < NT / 2; ++kc) {
-      uint32_t pa[4];
-      tile::acc_to_a<T>(pa, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int p = 0; p < DT / 2; ++p) {
-        uint32_t bf[4];
-        tile::ldsm_x4_t(bf, vs + tile::swz<DP>(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                               2 * p + (lane >> 4)));
-        tile::mma<T>(o[2 * p], pa, bf[0], bf[1]);
-        tile::mma<T>(o[2 * p + 1], pa, bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // stage st is free for the tile after next
-  }
-
-  // epilogue: out = acc / l in q's dtype through shared memory, lse in f32
-  tile::cp_async_wait<0>();  // the q copy, when no kv tile ran
-  __syncthreads();
-#pragma unroll
-  for (int w = 1; w < 4; w <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, w);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, w);
-  }
-  const float d0 = l0 == 0.f ? 1.f : l0;
-  const float d1 = l1 == 0.f ? 1.f : l1;
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    *reinterpret_cast<uint32_t*>(tsmem + tile::swz<DP>(r0, d) + 4 * t) =
-        tile::pack2<T>(o[d][0] / d0, o[d][1] / d0);
-    *reinterpret_cast<uint32_t*>(tsmem + tile::swz<DP>(r0 + 8, d) + 4 * t) =
-        tile::pack2<T>(o[d][2] / d1, o[d][3] / d1);
-  }
-  if (t == 0) {
-    if (r0 < R) lse[bh * Sq + q_start + r0] = m0 + logf(d0);
-    if (r0 + 8 < R) lse[bh * Sq + q_start + r0 + 8] = m1 + logf(d1);
-  }
-  __syncthreads();
-  T* ob = out + (bh * Sq + q_start) * D;
-  const int dch = D / 8;
-#pragma unroll
-  for (int i = 0; i < BQ * CH / MMA_THREADS; ++i) {
-    const int e = tid + i * MMA_THREADS;
-    const int r = e / CH;
-    const int c = e - r * CH;
-    if (r < R && c < dch) {
-      *reinterpret_cast<uint4*>(ob + (size_t)r * D + c * 8) =
-          *reinterpret_cast<const uint4*>(tsmem + tile::swz<DP>(r, c));
-    }
-  }
+// Registers a thread: the kernel's count at entry (what __launch_bounds__
+// leaves a thread), then the producer warpgroup gives all but
+// WG_PRODUCER_REGS to the consumers.
+__host__ __device__ constexpr int wg_entry_regs(int DP) {
+  return (65536 / (WG_THREADS * wg_blocks(DP)) > 255 ? 255 : 65536 / (WG_THREADS * wg_blocks(DP))) &
+         ~7;
+}
+constexpr int WG_PRODUCER_REGS = 32;
+__host__ __device__ constexpr int wg_consumer_regs(int DP) {
+  return ((WG_THREADS * wg_entry_regs(DP) - 128 * WG_PRODUCER_REGS) / 128 > 240
+              ? 240
+              : (WG_THREADS * wg_entry_regs(DP) - 128 * WG_PRODUCER_REGS) / 128) &
+         ~7;
 }
 
 template <typename T, int DP, bool SEG>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const int* qseg, const int* kseg, void* out, float* lse,
-                       int B, int H, int Sq, int Skv, int D, int causal,
-                       int window, float scale, cudaStream_t stream) {
-  const dim3 grid(H, B, (Sq + BQ - 1) / BQ);
-  const size_t smem = 5 * (size_t)BK * DP * 2 + sizeof(int) * (BQ + 2 * BK);
-  auto kern = flash_fwd_mma_kernel<T, DP, SEG>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+__global__ void __launch_bounds__(WG_THREADS, wg_blocks(DP)) flash_fwd_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,  // q as (D, Sq, B * H)
+    const __grid_constant__ CUtensorMap k_map,  // k as (D, Skv, B * H)
+    const __grid_constant__ CUtensorMap v_map,  // v as (D, Skv, B * H)
+    const __grid_constant__ CUtensorMap o_map,  // out as (D, Sq, B * H)
+    const int* __restrict__ qseg, const int* __restrict__ kseg, float* __restrict__ lse,
+    int B, int H, int Sq, int Skv, int D, int causal, int window, float scale) {
+  constexpr int NB = DP / wg::BOX;                 // 64-column boxes a tile row
+  constexpr int STAGES = wg_stages(DP);
+  constexpr uint32_t TILE = NB * wg::BOX_BYTES;    // bytes of a q, k or v tile
+  constexpr int KC = DP / 16;                      // k16 steps of Q.K^T
+  constexpr int NT = BK / 8;                       // n8 tiles of a score row
+  constexpr int DT = DP / 8;                       // n8 tiles (16-byte chunks) of an output row
+  const int off = Skv - Sq;
+  const int nq = (Sq + WG_BQ - 1) / WG_BQ;
+  const int ntiles = B * H * nq;
+  const int nk = (Skv + BK - 1) / BK;
+  const int tid = threadIdx.x;
+
+  extern __shared__ unsigned char wsmem[];
+  const uint32_t raw = tile::smem_addr(wsmem);
+  const uint32_t base = (raw + 1023) & ~1023u;  // the swizzle works on 1024-byte groups
+  unsigned char* gbase = wsmem + (base - raw);
+  const uint32_t q_s = base;                       // 2 tiles
+  const uint32_t k_s = q_s + 2 * TILE;             // STAGES tiles
+  const uint32_t v_s = k_s + STAGES * TILE;        // STAGES tiles
+  const uint32_t bars = v_s + STAGES * TILE;
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 8 * (2 + qb); };
+  auto full = [&](int st) { return bars + 8 * (4 + st); };
+  auto empty = [&](int st) { return bars + 8 * (4 + STAGES + st); };
+  int* kseg_s = reinterpret_cast<int*>(gbase + (bars - base) + 8 * (4 + 2 * STAGES));
+
+  // Tile `tile` of the q axis: the launch order of a (H, B, nq) grid, the
+  // q tiles that see the most kv tiles first. The kv tiles it runs
+  // (causal and window skips) form one range [lo, hi], empty (lo > hi)
+  // only if no row of the tile has a key at or before its position; such
+  // a tile (causal, Sq > Skv) walks every kv tile instead, so its rows
+  // end at mean(v) over all Skv keys and the sentinel, as the twin's.
+  auto decode = [&](int tile, int& bh, int& q_start, int& lo, int& hi) {
+    bh = tile % (B * H);
+    q_start = (nq - 1 - tile / (B * H)) * WG_BQ;
+    const int R = min(WG_BQ, Sq - q_start);
+    lo = nk;
+    hi = -1;
+    for (int ik = 0; ik < nk; ++ik) {
+      if (tile::tile_runs(q_start, R, ik * BK, off, causal, window)) {
+        lo = min(lo, ik);
+        hi = ik;
+      }
+    }
+    if (causal && q_start + off < 0) {  // a row before the first key
+      lo = 0;
+      hi = nk - 1;
+    }
+  };
+
+  // The n-th tile of this block: rounds of gridDim.x tiles, every other
+  // round taken in reverse, so each block's sum of heavy and light tiles
+  // comes out about even (past ntiles: no more tiles).
+  auto next_tile = [&](int n) {
+    return n * (int)gridDim.x + ((n & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+
+  if (tid == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      wg::mbar_init(q_full(qb), 1);
+      wg::mbar_init(q_empty(qb), 128);             // every consumer thread
+    }
+    for (int st = 0; st < STAGES; ++st) {
+      wg::mbar_init(full(st), 32);                 // every lane of the producer warp
+      wg::mbar_init(empty(st), 128);               // every consumer thread
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the warpgroup, read from lane 0 so the compiler knows it is uniform:
+  // otherwise the loops around wgmma look divergent to ptxas, and it
+  // waits for each wgmma right after its issue
+  const int wgi = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (wgi == 1) {
+    // ---- producer: one warp issues the TMA loads, the others leave
+    wg::setmaxnreg_dec<WG_PRODUCER_REGS>();
+    if ((tid & 127) >= 32) return;
+    const int lane = tid & 31;
+    if (lane == 0) {
+      wg::tma_prefetch_map(&q_map);
+      wg::tma_prefetch_map(&k_map);
+      wg::tma_prefetch_map(&v_map);
+    }
+    int st = 0, ph = 0;  // the k/v ring: stage and phase
+    for (int n = 0, tile = next_tile(0); tile < ntiles; tile = next_tile(++n)) {
+      int bh, q_start, lo, hi;
+      decode(tile, bh, q_start, lo, hi);
+      // the q tile into buffer n & 1 once the tile before last has left it
+      const int qb = n & 1;
+      wg::mbar_wait(q_empty(qb), ((n >> 1) & 1) ^ 1);  // the first round finds it free
+      if (lane == 0) {
+        wg::mbar_arrive_expect_tx(q_full(qb), TILE);
+        for (int c = 0; c < NB; ++c) {
+          wg::tma_load_3d(q_s + qb * TILE + c * wg::BOX_BYTES, &q_map, q_full(qb), c * wg::BOX,
+                          q_start, bh);
+        }
+      }
+      for (int ik = lo; ik <= hi; ++ik) {
+        wg::mbar_wait(empty(st), ph ^ 1);  // the first round finds it free
+        const int k0 = ik * BK;
+        if (SEG) {  // the stage's kv segment ids by plain loads, before this lane arrives
+          const int* ks = kseg + (size_t)(bh / H) * Skv;
+          for (int j = lane; j < BK; j += 32) {
+            if (k0 + j < Skv) kseg_s[st * BK + j] = ks[k0 + j];
+          }
+        }
+        if (lane == 0) {
+          wg::mbar_arrive_expect_tx(full(st), 2 * TILE);
+          for (int c = 0; c < NB; ++c) {
+            wg::tma_load_3d(k_s + st * TILE + c * wg::BOX_BYTES, &k_map, full(st), c * wg::BOX, k0, bh);
+            wg::tma_load_3d(v_s + st * TILE + c * wg::BOX_BYTES, &v_map, full(st), c * wg::BOX, k0, bh);
+          }
+        } else {
+          wg::mbar_arrive(full(st));
+        }
+        if (++st == STAGES) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: the 64 query rows of each tile
+    wg::setmaxnreg_inc<wg_consumer_regs(DP)>();
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+
+    float o[DT * 4];
+    float s[NT * 4];
+    uint32_t pa[NT / 2][4];  // P of the previous tile, the A operand of its P.V
+    int st = 0, ph = 0;      // the k/v ring, walked as the producer walks it
+    auto advance = [&]() {
+      if (++st == STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    };
+    // P.V of the tile in stage sv: V MN-major (keys x D) with the transpose bit
+    auto issue_pv = [&](int sv) {
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) {
+        wg::mma_rs<T, DP>(o, pa[kc], wg::desc_mn_major(v_s + sv * TILE + kc * 16 * 128), 1);
+      }
+      wg::commit();
+    };
+    auto pin = [&]() {  // every register operand, before wgmma.fence
+      wg::fence_operands(o);
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) wg::fence_operands(pa[kc]);
+    };
+    // P rounded to T: the A operand of the tile's P.V, in the m16n8k16 A
+    // layout straight from the accumulators
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pa[kc][i] = tile::pack2<T>(s[8 * kc + 2 * i], s[8 * kc + 2 * i + 1]);
+      }
+    };
+
+    for (int n = 0, tile = next_tile(0); tile < ntiles; tile = next_tile(++n)) {
+      int bh, q_start, lo, hi;
+      decode(tile, bh, q_start, lo, hi);
+      const int b = bh / H;
+      const int R = min(WG_BQ, Sq - q_start);  // valid rows of the tile
+      int qs0 = 0, qs1 = 0;
+      if (SEG) {
+        if (r0 < R) qs0 = qseg[(size_t)b * Sq + q_start + r0];
+        if (r0 + 8 < R) qs1 = qseg[(size_t)b * Sq + q_start + r0 + 8];
+      }
+      const int qb = n & 1;
+      const uint32_t qt = q_s + qb * TILE;
+#pragma unroll
+      for (int i = 0; i < DT * 4; ++i) o[i] = 0.f;
+      float m0 = NEG_INF, m1 = NEG_INF;  // running max of rows r0, r0 + 8
+      float l0 = 0.f, l1 = 0.f;          // this lane's part of the running sum
+
+      // S = Q.K^T of the tile in stage sk: D/16 k16 steps, both operands
+      // K-major in shared memory
+      auto issue_s = [&](int sk) {
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          const uint32_t step = (kk >> 2) * wg::BOX_BYTES + (kk & 3) * 32;
+          wg::mma_ss_n64<T>(s, wg::desc_k_major(qt + step),
+                            wg::desc_k_major(k_s + sk * TILE + step), kk == 0);
+        }
+        wg::commit();
+      };
+      // Scale, masks and the online softmax of tile ik's scores in s (in
+      // stage sk): s becomes p, m and l move on; alpha of rows r0, r0 + 8.
+      auto softmax = [&](int ik, int sk, float& a0, float& a1) {
+        // scale in f32, then the masks: -1e30 where masked, -inf past Skv
+        const int k_start = ik * BK;
+        const int C = min(BK, Skv - k_start);
+        const bool whole = !SEG && C == BK &&
+                           tile::tile_whole(q_start, R, k_start, off, causal, window);
+        if (whole) {
+#pragma unroll
+          for (int i = 0; i < NT * 4; ++i) s[i] *= scale;
+        } else {
+          // `tile::visible` with positions counted from the tile's first
+          // key: this thread's rows r0 and r0 + 8 sit at qp0 and qp0 + 8,
+          // its keys at 8 j + 2 t and + 1; by selects, so no branch splits
+          // the warpgroup
+          const int qp0 = q_start + r0 + off - k_start;
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const int k0 = 8 * j + 2 * t;
+            int2 ks = make_int2(0, 0);
+            if (SEG) ks = *reinterpret_cast<const int2*>(kseg_s + sk * BK + k0);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kj = k0 + (e & 1);
+              const int qp = qp0 + ((e >> 1) << 3);
+              bool seen = true;
+              if (causal) seen = kj <= qp && (window <= 0 || qp - kj < window);
+              if (SEG) seen = seen && ((e & 1) ? ks.y : ks.x) == ((e >> 1) ? qs1 : qs0);
+              // -inf past Skv: exp gives exactly 0 there, even on a dead row
+              const float x = s[4 * j + e] * scale;
+              s[4 * j + e] = kj >= C ? __uint_as_float(0xff800000u) : seen ? x : NEG_INF;
+            }
+          }
+        }
+        // online softmax over the quad that shares a row
+        float mx0 = m0, mx1 = m1;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
+#pragma unroll
+        for (int w = 1; w < 4; w <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, w));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, w));
+        }
+        a0 = wg::exp(m0 - mx0);
+        a1 = wg::exp(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          s[4 * j] = wg::exp(s[4 * j] - mx0);
+          s[4 * j + 1] = wg::exp(s[4 * j + 1] - mx0);
+          s[4 * j + 2] = wg::exp(s[4 * j + 2] - mx1);
+          s[4 * j + 3] = wg::exp(s[4 * j + 3] - mx1);
+          sum0 += s[4 * j] + s[4 * j + 1];
+          sum1 += s[4 * j + 2] + s[4 * j + 3];
+        }
+        l0 = l0 * a0 + sum0;
+        l1 = l1 * a1 + sum1;
+        // done here, not after the caller's next wait_group: the compiler
+        // would otherwise sink the exponentials past it, out of the overlap
+        wg::fence_operands(s);
+        asm volatile("" : "+f"(l0), "+f"(l1), "+f"(a0), "+f"(a1)::"memory");
+      };
+
+      wg::mbar_wait(q_full(qb), (n >> 1) & 1);
+      if (lo <= hi) {
+        float a0, a1;
+        int prev = st;  // the stage of the tile whose P.V is next
+        wg::mbar_wait(full(st), ph);
+        wg::fence();
+        issue_s(st);
+        wg::wait<0>();
+        wg::fence_operands(s);
+        softmax(lo, st, a0, a1);  // O is 0: nothing to rescale
+        pack_p();
+        advance();
+        // Tile ik's S = Q.K^T is issued with tile ik - 1's P.V behind it,
+        // so ik's softmax runs while the tensor cores add ik - 1 to O
+        for (int ik = lo + 1; ik <= hi; ++ik) {
+          wg::mbar_wait(full(st), ph);
+          pin();
+          wg::fence();
+          issue_s(st);
+          issue_pv(prev);
+          wg::wait<1>();  // S has landed; P.V may still run
+          wg::fence_operands(s);
+          softmax(ik, st, a0, a1);
+          wg::wait<0>();  // tile ik - 1 is in O, and its stage is free
+          wg::fence_operands(o);
+          wg::mbar_arrive(empty(prev));
+#pragma unroll
+          for (int d = 0; d < DT; ++d) {
+            o[4 * d] *= a0;
+            o[4 * d + 1] *= a0;
+            o[4 * d + 2] *= a1;
+            o[4 * d + 3] *= a1;
+          }
+          pack_p();
+          prev = st;
+          advance();
+        }
+        // the last tile's P.V
+        pin();
+        wg::fence();
+        issue_pv(prev);
+        wg::wait<0>();
+        wg::fence_operands(o);
+        wg::mbar_arrive(empty(prev));
+      }
+
+      // epilogue: out = acc / l in T, staged in the q tile (no read of it
+      // is left once the warpgroup meets here) in the layout a TMA box
+      // has, then stored by one TMA store a 64-column box (rows past Sq
+      // and columns past D are not written); lse in f32
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+#pragma unroll
+      for (int w = 1; w < 4; w <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+      }
+      const float d0 = l0 == 0.f ? 1.f : l0;
+      const float d1 = l1 == 0.f ? 1.f : l1;
+      unsigned char* ot = gbase + (qt - base);
+      auto chunk = [&](int r, int c) {  // 16-byte chunk c of row r, as TMA swizzles it
+        return ot + (c >> 3) * wg::BOX_BYTES + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+      };
+#pragma unroll
+      for (int d = 0; d < DT; ++d) {
+        *reinterpret_cast<uint32_t*>(chunk(r0, d) + 4 * t) =
+            tile::pack2<T>(wg::div(o[4 * d], d0), wg::div(o[4 * d + 1], d0));
+        *reinterpret_cast<uint32_t*>(chunk(r0 + 8, d) + 4 * t) =
+            tile::pack2<T>(wg::div(o[4 * d + 2], d1), wg::div(o[4 * d + 3], d1));
+      }
+      if (t == 0) {
+        if (r0 < R) lse[(size_t)bh * Sq + q_start + r0] = m0 + logf(d0);
+        if (r0 + 8 < R) lse[(size_t)bh * Sq + q_start + r0 + 8] = m1 + logf(d1);
+      }
+      wg::fence_proxy_async();  // the staged tile, visible to the TMA store
+      asm volatile("bar.sync 1, 128;\n" ::: "memory");
+      if (tid == 0) {
+        for (int c = 0; c < NB; ++c) {
+          wg::tma_store_3d(&o_map, qt + c * wg::BOX_BYTES, c * wg::BOX, q_start, bh);
+        }
+        wg::bulk_commit();
+        wg::bulk_wait_read();  // the store has read the buffer
+      }
+      // the buffer may take the tile after next: this thread's reads and
+      // writes of it come before the TMA's write
+      wg::fence_proxy_async();
+      wg::mbar_arrive(q_empty(qb));
+    }
+    if (tid == 0) wg::bulk_wait();  // the last stores are done before the block is
+  }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the
+// libraries link no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a (D, S, B * H) 16-bit tensor as 64 x 64 boxes with the 128-byte
+// swizzle; a box reads zeros past D and past S, never the next head
+template <typename T>
+bool tile_map(CUtensorMap* map, const void* p, int D, int S, int BH) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {wg::BOX, wg::BOX, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapDataType type = std::is_same<T, __half>::value
+                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return encode(map, type, 3, const_cast<void*>(p), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+template <typename T, int DP, bool SEG>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         const int* qseg, const int* kseg, void* out, float* lse,
+                         int B, int H, int Sq, int Skv, int D, int causal,
+                         int window, float scale, cudaStream_t stream) {
+  auto kern = flash_fwd_wgmma_kernel<T, DP, SEG>;
+  const int smem = wg_smem_bytes(DP);
+  // once a device: the shared-memory opt-in, a check that the registers
+  // the warpgroups hand between them are there (setmaxnreg.inc would wait
+  // for them for ever), and the SM count
+  static std::atomic<int> sms[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  kern<<<grid, MMA_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), qseg, kseg, static_cast<T*>(out), lse, H, Sq,
-      Skv, D, causal, window, scale);
+  int nsm = sms[dev & 63].load();
+  if (nsm == 0) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kern);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * WG_THREADS < 128 * (WG_PRODUCER_REGS + wg_consumer_regs(DP))) {
+      return cudaErrorInvalidConfiguration;
+    }
+    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms[dev & 63].store(nsm);
+  }
+  CUtensorMap maps[4];
+  if (!tile_map<T>(&maps[0], q, D, Sq, B * H) || !tile_map<T>(&maps[1], k, D, Skv, B * H) ||
+      !tile_map<T>(&maps[2], v, D, Skv, B * H) || !tile_map<T>(&maps[3], out, D, Sq, B * H)) {
+    return cudaErrorInvalidValue;
+  }
+  // persistent blocks: as many as the SMs hold at once
+  const long tiles = (long)B * H * ((Sq + WG_BQ - 1) / WG_BQ);
+  const int grid = (int)std::min<long>(tiles, (long)nsm * wg_blocks(DP));
+  kern<<<grid, WG_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], qseg, kseg,
+                                           lse, B, H, Sq, Skv, D, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_mma_any(bool seg, const void* q, const void* k, const void* v,
-                           const int* qseg, const int* kseg, void* out, float* lse,
-                           int B, int H, int Sq, int Skv, int D, int causal,
-                           int window, float scale, cudaStream_t stream) {
+cudaError_t launch_wgmma_any(bool seg, const void* q, const void* k, const void* v,
+                             const int* qseg, const int* kseg, void* out, float* lse,
+                             int B, int H, int Sq, int Skv, int D, int causal,
+                             int window, float scale, cudaStream_t stream) {
 #define KFT_ARGS q, k, v, qseg, kseg, out, lse, B, H, Sq, Skv, D, causal, window, scale, stream
-  if (D <= 64) return seg ? launch_mma<T, 64, true>(KFT_ARGS) : launch_mma<T, 64, false>(KFT_ARGS);
-  return seg ? launch_mma<T, 128, true>(KFT_ARGS) : launch_mma<T, 128, false>(KFT_ARGS);
+  if (D <= 64) return seg ? launch_wgmma<T, 64, true>(KFT_ARGS) : launch_wgmma<T, 64, false>(KFT_ARGS);
+  return seg ? launch_wgmma<T, 128, true>(KFT_ARGS) : launch_wgmma<T, 128, false>(KFT_ARGS);
 #undef KFT_ARGS
 }
 
@@ -747,8 +1025,8 @@ extern "C" int kft_flash_forward(
         !tile::aligned16(out)) {
       return (int)cudaErrorMisalignedAddress;
     }
-    cudaError_t err = dtype == BF16 ? launch_mma_any<__nv_bfloat16>(seg, KFT_ARGS)
-                                    : launch_mma_any<__half>(seg, KFT_ARGS);
+    cudaError_t err = dtype == BF16 ? launch_wgmma_any<__nv_bfloat16>(seg, KFT_ARGS)
+                                    : launch_wgmma_any<__half>(seg, KFT_ARGS);
     return (int)err;
   }
   if (D > 128) return (int)cudaErrorInvalidValue;

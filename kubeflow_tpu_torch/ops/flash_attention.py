@@ -19,7 +19,10 @@ Each kernel has two bodies, chosen by dtype and head dim alone
 up to 128, f32 arithmetic otherwise (f32 inputs stay exact f32; a
 tensor-core f32 product would be TF32): the register-tiled ``"fma"``
 bodies, in the forward (:func:`body`) as in dq and dk/dv
-(``flash_attention_bwd.dq_body`` / ``dkv_body``).
+(``flash_attention_bwd.dq_body`` / ``dkv_body``). The forward's
+tensor-core body is ``"wgmma"`` (TMA loads and warpgroup products, a
+producer warp beside the computing warpgroups); the backward's is
+``"mma"`` (``mma.sync``).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ NEG_INF = -1e30  # large-but-finite: keeps exp() defined on masked rows
 #: kernel launches since the counter was last set to 0
 LAUNCHES = 0
 #: the same launches split by the body that ran (see :func:`body`)
-LAUNCHES_BY_BODY = {"mma": 0, "fma": 0}
+LAUNCHES_BY_BODY = {"wgmma": 0, "fma": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 128  # the kernel's shared-memory tiles hold D <= 128
@@ -50,10 +53,10 @@ def tensor_cores(dtype: torch.dtype, head_dim: int) -> bool:
 
 
 def body(dtype: torch.dtype, head_dim: int) -> str:
-    """The forward kernel body a launch runs: ``"mma"`` (tensor cores)
-    where :func:`tensor_cores`, else ``"fma"`` (register-tiled f32
-    FMAs, ``flash_fwd_fma_kernel``)."""
-    return "mma" if tensor_cores(dtype, head_dim) else "fma"
+    """The forward kernel body a launch runs: ``"wgmma"`` (tensor cores,
+    ``flash_fwd_wgmma_kernel``) where :func:`tensor_cores`, else ``"fma"``
+    (register-tiled f32 FMAs, ``flash_fwd_fma_kernel``)."""
+    return "wgmma" if tensor_cores(dtype, head_dim) else "fma"
 
 
 def _full_mask(q_shape, k_shape, q_seg, kv_seg, causal, window, device):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -154,6 +155,18 @@ FLASH_CASES = [
     # row shares a q tile with its rows: skipping the kv tiles none of
     # those live rows sees must leave the dead row's mean(v) as it is
     ("dead_rows_disjoint_tiles", dict(causal=False, disjoint=True)),
+    # D=48: the tensor-core forward's tiles are 64 columns wide, the
+    # columns past D read as zeros
+    ("head_dim_48", dict(D=48)),
+    # 32 queries against 64 keys, causal: query i sits at position i + 32
+    # (bottom-right). The Pallas forward takes these lengths but aligns
+    # its causal mask top-left, so this case is held against the JAX
+    # ``reference_attention`` (and its log-sum-exp) only
+    ("cross_lengths", dict(Sq=32)),
+    # 96 queries against 64 keys, causal: queries 0..31 sit before the
+    # first key and see none. As in the JAX ``reference_attention`` they
+    # end at mean(v) over every key, lse at the -1e30 sentinel
+    ("longer_queries", dict(Sq=96)),
 ]
 
 
@@ -171,10 +184,10 @@ def _disjoint_ids(B, S):
     return q, kv
 
 
-def _flash_inputs(seed, *, seg=False, B=2, H=2, S=64, D=32):
+def _flash_inputs(seed, *, seg=False, B=2, H=2, S=64, D=32, Sq=None):
     rng = np.random.default_rng(seed)
-    q, k, v = (rng.normal(size=(B, H, S, D)).astype(np.float32)
-               for _ in range(3))
+    q, k, v = (rng.normal(size=(B, H, n, D)).astype(np.float32)
+               for n in (S if Sq is None else Sq, S, S))
     ids = None
     if seg:
         ids = np.zeros((B, S), np.int32)
@@ -189,8 +202,9 @@ def test_flash_attention_matches_jax(name, kw):
     causal = kw.get("causal", True)
     window = kw.get("window")
     seed = sum(map(ord, name))
-    q, k, v, ids = _flash_inputs(seed, seg=kw.get("seg", False))
-    B, _, S, _ = q.shape
+    q, k, v, ids = _flash_inputs(seed, seg=kw.get("seg", False),
+                                 D=kw.get("D", 32), Sq=kw.get("Sq"))
+    B, S = q.shape[0], k.shape[2]
     kv_ids = ids
     if kw.get("dead"):
         rng = np.random.default_rng(seed)
@@ -206,22 +220,29 @@ def test_flash_attention_matches_jax(name, kw):
     tseg = None if ids is None else _t(ids)
     tkseg = None if kv_ids is None else _t(kv_ids)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
-    # 16-wide blocks: 4 x 4 tiles, so the tile skip and online softmax run
-    want, want_lse = jfa.flash_attention(
-        jq, jk, jv, causal=causal, window=window, q_segment_ids=jseg,
-        kv_segment_ids=jkseg, block_q=16, block_k=16, interpret=True,
-        return_residuals=True,
-    )
     want_ref = jfa.reference_attention(
         jq, jk, jv, causal=causal, window=window, q_segment_ids=jseg,
         kv_segment_ids=jkseg,
     )
-    if kw.get("dead") or kw.get("disjoint"):
+    if kw.get("Sq"):
+        # the JAX reference's masked scores, their log-sum-exp
+        s = jnp.einsum("bhqd,bhkd->bhqk", jq, jk) / np.sqrt(q.shape[-1])
+        mask = jfa._full_mask(q.shape, k.shape, jseg, jkseg, causal, window)
+        s = jnp.where(mask, s, jfa.NEG_INF)
+        want, want_lse = want_ref, jax.nn.logsumexp(s, axis=-1)
+    else:
+        # 16-wide blocks: 4 x 4 tiles, so the tile skip and online softmax run
+        want, want_lse = jfa.flash_attention(
+            jq, jk, jv, causal=causal, window=window, q_segment_ids=jseg,
+            kv_segment_ids=jkseg, block_q=16, block_k=16, interpret=True,
+            return_residuals=True,
+        )
+    if kw.get("dead") or kw.get("disjoint") or kw.get("Sq", 0) > S:
         dead = np.asarray(want_lse) <= tfa.NEG_INF / 2
         assert dead.any() and not dead.all()
         np.testing.assert_allclose(np.asarray(want)[dead],
                                    np.broadcast_to(v.mean(2, keepdims=True),
-                                                   v.shape)[dead],
+                                                   q.shape)[dead],
                                    atol=ATOL, rtol=0)
     tq, tk, tv = map(_t, (q, k, v))
     kw_t = dict(causal=causal, window=window, q_segment_ids=tseg,
@@ -243,9 +264,9 @@ def test_flash_attention_matches_jax(name, kw):
 
 #: (dtype, head dim, the forward's body, the backward's dq and dk/dv body)
 BODY_CASES = [
-    (torch.bfloat16, 16, "mma", "mma"), (torch.bfloat16, 64, "mma", "mma"),
-    (torch.bfloat16, 128, "mma", "mma"), (torch.float16, 16, "mma", "mma"),
-    (torch.float16, 64, "mma", "mma"), (torch.float16, 128, "mma", "mma"),
+    (torch.bfloat16, 16, "wgmma", "mma"), (torch.bfloat16, 64, "wgmma", "mma"),
+    (torch.bfloat16, 128, "wgmma", "mma"), (torch.float16, 16, "wgmma", "mma"),
+    (torch.float16, 64, "wgmma", "mma"), (torch.float16, 128, "wgmma", "mma"),
     (torch.float32, 64, "fma", "fma"), (torch.float32, 128, "fma", "fma"),
     (torch.bfloat16, 40, "fma", "fma"), (torch.float16, 40, "fma", "fma"),
     (torch.bfloat16, 8, "fma", "fma"),
@@ -256,17 +277,18 @@ BODY_CASES = [
                          ids=[f"{c[0]}-{c[1]}" for c in BODY_CASES])
 def test_kernel_body_dispatch(dtype, head_dim, fwd, bwd):
     """The Python mirror of the C entry points' choice of body: tensor
-    cores for bf16/f16 with D a multiple of 16 up to 128; otherwise f32
-    arithmetic (a tensor-core f32 product would be TF32), the
-    register-tiled ``fma`` bodies in the forward and in dq and dk/dv. The
-    three kernels share the tensor-core rule."""
+    cores for bf16/f16 with D a multiple of 16 up to 128 (``wgmma`` in the
+    forward, ``mma`` in dq and dk/dv); otherwise f32 arithmetic (a
+    tensor-core f32 product would be TF32), the register-tiled ``fma``
+    bodies in the forward and in dq and dk/dv. The three kernels share the
+    tensor-core rule."""
     from kubeflow_tpu_torch.ops import flash_attention_bwd as tfb
 
-    assert tfa.tensor_cores(dtype, head_dim) is (fwd == "mma")
+    assert tfa.tensor_cores(dtype, head_dim) is (bwd == "mma")
     assert tfa.body(dtype, head_dim) == fwd
     assert tfb.dq_body(dtype, head_dim) == bwd
     assert tfb.dkv_body(dtype, head_dim) == bwd
-    assert tfa.LAUNCHES_BY_BODY.keys() == {"mma", "fma"}
+    assert tfa.LAUNCHES_BY_BODY.keys() == {"wgmma", "fma"}
     assert tfb.DQ_LAUNCHES_BY_BODY.keys() == tfb.DKV_LAUNCHES_BY_BODY.keys() \
         == {"mma", "fma"}
 
@@ -274,9 +296,10 @@ def test_kernel_body_dispatch(dtype, head_dim, fwd, bwd):
 def test_kernel_body_dispatch_matches_the_c_sources():
     """Both sources dispatch on the same condition the mirror states, and
     each of the three C entry points (forward, dq, dk/dv) takes its
-    tensor-core body on exactly that condition. Past that branch each
-    entry point launches its ``fma`` body for every dtype
-    (``flash_fwd_fma_kernel``, ``flash_bwd_dq_fma_kernel``,
+    tensor-core body on exactly that condition: the forward's is
+    ``flash_fwd_wgmma_kernel`` (the ``mma.sync`` forward is gone). Past
+    that branch each entry point launches its ``fma`` body for every
+    dtype (``flash_fwd_fma_kernel``, ``flash_bwd_dq_fma_kernel``,
     ``flash_bwd_dkv_fma_kernel``); the old scalar kernels are gone."""
     import re
 
@@ -284,7 +307,7 @@ def test_kernel_body_dispatch_matches_the_c_sources():
     for name in ("flash_attention", "flash_attention_bwd"):
         assert rule in (_build.CSRC / f"{name}.cu").read_text(), name
     for name, entry, launcher, fma in (
-        ("flash_attention", "kft_flash_forward", "launch_mma_any", "launch_fma_any"),
+        ("flash_attention", "kft_flash_forward", "launch_wgmma_any", "launch_fma_any"),
         ("flash_attention_bwd", "kft_flash_bwd_dq", "launch_dq_mma_any",
          "launch_dq_fma_any"),
         ("flash_attention_bwd", "kft_flash_bwd_dkv", "launch_dkv_mma_any",
@@ -301,7 +324,9 @@ def test_kernel_body_dispatch_matches_the_c_sources():
             assert f"if (dtype == {dt}) err = {fma}<{ty}>(" in rest, (entry, dt)
     src = (_build.CSRC / "flash_attention.cu").read_text()
     assert "flash_fwd_fma_kernel<T, DP, SEG>" in src
+    assert "flash_fwd_wgmma_kernel<T, DP, SEG>" in src
     assert not re.search(r"\bflash_fwd_kernel\b", src)
+    assert not re.search(r"\bflash_fwd_mma_kernel\b", src)
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert f"{kernel}_fma_kernel<T, DP, SEG>" in src
