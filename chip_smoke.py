@@ -17,9 +17,10 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    that ran (flash forward: ``"wgmma"``, TMA-fed warpgroup tensor-core
    products, for bf16/f16 with D a multiple of 16, else ``"fma"``,
    register-tiled f32 FMAs; its bf16/f16 cases launched twice and bitwise
-   equal; dq and dk/dv: ``"mma"`` on the same rule, else ``"fma"``,
-   register-tiled f32 FMAs too; the f32 backward cases launched twice and
-   bitwise equal;
+   equal; dq and dk/dv: ``"wgmma"`` on the same rule, else ``"fma"``,
+   register-tiled f32 FMAs too; every backward case launched twice and
+   bitwise equal, rows that see no key with dq = 0 and keys that no query
+   sees with dk = dv = 0 exactly;
    paged attention:
    ``"split"``, pages split across warps), the paged cases including the
    speculative verify
@@ -506,9 +507,10 @@ def run_flash_case(torch, name, c, flush):
 
 def bwd_cases(torch):
     """The training shape first (B=8, H=16, S=512, D=64, causal bf16). The
-    dq and dk/dv kernels run their tensor-core bodies on the bf16 and f16
-    cases at D a multiple of 16 and their ``fma`` bodies on the f32 ones
-    and ``ragged_d40_bf16``."""
+    dq and dk/dv kernels run their tensor-core (``wgmma``) bodies on the
+    bf16 and f16 cases at D a multiple of 16 and their ``fma`` bodies on
+    the f32 ones and ``ragged_d40_bf16``. ``Sq`` (default ``S``) sets a
+    query length apart from the kv length ``S``."""
     base = dict(B=8, H=16, D=64, causal=True)
     return [
         ("causal_s512_bf16", dict(base, S=512, dtype=torch.bfloat16)),
@@ -538,6 +540,22 @@ def bwd_cases(torch):
         # a half type at a head dim no tensor-core tile fits: the fma bodies
         ("ragged_d40_bf16", dict(base, B=2, H=4, D=40, S=200,
                                  dtype=torch.bfloat16)),
+        # kv segment 7 (keys 30..69, across two kv tiles) that no query
+        # has: those keys get dk = dv = 0 exactly
+        ("dead_keys_s128_bf16", dict(base, S=128, causal=False, dead_keys=True,
+                                     dtype=torch.bfloat16)),
+        # 128 queries against 512 keys, causal bottom-right, window 64:
+        # kv tiles 0-4 reach no q tile (their dk = dv = 0), and must not hang
+        ("cross_q128_kv512_window_bf16", dict(base, Sq=128, S=512, window=64,
+                                              dtype=torch.bfloat16)),
+        # more queries than keys, causal: rows before the first key are
+        # dead (dq = 0); ragged q and kv tiles, a q tile of dead and live rows
+        ("cross_q160_kv100_bf16", dict(base, Sq=160, S=100, dtype=torch.bfloat16)),
+        # bert-base MLM training in bf16: padding segments, non-causal
+        ("bert_s128_bf16", dict(B=8, H=12, D=64, S=128, causal=False,
+                                pad=BERT_VALID_LENS, dtype=torch.bfloat16)),
+        # D=48 in a 64-column tile: loads read zeros past D, stores stop there
+        ("causal_s512_d48_bf16", dict(base, D=48, S=512, dtype=torch.bfloat16)),
     ]
 
 
@@ -567,16 +585,17 @@ def bwd_tolerance(torch, fa, q, k, v, out, lse, dout, kw, refs):
     return [t + u * b for t, b in zip(tols, bounds)]
 
 
-def run_bwd_case(torch, name, c, flush):
-    import torch.nn.functional as F
-
+def bwd_case_inputs(torch, name, c):
+    """``(q, k, v, dout, lse, out, kw)`` of backward case ``name``: random
+    inputs from a generator seeded by the name, the mask arguments and
+    the twin's forward residuals."""
     from kubeflow_tpu_torch.ops import flash_attention as fa
-    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
 
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
     B, H, S, D, dt, causal = (c[k] for k in ("B", "H", "S", "D", "dtype", "causal"))
-    q, k, v, dout = (torch.randn(B, H, S, D, generator=g, device="cuda").to(dt)
-                     for _ in range(4))
+    Sq = c.get("Sq", S)
+    q, k, v, dout = (torch.randn(B, H, n, D, generator=g, device="cuda").to(dt)
+                     for n in (Sq, S, S, Sq))
     qseg = kseg = None
     if c.get("seg"):
         cuts = torch.rand(B, S, generator=g, device="cuda") < 3.0 / S
@@ -592,10 +611,28 @@ def run_bwd_case(torch, name, c, flush):
                              dtype=torch.int32)
         qseg = torch.randint(0, 3, (B, S), generator=g, device="cuda",
                              dtype=torch.int32)
+    if c.get("dead_keys"):
+        qseg = torch.zeros(B, S, device="cuda", dtype=torch.int32)
+        qseg[:, S // 2:] = 1
+        kseg = qseg.clone()
+        kseg[:, 30:70] = 7
     window = c.get("window")
     kw = dict(causal=causal, scale=1.0 / D ** 0.5, window=window,
               q_segment_ids=qseg, kv_segment_ids=kseg)
     out, lse = fa.flash_attention_reference(q, k, v, **kw)
+    return q, k, v, dout, lse, out, kw
+
+
+def run_bwd_case(torch, name, c, flush):
+    import torch.nn.functional as F
+
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
+
+    q, k, v, dout, lse, out, kw = bwd_case_inputs(torch, name, c)
+    B, H, Sq, D = q.shape
+    S, dt, causal, window = k.shape[2], q.dtype, kw["causal"], kw["window"]
+    qseg, kseg = kw["q_segment_ids"], kw["kv_segment_ids"]
     delta = (dout.float() * out.float()).sum(-1)
     got = (fb.launch_dq(q, k, v, dout, lse, delta, **kw),
            *fb.launch_dkv(q, k, v, dout, lse, delta, **kw))
@@ -607,26 +644,33 @@ def run_bwd_case(torch, name, c, flush):
         diff = (x - r).abs()
         errs.append(diff.max().item())
         oks.append(bool(torch.isfinite(x).all()) and bool((diff <= t).all()))
-    dead = None
-    if c.get("dead"):  # dead rows: dq exactly 0
-        rows = (lse <= fa.NEG_INF / 2)[..., None].expand_as(got[0])
-        dead = {"rows": int((lse <= fa.NEG_INF / 2).sum().item()),
-                "dq_zero": bool((got[0][rows] == 0).all())}
-        oks.append(dead["rows"] > 0 and dead["dq_zero"])
-    repeat = None
-    if dt == torch.float32:  # no atomics: a second launch gives the same bits
-        again = (fb.launch_dq(q, k, v, dout, lse, delta, **kw),
-                 *fb.launch_dkv(q, k, v, dout, lse, delta, **kw))
-        torch.cuda.synchronize()
-        repeat = all(torch.equal(a, b) for a, b in zip(got, again))
-        oks.append(repeat)
+    # rows that see no key (lse at the sentinel): dq exactly 0; keys that
+    # no live row sees: dk = dv = 0 exactly
+    mask = fa._full_mask(q.shape, k.shape, qseg, kseg, causal, window, q.device)
+    live = lse > fa.NEG_INF / 2
+    seen = live[..., None].expand(B, H, Sq, S) if mask is None else (mask & live[..., None])
+    unseen = ~seen.any(dim=2)  # (B, H, S)
+    dead = {"rows": int((~live).sum().item()),
+            "dq_zero": bool((got[0][~live] == 0).all()),
+            "keys": int(unseen.sum().item()),
+            "dkv_zero": bool((got[1][unseen] == 0).all() and (got[2][unseen] == 0).all())}
+    oks += [dead["dq_zero"], dead["dkv_zero"]]
+    if c.get("dead"):
+        oks.append(dead["rows"] > 0)
+    if c.get("dead_keys") or window is not None and Sq < S:
+        oks.append(dead["keys"] > 0)
+    # no atomics: a second launch gives the same bits
+    again = (fb.launch_dq(q, k, v, dout, lse, delta, **kw),
+             *fb.launch_dkv(q, k, v, dout, lse, delta, **kw))
+    torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+    oks.append(repeat)
     ms_dq = time_ms(torch, lambda: fb.launch_dq(q, k, v, dout, lse, delta, **kw),
                     flush=flush)
     ms_dkv = time_ms(torch, lambda: fb.launch_dkv(q, k, v, dout, lse, delta, **kw),
                      flush=flush)
     plain = time_ms(torch, lambda: fa.flash_attention_bwd_reference(
         q, k, v, out, lse, dout, **kw), flush=flush)
-    mask = fa._full_mask(q.shape, k.shape, qseg, kseg, causal, window, q.device)
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     if mask is None:
         o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
@@ -634,28 +678,35 @@ def run_bwd_case(torch, name, c, flush):
         o = F.scaled_dot_product_attention(*leaves, attn_mask=mask)
     library = time_ms(torch, lambda: torch.autograd.grad(
         o, leaves, dout, retain_graph=True), flush=flush)
+    # plain causal: SDPA's own causal path (aligned top-left, the same
+    # mask at Sq == S), beside the boolean mask the yardstick has used
+    library_causal = None
+    if causal and window is None and qseg is None and Sq == S:
+        oc = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        library_causal = time_ms(torch, lambda: torch.autograd.grad(
+            oc, leaves, dout, retain_graph=True), flush=flush)
     if mask is None:
-        visible = B * S * S
+        visible = B * Sq * S
     else:
-        visible = int(mask.expand(B, 1, S, S).sum().item())
+        visible = int(mask.expand(B, 1, Sq, S).sum().item())
     # dead rows see nothing: their pairs are masked, so not counted
     el = q.element_size()
-    n_in = 4 * q.numel() * el + 2 * B * H * S * 4 + (
-        2 * B * S * 4 if qseg is not None else 0)
-    grad_bytes = q.numel() * 4
+    n_in = 2 * (q.numel() + k.numel()) * el + 2 * B * H * Sq * 4 + (
+        B * (Sq + S) * 4 if qseg is not None else 0)
     peak = PEAK_FLOPS[_dtname(torch, dt)]
     bounds = {}
-    for kern, nbytes, flops in (("dq", n_in + grad_bytes, 6 * D * H * visible),
-                                ("dkv", n_in + 2 * grad_bytes, 8 * D * H * visible)):
+    for kern, nbytes, flops in (("dq", n_in + q.numel() * 4, 6 * D * H * visible),
+                                ("dkv", n_in + 2 * k.numel() * 4, 8 * D * H * visible)):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / peak * 1e3
         bounds[kern] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
     return {
-        "kernel": "flash_attention_bwd", "case": name, "shape": [B, H, S, D],
+        "kernel": "flash_attention_bwd", "case": name,
+        "shape": [B, H, S, D] if Sq == S else [B, H, Sq, S, D],
         "dtype": _dtname(torch, dt),
         "body": {"dq": fb.dq_body(dt, D), "dkv": fb.dkv_body(dt, D)},
         "causal": causal, "window": window,
-        "segments": qseg is not None, "dead_rows": dead,
+        "segments": qseg is not None, "dead_rows_keys": dead,
         "bitwise_repeat": repeat,
         "max_abs_err": {"dq": errs[0], "dk": errs[1], "dv": errs[2]},
         "tol_max": {"dq": float(torch.as_tensor(tols[0]).max()),
@@ -666,20 +717,34 @@ def run_bwd_case(torch, name, c, flush):
         "bound_ms": {"dq": bounds["dq"][0], "dkv": bounds["dkv"][0]},
         "bound_by": {"dq": bounds["dq"][1], "dkv": bounds["dkv"][1]},
         "library_ms": library["ms"],
+        "library_is_causal_ms": library_causal and library_causal["ms"],
         "dropped": {"dq": ms_dq["dropped"], "dkv": ms_dkv["dropped"],
                     "plain_ms": plain["dropped"], "library_ms": library["dropped"]},
         "timing": {"dq": ms_dq, "dkv": ms_dkv, "plain_ms": plain,
-                   "library_ms": library},
+                   "library_ms": library, "library_is_causal_ms": library_causal},
     }
 
 
+def wgmma_bwd_build(ptxas):
+    """``(ok, report)``: every ``flash_bwd_*_wgmma_kernel`` instantiation
+    of the build with 0 spill bytes and no wgmma serialized."""
+    report = {k: v for k, v in ptxas.get("flash_attention_bwd", {}).items()
+              if k.startswith("flash_bwd_") and "_wgmma_kernel" in k}
+    # 2 kernels x (bf16, f16) x (D <= 64, D <= 128) x (segment ids or not)
+    ok = len(report) == 16 and all(
+        v.endswith(" 0 bytes spill") for v in report.values())
+    return ok, report
+
+
 def phase_kernels(torch, state):
+    build_ok, report = wgmma_bwd_build(state.get("ptxas", {}))
+    emit({"phase": "bwd_build", "instantiations": report, "ok": build_ok})
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     # the timer's floor: one launch that does next to nothing, after the flush
     one = torch.empty(1, device="cuda")
     emit({"phase": "timer_floor", "op": "fill_ of one float",
           **time_ms(torch, lambda: one.fill_(1.0), flush=flush)})
-    ok = True
+    ok = build_ok
     for name, c in bwd_cases(torch):
         r = run_bwd_case(torch, name, c, flush)
         emit(r)
@@ -2402,8 +2467,8 @@ def phase_train(torch, state):
                  and max(loss_rel) <= loss_rtol
                  and parity_launches == {
                      "flash_forward": {"wgmma": 0, "fma": want_p},
-                     "flash_bwd_dq": {"mma": 0, "fma": want_p},
-                     "flash_bwd_dkv": {"mma": 0, "fma": want_p}})
+                     "flash_bwd_dq": {"wgmma": 0, "fma": want_p},
+                     "flash_bwd_dkv": {"wgmma": 0, "fma": want_p}})
     state["train_parity_launches"] = parity_launches
     emit({"phase": "train_parity", "dtype": "f32", "tf32": False,
           "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": PARITY_STEPS,
@@ -2445,8 +2510,8 @@ def phase_train(torch, state):
     ok = (parity_ok and finite and len(losses) == steps and losses[-1] < losses[0]
           and all(n == want for n in launches.values())
           and by_body == {"flash_forward": {"wgmma": want, "fma": 0},
-                          "flash_bwd_dq": {"mma": want, "fma": 0},
-                          "flash_bwd_dkv": {"mma": want, "fma": 0}}
+                          "flash_bwd_dq": {"wgmma": want, "fma": 0},
+                          "flash_bwd_dkv": {"wgmma": want, "fma": 0}}
           and live_kft_threads() == [])
     emit({"phase": "train", "dtype": "bf16", "param_dtype": "f32",
           "shape": [TRAIN_BATCH, TRAIN_SEQ], "steps": steps,
@@ -2574,8 +2639,8 @@ def phase_profile(torch, state):
         train_prof_ms = (time.perf_counter() - t0) * 1e3
     n_kernels, busy_ms, top = _device_summary(prof)
     device_ms = sum(ms for _, (_, ms) in top)
-    names = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_mma_kernel",
-             "flash_bwd_dkv_mma_kernel", "flash_fwd_fma_kernel", "flash_bwd_dq_fma_kernel",
+    names = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+             "flash_bwd_dkv_wgmma_kernel", "flash_fwd_fma_kernel", "flash_bwd_dq_fma_kernel",
              "flash_bwd_dkv_fma_kernel")
     attn = {k: ms for k, (_, ms) in top if k.split(" ")[-1] in names}
     # bf16 training runs the tensor-core forward, dq and dk/dv
@@ -2659,6 +2724,7 @@ def main(argv=None) -> int:
     ptxas = {n: ptxas_report(_build._target(n).with_suffix(".log").read_text())
              for n in _build.sources()}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    state["ptxas"] = ptxas
     runners = {"kernels": phase_kernels, "forward": phase_forward,
                "serving": phase_serving, "parity": phase_parity,
                "engine": phase_engine, "contract": phase_contract,
@@ -2733,8 +2799,9 @@ def main(argv=None) -> int:
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             })
         # the backward pair on the training path; plain_ms (the twin) and
-        # library_ms (the backward of scaled_dot_product_attention) are
-        # each one call computing dq, dk and dv, given for both kernels
+        # library_ms (the backward of scaled_dot_product_attention with
+        # the boolean mask; library_is_causal_ms with is_causal) are each
+        # one call computing dq, dk and dv, given for both kernels
         r = state["bwd_main"]
         for name, part, launch_key, rep in (
             ("flash_attention_bwd_dq", "dq", "flash_bwd_dq",
@@ -2752,6 +2819,7 @@ def main(argv=None) -> int:
                 "ms": r["ms"][part], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],
                 "library_ms": r["library_ms"],
+                "library_is_causal_ms": r["library_is_causal_ms"],
             })
         # the backward's f32 bodies on their own: timed at the f32 causal
         # case, launched by the train phase's f32 parity steps

@@ -905,45 +905,6 @@ __global__ void __launch_bounds__(WG_THREADS, wg_blocks(DP)) flash_fwd_wgmma_ker
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime (the
-// libraries link no -lcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static const EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiledFn>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// a (D, S, B * H) 16-bit tensor as 64 x 64 boxes with the 128-byte
-// swizzle; a box reads zeros past D and past S, never the next head
-template <typename T>
-bool tile_map(CUtensorMap* map, const void* p, int D, int S, int BH) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
-  const cuuint32_t box[3] = {wg::BOX, wg::BOX, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapDataType type = std::is_same<T, __half>::value
-                                       ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  return encode(map, type, 3, const_cast<void*>(p), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 template <typename T, int DP, bool SEG>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          const int* qseg, const int* kseg, void* out, float* lse,
@@ -951,30 +912,14 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
                          int window, float scale, cudaStream_t stream) {
   auto kern = flash_fwd_wgmma_kernel<T, DP, SEG>;
   const int smem = wg_smem_bytes(DP);
-  // once a device: the shared-memory opt-in, a check that the registers
-  // the warpgroups hand between them are there (setmaxnreg.inc would wait
-  // for them for ever), and the SM count
   static std::atomic<int> sms[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int nsm = 0;
+  cudaError_t err = wg::prepare_once(sms, kern, smem, WG_THREADS,
+                                     128 * (WG_PRODUCER_REGS + wg_consumer_regs(DP)), &nsm);
   if (err != cudaSuccess) return err;
-  int nsm = sms[dev & 63].load();
-  if (nsm == 0) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, kern);
-    if (err != cudaSuccess) return err;
-    if (attr.numRegs * WG_THREADS < 128 * (WG_PRODUCER_REGS + wg_consumer_regs(DP))) {
-      return cudaErrorInvalidConfiguration;
-    }
-    err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    sms[dev & 63].store(nsm);
-  }
   CUtensorMap maps[4];
-  if (!tile_map<T>(&maps[0], q, D, Sq, B * H) || !tile_map<T>(&maps[1], k, D, Skv, B * H) ||
-      !tile_map<T>(&maps[2], v, D, Skv, B * H) || !tile_map<T>(&maps[3], out, D, Sq, B * H)) {
+  if (!wg::tile_map<T>(&maps[0], q, D, Sq, B * H) || !wg::tile_map<T>(&maps[1], k, D, Skv, B * H) ||
+      !wg::tile_map<T>(&maps[2], v, D, Skv, B * H) || !wg::tile_map<T>(&maps[3], out, D, Sq, B * H)) {
     return cudaErrorInvalidValue;
   }
   // persistent blocks: as many as the SMs hold at once

@@ -25,10 +25,12 @@
 //
 // TPU grid -> CUDA blocks: the Pallas grids (B, H, q blocks, kv blocks) for
 // dq and (B, H, kv blocks, q blocks) for dk/dv ran their last axis in
-// order ("arbitrary") with the accumulator in VMEM scratch. Here one
-// thread block owns one (q tile, head, batch) for dq and one (kv tile,
-// head, batch) for dk/dv and loops over the other axis; the loop replaces
-// the sequential grid axis. With this split no two blocks write the same
+// order ("arbitrary") with the accumulator in VMEM scratch. Here a work
+// item is one (q tile, head, batch) for dq and one (kv tile, head, batch)
+// for dk/dv, owned by one thread block (the `fma` bodies: one block an
+// item; the `wgmma` bodies: persistent blocks, each taking items in
+// turn), which loops over the other axis; the loop replaces the
+// sequential grid axis. With this split no two blocks write the same
 // gradient row, so neither kernel needs atomics and the result is
 // deterministic. Tiles that are wholly in the causal future or wholly
 // before the window are skipped with the forward kernel's predicate and
@@ -41,42 +43,76 @@
 // `dkv_body()` in ops/flash_attention_bwd.py):
 //
 // * bf16 / f16 with D a multiple of 16 up to 128, on the tensor cores
-//   (mma.sync.m16n8k16, f32 accumulators, operands in 16-bit tiles with
-//   XOR-swizzled rows, read by ldmatrix; csrc/tile_mma.cuh):
-//   - `flash_bwd_dq_mma_kernel`, in the forward's (queries x keys)
-//     orientation. 4 warps, each owning 16 of the block's 64 query rows.
-//     The q and dO tiles are copied once and stay in shared memory, with
-//     each row's lse, delta and segment id in registers; K and V tiles
-//     with their segment ids stream through a 2-stage ring of 16-byte
-//     cp.async copies, the next kv tile loading while this one computes.
-//     S = Q.K^T and dP = dO.V^T take their B operands from K and V rows
-//     by plain ldmatrix; P and dS are formed in the accumulators with the
-//     twin's f32 operations in its order; dS is packed to q's dtype (the
-//     one rounding the twin makes) straight into the A operand of
-//     dQ += dS.K, whose B operand is K read by ldmatrix.trans. dQ stays
-//     in f32 registers over the whole kv loop (32 a thread at D = 64, 64
-//     at D = 128) and leaves through shared memory in 16-byte stores. At
-//     D <= 64 the q and dO A fragments are held in registers for the whole
-//     loop; at D <= 128 they are re-read from shared memory per kv tile,
-//     since S, dP and dQ fill the register file there. Blocks are launched
-//     with the q tiles that see the most kv tiles first, as the forward's.
-//     What bounds it: bytes (15 us at the training shape, above). Each K
-//     and V element is read from device memory once per q tile, the
-//     products run on the tensor cores, and copies overlap the math.
-//     Shared memory: 49 KB at
-//     D <= 64, 97 KB at D <= 128.
-//   - `flash_bwd_dkv_mma_kernel`, in the transposed (keys x queries)
-//     orientation. 4 warps, each owning 16 of the block's 64 keys. The K
-//     and V tiles are copied once and stay in shared memory; q and dO
-//     tiles with their lse, delta and segment rows stream through the
-//     same kind of ring. S^T = K.Q^T and dP^T = V.dO^T; P^T and dS^T are
-//     packed (P^T to dO's dtype, dS^T to q's) into the A operand of
-//     dV += P^T.dO and dK += dS^T.Q, whose B operands are read with
-//     ldmatrix.trans. dK and dV stay in f32 registers over the whole q
-//     loop. At D <= 64 a pass covers the 64 queries of a tile, at
-//     D <= 128 two passes of 32 (the 128 accumulator registers of dK and
-//     dV leave room for no more). Shared memory: 50 KB at D <= 64, 98 KB
-//     at D <= 128.
+//   through Hopper's warpgroup path (csrc/wgmma_tile.cuh, shared with the
+//   forward's `flash_fwd_wgmma_kernel`): `flash_bwd_dkv_wgmma_kernel` and
+//   `flash_bwd_dq_wgmma_kernel`. Both have one shape:
+//   - Warp specialisation. A block is one consumer warpgroup (64 keys of
+//     a kv tile for dk/dv, 64 query rows of a q tile for dq) and one
+//     producer warpgroup, which keeps 40 registers a thread
+//     (`setmaxnreg.dec`; at 32 its segment-id work spilled) and of which
+//     one warp issues every load; the consumers take 216
+//     (`setmaxnreg.inc`) and only compute. 2 blocks an SM
+//     (`__launch_bounds__`, checked against the same constexpr arithmetic
+//     as the shared memory: 98-101 KB a block at either D).
+//   - Persistent blocks. As many blocks as the SMs hold take the work
+//     items (kv tile or q tile, head, batch) heaviest first, in rounds
+//     whose every other one runs in reverse (the forward's order; head
+//     by head instead is 2% faster for dq at the training shape and 12%
+//     slower with segment ids).
+//   - TMA and mbarriers. A work item's own two tiles (K and V, or q and
+//     dO) come by TMA once, into one of 2 buffers at D <= 64 (the next
+//     item's load while this one computes; one buffer and 5 stages is
+//     13% slower at the training shape), 1 at D <= 128; the other two
+//     stream through a ring of 4 stages at D <= 64 (3 are 3% slower for
+//     dq), 2 at D <= 128, with a full and an empty barrier a stage.
+//     Tiles are 64 x 64 boxes of the 128-byte swizzle (zeros past D and
+//     past S, never the next head). The rows beside them (lse, delta,
+//     segment ids: a TMA map of f32 rows
+//     would need S * 4 to be a multiple of 16) come by plain loads of the
+//     producer warp's lanes, each of which arrives on the full barrier
+//     after its stores. lse is stored as +inf where a row adds nothing
+//     (past S, or dead at the -1e30 sentinel), so p = exp(s - lse) is
+//     exactly 0 there without a test.
+//   - Products, each a wgmma with f32 accumulators. dk/dv (keys x
+//     queries): S^T = K.Q^T and dP^T = V.dO^T with both operands K-major
+//     (m64n64, or two m64n32 passes of 32 queries at D = 128, where dK
+//     and dV take 128 registers); dV += P^T.dO and dK += dS^T.Q with P^T
+//     (rounded to dO's dtype) and dS^T (to q's) packed from the
+//     accumulators into the A operand, dO and q read MN-major with the
+//     transpose bit from the same swizzled tiles. dq (queries x keys):
+//     S = Q.K^T and dP = dO.V^T K-major; dQ += dS.K with dS packed to q's
+//     dtype and K MN-major. A stage is released once the wait_group that
+//     retires its last reader returns. dk/dv issues the next pass's S^T
+//     and dP^T before it waits for this pass's dV and dK, so the
+//     elementwise work runs while the tensor cores add the previous pass.
+//     dq issues a tile's dQ as soon as its dS is packed and queues the
+//     next tile's S and dP behind it, so the K/V stage is released before
+//     the elementwise work and the ring refills sooner (2% faster at the
+//     training shape and 14% at D = 128 than dk/dv's order).
+//   - Skips. Producer and consumer take a work item's causal / window
+//     range of streamed tiles from one function (`q_span`, `kv_span`); an
+//     item with none still hands its buffer over and writes zeros. With
+//     segment ids the producer also skips, exactly, a streamed tile none
+//     of whose ids lies in the span of the item's ids, and tags each
+//     stage with its tile and whether its pairs need the elementwise
+//     masks (a causal / window boundary, keys past Skv for dq, or mixed
+//     segment ids); a tag of END closes the item, so the consumer never
+//     waits on a stage the producer does not fill. Other tiles take no
+//     mask at all.
+//   - Epilogue. The f32 gradient (64 x D) is staged in the item's buffer
+//     (its two 16-bit tiles are exactly its size) in the layout of TMA
+//     boxes of 32 f32 columns and stored by TMA (rows past S and columns
+//     past D are not written): dK, then dV, through the one buffer; dq
+//     once. Each gradient row has one owner: no atomics, bitwise
+//     repeatable.
+//   The percentages are scripts/chip_bwd_ring.py's, on an NVIDIA H100
+//   80GB HBM3 at 700 W; it carries each alternative as a patch on this
+//   source. What bounds it: bytes (15 / 20 us at the training shape,
+//   above). Each item reads its own tiles once and the streamed ones once
+//   an item, so the streamed tiles are read again for every item that
+//   reaches them (from L2 where they stay there); the products run on
+//   the tensor cores. The shared-memory opt-in and the register check
+//   run once a device (`wg::prepare_once`).
 // * f32, and bf16 / f16 at any other D: `flash_bwd_dq_fma_kernel` and
 //   `flash_bwd_dkv_fma_kernel`, f32 FMAs only. A tensor-core f32 product
 //   would be TF32, about three decimal digits, and would break the f32
@@ -124,8 +160,12 @@
 #include <cuda_fp16.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <atomic>
+
 #include "fma_tile.cuh"
 #include "tile_mma.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -724,455 +764,1014 @@ cudaError_t launch_dkv_fma_any(const Args& a, float* dk, float* dv, int vec) {
              : launch_dkv_fma<T, 128, false>(a, dk, dv, vec);
 }
 
-// ---------------------------------------------------------- dk/dv mma body
+// --------------------------------------------------------------- wgmma bodies
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 keys
+constexpr int WG_THREADS = 256;  // the consumer warpgroup, then the producer warpgroup
+constexpr int WG_BLOCKS = 2;     // blocks an SM, at every DP (the shared memory allows it)
+constexpr int WG_PRODUCER_REGS = 40;
+static_assert(BQ == wg::BOX && BK == wg::BOX, "a q or kv tile is one box of rows");
 
-// One f32 gradient tile (64 keys x DP, 16 keys a warp in mma accumulator
-// layout) through shared memory (rows padded to DP + 8 floats: the float2
-// writes of a half-warp hit distinct banks) into rows [0, C) x [0, D) of
-// dst in 16-byte stores.
-template <int DP>
-__device__ __forceinline__ void store_grad(const float (&acc)[DP / 8][4], float* stage,
-                                           float* dst, int C, int D, int tid) {
-  constexpr int LD = DP + 8;
-  constexpr int C4 = DP / 4;
-  const int lane = tid & 31;
-  const int key0 = (tid >> 5) * 16 + (lane >> 2);
-  const int t = lane & 3;
-#pragma unroll
-  for (int d = 0; d < DP / 8; ++d) {
-    *reinterpret_cast<float2*>(stage + key0 * LD + d * 8 + 2 * t) =
-        make_float2(acc[d][0], acc[d][1]);
-    *reinterpret_cast<float2*>(stage + (key0 + 8) * LD + d * 8 + 2 * t) =
-        make_float2(acc[d][2], acc[d][3]);
-  }
-  __syncthreads();
-  const int d4 = D / 4;
-#pragma unroll
-  for (int i = 0; i < BK * C4 / MMA_THREADS; ++i) {
-    const int e = tid + i * MMA_THREADS;
-    const int r = e / C4;
-    const int c = e - r * C4;
-    if (r < C && c < d4) {
-      *reinterpret_cast<float4*>(dst + (size_t)r * D + 4 * c) =
-          *reinterpret_cast<const float4*>(stage + r * LD + 4 * c);
-    }
-  }
-  __syncthreads();
+// Registers a thread: what __launch_bounds__ leaves at entry, then the
+// producer warpgroup gives all but WG_PRODUCER_REGS to the consumers.
+constexpr int WG_ENTRY_REGS = (65536 / (WG_THREADS * WG_BLOCKS)) & ~7;
+constexpr int WG_CONSUMER_REGS =
+    ((WG_THREADS * WG_ENTRY_REGS - 128 * WG_PRODUCER_REGS) / 128 > 240
+         ? 240
+         : (WG_THREADS * WG_ENTRY_REGS - 128 * WG_PRODUCER_REGS) / 128) &
+    ~7;
+
+// stages of the streamed ring: 4 at DP = 64, 2 at DP = 128; buffers of a
+// work item's own two tiles (K and V for dk/dv, q and dO for dq): 2 and 1
+__host__ __device__ constexpr int wg_stages(int DP) { return DP == 64 ? 4 : 2; }
+__host__ __device__ constexpr int wg_bufs(int DP) { return DP == 64 ? 2 : 1; }
+
+// Words of plain-loaded rows beside the tiles. dk/dv: a kv buffer's key
+// segment ids; a stage's lse (+inf where a query adds nothing), delta, q
+// segment ids and tag. dq: a q buffer's lse, delta and q segment ids; a
+// stage's key segment ids and tag (4 words, to keep 8-byte alignment).
+constexpr int DKV_ITEM_WORDS = BK;
+constexpr int DKV_STAGE_WORDS = 3 * BQ + 4;
+constexpr int DQ_ITEM_WORDS = 3 * BQ;
+constexpr int DQ_STAGE_WORDS = BK + 4;
+
+// dynamic shared memory: 1024 bytes of alignment slack, the buffers' and
+// stages' tiles (two each), a full and an empty barrier for each buffer
+// and stage, then their words
+__host__ __device__ constexpr int wg_smem(int DP, int item_words, int stage_words) {
+  return 1024 + 2 * (wg_bufs(DP) + wg_stages(DP)) * (DP / wg::BOX) * (int)wg::BOX_BYTES +
+         16 * (wg_bufs(DP) + wg_stages(DP)) +
+         4 * (wg_bufs(DP) * item_words + wg_stages(DP) * stage_words);
 }
+static_assert(WG_BLOCKS * (wg_smem(64, DKV_ITEM_WORDS, DKV_STAGE_WORDS) + 1024) <= SM_SMEM &&
+                  WG_BLOCKS * (wg_smem(128, DKV_ITEM_WORDS, DKV_STAGE_WORDS) + 1024) <= SM_SMEM &&
+                  WG_BLOCKS * (wg_smem(64, DQ_ITEM_WORDS, DQ_STAGE_WORDS) + 1024) <= SM_SMEM &&
+                  WG_BLOCKS * (wg_smem(128, DQ_ITEM_WORDS, DQ_STAGE_WORDS) + 1024) <= SM_SMEM,
+              "WG_BLOCKS blocks fit an SM");
 
-template <typename T, int DP, bool SEG>
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dkv_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ qseg,
-    const int* __restrict__ kseg,
-    float* __restrict__ dk, float* __restrict__ dv,  // (B, H, Skv, D)
-    int H, int Sq, int Skv, int D, int causal, int window, float scale) {
-  constexpr int KC = DP / 16;                 // k16 steps over the head dim
-  constexpr int SUB = DP <= 64 ? 64 : 32;     // queries per pass
-  constexpr int NJ = SUB / 8;                 // n8 tiles of S^T per pass
-  constexpr int DT = DP / 8;                  // n8 tiles of a dK / dV row
-  constexpr uint32_t TILE = BQ * DP * 2;      // bytes of one 16-bit tile
-  static_assert(BQ == BK, "q and kv tiles share the tile size");
-  static_assert(BK * (DP + 8) * 4 <= 4 * TILE, "gradient stage fits the q/dO ring");
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int ik = blockIdx.z;  // causal: the kv tiles seen by the most q tiles first
-  const int k_start = ik * BK;
-  const int C = min(BK, Skv - k_start);
-  const int off = Skv - Sq;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int key0 = warp * 16 + g;  // this thread's keys: key0 and key0 + 8
-
-  extern __shared__ __align__(128) unsigned char tsmem[];
-  const uint32_t k_s = tile::smem_addr(tsmem);  // K tile
-  const uint32_t v_s = k_s + TILE;             // V tile
-  const uint32_t q_s = k_s + 2 * TILE;         // 2 stages
-  const uint32_t do_s = k_s + 4 * TILE;        // 2 stages
-  float* lse_s = reinterpret_cast<float*>(tsmem + 6 * TILE);  // 2 stages x BQ
-  float* dl_s = lse_s + 2 * BQ;                               // 2 stages x BQ
-  int* qseg_s = reinterpret_cast<int*>(dl_s + 2 * BQ);       // 2 stages x BQ
-  int* kseg_s = qseg_s + 2 * BQ;                              // BK
-
-  const size_t bh = (size_t)b * H + h;
-  const size_t krow0 = bh * Skv + k_start;
-
-  // the q tiles that run form one range [lo, hi]
+// The streamed tiles [lo, hi] a work item reaches under the causal and
+// window masks (lo > hi: none): q tiles for kv tile k_start (dk/dv), kv
+// tiles for q tile q_start (dq). Producer and consumer both take their
+// ranges from here.
+__device__ __forceinline__ void q_span(int k_start, int Sq, int off, int causal, int window,
+                                       int& lo, int& hi) {
   const int nq = (Sq + BQ - 1) / BQ;
-  int lo = nq, hi = -1;
+  lo = nq;
+  hi = -1;
   for (int iq = 0; iq < nq; ++iq) {
     if (tile_runs(iq * BQ, min(BQ, Sq - iq * BQ), k_start, off, causal, window)) {
       lo = min(lo, iq);
       hi = iq;
     }
   }
-
-  auto load_q = [&](int iq, int st) {
-    const int q_start = iq * BQ;
-    const int R = min(BQ, Sq - q_start);
-    const size_t row0 = bh * Sq + q_start;
-    tile::load_tile<BQ, DP, MMA_THREADS>(q_s + st * TILE, q + row0 * D, R, D, tid);
-    tile::load_tile<BQ, DP, MMA_THREADS>(do_s + st * TILE, dout + row0 * D, R, D, tid);
-    tile::load_words<MMA_THREADS>(tile::smem_addr(lse_s + st * BQ), lse + row0, BQ, R, tid);
-    tile::load_words<MMA_THREADS>(tile::smem_addr(dl_s + st * BQ), delta + row0, BQ, R, tid);
-    if (SEG) {
-      tile::load_words<MMA_THREADS>(tile::smem_addr(qseg_s + st * BQ),
-                                    qseg + (size_t)b * Sq + q_start, BQ, R, tid);
-    }
-  };
-  tile::load_tile<BK, DP, MMA_THREADS>(k_s, k + krow0 * D, C, D, tid);
-  tile::load_tile<BK, DP, MMA_THREADS>(v_s, v + krow0 * D, C, D, tid);
-  if (SEG) {
-    tile::load_words<MMA_THREADS>(tile::smem_addr(kseg_s), kseg + (size_t)b * Skv + k_start,
-                                  BK, C, tid);
-  }
-  if (lo <= hi) load_q(lo, 0);
-  tile::cp_async_commit();
-
-  float dka[DT][4], dva[DT][4];
-#pragma unroll
-  for (int d = 0; d < DT; ++d) {
-    dka[d][0] = dka[d][1] = dka[d][2] = dka[d][3] = 0.f;
-    dva[d][0] = dva[d][1] = dva[d][2] = dva[d][3] = 0.f;
-  }
-
-  for (int iq = lo; iq <= hi; ++iq) {
-    const int st = (iq - lo) & 1;
-    if (iq < hi) {
-      load_q(iq + 1, st ^ 1);
-      tile::cp_async_commit();
-      tile::cp_async_wait<1>();
-    } else {
-      tile::cp_async_wait<0>();
-    }
-    __syncthreads();  // q tile iq (and K, V) have landed for every thread
-    const int q_start = iq * BQ;
-    const int R = min(BQ, Sq - q_start);
-    const uint32_t qs = q_s + st * TILE;
-    const uint32_t dos = do_s + st * TILE;
-    const float* lse_t = lse_s + st * BQ;
-    const float* dl_t = dl_s + st * BQ;
-    const int* qseg_t = qseg_s + st * BQ;
-    const bool whole = !SEG && C == BK && R == BQ &&
-                       tile::tile_whole(q_start, R, k_start, off, causal, window);
-#pragma unroll
-    for (int sub = 0; sub < BQ / SUB; ++sub) {
-      // S^T = K . Q^T and dP^T = V . dO^T (queries of the pass along n)
-      float s[NJ][4], dp[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < KC; ++kk) {
-        uint32_t kf[4], vf[4];
-        const uint32_t arow = tile::swz<DP>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
-        tile::ldsm_x4(kf, k_s + arow);
-        tile::ldsm_x4(vf, v_s + arow);
-#pragma unroll
-        for (int p = 0; p < NJ / 2; ++p) {
-          const uint32_t brow = tile::swz<DP>(
-              sub * SUB + 16 * p + (lane & 7) + ((lane >> 4) << 3), 2 * kk + ((lane >> 3) & 1));
-          uint32_t bq[4], bd[4];
-          tile::ldsm_x4(bq, qs + brow);
-          tile::ldsm_x4(bd, dos + brow);
-          tile::mma<T>(s[2 * p], kf, bq[0], bq[1]);
-          tile::mma<T>(s[2 * p + 1], kf, bq[2], bq[3]);
-          tile::mma<T>(dp[2 * p], vf, bd[0], bd[1]);
-          tile::mma<T>(dp[2 * p + 1], vf, bd[2], bd[3]);
-        }
-      }
-      // P^T = exp(S^T * scale - lse), 0 where masked, ragged or dead;
-      // dS^T = P^T * (dP^T - delta) * scale, in the twin's order
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = key0 + ((e >> 1) << 3);
-          const int qc = sub * SUB + j * 8 + 2 * t + (e & 1);
-          const float l = lse_t[qc];
-          bool keep = l > NEG_INF / 2;
-          if (!whole) {
-            keep = keep && qc < R && key < C &&
-                   visible<SEG>(q_start + qc + off, k_start + key, causal, window,
-                                SEG ? qseg_t[qc] : 0, SEG ? kseg_s[key] : 0);
-          }
-          const float p = keep ? __expf(s[j][e] * scale - l) : 0.f;
-          dp[j][e] = p * (dp[j][e] - dl_t[qc]) * scale;
-          s[j][e] = p;
-        }
-      }
-      // dV += P^T . dO and dK += dS^T . Q, A operands packed from registers
-#pragma unroll
-      for (int kc = 0; kc < NJ / 2; ++kc) {
-        uint32_t pa[4], sa[4];
-        tile::acc_to_a<T>(pa, s[2 * kc], s[2 * kc + 1]);    // p.astype(do.dtype)
-        tile::acc_to_a<T>(sa, dp[2 * kc], dp[2 * kc + 1]);  // ds.astype(q.dtype)
-#pragma unroll
-        for (int p = 0; p < DT / 2; ++p) {
-          const uint32_t brow = tile::swz<DP>(
-              sub * SUB + 16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3), 2 * p + (lane >> 4));
-          uint32_t bo[4], bq[4];
-          tile::ldsm_x4_t(bo, dos + brow);
-          tile::ldsm_x4_t(bq, qs + brow);
-          tile::mma<T>(dva[2 * p], pa, bo[0], bo[1]);
-          tile::mma<T>(dva[2 * p + 1], pa, bo[2], bo[3]);
-          tile::mma<T>(dka[2 * p], sa, bq[0], bq[1]);
-          tile::mma<T>(dka[2 * p + 1], sa, bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();  // stage st is free for the tile after next
-  }
-
-  tile::cp_async_wait<0>();  // the K/V copies, when no q tile ran
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(tsmem + 2 * TILE);  // the q/dO ring
-  store_grad<DP>(dka, stage, dk + krow0 * D, C, D, tid);
-  store_grad<DP>(dva, stage, dv + krow0 * D, C, D, tid);
 }
 
-template <typename T, int DP, bool SEG>
-cudaError_t launch_dkv_mma(const Args& a, float* dk, float* dv) {
-  auto kern = flash_bwd_dkv_mma_kernel<T, DP, SEG>;
-  const size_t smem = 6 * (size_t)BQ * DP * 2 + sizeof(float) * 4 * BQ +
-                      sizeof(int) * (2 * BQ + BK);
-  cudaError_t err = prepare(kern, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(a.H, a.B, (a.Skv + BK - 1) / BK);
-  kern<<<grid, MMA_THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.qseg, a.kseg, dk, dv, a.H, a.Sq, a.Skv, a.D, a.causal,
-      a.window, a.scale);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_dkv_mma_any(const Args& a, float* dk, float* dv) {
-  const bool seg = a.qseg != nullptr;
-  if (a.D <= 64) {
-    return seg ? launch_dkv_mma<T, 64, true>(a, dk, dv) : launch_dkv_mma<T, 64, false>(a, dk, dv);
-  }
-  return seg ? launch_dkv_mma<T, 128, true>(a, dk, dv) : launch_dkv_mma<T, 128, false>(a, dk, dv);
-}
-
-// ------------------------------------------------------------- dq mma body
-
-template <typename T, int DP, bool SEG>
-__global__ void __launch_bounds__(MMA_THREADS) flash_bwd_dq_mma_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ qseg,
-    const int* __restrict__ kseg,
-    float* __restrict__ dq,  // (B, H, Sq, D)
-    int H, int Sq, int Skv, int D, int causal, int window, float scale) {
-  constexpr int KC = DP / 16;                 // k16 steps over the head dim
-  constexpr int NT = BK / 8;                  // n8 tiles of a score row
-  constexpr int DT = DP / 8;                  // n8 tiles of a dQ row
-  constexpr bool HOLD = DP <= 64;             // q/dO A fragments kept in registers
-  constexpr uint32_t TILE = BQ * DP * 2;      // bytes of one 16-bit tile
-  static_assert(BQ == BK, "q and kv tiles share the tile size");
-  static_assert(BQ * (DP + 8) * 4 <= 4 * TILE, "gradient stage fits the K/V ring");
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int iq = gridDim.z - 1 - blockIdx.z;  // most kv tiles first
-  const int q_start = iq * BQ;
-  const int R = min(BQ, Sq - q_start);
-  const int off = Skv - Sq;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-
-  extern __shared__ __align__(128) unsigned char tsmem[];
-  const uint32_t q_s = tile::smem_addr(tsmem);  // q tile
-  const uint32_t do_s = q_s + TILE;            // dO tile
-  const uint32_t k_s = q_s + 2 * TILE;         // 2 stages
-  const uint32_t v_s = q_s + 4 * TILE;         // 2 stages
-  int* kseg_s = reinterpret_cast<int*>(tsmem + 6 * TILE);  // 2 stages x BK
-
-  const size_t bh = (size_t)b * H + h;
-  const size_t row0 = bh * Sq + q_start;
-  const T* kb = k + bh * Skv * D;
-  const T* vb = v + bh * Skv * D;
-
-  // the kv tiles that run form one range [lo, hi]
+__device__ __forceinline__ void kv_span(int q_start, int R, int Skv, int off, int causal,
+                                        int window, int& lo, int& hi) {
   const int nk = (Skv + BK - 1) / BK;
-  int lo = nk, hi = -1;
+  lo = nk;
+  hi = -1;
   for (int ik = 0; ik < nk; ++ik) {
     if (tile_runs(q_start, R, ik * BK, off, causal, window)) {
       lo = min(lo, ik);
       hi = ik;
     }
   }
+}
 
-  auto load_kv = [&](int ik, int st) {
-    const int k0 = ik * BK;
-    const int C = min(BK, Skv - k0);
-    tile::load_tile<BK, DP, MMA_THREADS>(k_s + st * TILE, kb + (size_t)k0 * D, C, D, tid);
-    tile::load_tile<BK, DP, MMA_THREADS>(v_s + st * TILE, vb + (size_t)k0 * D, C, D, tid);
-    if (SEG) {
-      tile::load_words<MMA_THREADS>(tile::smem_addr(kseg_s + st * BK),
-                                    kseg + (size_t)b * Skv + k0, BK, C, tid);
-    }
-  };
-  tile::load_tile<BQ, DP, MMA_THREADS>(q_s, q + row0 * D, R, D, tid);
-  tile::load_tile<BQ, DP, MMA_THREADS>(do_s, dout + row0 * D, R, D, tid);
-  if (lo <= hi) load_kv(lo, 0);
-  tile::cp_async_commit();
+// The segment-tile test, for the producer warp: the streamed tile's ids
+// sit two a lane (rows or keys lane and lane + 32, valid where in0 /
+// in1), the work item's span [lo_id, hi_id]. `run`: some streamed id lies
+// in the span (else no pair of the two tiles can share a segment, and the
+// tile is skipped: exact, since such pairs add 0). `mixed`: the pairs
+// need the elementwise segment test (not every id is one and the same).
+__device__ __forceinline__ void seg_test(int id0, bool in0, int id1, bool in1, int lo_id,
+                                         int hi_id, bool& run, bool& mixed) {
+  run = __ballot_sync(FULL, (in0 && id0 >= lo_id && id0 <= hi_id) ||
+                                (in1 && id1 >= lo_id && id1 <= hi_id)) != 0;
+  mixed = lo_id != hi_id ||
+          __ballot_sync(FULL, (!in0 || id0 == lo_id) && (!in1 || id1 == lo_id)) != FULL;
+}
 
-  // this thread's rows; past R the lse sentinel keeps a row dead
-  const float lse0 = r0 < R ? lse[row0 + r0] : NEG_INF;
-  const float lse1 = r0 + 8 < R ? lse[row0 + r0 + 8] : NEG_INF;
-  const float dl0 = r0 < R ? delta[row0 + r0] : 0.f;
-  const float dl1 = r0 + 8 < R ? delta[row0 + r0 + 8] : 0.f;
-  int qs0 = 0, qs1 = 0;
-  if (SEG) {
-    qs0 = r0 < R ? qseg[(size_t)b * Sq + q_start + r0] : 0;
-    qs1 = r0 + 8 < R ? qseg[(size_t)b * Sq + q_start + r0 + 8] : 0;
+__device__ __forceinline__ void warp_span(int& lo_id, int& hi_id) {
+#pragma unroll
+  for (int w = 16; w >= 1; w >>= 1) {
+    lo_id = min(lo_id, __shfl_xor_sync(FULL, lo_id, w));
+    hi_id = max(hi_id, __shfl_xor_sync(FULL, hi_id, w));
   }
+}
 
-  float dqa[DT][4];
+constexpr float POS_INF = __builtin_huge_valf();
+
+// A stage's tag: the streamed tile's index times 2, plus 1 when its pairs
+// need the elementwise masks; END closes a work item's stages (segment
+// ids only, where the producer alone knows which tiles run).
+constexpr int END = -1;
+
+// One f32 gradient (64 rows x DP, the accumulators of a m64nDP product)
+// into shared memory at `p` in the layout of DP / 32 TMA boxes of 32
+// columns with the 128-byte swizzle (wgmma_tile.cuh).
+template <int DP>
+__device__ __forceinline__ void stage_grad(const float (&acc)[DP / 2], unsigned char* p, int r0,
+                                           int t) {
 #pragma unroll
-  for (int d = 0; d < DT; ++d) dqa[d][0] = dqa[d][1] = dqa[d][2] = dqa[d][3] = 0.f;
-  uint32_t qf[HOLD ? KC : 1][4], df[HOLD ? KC : 1][4];
-
-  for (int ik = lo; ik <= hi; ++ik) {
-    const int st = (ik - lo) & 1;
-    if (ik < hi) {
-      load_kv(ik + 1, st ^ 1);
-      tile::cp_async_commit();
-      tile::cp_async_wait<1>();
-    } else {
-      tile::cp_async_wait<0>();
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    const int ch = (col & 31) >> 2;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      *reinterpret_cast<float2*>(p + (col >> 5) * wg::BOX_BYTES + r * 128 +
+                                 ((ch ^ (r & 7)) << 4) + (col & 3) * 4) =
+          make_float2(acc[4 * j + 2 * hh], acc[4 * j + 2 * hh + 1]);
     }
-    __syncthreads();  // kv tile ik (and q, dO) have landed for every thread
-    if constexpr (HOLD) {
-      if (ik == lo) {
+  }
+}
+
+// The staged gradient at `buf` into rows [row0, row0 + 64) of head bh by
+// TMA (rows past S and columns past D are not written), then wait until
+// the store has read the buffer: one thread.
+__device__ __forceinline__ void store_staged(const CUtensorMap* map, uint32_t buf, int D, int row0,
+                                           int bh, int boxes) {
+  for (int c = 0; c < boxes && c * (wg::BOX / 2) < D; ++c) {
+    wg::tma_store_3d(map, buf + c * wg::BOX_BYTES, c * (wg::BOX / 2), row0, bh);
+  }
+  wg::bulk_commit();
+  wg::bulk_wait_read();
+}
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+}
+
+// d = A . B over the head dim, both K-major: N = 64 or 32 rows of B
+template <typename T, int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                       bool first) {
+  if constexpr (N == 64) {
+    wg::mma_ss_n64<T>(d, desc_a, desc_b, first);
+  } else {
+    wg::mma_ss_n32<T>(d, desc_a, desc_b, first);
+  }
+}
+
+// ------------------------------------------------------ dk/dv wgmma body
+
+template <typename T, int DP, bool SEG>
+__global__ void __launch_bounds__(WG_THREADS, WG_BLOCKS) flash_bwd_dkv_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // q as (D, Sq, B * H)
+    const __grid_constant__ CUtensorMap k_map,   // k as (D, Skv, B * H)
+    const __grid_constant__ CUtensorMap v_map,   // v as (D, Skv, B * H)
+    const __grid_constant__ CUtensorMap do_map,  // dO as (D, Sq, B * H)
+    const __grid_constant__ CUtensorMap dk_map,  // dk, f32, as (D, Skv, B * H)
+    const __grid_constant__ CUtensorMap dv_map,  // dv, f32, as (D, Skv, B * H)
+    const float* __restrict__ lse, const float* __restrict__ delta,  // (B, H, Sq)
+    const int* __restrict__ qseg, const int* __restrict__ kseg,      // (B, Sq), (B, Skv)
+    int B, int H, int Sq, int Skv, int D, int causal, int window, float scale) {
+  constexpr int NB = DP / wg::BOX;              // 64-column boxes of a tile row
+  constexpr int STAGES = wg_stages(DP);
+  constexpr int BUFS = wg_bufs(DP);
+  constexpr uint32_t TILE = NB * wg::BOX_BYTES;  // bytes of a 16-bit tile
+  constexpr int KC = DP / 16;                    // k16 steps of S^T and dP^T
+  constexpr int SUB = DP == 64 ? 64 : 32;        // queries a pass (a unit)
+  constexpr int NH = BQ / SUB;                   // passes a q tile
+  constexpr int NJ = SUB / 8;                    // n8 tiles of a pass's S^T
+  constexpr int NKC = SUB / 16;                  // k16 steps of dV and dK a pass
+  constexpr int SW = DKV_STAGE_WORDS;
+  const int off = Skv - Sq;
+  const int nk = (Skv + BK - 1) / BK;
+  const int items = B * H * nk;
+  const int tid = threadIdx.x;
+
+  extern __shared__ unsigned char wsmem[];
+  const uint32_t raw = tile::smem_addr(wsmem);
+  const uint32_t base = (raw + 1023) & ~1023u;   // the swizzle works on 1024-byte groups
+  unsigned char* gbase = wsmem + (base - raw);
+  const uint32_t kv_s = base;                    // BUFS x (K tile, V tile)
+  const uint32_t qd_s = kv_s + BUFS * 2 * TILE;  // STAGES x (q tile, dO tile)
+  const uint32_t bars = qd_s + STAGES * 2 * TILE;
+  auto kv_full = [&](int kb) { return bars + 8 * kb; };
+  auto kv_empty = [&](int kb) { return bars + 8 * (BUFS + kb); };
+  auto full = [&](int st) { return bars + 8 * (2 * BUFS + st); };
+  auto empty = [&](int st) { return bars + 8 * (2 * BUFS + STAGES + st); };
+  int* kmeta = reinterpret_cast<int*>(gbase + (bars - base) + 16 * (BUFS + STAGES));
+  int* smeta = kmeta + BUFS * DKV_ITEM_WORDS;
+  // stage st's words: lse, delta, q segment ids (BQ each), tag
+  auto lse_m = [&](int st) { return reinterpret_cast<float*>(smeta + st * SW); };
+  auto dl_m = [&](int st) { return reinterpret_cast<float*>(smeta + st * SW + BQ); };
+  auto qs_m = [&](int st) { return smeta + st * SW + 2 * BQ; };
+  auto tag_m = [&](int st) { return smeta + st * SW + 3 * BQ; };
+
+  // Work item `item`: kv tile k_start of head bh, in the order of a (H, B,
+  // nk) grid with the kv tiles seen by the most q tiles first (causal);
+  // its q tiles [lo, hi].
+  auto decode = [&](int item, int& bh, int& k_start, int& lo, int& hi) {
+    bh = item % (B * H);
+    k_start = item / (B * H) * BK;
+    q_span(k_start, Sq, off, causal, window, lo, hi);
+  };
+  // The n-th item of this block: rounds of gridDim.x items, every other
+  // round taken in reverse, so each block's sum of heavy and light items
+  // comes out about even (past items: no more).
+  auto next_item = [&](int n) {
+    return n * (int)gridDim.x + ((n & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+
+  if (tid == 0) {
+    for (int kb = 0; kb < BUFS; ++kb) {
+      wg::mbar_init(kv_full(kb), 32);   // every lane of the producer warp
+      wg::mbar_init(kv_empty(kb), 128);  // every consumer thread
+    }
+    for (int st = 0; st < STAGES; ++st) {
+      wg::mbar_init(full(st), 32);
+      wg::mbar_init(empty(st), 128);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the warpgroup, read from lane 0 so the compiler knows it is uniform
+  const int wgi = __shfl_sync(FULL, tid >> 7, 0);
+  if (wgi == 1) {
+    // ---- producer: one warp loads, the others leave
+    wg::setmaxnreg_dec<WG_PRODUCER_REGS>();
+    if ((tid & 127) >= 32) return;
+    const int lane = tid & 31;
+    if (lane == 0) {
+      wg::tma_prefetch_map(&q_map);
+      wg::tma_prefetch_map(&k_map);
+      wg::tma_prefetch_map(&v_map);
+      wg::tma_prefetch_map(&do_map);
+    }
+    int st = 0, ph = 0;  // the ring: stage and phase
+    for (int n = 0, item = next_item(0); item < items; item = next_item(++n)) {
+      int bh, k_start, lo, hi;
+      decode(item, bh, k_start, lo, hi);
+      const int b = bh / H;
+      const int C = min(BK, Skv - k_start);
+      // this lane's rows of q tile iq: lse (+inf where the row adds
+      // nothing: past Sq, or dead at the -1e30 sentinel), delta, segment id
+      auto fetch = [&](int iq, float (&l)[2], float (&d)[2], int (&s)[2]) {
+        const int q_start = iq * BQ;
+        const size_t row0 = (size_t)bh * Sq + q_start;
 #pragma unroll
-        for (int kk = 0; kk < KC; ++kk) {
-          const uint32_t arow = tile::swz<DP>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
-          tile::ldsm_x4(qf[kk], q_s + arow);
-          tile::ldsm_x4(df[kk], do_s + arow);
+        for (int u = 0; u < 2; ++u) {
+          const int j = lane + 32 * u;
+          const bool in = q_start + j < Sq;
+          const float x = in ? lse[row0 + j] : NEG_INF;
+          l[u] = x > NEG_INF / 2 ? x : POS_INF;
+          d[u] = in ? delta[row0 + j] : 0.f;
+          s[u] = SEG && in ? qseg[(size_t)b * Sq + q_start + j] : 0;
         }
+      };
+      float l[2], d[2], l1[2] = {0.f, 0.f}, d1[2] = {0.f, 0.f};
+      int s[2], s1[2] = {0, 0};
+      if (lo <= hi) fetch(lo, l, d, s);
+      // the key segment ids and their span
+      int ks[2] = {0, 0};
+      int lo_id = 0x7fffffff, hi_id = -0x7fffffff - 1;
+      if (SEG) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = lane + 32 * u;
+          if (j < C) {
+            ks[u] = kseg[(size_t)b * Skv + k_start + j];
+            lo_id = min(lo_id, ks[u]);
+            hi_id = max(hi_id, ks[u]);
+          }
+        }
+        warp_span(lo_id, hi_id);
       }
-    }
-    const int k_start = ik * BK;
-    const int C = min(BK, Skv - k_start);
-    const uint32_t ks = k_s + st * TILE;
-    const uint32_t vs = v_s + st * TILE;
-
-    // S = Q . K^T and dP = dO . V^T (keys of the tile along n)
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KC; ++kk) {
-      uint32_t qa[4], da[4];
-      if constexpr (HOLD) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          qa[i] = qf[kk][i];
-          da[i] = df[kk][i];
+      // K and V into buffer n % BUFS once the item before last has left it
+      const int kb = n % BUFS;
+      wg::mbar_wait(kv_empty(kb), ((n / BUFS) & 1) ^ 1);  // the first round finds it free
+      if (SEG) {
+        kmeta[kb * BK + lane] = ks[0];
+        kmeta[kb * BK + lane + 32] = ks[1];
+      }
+      if (lane == 0 && lo <= hi) {
+        wg::mbar_arrive_expect_tx(kv_full(kb), 2 * TILE);
+        const uint32_t kt = kv_s + kb * 2 * TILE;
+        for (int c = 0; c < NB; ++c) {
+          wg::tma_load_3d(kt + c * wg::BOX_BYTES, &k_map, kv_full(kb), c * wg::BOX, k_start, bh);
+          wg::tma_load_3d(kt + TILE + c * wg::BOX_BYTES, &v_map, kv_full(kb), c * wg::BOX,
+                          k_start, bh);
         }
       } else {
-        const uint32_t arow = tile::swz<DP>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4));
-        tile::ldsm_x4(qa, q_s + arow);
-        tile::ldsm_x4(da, do_s + arow);
+        wg::mbar_arrive(kv_full(kb));  // an item without q tiles still hands its buffer over
       }
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        const uint32_t brow = tile::swz<DP>(16 * p + (lane & 7) + ((lane >> 4) << 3),
-                                            2 * kk + ((lane >> 3) & 1));
-        uint32_t bk[4], bv[4];
-        tile::ldsm_x4(bk, ks + brow);
-        tile::ldsm_x4(bv, vs + brow);
-        tile::mma<T>(s[2 * p], qa, bk[0], bk[1]);
-        tile::mma<T>(s[2 * p + 1], qa, bk[2], bk[3]);
-        tile::mma<T>(dp[2 * p], da, bv[0], bv[1]);
-        tile::mma<T>(dp[2 * p + 1], da, bv[2], bv[3]);
-      }
-    }
-
-    // P = exp(S * scale - lse), 0 where masked, ragged or dead;
-    // dS = P * (dP - delta) * scale, in the twin's order
-    const bool whole = !SEG && C == BK && R == BQ &&
-                       tile::tile_whole(q_start, R, k_start, off, causal, window);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool second = e >= 2;  // row r0 + 8
-        const int r = r0 + (second ? 8 : 0);
-        const int kj = j * 8 + 2 * t + (e & 1);
-        const float l = second ? lse1 : lse0;
-        bool keep = l > NEG_INF / 2;
-        if (!whole) {
-          keep = keep && kj < C &&
-                 visible<SEG>(q_start + r + off, k_start + kj, causal, window,
-                              second ? qs1 : qs0, SEG ? kseg_s[st * BK + kj] : 0);
+      for (int iq = lo; iq <= hi; ++iq) {
+        if (iq < hi) fetch(iq + 1, l1, d1, s1);  // in flight while this tile is handed over
+        const int q_start = iq * BQ;
+        const int R = min(BQ, Sq - q_start);
+        bool run = true;
+        bool mask = !tile::tile_whole(q_start, R, k_start, off, causal, window);
+        if (SEG) {
+          bool mixed;
+          seg_test(s[0], lane < R, s[1], lane + 32 < R, lo_id, hi_id, run, mixed);
+          mask = mask || mixed;
         }
-        const float p = keep ? __expf(s[j][e] * scale - l) : 0.f;
-        dp[j][e] = p * (dp[j][e] - (second ? dl1 : dl0)) * scale;
+        if (run) {
+          wg::mbar_wait(empty(st), ph ^ 1);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            lse_m(st)[lane + 32 * u] = l[u];
+            dl_m(st)[lane + 32 * u] = d[u];
+            if (SEG) qs_m(st)[lane + 32 * u] = s[u];
+          }
+          if (lane == 0) {
+            *tag_m(st) = 2 * iq + (mask ? 1 : 0);
+            wg::mbar_arrive_expect_tx(full(st), 2 * TILE);
+            const uint32_t qt = qd_s + st * 2 * TILE;
+            for (int c = 0; c < NB; ++c) {
+              wg::tma_load_3d(qt + c * wg::BOX_BYTES, &q_map, full(st), c * wg::BOX, q_start, bh);
+              wg::tma_load_3d(qt + TILE + c * wg::BOX_BYTES, &do_map, full(st), c * wg::BOX,
+                              q_start, bh);
+            }
+          } else {
+            wg::mbar_arrive(full(st));
+          }
+          if (++st == STAGES) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          l[u] = l1[u];
+          d[u] = d1[u];
+          s[u] = s1[u];
+        }
+      }
+      if (SEG && lo <= hi) {  // the item's last stage: no tile, its end
+        wg::mbar_wait(empty(st), ph ^ 1);
+        if (lane == 0) *tag_m(st) = END;
+        wg::mbar_arrive(full(st));
+        if (++st == STAGES) {
+          st = 0;
+          ph ^= 1;
+        }
       }
     }
+  } else {
+    // ---- consumer warpgroup: the 64 keys of each kv tile
+    wg::setmaxnreg_inc<WG_CONSUMER_REGS>();
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int key0 = warp * 16 + g;  // this thread's keys: key0 and key0 + 8
 
-    // dQ += dS . K, dS packed to q's dtype as the A operand
-#pragma unroll
-    for (int kc = 0; kc < NT / 2; ++kc) {
-      uint32_t sa[4];
-      tile::acc_to_a<T>(sa, dp[2 * kc], dp[2 * kc + 1]);  // ds.astype(q.dtype)
-#pragma unroll
-      for (int p = 0; p < DT / 2; ++p) {
-        uint32_t bk[4];
-        tile::ldsm_x4_t(bk, ks + tile::swz<DP>(16 * kc + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                               2 * p + (lane >> 4)));
-        tile::mma<T>(dqa[2 * p], sa, bk[0], bk[1]);
-        tile::mma<T>(dqa[2 * p + 1], sa, bk[2], bk[3]);
+    float dk[DP / 2], dv[DP / 2];
+    float s[SUB / 2], dp[SUB / 2];   // S^T then P^T; dP^T then dS^T, of one pass
+    uint32_t pa[NKC][4], sa[NKC][4];  // P^T and dS^T of the previous pass, packed A operands
+    int st = 0, ph = 0;               // the ring, walked as the producer walks it
+    auto advance = [&]() {
+      if (++st == STAGES) {
+        st = 0;
+        ph ^= 1;
       }
+    };
+    auto pin = [&]() {  // every register operand, before wgmma.fence
+      wg::fence_operands(dk);
+      wg::fence_operands(dv);
+#pragma unroll
+      for (int kc = 0; kc < NKC; ++kc) {
+        wg::fence_operands(pa[kc]);
+        wg::fence_operands(sa[kc]);
+      }
+    };
+    // P^T rounded to dO's dtype and dS^T to q's (both T): the A operands
+    // of dV and dK, in the m16n8k16 A layout straight from the accumulators
+    auto pack = [&]() {
+#pragma unroll
+      for (int kc = 0; kc < NKC; ++kc) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[kc][i] = tile::pack2<T>(s[8 * kc + 2 * i], s[8 * kc + 2 * i + 1]);
+          sa[kc][i] = tile::pack2<T>(dp[8 * kc + 2 * i], dp[8 * kc + 2 * i + 1]);
+        }
+      }
+    };
+
+    for (int n = 0, item = next_item(0); item < items; item = next_item(++n)) {
+      int bh, k_start, lo, hi;
+      decode(item, bh, k_start, lo, hi);
+      const int kb = n % BUFS;
+      const uint32_t kt = kv_s + kb * 2 * TILE;  // K, then V
+      const uint32_t vt = kt + TILE;
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+      wg::mbar_wait(kv_full(kb), (n / BUFS) & 1);
+      int ks0 = 0, ks1 = 0;
+      if (SEG) {
+        ks0 = kmeta[kb * BK + key0];
+        ks1 = kmeta[kb * BK + key0 + 8];
+      }
+
+      // The next q tile after `prev` (lo - 1 at first), its stage full:
+      // its index and whether its pairs need the masks; -1 at the end.
+      // Without segment ids the range says it; with them, the stage's tag.
+      auto take = [&](int prev, bool& mask) {
+        if constexpr (SEG) {
+          wg::mbar_wait(full(st), ph);
+          const int tag = __shfl_sync(FULL, *tag_m(st), 0);
+          if (tag == END) {
+            wg::mbar_arrive(empty(st));
+            advance();
+            return -1;
+          }
+          mask = tag & 1;
+          return tag >> 1;
+        } else {
+          const int iq = prev + 1;
+          if (iq > hi) return -1;
+          const int q_start = iq * BQ;
+          mask = !tile::tile_whole(q_start, min(BQ, Sq - q_start), k_start, off, causal, window);
+          wg::mbar_wait(full(st), ph);
+          return iq;
+        }
+      };
+      // S^T = K.Q^T and dP^T = V.dO^T of pass h of the q tile in stage
+      // sq: D/16 k16 steps, every operand K-major; queries h * SUB on
+      auto issue_s = [&](int sq, int h) {
+        const uint32_t qt = qd_s + sq * 2 * TILE + h * SUB * 128;
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          const uint32_t step = (kk >> 2) * wg::BOX_BYTES + (kk & 3) * 32;
+          mma_ss<T, SUB>(s, wg::desc_k_major(kt + step), wg::desc_k_major(qt + step), kk == 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          const uint32_t step = (kk >> 2) * wg::BOX_BYTES + (kk & 3) * 32;
+          mma_ss<T, SUB>(dp, wg::desc_k_major(vt + step), wg::desc_k_major(qt + TILE + step),
+                         kk == 0);
+        }
+        wg::commit();
+      };
+      // dV += P^T.dO and dK += dS^T.Q of pass h of the tile in stage sq:
+      // dO and q MN-major (the queries are the reduced axis) with the
+      // transpose bit, from the same swizzled tiles
+      auto issue_dkv = [&](int sq, int h) {
+        const uint32_t qt = qd_s + sq * 2 * TILE;
+#pragma unroll
+        for (int kc = 0; kc < NKC; ++kc) {
+          const uint32_t rows = (h * SUB + 16 * kc) * 128;
+          wg::mma_rs<T, DP>(dv, pa[kc], wg::desc_mn_major(qt + TILE + rows), 1);
+          wg::mma_rs<T, DP>(dk, sa[kc], wg::desc_mn_major(qt + rows), 1);
+        }
+        wg::commit();
+      };
+      // P^T = exp(S^T * scale - lse), 0 where masked; dS^T = P^T * (dP^T -
+      // delta) * scale, in the twin's order. Queries past Sq and dead rows
+      // have lse = +inf, so their p is exactly 0 without a test; keys past
+      // Skv form rows of dK and dV that are not stored.
+      auto pass = [&](int iq, int h, int sq, bool mask) {
+        const float* lt = lse_m(sq) + h * SUB;
+        const float* dt = dl_m(sq) + h * SUB;
+        const int* qst = qs_m(sq) + h * SUB;
+        // this thread's keys sit at kp0 and kp0 + 8 counted from the
+        // first query of the pass, its queries at 8 j + 2 t and + 1
+        const int kp0 = k_start + key0 - (iq * BQ + h * SUB + off);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int c0 = 8 * j + 2 * t;
+          const float2 lv = *reinterpret_cast<const float2*>(lt + c0);
+          const float2 dv2 = *reinterpret_cast<const float2*>(dt + c0);
+          int2 qs2 = make_int2(0, 0);
+          if (SEG && mask) qs2 = *reinterpret_cast<const int2*>(qst + c0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = c0 + (e & 1);
+            float p = wg::exp(s[4 * j + e] * scale - ((e & 1) ? lv.y : lv.x));
+            if (mask) {
+              const int kp = kp0 + ((e >> 1) << 3);
+              bool seen = true;
+              if (causal) seen = kp <= qc && (window <= 0 || qc - kp < window);
+              if (SEG) seen = seen && ((e & 1) ? qs2.y : qs2.x) == ((e >> 1) ? ks1 : ks0);
+              p = seen ? p : 0.f;
+            }
+            s[4 * j + e] = p;
+            dp[4 * j + e] = p * (dp[4 * j + e] - ((e & 1) ? dv2.y : dv2.x)) * scale;
+          }
+        }
+        // done here, not after the caller's next wait_group: the compiler
+        // would otherwise sink the exponentials past it, out of the overlap
+        wg::fence_operands(s);
+        wg::fence_operands(dp);
+      };
+
+      if (lo <= hi) {
+        bool mask = false;
+        int iq = take(lo - 1, mask);
+        if (iq >= 0) {
+          // the first pass alone; then pass u's S^T and dP^T are issued
+          // with pass u - 1's dV and dK behind them, so pass u's
+          // elementwise work runs while the tensor cores add pass u - 1
+          int sq = st;
+          advance();
+          wg::fence();
+          issue_s(sq, 0);
+          wg::wait<0>();
+          wg::fence_operands(s);
+          wg::fence_operands(dp);
+          pass(iq, 0, sq, mask);
+          pack();
+          int ps = sq, phh = 0;  // the previous pass: its stage and half
+          int h = 0;
+          while (true) {
+            if (++h == NH) {  // the next q tile
+              h = 0;
+              iq = take(iq, mask);
+              if (iq < 0) break;
+              sq = st;
+              advance();
+            }
+            pin();
+            wg::fence();
+            issue_s(sq, h);
+            issue_dkv(ps, phh);
+            wg::wait<1>();  // S^T and dP^T have landed; dV and dK may still run
+            wg::fence_operands(s);
+            wg::fence_operands(dp);
+            pass(iq, h, sq, mask);
+            wg::wait<0>();  // pass u - 1 is in dV and dK
+            wg::fence_operands(dk);
+            wg::fence_operands(dv);
+            if (phh == NH - 1) wg::mbar_arrive(empty(ps));  // its stage is read
+            pack();
+            ps = sq;
+            phh = h;
+          }
+          // the last pass's dV and dK
+          pin();
+          wg::fence();
+          issue_dkv(ps, phh);
+          wg::wait<0>();
+          wg::fence_operands(dk);
+          wg::fence_operands(dv);
+          wg::mbar_arrive(empty(ps));
+        }
+      }
+
+      // epilogue: dK, then dV, as f32 in the kv buffer (its K and V are
+      // read once the warpgroup meets here), each stored by TMA
+      unsigned char* buf = gbase + (kt - base);
+      consumer_sync();
+      stage_grad<DP>(dk, buf, key0, t);
+      wg::fence_proxy_async();  // the staged tile, visible to the TMA store
+      consumer_sync();
+      if (tid == 0) store_staged(&dk_map, kt, D, k_start, bh, DP / 32);
+      consumer_sync();          // the buffer is read
+      stage_grad<DP>(dv, buf, key0, t);
+      wg::fence_proxy_async();
+      consumer_sync();
+      if (tid == 0) store_staged(&dv_map, kt, D, k_start, bh, DP / 32);
+      // the buffer may take the item after next: this thread's reads and
+      // writes of it come before the TMA's write
+      wg::fence_proxy_async();
+      wg::mbar_arrive(kv_empty(kb));
     }
-    __syncthreads();  // stage st is free for the tile after next
+    if (tid == 0) wg::bulk_wait();  // the last stores are done before the block is
   }
+}
 
-  tile::cp_async_wait<0>();  // the q/dO copies, when no kv tile ran
+// --------------------------------------------------------- dq wgmma body
+
+template <typename T, int DP, bool SEG>
+__global__ void __launch_bounds__(WG_THREADS, WG_BLOCKS) flash_bwd_dq_wgmma_kernel(
+    const __grid_constant__ CUtensorMap q_map,   // q as (D, Sq, B * H)
+    const __grid_constant__ CUtensorMap k_map,   // k as (D, Skv, B * H)
+    const __grid_constant__ CUtensorMap v_map,   // v as (D, Skv, B * H)
+    const __grid_constant__ CUtensorMap do_map,  // dO as (D, Sq, B * H)
+    const __grid_constant__ CUtensorMap dq_map,  // dq, f32, as (D, Sq, B * H)
+    const float* __restrict__ lse, const float* __restrict__ delta,  // (B, H, Sq)
+    const int* __restrict__ qseg, const int* __restrict__ kseg,      // (B, Sq), (B, Skv)
+    int B, int H, int Sq, int Skv, int D, int causal, int window, float scale) {
+  constexpr int NB = DP / wg::BOX;
+  constexpr int STAGES = wg_stages(DP);
+  constexpr int BUFS = wg_bufs(DP);
+  constexpr uint32_t TILE = NB * wg::BOX_BYTES;
+  constexpr int KC = DP / 16;  // k16 steps of S and dP
+  constexpr int NT = BK / 8;   // n8 tiles of a score row
+  constexpr int SW = DQ_STAGE_WORDS;
+  const int off = Skv - Sq;
+  const int nq = (Sq + BQ - 1) / BQ;
+  const int items = B * H * nq;
+  const int tid = threadIdx.x;
+
+  extern __shared__ unsigned char wsmem[];
+  const uint32_t raw = tile::smem_addr(wsmem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* gbase = wsmem + (base - raw);
+  const uint32_t qd_s = base;                    // BUFS x (q tile, dO tile)
+  const uint32_t kv_s = qd_s + BUFS * 2 * TILE;  // STAGES x (K tile, V tile)
+  const uint32_t bars = kv_s + STAGES * 2 * TILE;
+  auto q_full = [&](int qb) { return bars + 8 * qb; };
+  auto q_empty = [&](int qb) { return bars + 8 * (BUFS + qb); };
+  auto full = [&](int st) { return bars + 8 * (2 * BUFS + st); };
+  auto empty = [&](int st) { return bars + 8 * (2 * BUFS + STAGES + st); };
+  int* qmeta = reinterpret_cast<int*>(gbase + (bars - base) + 16 * (BUFS + STAGES));
+  int* smeta = qmeta + BUFS * DQ_ITEM_WORDS;
+  // buffer qb's words: lse (+inf where a row adds nothing), delta, q segment ids
+  auto lse_m = [&](int qb) { return reinterpret_cast<float*>(qmeta + qb * DQ_ITEM_WORDS); };
+  auto dl_m = [&](int qb) { return reinterpret_cast<float*>(qmeta + qb * DQ_ITEM_WORDS + BQ); };
+  auto qs_m = [&](int qb) { return qmeta + qb * DQ_ITEM_WORDS + 2 * BQ; };
+  // stage st's words: key segment ids, tag
+  auto ks_m = [&](int st) { return smeta + st * SW; };
+  auto tag_m = [&](int st) { return smeta + st * SW + BK; };
+
+  // Work item `item`: q tile q_start of head bh, the q tiles that see the
+  // most kv tiles first (the forward's order); its kv tiles [lo, hi].
+  auto decode = [&](int item, int& bh, int& q_start, int& lo, int& hi) {
+    bh = item % (B * H);
+    q_start = (nq - 1 - item / (B * H)) * BQ;
+    kv_span(q_start, min(BQ, Sq - q_start), Skv, off, causal, window, lo, hi);
+  };
+  auto next_item = [&](int n) {
+    return n * (int)gridDim.x + ((n & 1) ? (int)gridDim.x - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  };
+  // pairs of q tile q_start (R rows) and kv tile ik that need the
+  // elementwise causal / window test, or the test of keys past Skv
+  auto masked = [&](int q_start, int R, int ik) {
+    return Skv - ik * BK < BK || !tile::tile_whole(q_start, R, ik * BK, off, causal, window);
+  };
+
+  if (tid == 0) {
+    for (int qb = 0; qb < BUFS; ++qb) {
+      wg::mbar_init(q_full(qb), 32);
+      wg::mbar_init(q_empty(qb), 128);
+    }
+    for (int st = 0; st < STAGES; ++st) {
+      wg::mbar_init(full(st), 32);
+      wg::mbar_init(empty(st), 128);
+    }
+    wg::mbar_init_fence();
+  }
   __syncthreads();
-  float* stage = reinterpret_cast<float*>(tsmem + 2 * TILE);  // the K/V ring
-  store_grad<DP>(dqa, stage, dq + row0 * D, R, D, tid);
+
+  const int wgi = __shfl_sync(FULL, tid >> 7, 0);
+  if (wgi == 1) {
+    // ---- producer: one warp loads, the others leave
+    wg::setmaxnreg_dec<WG_PRODUCER_REGS>();
+    if ((tid & 127) >= 32) return;
+    const int lane = tid & 31;
+    if (lane == 0) {
+      wg::tma_prefetch_map(&q_map);
+      wg::tma_prefetch_map(&k_map);
+      wg::tma_prefetch_map(&v_map);
+      wg::tma_prefetch_map(&do_map);
+    }
+    int st = 0, ph = 0;
+    for (int n = 0, item = next_item(0); item < items; item = next_item(++n)) {
+      int bh, q_start, lo, hi;
+      decode(item, bh, q_start, lo, hi);
+      const int b = bh / H;
+      const int R = min(BQ, Sq - q_start);
+      const size_t row0 = (size_t)bh * Sq + q_start;
+      // this lane's rows: lse (+inf where the row adds nothing), delta,
+      // segment id; and the span of the tile's segment ids
+      float l[2], d[2];
+      int s[2] = {0, 0};
+      int lo_id = 0x7fffffff, hi_id = -0x7fffffff - 1;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int j = lane + 32 * u;
+        const bool in = j < R;
+        const float x = in ? lse[row0 + j] : NEG_INF;
+        l[u] = x > NEG_INF / 2 ? x : POS_INF;
+        d[u] = in ? delta[row0 + j] : 0.f;
+        if (SEG && in) {
+          s[u] = qseg[(size_t)b * Sq + q_start + j];
+          lo_id = min(lo_id, s[u]);
+          hi_id = max(hi_id, s[u]);
+        }
+      }
+      if (SEG) warp_span(lo_id, hi_id);
+      const int qb = n % BUFS;
+      wg::mbar_wait(q_empty(qb), ((n / BUFS) & 1) ^ 1);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        lse_m(qb)[lane + 32 * u] = l[u];
+        dl_m(qb)[lane + 32 * u] = d[u];
+        qs_m(qb)[lane + 32 * u] = s[u];
+      }
+      if (lane == 0) {
+        wg::mbar_arrive_expect_tx(q_full(qb), 2 * TILE);
+        const uint32_t qt = qd_s + qb * 2 * TILE;
+        for (int c = 0; c < NB; ++c) {
+          wg::tma_load_3d(qt + c * wg::BOX_BYTES, &q_map, q_full(qb), c * wg::BOX, q_start, bh);
+          wg::tma_load_3d(qt + TILE + c * wg::BOX_BYTES, &do_map, q_full(qb), c * wg::BOX,
+                          q_start, bh);
+        }
+      } else {
+        wg::mbar_arrive(q_full(qb));
+      }
+      // this lane's keys lane and lane + 32 of kv tile ik
+      auto fetch = [&](int ik, int (&ks)[2]) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = ik * BK + lane + 32 * u;
+          ks[u] = SEG && j < Skv ? kseg[(size_t)b * Skv + j] : 0;
+        }
+      };
+      int ks[2] = {0, 0}, ks1[2] = {0, 0};
+      if (SEG && lo <= hi) fetch(lo, ks);
+      for (int ik = lo; ik <= hi; ++ik) {
+        if (SEG && ik < hi) fetch(ik + 1, ks1);
+        const int k_start = ik * BK;
+        bool run = true;
+        bool mask = masked(q_start, R, ik);
+        if (SEG) {
+          const int C = min(BK, Skv - k_start);
+          bool mixed;
+          seg_test(ks[0], lane < C, ks[1], lane + 32 < C, lo_id, hi_id, run, mixed);
+          mask = mask || mixed;
+        }
+        if (run) {
+          wg::mbar_wait(empty(st), ph ^ 1);
+          if (SEG) {
+            ks_m(st)[lane] = ks[0];
+            ks_m(st)[lane + 32] = ks[1];
+          }
+          if (lane == 0) {
+            *tag_m(st) = 2 * ik + (mask ? 1 : 0);
+            wg::mbar_arrive_expect_tx(full(st), 2 * TILE);
+            const uint32_t kt = kv_s + st * 2 * TILE;
+            for (int c = 0; c < NB; ++c) {
+              wg::tma_load_3d(kt + c * wg::BOX_BYTES, &k_map, full(st), c * wg::BOX, k_start, bh);
+              wg::tma_load_3d(kt + TILE + c * wg::BOX_BYTES, &v_map, full(st), c * wg::BOX,
+                              k_start, bh);
+            }
+          } else {
+            wg::mbar_arrive(full(st));
+          }
+          if (++st == STAGES) {
+            st = 0;
+            ph ^= 1;
+          }
+        }
+        ks[0] = ks1[0];
+        ks[1] = ks1[1];
+      }
+      if (SEG && lo <= hi) {
+        wg::mbar_wait(empty(st), ph ^ 1);
+        if (lane == 0) *tag_m(st) = END;
+        wg::mbar_arrive(full(st));
+        if (++st == STAGES) {
+          st = 0;
+          ph ^= 1;
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: the 64 query rows of each q tile
+    wg::setmaxnreg_inc<WG_CONSUMER_REGS>();
+    const int warp = (tid >> 5) & 3;
+    const int lane = tid & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+
+    float dq[DP / 2];
+    float s[NT * 4], dp[NT * 4];  // S then P; dP then dS
+    uint32_t sa[NT / 2][4];       // dS of the previous tile, the A operand of its dQ
+    int st = 0, ph = 0;
+    auto advance = [&]() {
+      if (++st == STAGES) {
+        st = 0;
+        ph ^= 1;
+      }
+    };
+    auto pin = [&]() {
+      wg::fence_operands(dq);
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) wg::fence_operands(sa[kc]);
+    };
+    // dS rounded to q's dtype (T): the A operand of dQ += dS.K
+    auto pack = [&]() {
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sa[kc][i] = tile::pack2<T>(dp[8 * kc + 2 * i], dp[8 * kc + 2 * i + 1]);
+      }
+    };
+    // dQ += dS.K of the tile in stage sk: K MN-major (the keys are the
+    // reduced axis) with the transpose bit
+    auto issue_dq = [&](int sk) {
+      const uint32_t kt = kv_s + sk * 2 * TILE;
+#pragma unroll
+      for (int kc = 0; kc < NT / 2; ++kc) {
+        wg::mma_rs<T, DP>(dq, sa[kc], wg::desc_mn_major(kt + kc * 16 * 128), 1);
+      }
+      wg::commit();
+    };
+
+    for (int n = 0, item = next_item(0); item < items; item = next_item(++n)) {
+      int bh, q_start, lo, hi;
+      decode(item, bh, q_start, lo, hi);
+      const int R = min(BQ, Sq - q_start);
+      const int qb = n % BUFS;
+      const uint32_t qt = qd_s + qb * 2 * TILE;  // q, then dO
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+      wg::mbar_wait(q_full(qb), (n / BUFS) & 1);
+      // rows r0 and r0 + 8: lse (+inf where a row adds nothing), delta, segment id
+      const float l0 = lse_m(qb)[r0], l1 = lse_m(qb)[r0 + 8];
+      const float d0 = dl_m(qb)[r0], d1 = dl_m(qb)[r0 + 8];
+      const int qs0 = SEG ? qs_m(qb)[r0] : 0;
+      const int qs1 = SEG ? qs_m(qb)[r0 + 8] : 0;
+
+      auto take = [&](int prev, bool& mask) {
+        if constexpr (SEG) {
+          wg::mbar_wait(full(st), ph);
+          const int tag = __shfl_sync(FULL, *tag_m(st), 0);
+          if (tag == END) {
+            wg::mbar_arrive(empty(st));
+            advance();
+            return -1;
+          }
+          mask = tag & 1;
+          return tag >> 1;
+        } else {
+          const int ik = prev + 1;
+          if (ik > hi) return -1;
+          mask = masked(q_start, R, ik);
+          wg::mbar_wait(full(st), ph);
+          return ik;
+        }
+      };
+      // S = Q.K^T and dP = dO.V^T of the tile in stage sk, both operands
+      // K-major
+      auto issue_s = [&](int sk) {
+        const uint32_t kt = kv_s + sk * 2 * TILE;
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          const uint32_t step = (kk >> 2) * wg::BOX_BYTES + (kk & 3) * 32;
+          wg::mma_ss_n64<T>(s, wg::desc_k_major(qt + step), wg::desc_k_major(kt + step), kk == 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < KC; ++kk) {
+          const uint32_t step = (kk >> 2) * wg::BOX_BYTES + (kk & 3) * 32;
+          wg::mma_ss_n64<T>(dp, wg::desc_k_major(qt + TILE + step),
+                            wg::desc_k_major(kt + TILE + step), kk == 0);
+        }
+        wg::commit();
+      };
+      // P = exp(S * scale - lse), 0 where masked; dS = P * (dP - delta) *
+      // scale, in the twin's order. Dead rows have lse = +inf: p is 0.
+      auto pass = [&](int ik, int sk, bool mask) {
+        const int k_start = ik * BK;
+        const int C = min(BK, Skv - k_start);
+        const int* kst = ks_m(sk);
+        // rows r0 and r0 + 8 sit at qp0 and qp0 + 8 counted from the
+        // tile's first key, this thread's keys at 8 j + 2 t and + 1
+        const int qp0 = q_start + r0 + off - k_start;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int k0 = 8 * j + 2 * t;
+          int2 ks2 = make_int2(0, 0);
+          if (SEG && mask) ks2 = *reinterpret_cast<const int2*>(kst + k0);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = wg::exp(s[4 * j + e] * scale - ((e >> 1) ? l1 : l0));
+            if (mask) {
+              const int kj = k0 + (e & 1);
+              const int qp = qp0 + ((e >> 1) << 3);
+              bool seen = kj < C;
+              if (causal) seen = seen && kj <= qp && (window <= 0 || qp - kj < window);
+              if (SEG) seen = seen && ((e & 1) ? ks2.y : ks2.x) == ((e >> 1) ? qs1 : qs0);
+              p = seen ? p : 0.f;
+            }
+            dp[4 * j + e] = p * (dp[4 * j + e] - ((e >> 1) ? d1 : d0)) * scale;
+          }
+        }
+        wg::fence_operands(dp);
+      };
+
+      if (lo <= hi) {
+        bool mask = false;
+        int ik = take(lo - 1, mask);
+        if (ik >= 0) {
+          // the first tile's S and dP alone
+          int prev = st;
+          advance();
+          wg::fence();
+          issue_s(prev);
+          wg::wait<0>();
+          wg::fence_operands(s);
+          wg::fence_operands(dp);
+          pass(ik, prev, mask);
+          pack();
+          pin();
+          wg::fence();
+          issue_dq(prev);
+          // tile ik's S and dP queue behind the previous tile's dQ, whose
+          // stage is released as soon as it retires
+          while ((ik = take(ik, mask)) >= 0) {
+            const int sk = st;
+            advance();
+            wg::fence();
+            issue_s(sk);
+            wg::wait<1>();  // the previous tile is in dQ, and its stage is read
+            wg::fence_operands(dq);
+            wg::mbar_arrive(empty(prev));
+            wg::wait<0>();
+            wg::fence_operands(s);
+            wg::fence_operands(dp);
+            pass(ik, sk, mask);
+            pack();
+            pin();
+            wg::fence();
+            issue_dq(sk);
+            prev = sk;
+          }
+          wg::wait<0>();
+          wg::fence_operands(dq);
+          wg::mbar_arrive(empty(prev));
+        }
+      }
+
+      // epilogue: dQ as f32 in the q buffer (its q and dO are read once
+      // the warpgroup meets here), stored by TMA
+      consumer_sync();
+      stage_grad<DP>(dq, gbase + (qt - base), r0, t);
+      wg::fence_proxy_async();
+      consumer_sync();
+      if (tid == 0) store_staged(&dq_map, qt, D, q_start, bh, DP / 32);
+      wg::fence_proxy_async();
+      wg::mbar_arrive(q_empty(qb));
+    }
+    if (tid == 0) wg::bulk_wait();
+  }
 }
 
 template <typename T, int DP, bool SEG>
-cudaError_t launch_dq_mma(const Args& a, float* dq) {
-  auto kern = flash_bwd_dq_mma_kernel<T, DP, SEG>;
-  const size_t smem = 6 * (size_t)BQ * DP * 2 + sizeof(int) * 2 * BK;
-  cudaError_t err = prepare(kern, smem);
+cudaError_t launch_dkv_wgmma(const Args& a, float* dk, float* dv) {
+  auto kern = flash_bwd_dkv_wgmma_kernel<T, DP, SEG>;
+  const int smem = wg_smem(DP, DKV_ITEM_WORDS, DKV_STAGE_WORDS);
+  static std::atomic<int> sms[64];
+  int nsm = 0;
+  cudaError_t err = wg::prepare_once(sms, kern, smem, WG_THREADS,
+                                     128 * (WG_PRODUCER_REGS + WG_CONSUMER_REGS), &nsm);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.H, a.B, (a.Sq + BQ - 1) / BQ);
-  kern<<<grid, MMA_THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, a.qseg, a.kseg, dq, a.H, a.Sq, a.Skv, a.D, a.causal,
-      a.window, a.scale);
+  const int BH = a.B * a.H;
+  CUtensorMap maps[6];
+  if (!wg::tile_map<T>(&maps[0], a.q, a.D, a.Sq, BH) ||
+      !wg::tile_map<T>(&maps[1], a.k, a.D, a.Skv, BH) ||
+      !wg::tile_map<T>(&maps[2], a.v, a.D, a.Skv, BH) ||
+      !wg::tile_map<T>(&maps[3], a.dout, a.D, a.Sq, BH) ||
+      !wg::grad_map(&maps[4], dk, a.D, a.Skv, BH) || !wg::grad_map(&maps[5], dv, a.D, a.Skv, BH)) {
+    return cudaErrorInvalidValue;
+  }
+  // persistent blocks: as many as the SMs hold at once
+  const long items = (long)BH * ((a.Skv + BK - 1) / BK);
+  const int grid = (int)std::min<long>(items, (long)nsm * WG_BLOCKS);
+  kern<<<grid, WG_THREADS, smem, a.stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], maps[5],
+                                             a.lse, a.delta, a.qseg, a.kseg, a.B, a.H, a.Sq,
+                                             a.Skv, a.D, a.causal, a.window, a.scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dq_mma_any(const Args& a, float* dq) {
+cudaError_t launch_dkv_wgmma_any(const Args& a, float* dk, float* dv) {
   const bool seg = a.qseg != nullptr;
-  if (a.D <= 64) return seg ? launch_dq_mma<T, 64, true>(a, dq) : launch_dq_mma<T, 64, false>(a, dq);
-  return seg ? launch_dq_mma<T, 128, true>(a, dq) : launch_dq_mma<T, 128, false>(a, dq);
+  if (a.D <= 64) {
+    return seg ? launch_dkv_wgmma<T, 64, true>(a, dk, dv) : launch_dkv_wgmma<T, 64, false>(a, dk, dv);
+  }
+  return seg ? launch_dkv_wgmma<T, 128, true>(a, dk, dv) : launch_dkv_wgmma<T, 128, false>(a, dk, dv);
+}
+
+template <typename T, int DP, bool SEG>
+cudaError_t launch_dq_wgmma(const Args& a, float* dq) {
+  auto kern = flash_bwd_dq_wgmma_kernel<T, DP, SEG>;
+  const int smem = wg_smem(DP, DQ_ITEM_WORDS, DQ_STAGE_WORDS);
+  static std::atomic<int> sms[64];
+  int nsm = 0;
+  cudaError_t err = wg::prepare_once(sms, kern, smem, WG_THREADS,
+                                     128 * (WG_PRODUCER_REGS + WG_CONSUMER_REGS), &nsm);
+  if (err != cudaSuccess) return err;
+  const int BH = a.B * a.H;
+  CUtensorMap maps[5];
+  if (!wg::tile_map<T>(&maps[0], a.q, a.D, a.Sq, BH) ||
+      !wg::tile_map<T>(&maps[1], a.k, a.D, a.Skv, BH) ||
+      !wg::tile_map<T>(&maps[2], a.v, a.D, a.Skv, BH) ||
+      !wg::tile_map<T>(&maps[3], a.dout, a.D, a.Sq, BH) ||
+      !wg::grad_map(&maps[4], dq, a.D, a.Sq, BH)) {
+    return cudaErrorInvalidValue;
+  }
+  const long items = (long)BH * ((a.Sq + BQ - 1) / BQ);
+  const int grid = (int)std::min<long>(items, (long)nsm * WG_BLOCKS);
+  kern<<<grid, WG_THREADS, smem, a.stream>>>(maps[0], maps[1], maps[2], maps[3], maps[4], a.lse,
+                                             a.delta, a.qseg, a.kseg, a.B, a.H, a.Sq, a.Skv, a.D,
+                                             a.causal, a.window, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_dq_wgmma_any(const Args& a, float* dq) {
+  const bool seg = a.qseg != nullptr;
+  if (a.D <= 64) return seg ? launch_dq_wgmma<T, 64, true>(a, dq) : launch_dq_wgmma<T, 64, false>(a, dq);
+  return seg ? launch_dq_wgmma<T, 128, true>(a, dq) : launch_dq_wgmma<T, 128, false>(a, dq);
 }
 
 // dtype codes shared with ops/flash_attention.py
@@ -1219,8 +1818,8 @@ extern "C" int kft_flash_bwd_dq(KFT_BWD_ARGS, void* dq, KFT_BWD_DIMS) {
         !tile::aligned16(dout) || !tile::aligned16(dq)) {
       return (int)cudaErrorMisalignedAddress;
     }
-    return (int)(dtype == BF16 ? launch_dq_mma_any<__nv_bfloat16>(a, out)
-                               : launch_dq_mma_any<__half>(a, out));
+    return (int)(dtype == BF16 ? launch_dq_wgmma_any<__nv_bfloat16>(a, out)
+                               : launch_dq_wgmma_any<__half>(a, out));
   }
   if (D > 128) return (int)cudaErrorInvalidValue;
   // rows of whole 16-byte chunks: 16-byte f32 copies and stores
@@ -1247,8 +1846,8 @@ extern "C" int kft_flash_bwd_dkv(KFT_BWD_ARGS, void* dk, void* dv,
         !tile::aligned16(dout) || !tile::aligned16(dk) || !tile::aligned16(dv)) {
       return (int)cudaErrorMisalignedAddress;
     }
-    return (int)(dtype == BF16 ? launch_dkv_mma_any<__nv_bfloat16>(a, gk, gv)
-                               : launch_dkv_mma_any<__half>(a, gk, gv));
+    return (int)(dtype == BF16 ? launch_dkv_wgmma_any<__nv_bfloat16>(a, gk, gv)
+                               : launch_dkv_wgmma_any<__half>(a, gk, gv));
   }
   if (D > 128) return (int)cudaErrorInvalidValue;
   // rows of whole 16-byte chunks: 16-byte f32 copies and stores

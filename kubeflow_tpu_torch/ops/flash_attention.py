@@ -19,10 +19,9 @@ Each kernel has two bodies, chosen by dtype and head dim alone
 up to 128, f32 arithmetic otherwise (f32 inputs stay exact f32; a
 tensor-core f32 product would be TF32): the register-tiled ``"fma"``
 bodies, in the forward (:func:`body`) as in dq and dk/dv
-(``flash_attention_bwd.dq_body`` / ``dkv_body``). The forward's
-tensor-core body is ``"wgmma"`` (TMA loads and warpgroup products, a
-producer warp beside the computing warpgroups); the backward's is
-``"mma"`` (``mma.sync``).
+(``flash_attention_bwd.dq_body`` / ``dkv_body``). The tensor-core body
+is ``"wgmma"`` in all three (TMA loads and warpgroup products, a
+producer warp beside the computing warpgroup, persistent blocks).
 """
 
 from __future__ import annotations

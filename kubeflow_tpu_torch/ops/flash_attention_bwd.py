@@ -9,9 +9,11 @@ the CPU route are ``flash_attention.flash_attention_bwd`` and
 ``flash_attention_bwd_reference``. Gradients come back in f32 (the JAX
 ``accum_dtype``), launched on the current stream. Both kernels run on
 the tensor cores for bf16/f16 with D a multiple of 16 up to 128
-(``"mma"``) and otherwise on register-tiled f32 FMAs (``"fma"``,
-``flash_bwd_dq_fma_kernel`` / ``flash_bwd_dkv_fma_kernel``): see
-:func:`dq_body` and :func:`dkv_body`.
+(``"wgmma"``: ``flash_bwd_dq_wgmma_kernel`` / ``flash_bwd_dkv_wgmma_kernel``,
+TMA loads into an mbarrier ring fed by a producer warp, warpgroup
+products, persistent blocks) and otherwise on register-tiled f32 FMAs
+(``"fma"``, ``flash_bwd_dq_fma_kernel`` / ``flash_bwd_dkv_fma_kernel``):
+see :func:`dq_body` and :func:`dkv_body`.
 """
 
 from __future__ import annotations
@@ -26,25 +28,25 @@ from kubeflow_tpu_torch.ops.flash_attention import _DTYPE_CODES, _check_launch, 
 #: dq kernel launches since the counter was last set to 0
 DQ_LAUNCHES = 0
 #: the same launches split by the body that ran (see :func:`dq_body`)
-DQ_LAUNCHES_BY_BODY = {"mma": 0, "fma": 0}
+DQ_LAUNCHES_BY_BODY = {"wgmma": 0, "fma": 0}
 #: dk/dv kernel launches since the counter was last set to 0
 DKV_LAUNCHES = 0
 #: the same launches split by the body that ran (see :func:`dkv_body`)
-DKV_LAUNCHES_BY_BODY = {"mma": 0, "fma": 0}
+DKV_LAUNCHES_BY_BODY = {"wgmma": 0, "fma": 0}
 
 
 def dq_body(dtype: torch.dtype, head_dim: int) -> str:
     """The dq kernel body a launch runs, as ``kft_flash_bwd_dq`` chooses
-    it: ``"mma"`` where :func:`flash_attention.tensor_cores`, else
+    it: ``"wgmma"`` where :func:`flash_attention.tensor_cores`, else
     ``"fma"``."""
-    return "mma" if tensor_cores(dtype, head_dim) else "fma"
+    return "wgmma" if tensor_cores(dtype, head_dim) else "fma"
 
 
 def dkv_body(dtype: torch.dtype, head_dim: int) -> str:
     """The dk/dv kernel body a launch runs, as ``kft_flash_bwd_dkv``
-    chooses it: ``"mma"`` where :func:`flash_attention.tensor_cores`,
+    chooses it: ``"wgmma"`` where :func:`flash_attention.tensor_cores`,
     else ``"fma"``."""
-    return "mma" if tensor_cores(dtype, head_dim) else "fma"
+    return "wgmma" if tensor_cores(dtype, head_dim) else "fma"
 
 
 def _checked(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids):

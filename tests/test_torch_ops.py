@@ -264,9 +264,9 @@ def test_flash_attention_matches_jax(name, kw):
 
 #: (dtype, head dim, the forward's body, the backward's dq and dk/dv body)
 BODY_CASES = [
-    (torch.bfloat16, 16, "wgmma", "mma"), (torch.bfloat16, 64, "wgmma", "mma"),
-    (torch.bfloat16, 128, "wgmma", "mma"), (torch.float16, 16, "wgmma", "mma"),
-    (torch.float16, 64, "wgmma", "mma"), (torch.float16, 128, "wgmma", "mma"),
+    (torch.bfloat16, 16, "wgmma", "wgmma"), (torch.bfloat16, 64, "wgmma", "wgmma"),
+    (torch.bfloat16, 128, "wgmma", "wgmma"), (torch.float16, 16, "wgmma", "wgmma"),
+    (torch.float16, 64, "wgmma", "wgmma"), (torch.float16, 128, "wgmma", "wgmma"),
     (torch.float32, 64, "fma", "fma"), (torch.float32, 128, "fma", "fma"),
     (torch.bfloat16, 40, "fma", "fma"), (torch.float16, 40, "fma", "fma"),
     (torch.bfloat16, 8, "fma", "fma"),
@@ -278,29 +278,31 @@ BODY_CASES = [
 def test_kernel_body_dispatch(dtype, head_dim, fwd, bwd):
     """The Python mirror of the C entry points' choice of body: tensor
     cores for bf16/f16 with D a multiple of 16 up to 128 (``wgmma`` in the
-    forward, ``mma`` in dq and dk/dv); otherwise f32 arithmetic (a
+    forward and in dq and dk/dv); otherwise f32 arithmetic (a
     tensor-core f32 product would be TF32), the register-tiled ``fma``
     bodies in the forward and in dq and dk/dv. The three kernels share the
     tensor-core rule."""
     from kubeflow_tpu_torch.ops import flash_attention_bwd as tfb
 
-    assert tfa.tensor_cores(dtype, head_dim) is (bwd == "mma")
+    assert tfa.tensor_cores(dtype, head_dim) is (bwd == "wgmma")
     assert tfa.body(dtype, head_dim) == fwd
     assert tfb.dq_body(dtype, head_dim) == bwd
     assert tfb.dkv_body(dtype, head_dim) == bwd
     assert tfa.LAUNCHES_BY_BODY.keys() == {"wgmma", "fma"}
     assert tfb.DQ_LAUNCHES_BY_BODY.keys() == tfb.DKV_LAUNCHES_BY_BODY.keys() \
-        == {"mma", "fma"}
+        == {"wgmma", "fma"}
 
 
 def test_kernel_body_dispatch_matches_the_c_sources():
     """Both sources dispatch on the same condition the mirror states, and
     each of the three C entry points (forward, dq, dk/dv) takes its
-    tensor-core body on exactly that condition: the forward's is
-    ``flash_fwd_wgmma_kernel`` (the ``mma.sync`` forward is gone). Past
-    that branch each entry point launches its ``fma`` body for every
-    dtype (``flash_fwd_fma_kernel``, ``flash_bwd_dq_fma_kernel``,
-    ``flash_bwd_dkv_fma_kernel``); the old scalar kernels are gone."""
+    tensor-core body on exactly that condition: ``flash_fwd_wgmma_kernel``,
+    ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel`` (no
+    ``mma.sync`` flash body is left). Past that branch each entry point
+    launches its ``fma`` body for every dtype (``flash_fwd_fma_kernel``,
+    ``flash_bwd_dq_fma_kernel``, ``flash_bwd_dkv_fma_kernel``); the old
+    scalar kernels are gone. The TMA tensor maps are encoded by one
+    ``tile_map``, in ``wgmma_tile.cuh``, which both libraries include."""
     import re
 
     rule = "(dtype == BF16 || dtype == F16) && D % 16 == 0 && D <= 128"
@@ -308,9 +310,9 @@ def test_kernel_body_dispatch_matches_the_c_sources():
         assert rule in (_build.CSRC / f"{name}.cu").read_text(), name
     for name, entry, launcher, fma in (
         ("flash_attention", "kft_flash_forward", "launch_wgmma_any", "launch_fma_any"),
-        ("flash_attention_bwd", "kft_flash_bwd_dq", "launch_dq_mma_any",
+        ("flash_attention_bwd", "kft_flash_bwd_dq", "launch_dq_wgmma_any",
          "launch_dq_fma_any"),
-        ("flash_attention_bwd", "kft_flash_bwd_dkv", "launch_dkv_mma_any",
+        ("flash_attention_bwd", "kft_flash_bwd_dkv", "launch_dkv_wgmma_any",
          "launch_dkv_fma_any"),
     ):
         src = (_build.CSRC / f"{name}.cu").read_text()
@@ -330,7 +332,14 @@ def test_kernel_body_dispatch_matches_the_c_sources():
     src = (_build.CSRC / "flash_attention_bwd.cu").read_text()
     for kernel in ("flash_bwd_dq", "flash_bwd_dkv"):
         assert f"{kernel}_fma_kernel<T, DP, SEG>" in src
+        assert f"{kernel}_wgmma_kernel<T, DP, SEG>" in src
         assert not re.search(rf"\b{kernel}_kernel\b", src), kernel
+        assert not re.search(rf"\b{kernel}_mma_kernel\b", src), kernel
+    assert '#include "wgmma_tile.cuh"' in src
+    defined = r"\bbool tile_map\("
+    for p in _build.CSRC.iterdir():
+        n = len(re.findall(defined, p.read_text()))
+        assert n == (1 if p.name == "wgmma_tile.cuh" else 0), p.name
 
 
 def test_paged_kernel_body_and_shapes():
@@ -497,6 +506,42 @@ def test_flash_attention_bwd_reference_matches_jax_kernels(name, kw):
         keys = np.broadcast_to(keys, k.shape[:3])
         for g, w in zip(got[1:], want[1:]):
             assert (g.numpy()[keys] == 0).all() and (np.asarray(w)[keys] == 0).all()
+
+
+#: (window): Sq 32 against Skv 96, causal, bottom-right (query i at
+#: position i + 64); with window 16, keys 0..48 reach no query
+CROSS_BWD_CASES = [None, 16]
+
+
+@pytest.mark.parametrize("window", CROSS_BWD_CASES,
+                         ids=[f"window_{w}" for w in CROSS_BWD_CASES])
+def test_flash_attention_bwd_reference_cross_lengths_matches_jax_vjp(window):
+    """The backward twin at Sq != Skv against ``jax.vjp`` of the JAX
+    ``reference_attention``, which aligns the causal mask bottom-right as
+    the port does (the Pallas kernels align it top-left). The twin runs
+    from the port's forward residuals. f32: summation order only, atol
+    2e-5 scaled by max(1, max|ref|); keys that no query sees get dk =
+    dv = 0 exactly."""
+    rng = np.random.default_rng(14 + (window or 0))
+    B, H, Sq, Skv, D = 2, 2, 32, 96, 32
+    q, dout = (rng.normal(size=(B, H, Sq, D)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(B, H, Skv, D)).astype(np.float32) for _ in range(2))
+    _, vjp = jax.vjp(lambda q, k, v: jfa.reference_attention(
+        q, k, v, causal=True, window=window), *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(dout))
+    tq, tk, tv, tdo = map(_t, (q, k, v, dout))
+    out, lse = tfa.flash_attention_reference(tq, tk, tv, causal=True, window=window)
+    got = tfa.flash_attention_bwd(tq, tk, tv, out, lse, tdo, causal=True,
+                                  window=window)
+    for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+        w = np.asarray(w)
+        assert g.dtype == torch.float32 and g.shape == w.shape, n
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, err_msg=n,
+                                   atol=2e-5 * max(1.0, np.abs(w).max()))
+    unseen = np.arange(Skv) < (Skv - Sq - window + 1 if window else 0)
+    assert unseen.sum() == (49 if window else 0)
+    for g in got[1:]:
+        assert (g.numpy()[:, :, unseen] == 0).all()
 
 
 GRAD_CASES = [
