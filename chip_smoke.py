@@ -21,11 +21,14 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    register-tiled f32 FMAs too; every backward case launched twice and
    bitwise equal, rows that see no key with dq = 0 and keys that no query
    sees with dk = dv = 0 exactly;
-   paged attention:
-   ``"split"``, pages split across warps), the paged cases including the
-   speculative verify
-   (S = K+1 = 5, a different ``pos0`` per row) and a prefill piece at an
-   offset;
+   paged attention: ``"decode"``, one lane a key on f32 FMAs, for f32
+   and for bf16/f16 spans of at most 4 rows a kv head, else ``"mma"``,
+   tensor-core products, pages spread over a cluster of blocks; every
+   paged case launched twice and bitwise equal, the speculative verify
+   (S = K+1 = 5, a different ``pos0`` per row), a prefill piece at an
+   offset, long GQA contexts, D=128 and f16 on both bodies; one row
+   alone with a padded table bitwise equal to the same row in a batch,
+   on both bodies; the build's paged instantiations with 0 spill bytes);
 2. forward — the full-width bf16 ``TransformerLM`` no-cache forward with
    ``attn_impl="flash"`` against the same weights with ``"reference"``;
 3. serving — ``ModelServer`` + ``LMEngineModel`` at full width in bf16 on
@@ -33,13 +36,17 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    ``/v2/models/lm/generate`` requests with the pipelined loop
    (``pipeline_depth=1``, the default) and, from a second model in the
    same server, with the synchronous one (``pipeline_depth=0``), in
-   turns 1, 0, 1, 0, 1, 0: each depth's median and spread;
+   turns 1, 0, 1, 0, 1, 0: each depth's median and spread; the paged
+   launches of the counted burst by body, decode steps (S=1) on
+   ``decode`` and prefill pieces (S=32) on ``mma``;
 4. f32 parity — the same engine in f32: the ``kernel`` and ``gather``
    read paths must give token-identical greedy streams;
 5. engine — the f32 engine on the kernel read path: (a) depth 1 gives
    depth 0's streams; (b) speculative decoding (K=4) gives K=0's greedy
    streams on repeating prompts, accepting drafts through verify
-   launches at S=5; (c) chunked prefill with the prefix cache gives the
+   launches at S=5 (the f32 decode body), and the same traffic on the
+   bf16 model runs its verifies on the tensor-core body, K=4 against K=0
+   judged by near ties; (c) chunked prefill with the prefix cache gives the
    streams of an engine with neither, and (c8) the same traffic on an
    int8 pool measures a ``kv_quant_error`` in (0, 0.05); (d) seeded
    sampling repeats, resumes from half a stream to its other half, and
@@ -237,14 +244,22 @@ def _dtname(torch, dt):
 def paged_cases(torch):
     """(name, kwargs) at the serving shapes: B=8 rows, H=16, D=64, page 32,
     windows of up to 4 pages; row 7 is dead (its table is all scratch
-    page 0). The page-split kernel gives a row's pages to 4, 2 or 1 warps
-    as G * S is at most 4, at most 8, or more: decode, the 8-head GQA
-    decode and the prefill pieces take one each. Then long contexts of 64
-    pages (16 a warp), GQA with 4 kv heads, and a decode that sees only
-    its last page, so three of a block's four warps merge an empty
-    partial."""
+    page 0). A bf16/f16 span of G * S > 4 rows a kv head takes the
+    tensor-core body (``mma``), every other span the ``decode`` body:
+    decode and its f32 twins take ``decode``, the prefill pieces, the
+    8-head GQA decode and the K=4 verify ``mma``. Then long contexts of
+    64 pages with 4 kv heads (B * Hkv = 32 blocks, so a row's pages spread
+    over a cluster of blocks), a decode that sees only its last page (the
+    other groups are empty), D=128 and f16 on both bodies, and a window
+    narrower than the span, so that for a tile's rows every group of one
+    cluster block is empty."""
     base = dict(B=8, H=16, Hkv=16, D=64, P=32, T=1152, W=4)
     long = dict(base, Hkv=4, W=64, T=(8 * 64 + 1) * 32)
+    d128 = dict(base, D=128)
+    # one row, one kv head, 64 queries, a 16-token window over pages of 16:
+    # the cluster has 2 blocks, and each tile sees 2 of the 5 pages
+    narrow = dict(B=1, H=1, Hkv=1, D=64, P=16, T=144, W=8, S=64, window=16,
+                  pos0_end=True, live_rows=True)
     return [
         ("decode_bf16", dict(base, S=1, dtype=torch.bfloat16)),
         ("decode_f32", dict(base, S=1, dtype=torch.float32)),
@@ -254,9 +269,11 @@ def paged_cases(torch):
         ("gqa8_decode_bf16", dict(base, S=1, Hkv=2, dtype=torch.bfloat16)),
         ("window_prefill_bf16", dict(base, S=32, window=48, dtype=torch.bfloat16)),
         ("int8_decode_bf16", dict(base, S=1, quant=True, dtype=torch.bfloat16)),
+        ("int8_prefill_bf16", dict(base, S=32, quant=True, dtype=torch.bfloat16)),
         ("int8_prefill_f32", dict(base, S=32, quant=True, dtype=torch.float32)),
         ("pos0_zero_decode_bf16", dict(base, S=1, pos0_zero=True, dtype=torch.bfloat16)),
         ("long_decode_gqa_bf16", dict(long, S=1, pos0_end=True, dtype=torch.bfloat16)),
+        ("long_decode_gqa_f32", dict(long, S=1, pos0_end=True, dtype=torch.float32)),
         ("long_prefill_gqa_bf16", dict(long, S=32, pos0_end=True, dtype=torch.bfloat16)),
         ("long_int8_decode_gqa_bf16", dict(long, S=1, pos0_end=True, quant=True,
                                            dtype=torch.bfloat16)),
@@ -266,18 +283,26 @@ def paged_cases(torch):
                                                 dtype=torch.float32)),
         ("last_page_decode_bf16", dict(base, S=1, W=16, T=(8 * 16 + 1) * 32, window=32,
                                        pos0_end=True, dtype=torch.bfloat16)),
-        # the engine's new spans: a K=4 speculative verify (G * S = 5, the
-        # 2-warp page split) with each row's span at its own position, and
-        # a 16-token prefill piece after a 64-token implanted prefix
+        # the engine's spans: a K=4 speculative verify (G * S = 5) with
+        # each row's span at its own position, and a 16-token prefill
+        # piece after a 64-token implanted prefix
         ("verify_bf16", dict(base, S=5, pos0_spread=(20, 120), dtype=torch.bfloat16)),
         ("verify_int8_bf16", dict(base, S=5, pos0_spread=(20, 120), quant=True,
                                   dtype=torch.bfloat16)),
         ("suffix_offset_bf16", dict(base, B=1, S=16, pos0_fixed=64, live_rows=True,
                                     dtype=torch.bfloat16)),
+        ("verify_f16", dict(base, S=5, pos0_spread=(20, 120), dtype=torch.float16)),
+        ("prefill_f16", dict(base, S=32, dtype=torch.float16)),
+        ("decode_d128_bf16", dict(d128, S=1, dtype=torch.bfloat16)),
+        ("verify_d128_bf16", dict(d128, S=5, pos0_spread=(20, 120), dtype=torch.bfloat16)),
+        ("window_cluster_bf16", dict(narrow, dtype=torch.bfloat16)),
+        ("window_cluster_f32", dict(narrow, dtype=torch.float32)),
     ]
 
 
-def run_paged_case(torch, name, c, flush):
+def paged_inputs(torch, name, c):
+    """``(q, k_pool, v_pool, table, pos0, kwargs)`` of one paged case, made
+    on the card from a generator seeded by the case's name."""
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     g = torch.Generator(device="cuda").manual_seed(zlib.crc32(name.encode()))
@@ -310,12 +335,22 @@ def run_paged_case(torch, name, c, flush):
     else:
         pos0 = torch.randint(0, W * P - S + 1, (B,), generator=g, device=dev,
                              dtype=torch.int32)
-    window = c.get("window")
-    kw = dict(page_size=P, window=window, k_scale=ks, v_scale=vs)
+    kw = dict(page_size=P, window=c.get("window"), k_scale=ks, v_scale=vs)
+    return q, kp, vp, table, pos0, kw
+
+
+def run_paged_case(torch, name, c, flush):
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    q, kp, vp, table, pos0, kw = paged_inputs(torch, name, c)
+    B, H, Hkv, S, D, P, W = (c[k] for k in ("B", "H", "Hkv", "S", "D", "P", "W"))
+    dt, window, ks = c["dtype"], kw["window"], kw["k_scale"]
     out = pa.paged_attention(q, kp, vp, table, pos0, **kw)
+    again = pa.paged_attention(q, kp, vp, table, pos0, **kw)
     ref = pa.paged_attention_reference(q, kp, vp, table, pos0, **kw)
     torch.cuda.synchronize()
     err, tol, close = compare(out, ref, dt)
+    repeat = torch.equal(out, again)
     ms = time_ms(torch, lambda: pa.paged_attention(q, kp, vp, table, pos0, **kw),
                  flush=flush)
     plain = time_ms(
@@ -347,13 +382,51 @@ def run_paged_case(torch, name, c, flush):
     t_ops = flops / PEAK_FLOPS[_dtname(torch, dt)] * 1e3
     return {
         "kernel": "paged_attention", "case": name, "shape": [B, H, Hkv, S, D, P, W],
-        "dtype": _dtname(torch, dt), "body": pa.body(),
+        "dtype": _dtname(torch, dt), "body": pa.body(H // Hkv, S, dt),
         "kv": "int8" if ks is not None else _dtname(torch, dt),
-        "window": window, "max_abs_err": err, "tol": tol, "ok": close,
+        "window": window, "max_abs_err": err, "tol": tol, "bitwise_repeat": repeat,
+        "ok": close and repeat,
         **_times(ms, plain), "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
     }
+
+
+def paged_invariance_cases(torch):
+    """(name, dtype, S, W of the batch) for the batch-invariance check: the
+    decode body in bf16 and f32 (S=1, and the f32 verify at S=5), the
+    mma body in bf16 (S=5), at W=4 and at 64 pages."""
+    bf, f32 = torch.bfloat16, torch.float32
+    return [("decode_bf16", bf, 1, 4), ("decode_f32", f32, 1, 4),
+            ("verify_f32", f32, 5, 4), ("verify_bf16", bf, 5, 4),
+            ("long_decode_bf16", bf, 1, 64), ("long_decode_f32", f32, 1, 64),
+            ("long_verify_bf16", bf, 5, 64)]
+
+
+def run_paged_invariance(torch, name, dt, S, W):
+    """One row decoded in a batch of 8 at table width W against the same
+    row alone with its table padded to 64 pages (W=4), or to 96 (W=64):
+    another grid, so another cluster size, must give the same bits."""
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    c = dict(B=8, H=16, Hkv=16, D=64, P=32, T=(8 * W + 1) * 32, W=W, S=S, dtype=dt,
+             live_rows=True, pos0_spread=(W * 32 // 4, W * 32 - S))
+    q, kp, vp, table, pos0, kw = paged_inputs(torch, f"invariance_{name}", c)
+    out = pa.paged_attention(q, kp, vp, table, pos0, **kw)
+    row = 5
+    wide = 64 if W < 64 else 96
+    tbl1 = torch.zeros(1, wide, dtype=torch.int32, device="cuda")
+    tbl1[0, :W] = table[row]
+    alone = pa.paged_attention(q[row:row + 1].contiguous(), kp, vp, tbl1,
+                               pos0[row:row + 1].contiguous(), **kw)
+    ref = pa.paged_attention_reference(q, kp, vp, table, pos0, **kw)
+    torch.cuda.synchronize()
+    err, tol, close = compare(out, ref, dt)
+    same = torch.equal(out[row], alone[0])
+    return {"kernel": "paged_attention", "invariance": name, "dtype": _dtname(torch, dt),
+            "body": pa.body(1, S, dt), "S": S, "W": [W, wide], "pos0": pos0[row].item(),
+            "bitwise_equal": same, "max_abs_err": err, "tol": tol,
+            "ok": same and close}
 
 
 def flash_cases(torch):
@@ -736,9 +809,46 @@ def wgmma_bwd_build(ptxas):
     return ok, report
 
 
+def paged_build(ptxas):
+    """``(ok, report)``: every paged-attention instantiation of the build
+    (``paged_attn_decode_kernel``: 3 q types x (own pool, int8) x 2 head
+    dims; ``paged_attn_mma_kernel``: 2 x 2 x 2) with 0 spill bytes."""
+    report = dict(ptxas.get("paged_attention", {}))
+    ok = (sum(k.startswith("paged_attn_decode_kernel") for k in report) == 12
+          and sum(k.startswith("paged_attn_mma_kernel") for k in report) == 8
+          and len(report) == 20
+          and all(v.endswith(" 0 bytes spill") for v in report.values()))
+    return ok, report
+
+
+def _zero_paged(pa):
+    """Set the paged kernel's launch counts to 0: in all, by span, by body."""
+    pa.LAUNCHES = 0
+    pa.LAUNCHES_BY_S.clear()
+    for k in pa.LAUNCHES_BY_BODY:
+        pa.LAUNCHES_BY_BODY[k] = 0
+
+
+def _paged_counts(pa):
+    """``(launches, by span S, by body)`` since :func:`_zero_paged`."""
+    return pa.LAUNCHES, dict(pa.LAUNCHES_BY_S), dict(pa.LAUNCHES_BY_BODY)
+
+
+def _bodies_follow_rule(pa, by_s, by_body, dtype, groups=1):
+    """Whether the launches of each span ran on the body the rule gives a
+    model of ``groups`` query heads a kv head in ``dtype``."""
+    want = {k: 0 for k in by_body}
+    for s, n in by_s.items():
+        want[pa.body(groups, s, dtype)] += n
+    return want == by_body
+
+
 def phase_kernels(torch, state):
     build_ok, report = wgmma_bwd_build(state.get("ptxas", {}))
     emit({"phase": "bwd_build", "instantiations": report, "ok": build_ok})
+    paged_ok, report = paged_build(state.get("ptxas", {}))
+    emit({"phase": "paged_build", "instantiations": report, "ok": paged_ok})
+    build_ok &= paged_ok
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")  # > 50 MB L2
     # the timer's floor: one launch that does next to nothing, after the flush
     one = torch.empty(1, device="cuda")
@@ -759,8 +869,12 @@ def phase_kernels(torch, state):
         ok &= r["ok"]
         if name == "decode_bf16":
             state["paged_main"] = r
-        elif name in ("verify_bf16", "suffix_offset_bf16"):
-            state[f"paged_{name}"] = r
+        elif name == "prefill_bf16":
+            state["paged_mma"] = r
+    for name, dt, S, W in paged_invariance_cases(torch):
+        r = run_paged_invariance(torch, name, dt, S, W)
+        emit(r)
+        ok &= r["ok"]
     for name, c in flash_cases(torch):
         r = run_flash_case(torch, name, c, flush)
         emit(r)
@@ -947,11 +1061,11 @@ def phase_serving(torch, state):
         for lm in models.values():  # warm-up: cuBLAS handles, allocator, kernels
             _post(base, lm.name, reqs[0][:8])
         torch.cuda.synchronize()
-        pa.LAUNCHES = fa.LAUNCHES = 0
-        pa.LAUNCHES_BY_S.clear()
+        _zero_paged(pa)
+        fa.LAUNCHES = 0
         outs, main = _served_burst(base, models[1], reqs)
-        paged_launches, flash_launches = pa.LAUNCHES, fa.LAUNCHES
-        by_s = dict(pa.LAUNCHES_BY_S)
+        paged_launches, by_s, by_body = _paged_counts(pa)
+        flash_launches = fa.LAUNCHES
         runs.append(main)
         streams = {1: outs}
         for depth in (0, 1, 0, 1, 0):
@@ -973,7 +1087,11 @@ def phase_serving(torch, state):
     ) / max(1, sum(max(len(o), len(g)) for o, g in zip(outs, gather)))
     state["paged_launches"] = paged_launches
     state["paged_launches_by_s"] = by_s
-    ok = (ready and well_formed and paged_launches > 0
+    state["paged_launches_by_body"] = by_body
+    # decode steps (S=1) on the decode body, prefill pieces (S=32) on mma
+    bodies = (set(by_s) == {1, 32} and by_body["decode"] == by_s[1] > 0
+              and by_body["mma"] == by_s[32] > 0)
+    ok = (ready and well_formed and paged_launches > 0 and bodies
           and first_agree >= N_REQ - 1)
     by_depth = {
         depth: {key: _spread([r[key] for r in runs if r["pipeline_depth"] == depth])
@@ -986,6 +1104,7 @@ def phase_serving(torch, state):
           "turns": [r["pipeline_depth"] for r in runs], "by_depth": by_depth,
           "runs": runs, "depth0_equals_depth1": streams[0] == streams[1],
           "paged_launches": paged_launches, "paged_launches_by_s": by_s,
+          "paged_launches_by_body": by_body, "bodies_by_rule": bodies,
           "flash_launches": flash_launches,
           "ready": ready, "well_formed": well_formed,
           "first_token_agree_vs_gather": first_agree,
@@ -1054,7 +1173,7 @@ def phase_engine(torch, state):
     base = dict(ENGINE, paged_attn_impl="kernel")
     out = {"phase": "engine", "dtype": "f32", "tf32": False, "card": state["card"]}
 
-    def run(kw, reqs, warm=(), overlap=None):
+    def run(kw, reqs, warm=(), overlap=None, model=model):
         eng = LMEngine(model, **kw).start()
         try:
             for p in warm:  # sequential first: e.g. a prefix to store
@@ -1080,17 +1199,33 @@ def phase_engine(torch, state):
     for i in range(N_REQ):
         motif = [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=8)]
         motif_reqs.append((motif * 4)[: 16 + i])
-    pa.LAUNCHES = 0
-    pa.LAUNCHES_BY_S.clear()
+    _zero_paged(pa)
     k4, sk = run(dict(base, spec_draft_tokens=4, spec_ngram=3), motif_reqs)
-    by_s = dict(pa.LAUNCHES_BY_S)
+    _, by_s, by_body = _paged_counts(pa)
     k0, s0 = run(base, motif_reqs)
     same_b, bad_b = _compare_greedy(torch, model, motif_reqs, k0, k4)
     out["b_spec_k4_vs_k0"] = {
         "identical": same_b, "diverged": bad_b, "tokens": sum(map(len, k4)),
         "spec_proposed": sk["spec_proposed"], "spec_accepted": sk["spec_accepted"],
         "chunks_k4": sk["chunks"], "chunks_k0": s0["chunks"],
-        "paged_launches_by_s": by_s}
+        "paged_launches_by_s": by_s, "paged_launches_by_body": by_body}
+
+    # (b16) the same speculative traffic on the bf16 model: its verifies
+    # (S=5) take the tensor-core body, its decode steps the decode body;
+    # K=4 against K=0 judged by near ties
+    m16 = _model(torch, torch.bfloat16, "flash",
+                 state_dict=sharpened_state(torch, torch.bfloat16))
+    _zero_paged(pa)
+    h4, sh = run(dict(base, spec_draft_tokens=4, spec_ngram=3), motif_reqs, model=m16)
+    _, by_s16, by_body16 = _paged_counts(pa)
+    h0, _ = run(base, motif_reqs, model=m16)
+    ok16, bad16 = _judged(torch, m16, motif_reqs, h0, h4)
+    del m16
+    rule16 = _bodies_follow_rule(pa, by_s16, by_body16, torch.bfloat16)
+    out["b16_spec_k4_vs_k0_bf16"] = {
+        "identical": h4 == h0, "judged_equal": ok16, "diverged": bad16,
+        "spec_accepted": sh["spec_accepted"], "paged_launches_by_s": by_s16,
+        "paged_launches_by_body": by_body16, "bodies_by_rule": rule16}
 
     # (c) chunked prefill + prefix cache against neither; the first prompt
     # (70 tokens) stores the 64-token shared prefix, the rest follow
@@ -1143,12 +1278,15 @@ def phase_engine(torch, state):
     checks = {
         "a": same,
         "b": same_b and sk["spec_accepted"] > 0 and by_s.get(5, 0) > 0,
+        "b16": (ok16 and sh["spec_accepted"] > 0 and by_s16.get(5, 0) > 0 and rule16
+                and by_body16["mma"] >= by_s16[5]),
         "c": same_c and sc["prefix_hits"] > 0 and sc["prefill_pieces"] > len(pre_reqs),
         "c8": qerr is not None and math.isfinite(qerr) and 0 < qerr < 0.05,
         "d": (len(first) >= 4 and again == first and rest == first[cut:]
               and other != first),
     }
     state["verify_launches"] = by_s.get(5, 0)
+    state["verify_launches_bf16_by_body"] = {"S5": by_s16.get(5, 0), **by_body16}
     out["checks"] = checks
     out["ok"] = all(checks.values())
     emit(out)
@@ -1278,15 +1416,15 @@ def phase_contract(torch, state):
 
         # (2) the burst over SSE, three times; generate on the same prompts
         reqs = prompts()
-        pa.LAUNCHES = 0
-        pa.LAUNCHES_BY_S.clear()
+        _zero_paged(pa)
         bursts = []
         for _ in range(3):
             res = _concurrent(lambda ids: _sse_tokens(server.port, "lm", ids), reqs)
             served["lm"] += len(reqs)
             bursts.append(res)
-        launches, by_s = pa.LAUNCHES, dict(pa.LAUNCHES_BY_S)
+        launches, by_s, by_body = _paged_counts(pa)
         state["contract_paged_launches"] = launches
+        state["contract_paged_launches_by_body"] = by_body
         gen = _concurrent(lambda ids: _post(base, "lm", ids), reqs)
         served["lm"] += len(reqs)
         streams = [[t for t, _, _ in b] for b in bursts]
@@ -1297,7 +1435,7 @@ def phase_contract(torch, state):
             "requests": len(reqs), "bursts": 3, "tokens": sum(map(len, streams[0])),
             "ttft_ms_median": statistics.median(ttft), "ttft_ms_spread": max(ttft) - min(ttft),
             "ttft_ms_by_burst": ttft, "paged_launches": launches,
-            "paged_launches_by_s": by_s,
+            "paged_launches_by_s": by_s, "paged_launches_by_body": by_body,
             "sse_equals_generate": all(s == gen for s in streams),
             "rows_differing": [i for i in range(len(reqs)) if streams[0][i] != gen[i]],
             "done_frames": done_ok}
@@ -1602,10 +1740,9 @@ def phase_disagg(torch, state):
         _gen(port["dec"], reqs[0], peer)  # warm: the ship path once
         d0, p0 = dict(eng["dec"].stats), dict(eng["pre"].stats)
         m0 = _scrape(port["dec"])
-        pa.LAUNCHES = 0
-        pa.LAUNCHES_BY_S.clear()
+        _zero_paged(pa)
         got = _concurrent(lambda ids: _gen(port["dec"], ids, peer), reqs)
-        launches, by_s = pa.LAUNCHES, dict(pa.LAUNCHES_BY_S)
+        launches, by_s, by_body = _paged_counts(pa)
         m1 = _scrape(port["dec"])
         ttft = {"colocated": [], "disaggregated": []}
         streams = []
@@ -1634,7 +1771,7 @@ def phase_disagg(torch, state):
             "identical": got == want, "judged_equal": ok_a, "diverged": bad_a,
             "sse_equals_generate": ok_s, "decode_replica": dd, "prefill_replica": pd,
             "paged_launches": launches,
-            "paged_launches_by_s": by_s,
+            "paged_launches_by_s": by_s, "paged_launches_by_body": by_body,
             "span_bytes_predicted_burst": sum(n * per_tok for n in n16),
             # four bursts (generate, then SSE three times) shipped
             "span_bytes_measured_burst": dd["kv_ship_bytes"] / n_bursts,
@@ -1647,9 +1784,11 @@ def phase_disagg(torch, state):
                        and pd["chunks"] == 0 and launches > 0
                        and set(by_s) == {1, 32}
                        and by_s[32] == N_REQ * MODEL["n_layers"]
+                       and by_body == {"decode": by_s[1], "mma": by_s[32]}
                        and ready["pre"]["role"] == "prefill"
                        and ready["dec"]["role"] == "decode")
         state["disagg_paged_launches_by_s"] = by_s
+        state["disagg_paged_launches_by_body"] = by_body
 
         # span bytes and ship time, one request at a time
         ship = []
@@ -2595,6 +2734,9 @@ def phase_profile(torch, state):
         n_kernels, busy_ms, top = _device_summary(prof)
         tokens = sum(len(o) for o in outs)
         serve_ok &= n_kernels > 0 and tokens > 0
+        # the paged kernel's two bodies: decode steps and prefill pieces
+        paged = {k.split(" ")[-1]: {"count": n, "ms": ms} for k, (n, ms) in top
+                 if "paged_attn_" in k}
         emit({"phase": "profile", "path": "serving", "pipeline_depth": depth,
               "dtype": "bf16", "requests": N_REQ, "tokens": tokens,
               "wall_ms": plain_wall_ms, "profiled_wall_ms": wall_ms,
@@ -2604,6 +2746,8 @@ def phase_profile(torch, state):
               "device_busy_share_profiled": busy_ms / wall_ms,
               "top_kernels": [{"name": k, "count": n, "ms": ms}
                               for k, (n, ms) in top[:10]],
+              "paged_kernels": paged,
+              "paged_share_of_busy": sum(v["ms"] for v in paged.values()) / busy_ms,
               "card": state["card"], "ok": n_kernels > 0 and tokens > 0})
         del eng
     del model
@@ -2745,14 +2889,15 @@ def main(argv=None) -> int:
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
-    if all(k in state for k in ("paged_main", "flash_main", "bwd_main")):
+    if all(k in state for k in ("paged_main", "paged_mma", "flash_main", "bwd_main")):
         kernels = []
         train = state.get("train_launches", {})
-        # paged decode on the served burst; the flash forward, timed at the
-        # training shape, on the training run (it also ran the no-cache
-        # forward phase's 12 launches)
+        served = state.get("paged_launches_by_body", {})
+        # paged decode on the served burst (the decode body's launches);
+        # the flash forward, timed at the training shape, on the training
+        # run (it also ran the no-cache forward phase's 12 launches)
         for key, launches, src, rep in (
-            ("paged_main", state.get("paged_launches", 0),
+            ("paged_main", served.get("decode", 0),
              "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
              "kubeflow_tpu/ops/paged_attention.py:185"),
             ("flash_main", train.get("flash_forward", 0),
@@ -2763,10 +2908,18 @@ def main(argv=None) -> int:
             kernels.append({
                 "name": r["kernel"], "route": "cuda", "source": src,
                 "replaces": rep, "body": r["body"], "launches": launches,
-                **({"launches_by_s": state.get("paged_launches_by_s"),
+                **({"launches_all_bodies": state.get("paged_launches"),
+                    "launches_by_body": served,
+                    "launches_by_s": state.get("paged_launches_by_s"),
                     "verify_launches_engine_phase": state.get("verify_launches"),
+                    "verify_launches_engine_phase_bf16_by_body":
+                        state.get("verify_launches_bf16_by_body"),
                     "launches_contract_phase": state.get("contract_paged_launches"),
+                    "launches_contract_phase_by_body":
+                        state.get("contract_paged_launches_by_body"),
                     "launches_disagg_phase_by_s": state.get("disagg_paged_launches_by_s"),
+                    "launches_disagg_phase_by_body":
+                        state.get("disagg_paged_launches_by_body"),
                     # the dense runs of the dense phase: none, by design
                     "launches_dense_phase": state.get("dense_paged_launches"),
                     "launches_bert_phase": state.get("bert_paged_launches")}
@@ -2784,6 +2937,20 @@ def main(argv=None) -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             })
+        # the paged kernel's tensor-core body on its own: timed at the
+        # served prefill piece (B=8, S=32), launched by the served burst's
+        # pieces
+        r = state["paged_mma"]
+        kernels.append({
+            "name": "paged_attention_mma", "route": "cuda",
+            "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
+            "replaces": "kubeflow_tpu/ops/paged_attention.py:185",
+            "body": r["body"], "case": r["case"], "launches": served.get("mma", 0),
+            "launches_by_body": served,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
         # the forward's f32 body on its own: timed at the BERT serving
         # shape, launched by the bert phase's f32 forwards
         r = state.get("flash_bert", {}).get("bert_s128_f32")

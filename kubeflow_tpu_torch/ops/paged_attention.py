@@ -12,12 +12,19 @@ arithmetic on positions, so no mask operand exists.
 :func:`paged_attention` launches ``csrc/paged_attention.cu`` for CUDA
 tensors and runs :func:`paged_attention_reference` for CPU tensors — the
 choice follows the tensors' device only, never a fallback on error.
-``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_S`` by span length),
-so a run can show the serving path went through the kernel. The kernel has one body, ``"split"``
-(:func:`body`): a row's pages are split across the warps of its block,
-whose partial softmax states merge by their maxima (flash-decoding inside
-one block); it takes head dims up to 128 whose pool rows are a whole
-number of 16-byte chunks (:func:`kernel_supports`).
+``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_S`` by span length,
+``LAUNCHES_BY_BODY`` by body), so a run can show the serving path went
+through the kernel. The kernel has two bodies, chosen by q's dtype and
+the rows a kv head ``G * S`` alone (:func:`body`): ``"decode"``, one lane
+a key on f32 FMAs, for every dtype (f32 is the parity path) and for
+bf16/f16 spans of at most ``_MMA_MIN_GS`` rows (the served decode); and
+``"mma"``, ``mma.sync`` tensor-core products over a 16-row tile, for
+bf16/f16 q with more rows (the speculative verify, GQA groups, prefill
+pieces). In both, a row's visible pages are cut into fixed groups that
+the warps of a thread-block cluster share, merged through distributed
+shared memory in group order, so a row's output bits do not depend on
+the batch or the table width. Both take head dims up to 128 whose pool
+rows are a whole number of 16-byte chunks (:func:`kernel_supports`).
 
 int8 KV: :func:`quantize_kv` makes per-(kv head, token) symmetric int8
 codes plus an f32 scale; both read paths dequantize with the same single
@@ -39,23 +46,33 @@ LAUNCHES = 0
 #: the same launches by query span S (1: decode, K+1: a speculative
 #: verify, a bucket or chunk: a prefill piece); cleared with LAUNCHES
 LAUNCHES_BY_S: dict[int, int] = {}
+#: the same launches by kernel body (:func:`body`); set to 0 with LAUNCHES
+LAUNCHES_BY_BODY: dict[str, int] = {"decode": 0, "mma": 0}
 
 _DTYPE_CODES = {
     torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3,
 }
-_MAX_HEAD_DIM = 128  # the kernel's lanes own at most 4 output columns each
+_MAX_HEAD_DIM = 128  # the decode body's lanes own at most 4 output columns each
+#: rows a kv head (G * S) above which bf16/f16 spans take the "mma" body;
+#: ``MMA_MIN_GS`` in ``csrc/paged_attention.cu``
+_MMA_MIN_GS = 4
 
 
-def body() -> str:
-    """The kernel body every launch runs: ``"split"``, the page-split
-    (flash-decoding) kernel of ``csrc/paged_attention.cu``."""
-    return "split"
+def body(groups: int, span: int, q_dtype: torch.dtype) -> str:
+    """The kernel body a launch runs, by the C launcher's rule
+    (``mma_body`` in ``csrc/paged_attention.cu``): ``"mma"``, tensor-core
+    products over 16-row tiles, for bf16/f16 q with ``groups * span``
+    (the GQA group times the query span) above ``_MMA_MIN_GS``; otherwise
+    ``"decode"``, one lane a key on f32 FMAs."""
+    half = q_dtype in (torch.bfloat16, torch.float16)
+    return "mma" if half and groups * span > _MMA_MIN_GS else "decode"
 
 
 def kernel_supports(head_dim: int, kv_dtype: torch.dtype) -> bool:
     """Whether the kernel takes pools of this head dim and dtype: D up to
-    128 with a pool row of whole 16-byte chunks (the kernel copies rows
-    16 bytes at a time), the rule ``launch`` in the CUDA source checks."""
+    128 with a pool row of whole 16-byte chunks (both bodies copy whole
+    rows with bulk or TMA copies), the rule ``kft_paged_attention`` in the
+    CUDA source checks; the same for both bodies."""
     row_bytes = head_dim * torch.empty((), dtype=kv_dtype).element_size()
     return 0 < head_dim <= _MAX_HEAD_DIM and row_bytes % 16 == 0
 
@@ -238,6 +255,7 @@ def _launch(q, k_pool, v_pool, page_table, pos0, page_size, window, scale,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         LAUNCHES += 1
         LAUNCHES_BY_S[S] = LAUNCHES_BY_S.get(S, 0) + 1
+        LAUNCHES_BY_BODY[body(H // Hkv, S, q.dtype)] += 1
         code = lib.kft_paged_attention(
             ptr(q), ptr(k_pool), ptr(v_pool),
             ptr(k_scale) if quant else none, ptr(v_scale) if quant else none,

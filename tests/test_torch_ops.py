@@ -37,8 +37,12 @@ def _t(a):
 
 # the oracle cases of tests/test_paged_attention.py, plus the pos0=0 edge
 # and a dead row whose whole table is the scratch page; then windows of 12
-# pages, more than the 4 warps of a page-split kernel block, and a decode
-# that sees only its last page (the other warps' partials are empty)
+# pages, more than one block's 4 warps, and a decode that sees only its
+# last page (the other page groups' partials are empty); then the shapes
+# of the kernel's two bodies: GQA groups of G * S >= 16 rows a kv head
+# (bf16/f16 spans of more than 4 rows take the tensor-core body), int8 at
+# such a span, pages of 32 as served, a 40-page table whose window leaves
+# the early page groups empty, and spans whose rows straddle a page edge
 PAGED_CASES = [
     ("decode", dict()),
     ("gqa_span", dict(S=5)),
@@ -52,13 +56,19 @@ PAGED_CASES = [
     ("many_pages_gqa_window", dict(S=5, window=150, W_pages=12, n_pages=16)),
     ("many_pages_int8_span", dict(S=3, quant=True, W_pages=12, n_pages=16)),
     ("last_page_only_decode", dict(window=16, W_pages=12, n_pages=16)),
+    ("wide_gqa_span", dict(H=16, Hkv=2, S=3)),
+    ("wide_gqa_int8_span", dict(H=16, Hkv=2, S=3, quant=True)),
+    ("served_pages_of_32", dict(S=5, P=32)),
+    ("long_table_window", dict(S=4, window=100, W_pages=40, n_pages=48)),
+    ("span_straddles_pages", dict(S=6, straddle=True)),
 ]
 
 
 def _paged_inputs(seed, *, H=4, Hkv=2, S=1, window=None, quant=False,
-                  pos0_zero=False, dead_row=False, n_pages=8, W_pages=4):
+                  pos0_zero=False, dead_row=False, n_pages=8, W_pages=4, P=16,
+                  straddle=False):
     rng = np.random.default_rng(seed)
-    B, D, P = 2, 64, 16
+    B, D = 2, 64
     T = n_pages * P
     q = rng.normal(size=(B, H, S, D)).astype(np.float32)
     kp = rng.normal(size=(Hkv, T, D)).astype(np.float32)
@@ -71,6 +81,8 @@ def _paged_inputs(seed, *, H=4, Hkv=2, S=1, window=None, quant=False,
     pos0 = np.array([W_pages * P - S, (W_pages - 1) * P - S], np.int32)
     if pos0_zero:
         pos0[:] = 0
+    if straddle:  # each span starts 3 tokens before a page edge
+        pos0 = np.array([(W_pages - 1) * P - 3, (W_pages - 2) * P - 3], np.int32)
     if dead_row:
         table[1] = 0
     return dict(q=q, kp=kp, vp=vp, table=table, pos0=pos0, P=P,
@@ -343,16 +355,59 @@ def test_kernel_body_dispatch_matches_the_c_sources():
 
 
 def test_paged_kernel_body_and_shapes():
-    """One paged body, the page-split kernel; the head dims it takes (D
-    up to 128, pool rows of whole 16-byte chunks) are the ones the CUDA
+    """Two paged bodies, ``paged_attn_decode_kernel`` and
+    ``paged_attn_mma_kernel`` (the page-split kernel is gone): bf16/f16
+    spans of more than 4 rows a kv head take the tensor-core body, every
+    other span (and every f32 one) the decode body. The head dims both take
+    (D up to 128, pool rows of whole 16-byte chunks) are the ones the CUDA
     launcher checks."""
-    assert tpa.body() == "split"
-    assert "paged_attn_split_kernel" in (_build.CSRC / "paged_attention.cu").read_text()
+    import re
+
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    assert "paged_attn_decode_kernel<TQ, TKV, QUANT, DP>" in src
+    assert "paged_attn_mma_kernel<TQ, TKV, QUANT, DP>" in src
+    assert not re.search(r"\bpaged_attn_split_kernel\b", src)
+    assert tpa.body(1, 1, torch.bfloat16) == "decode"
+    assert tpa.body(1, 5, torch.bfloat16) == "mma"
+    assert tpa.body(1, 32, torch.float32) == "decode"
+    assert tpa.LAUNCHES_BY_BODY.keys() == {"decode", "mma"}
     for d, dt, ok in ((64, torch.bfloat16, True), (128, torch.float32, True),
                       (16, torch.int8, True), (8, torch.int8, False),
                       (36, torch.bfloat16, False), (256, torch.bfloat16, False),
                       (4, torch.float32, True)):
         assert tpa.kernel_supports(d, dt) is ok, (d, dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_paged_body_rule_matches_the_c_launcher(dtype):
+    """``body(G, S, dtype)`` states the C launcher's rule: ``mma_body``
+    in ``csrc/paged_attention.cu`` sends bf16/f16 q with ``G * S`` above
+    ``MMA_MIN_GS`` (read from the source) to ``launch_mma_any``, and
+    ``kft_paged_attention`` launches ``launch_decode_any`` for every q
+    dtype past that branch; the Python threshold is the source's."""
+    import re
+
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    limit = int(re.search(r"constexpr int MMA_MIN_GS = (\d+);", src).group(1))
+    assert tpa._MMA_MIN_GS == limit
+    assert "return (q_dtype == BF16 || q_dtype == F16) && GS > MMA_MIN_GS;" in src
+    entry = src[src.index('extern "C" int kft_paged_attention('):]
+    entry = entry[:entry.index("\n}\n")]
+    branch = re.search(r"if \(mma_body\(q_dtype, H / Hkv \* S\)\) \{(.*?)\n  \}", entry, re.S)
+    assert branch is not None
+    for ty in ("__nv_bfloat16", "__half"):
+        assert f"launch_mma_any<{ty}, {ty}, false>" in branch.group(1)
+        assert f"launch_mma_any<{ty}, int8_t, true>" in branch.group(1)
+    rest = entry[branch.end():]
+    for ty in ("float", "__nv_bfloat16", "__half"):
+        assert f"launch_decode_any<{ty}, {ty}, false>" in rest
+        assert f"launch_decode_any<{ty}, int8_t, true>" in rest
+    half = dtype in (torch.bfloat16, torch.float16)
+    for g in (1, 2, 4, 8, 16):
+        for s in (1, 2, 3, 4, 5, 16, 32):
+            want = "mma" if half and g * s > limit else "decode"
+            assert tpa.body(g, s, dtype) == want, (g, s)
 
 
 def test_reference_attention_mask_is_bottom_right_aligned():
@@ -392,9 +447,17 @@ def test_cpu_calls_never_touch_the_kernel_build(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
     monkeypatch.setattr(_build, "_nvcc", refuse)
     before = (tpa.LAUNCHES, tfa.LAUNCHES)
+    by_body = dict(tpa.LAUNCHES_BY_BODY)
+    by_s = dict(tpa.LAUNCHES_BY_S)
     x = _paged_inputs(1, S=2)
     tpa.paged_attention(_t(x["q"]), _t(x["kp"]), _t(x["vp"]), _t(x["table"]),
                         _t(x["pos0"]), page_size=x["P"])
+    # a bf16 span the card would send to the tensor-core body
+    x = _paged_inputs(2, H=16, Hkv=2, S=3)
+    tpa.paged_attention(_t(x["q"]).bfloat16(), _t(x["kp"]).bfloat16(),
+                        _t(x["vp"]).bfloat16(), _t(x["table"]), _t(x["pos0"]),
+                        page_size=x["P"])
+    assert tpa.LAUNCHES_BY_BODY == by_body and tpa.LAUNCHES_BY_S == by_s
     q, k, v, ids = _flash_inputs(1, seg=True)
     tfa.flash_attention(_t(q), _t(k), _t(v), causal=True,
                         q_segment_ids=_t(ids), kv_segment_ids=_t(ids),
