@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs ten phases:
+sm_90a, into the git-ignored ``build/``) and runs eleven phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -64,8 +64,18 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    ``generate_stream`` (client TTFT); the same through the codec on an
    f32 pair (exact) and on int8 pools; a prefix-cache pull between two
    replicas; sessions parked in the host KV tier and swapped back in;
-   a dropped ship and a dead peer falling back to a local prefill;
-8. dense — the dense KV cache at the same width, bf16: the ``causal-lm``
+   a dropped ship and a dead peer falling back to a local prefill; one
+   traced ship's ``kv.ship`` span split into the prefill replica's
+   ``engine``/``queue.wait``/``prefill`` spans and the rest;
+8. fleet — two bf16 replicas behind the port's ``InferenceGateway``
+   (session affinity): the burst over ``generate_stream`` direct to a
+   replica and through the gateway, in turns (the gateway's TTFT and
+   tokens/s cost); a burst during which the replica's server is killed
+   mid-stream (every stream resumed on the peer, no error frame, judged
+   by near ties); the replica wedged mid-stream, restarted by its
+   watchdog while the streams resume; one traced stream's span tree from
+   the edge to the decode chunks; an f32 pair with one kill, identical;
+9. dense — the dense KV cache at the same width, bf16: the ``causal-lm``
    runtime (``LMRuntimeModel``) behind ``ModelServer`` with the JAX
    ``bench_generate`` traffic (8 prompts of 128 tokens, 64 and 16 new
    tokens in turns: whole-generation ms, decode step ms, streams against
@@ -75,7 +85,7 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    launched by a dense run; then in f32 the dense engine's K=4, chunked
    prefill with a prefix cache, seeded resume, a window and a paged
    prefill engine feeding it spans, each identical to the paged engine;
-9. bert — the KServe BERT predictor on bert-base (random weights, seed
+10. bert — the KServe BERT predictor on bert-base (random weights, seed
    0) through the flash forward, non-causal with padding segments:
    ``BertRuntimeModel`` behind ``ModelServer`` with the JAX
    ``bench_serving`` traffic (cold start, 3 + 40 sequential ``:predict``
@@ -85,7 +95,7 @@ sm_90a, into the git-ignored ``build/``) and runs ten phases:
    padding invariance on the card; v2 ``/infer`` against v1; the flash
    launches (12 a forward, the ``fma`` body in f32 and ``wgmma`` in bf16)
    and no paged launch;
-10. train — the full-width LM trained through the flash forward and
+11. train — the full-width LM trained through the flash forward and
    backward kernels: 5 f32 steps against plain attention (gradients and
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
    whose forward, dq and dk/dv launches must all run the tensor-core
@@ -119,7 +129,7 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
-          "disagg", "dense", "bert", "train")
+          "disagg", "fleet", "dense", "bert", "train")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -1684,6 +1694,29 @@ def _engine_pair(torch, model, reqs, kw):
             e.stop()
 
 
+def _trace_spans(ports, trace_id, timeout_s=30.0):
+    """The finished trace's spans from ``/debug/traces`` of every port,
+    merged by span id (a trace is served once its last span ended)."""
+    t_end = time.monotonic() + timeout_s
+    while True:
+        spans = {}
+        for p in ports:
+            _, _, text = _http(f"http://127.0.0.1:{p}", "GET", "/debug/traces?limit=256")
+            for tr in json.loads(text)["traces"]:
+                if tr["trace_id"] == trace_id:
+                    spans.update({s["span_id"]: s for s in tr["spans"]})
+        if spans or time.monotonic() > t_end:
+            return sorted(spans.values(), key=lambda s: s["start_ms"])
+        time.sleep(0.05)
+
+
+def _trace_rows(spans):
+    """(name, parent's name, status, ms) of each span, by start."""
+    names = {s["span_id"]: s["name"] for s in spans}
+    return [(s["name"], names.get(s["parent_span_id"]), s["status"],
+             s["end_ms"] - s["start_ms"]) for s in spans]
+
+
 def phase_disagg(torch, state):
     """KV movement between replicas on the full-width model, bf16 on the
     paged kernel unless named: (a) a prefill and a decode replica, the
@@ -1694,8 +1727,12 @@ def phase_disagg(torch, state):
     on both sides; (c) a prefix-cache pull from replica A to replica B;
     (d) three sessions of two turns through a host tier that holds two
     sessions' spans; (e) a dropped ship and a dead peer. Prints span
-    bytes predicted and measured, ship times, and paged launches by span
-    S (the prefill replica runs S=32 only, the decode replica S=1)."""
+    bytes predicted and measured, ship times, paged launches by span S
+    (the prefill replica runs S=32 only, the decode replica S=1), and one
+    traced request's ``kv.ship`` span split into the prefill replica's
+    ``engine``, ``queue.wait`` and ``prefill`` spans and the rest (the
+    wire, the codec and the implant's checks; ``kv_span:prefill`` opens
+    no dataplane span, as in the reference)."""
     import numpy as np
 
     from kubeflow_tpu_torch.models.transformer import TransformerConfig
@@ -1789,6 +1826,40 @@ def phase_disagg(torch, state):
                        and ready["dec"]["role"] == "decode")
         state["disagg_paged_launches_by_s"] = by_s
         state["disagg_paged_launches_by_body"] = by_body
+
+        # one traced ship: the kv.ship span against the prefill replica's
+        # spans under it (one process: one tracer behind both ports)
+        from kubeflow_tpu_torch.obs.trace import TRACER, TraceContext
+
+        TRACER.clear()
+        TRACER.sample_every = 1
+        ctx = TraceContext(f"{zlib.crc32(b'disagg'):08x}" * 4, "cd" * 8)
+        traced = _gen(port["dec"], reqs[0], {**peer, "x-kft-trace": ctx.header()})
+        spans = _trace_spans([port["dec"], port["pre"]], ctx.trace_id)
+        TRACER.sample_every = 16
+
+        def ms(sp):
+            return sp["end_ms"] - sp["start_ms"]
+
+        ship_sp = next((sp for sp in spans if sp["name"] == "kv.ship"), None)
+        pre_eng = next((sp for sp in spans if ship_sp and sp["name"] == "engine"
+                        and sp["parent_span_id"] == ship_sp["span_id"]), None)
+        kids = {sp["name"]: ms(sp) for sp in spans
+                if pre_eng and sp["parent_span_id"] == pre_eng["span_id"]}
+        out["a_ship_trace"] = {
+            "trace_id": ctx.trace_id, "tokens_equal": traced == want[0],
+            "kv_ship_ms": ms(ship_sp) if ship_sp else None,
+            "prefill_replica": {
+                "dataplane_ms": None,
+                "engine_ms": ms(pre_eng) if pre_eng else None,
+                "queue_wait_ms": kids.get("queue.wait"),
+                "prefill_ms": kids.get("prefill")},
+            "rest_ms": ms(ship_sp) - ms(pre_eng) if ship_sp and pre_eng else None,
+            "spans": [[n, p, st, round(v, 3)] for n, p, st, v in _trace_rows(spans)]}
+        checks["a_trace"] = (ship_sp is not None and ship_sp["status"] == "ok"
+                             and pre_eng is not None
+                             and {"queue.wait", "prefill"} <= set(kids)
+                             and traced == want[0])
 
         # span bytes and ship time, one request at a time
         ship = []
@@ -1929,13 +2000,315 @@ def phase_disagg(torch, state):
             s.stop()
     out["seconds"] = time.perf_counter() - t_phase
     out["checks"] = checks
+    out["ok"] = all(checks.values()) and len(checks) == 8
+    emit(out)
+    return out["ok"]
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: replicas behind the port's gateway
+# --------------------------------------------------------------------------- #
+
+class _Clocked(_SSE):
+    """An SSE client that also stamps every frame's arrival."""
+
+    def __init__(self, port, name, ids, headers=None):
+        super().__init__(port, name, ids, headers)
+        self.stamps = []
+
+    def frame(self):
+        f = super().frame()
+        if f is not None:
+            self.stamps.append(time.perf_counter())
+        return f
+
+    def read_frames(self):
+        frames = []
+        while True:
+            f = self.frame()
+            if f is None:
+                self.conn.close()
+                return frames
+            frames.append(f)
+            if "token_ids" not in f:
+                self.conn.close()
+                return frames
+
+
+def _fleet_burst(port, reqs, headers_for):
+    """The requests at once over ``generate_stream``: per request its
+    frames, frame arrival times, client TTFT; and the burst's wall."""
+    def one(i):
+        s = _Clocked(port, "lm", reqs[i], headers_for(i))
+        if s.status != 200:
+            raise RuntimeError(f"generate_stream answered {s.status}")
+        frames = s.read_frames()
+        return {"frames": frames, "stamps": s.stamps, "ttft_ms": s.ttft_ms,
+                "tokens": [t for f in frames for t in f.get("token_ids", [])]}
+
+    t0 = time.perf_counter()
+    res = _concurrent(one, list(range(len(reqs))))
+    wall = time.perf_counter() - t0
+    n_tok = sum(len(r["tokens"]) for r in res)
+    return res, {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+                 "ttft_ms_median": statistics.median(r["ttft_ms"] for r in res)}
+
+
+def _clean(res):
+    """No error frame, one done frame counting every token."""
+    return all(all("error" not in f for f in r["frames"])
+               and r["frames"][-1] == {"done": True, "n_tokens": len(r["tokens"])}
+               for r in res)
+
+
+def _session_on(gw, route, url):
+    """A session id whose affine replica is ``url``."""
+    for i in range(1000):
+        b = gw._affine_pick(route, "default", f"session:fleet-{i}")
+        if b is not None and b.url == url:
+            return f"fleet-{i}"
+    raise RuntimeError(f"no session maps to {url}")
+
+
+def phase_fleet(torch, state):
+    """Two full-width bf16 replicas (``LMEngineModel`` on the paged kernel,
+    watchdog on, chunked prefill in 32-token pieces so a resumed prompt
+    of any length fits) behind the port's ``InferenceGateway`` with
+    session affinity, so the replica a burst lands on is known: (a) the
+    8-prompt burst over ``generate_stream`` in turns, direct to replica A
+    and through the gateway to A (client TTFT and tokens/s, medians and
+    spread: the gateway's cost); (b) a burst through the gateway during
+    which ``kill_mid_stream`` kills A's server after rows have committed
+    tokens: every stream resumes on B, no error frame, each judged against
+    the uninterrupted streams, the resumes and the gap from the death to
+    the next frame counted; (c) A back on a new server, wedged mid-stream:
+    its watchdog restarts the engine and the streams resume on B; (d) one
+    traced stream's tree from the gateway's and both replicas'
+    ``/debug/traces``; (e) an f32 pair (TF32 off), two streams with one
+    kill, identical to the uninterrupted ones. The paged launches of (b)
+    and (c) are the fleet path's, by span and body."""
+    from kubeflow_tpu_torch.chaos.injectors import kill_mid_stream
+    from kubeflow_tpu_torch.gateway import GatewayConfig, InferenceGateway, ServiceRoute
+    from kubeflow_tpu_torch.gateway.server import STREAM_RESUMES
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.obs.trace import TRACER, TraceContext
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serve.engine import LMEngineModel
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    t_phase = time.perf_counter()
+    out = {"phase": "fleet", "dtype": "bf16", "card": state["card"]}
+    checks = {}
+    engine = dict(ENGINE, prefill_chunk=32)
+    TRACER.clear()
+    TRACER.sample_every = 1
+
+    def replicas(dtype, sd, **kw):
+        cfg = TransformerConfig(dtype=dtype, attn_impl="flash", **MODEL)
+        return [LMEngineModel("lm", config=cfg, state_dict=sd, device="cuda",
+                              max_new_tokens=MAX_NEW, paged_attn_impl="kernel",
+                              **engine, **kw) for _ in range(2)]
+
+    def fleet(models):
+        servers = [ModelServer([m], http_port=0).start() for m in models]
+        route = ServiceRoute(name="lm", affinity="session", max_attempts=4)
+        gw = InferenceGateway(GatewayConfig(
+            probe_interval_s=30.0, failure_threshold=2, recovery_s=60.0,
+            retry_budget_floor=100, routes=[route],
+            backends=[("lm", f"http://127.0.0.1:{s.port}", "default", "both")
+                      for s in servers])).start()
+        return servers, gw, route
+
+    def resumed(r0, want):
+        """The gateway's resumes since ``r0``, once they reach ``want``
+        (a client reads the done frame a moment before the count)."""
+        t_end = time.monotonic() + 10
+        while (STREAM_RESUMES.labels(service="lm", outcome="ok").value - r0 < want
+               and time.monotonic() < t_end):
+            time.sleep(0.01)
+        return STREAM_RESUMES.labels(service="lm", outcome="ok").value - r0
+
+    def killer(server, box):
+        def act(eng):  # on the engine's thread: the kill runs beside it
+            box["t_kill"] = time.perf_counter()
+            threading.Thread(target=server.kill, daemon=True).start()
+        return act
+
+    def death_gaps(res, t_kill):
+        """Per stream, the longest wait for a frame after the death (the
+        frames the dead replica had already sent arrive first)."""
+        gaps = []
+        for r in res:
+            prev = [t_kill] + [t for t in r["stamps"] if t > t_kill]
+            if len(prev) > 1:
+                gaps.append(max(b - max(a, t_kill)
+                                for a, b in zip(prev, prev[1:])) * 1e3)
+        return gaps
+
+    reqs = prompts()
+    sd = sharpened_state(torch, torch.bfloat16)
+    # the watchdogs keep their 30 s floor while the peer absorbs resumed
+    # prefills; (c) tightens the victim's to 1 s once its EWMA is warm
+    models = replicas(torch.bfloat16, sd, watchdog_interval_s=0.1)
+    servers, gw, route = fleet(models)
+    url = [f"http://127.0.0.1:{s.port}" for s in servers]
+    try:
+        model = models[0].engine.model
+        sid = _session_on(gw, route, url[0])
+        seed = {"x-kft-seed": "7"}  # direct requests run the seeded chunk too
+
+        # (a) direct to A against through the gateway to A, in turns
+        turns = {"direct": [], "gateway": []}
+        streams = {"direct": [], "gateway": []}
+        for _ in range(3):
+            for kind, port, hdr in (
+                    ("direct", servers[0].port, lambda i: seed),
+                    ("gateway", gw.http_port,
+                     lambda i: {**seed, "x-session-id": sid})):
+                res, st = _fleet_burst(port, reqs, hdr)
+                turns[kind].append(st)
+                streams[kind].append([r["tokens"] for r in res])
+                checks.setdefault("a_clean", True)
+                checks["a_clean"] &= _clean(res)
+        want = streams["direct"][0]
+        ok_a, bad_a = _judged(torch, model, reqs, want, streams["gateway"][0])
+        a_stats = {kind: {k: _spread([t[k] for t in v])
+                          for k in ("ttft_ms_median", "tokens_per_s")}
+                   for kind, v in turns.items()}
+        out["a_direct_vs_gateway"] = {
+            **a_stats,
+            "ttft_ms_added": a_stats["gateway"]["ttft_ms_median"]["median"]
+            - a_stats["direct"]["ttft_ms_median"]["median"],
+            "tokens_per_s_ratio": a_stats["gateway"]["tokens_per_s"]["median"]
+            / a_stats["direct"]["tokens_per_s"]["median"],
+            "gateway_equals_direct_judged": ok_a, "diverged": bad_a}
+        checks["a"] = ok_a and all(s == streams["direct"][0]
+                                   for s in streams["direct"])
+
+        # (b) A's server killed mid-burst; one stream traced
+        _zero_paged(pa)
+        ctx = TraceContext(f"{zlib.crc32(b'fleet'):08x}" * 4, "ab" * 8)
+        box = {}
+        r0 = STREAM_RESUMES.labels(service="lm", outcome="ok").value
+        a0 = models[1].engine.stats["resume_admits"]
+        kill_mid_stream(models[0].engine, after_tokens=8,
+                        action=killer(servers[0], box))
+        res_b, st_b = _fleet_burst(gw.http_port, reqs, lambda i: {
+            "x-session-id": sid, **({"x-kft-trace": ctx.header()} if i == 0 else {})})
+        got_b = [r["tokens"] for r in res_b]
+        ok_b, bad_b = _judged(torch, model, reqs, want, got_b)
+        gaps = death_gaps(res_b, box["t_kill"]) if "t_kill" in box else []
+        admits = models[1].engine.stats["resume_admits"] - a0
+        out["b_kill"] = {
+            **st_b, "killed": "t_kill" in box, "resumes": resumed(r0, admits),
+            "peer_resume_admits": admits,
+            "longest_frame_gap_after_death_ms": _spread(gaps) if gaps else None,
+            "judged_equal": ok_b, "identical": got_b == want, "diverged": bad_b}
+        checks["b"] = ("t_kill" in box and _clean(res_b) and ok_b
+                       and out["b_kill"]["resumes"] >= 1
+                       and out["b_kill"]["peer_resume_admits"] == out["b_kill"]["resumes"])
+
+        # (d) the traced stream: one trace id from the edge to the chunks
+        rows = _trace_rows(_trace_spans([gw.http_port, servers[1].port],
+                                        ctx.trace_id))
+        triples = {(n, p, s) for n, p, s, _ in rows}
+        out["d_trace"] = {"trace_id": ctx.trace_id,
+                          "spans": [[n, p, s, round(ms, 3)] for n, p, s, ms in rows]}
+        checks["d"] = ({("route", None, "ok"), ("proxy", "route", "error"),
+                        ("stream.resume", "route", "ok"),
+                        ("dataplane.stream", "stream.resume", "ok"),
+                        ("engine", "dataplane.stream", "ok"),
+                        ("queue.wait", "engine", "ok"), ("prefill", "engine", "ok"),
+                        ("decode.chunk", "engine", "ok")} <= triples)
+
+        # (c) A on a new server, wedged mid-stream; its watchdog restarts it
+        servers[0] = ModelServer([models[0]], http_port=0).start()
+        gw.pool.remove(url[0])
+        url[0] = f"http://127.0.0.1:{servers[0].port}"
+        gw.pool.add("lm", url[0])
+        sid_c = _session_on(gw, route, url[0])
+        wd = models[0].watchdog
+        wd.config.min_wedge_s = 1.0
+        trips0, restarts0 = dict(wd.stats["trips"]), wd.stats["restarts"]
+        old = models[0].engine
+        entered, release = threading.Event(), threading.Event()
+        old._fault_hooks["pre_chunk"] = _wedge_hook(entered, release)
+        r0 = STREAM_RESUMES.labels(service="lm", outcome="ok").value
+        a0 = models[1].engine.stats["resume_admits"]
+        try:
+            res_c, st_c = _fleet_burst(gw.http_port, reqs,
+                                       lambda i: {"x-session-id": sid_c})
+        finally:
+            release.set()
+        old._thread.join(120)
+        fleet_launches, fleet_by_s, fleet_by_body = _paged_counts(pa)
+        got_c = [r["tokens"] for r in res_c]
+        ok_c, bad_c = _judged(torch, model, reqs, want, got_c)
+        out["c_wedge"] = {
+            **st_c, "wedged": entered.is_set(),
+            "wedge_threshold_s": wd.wedge_threshold_s(old),
+            "resumes": resumed(r0, models[1].engine.stats["resume_admits"] - a0),
+            "watchdog_trips": wd.stats["trips"], "restarts": wd.stats["restarts"] - restarts0,
+            "new_engine": models[0].engine is not old, "ready": models[0].ready,
+            "judged_equal": ok_c, "identical": got_c == want, "diverged": bad_c}
+        checks["c"] = (entered.is_set() and _clean(res_c) and ok_c
+                       and out["c_wedge"]["resumes"] >= 1
+                       and wd.stats["trips"].get("wedged", 0)
+                       == trips0.get("wedged", 0) + 1
+                       and out["c_wedge"]["restarts"] == 1
+                       and models[0].engine is not old and models[0].ready)
+        out["paged_launches"] = fleet_launches
+        out["paged_launches_by_s"] = fleet_by_s
+        out["paged_launches_by_body"] = fleet_by_body
+        checks["launches"] = (fleet_by_body.get("decode", 0) == fleet_by_s.get(1, 0) > 0
+                              and fleet_by_body.get("mma", 0) > 0
+                              and _bodies_follow_rule(pa, fleet_by_s, fleet_by_body,
+                                                      torch.bfloat16))
+        state["fleet_paged_launches_by_s"] = fleet_by_s
+        state["fleet_paged_launches_by_body"] = fleet_by_body
+    finally:
+        gw.stop()
+        for s in servers:
+            s.stop()
+        del models
+    torch.cuda.empty_cache()
+
+    # (e) the f32 pair with TF32 off: two streams, one kill, identical
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    models = replicas(torch.float32, sharpened_state(torch, torch.float32))
+    servers, gw, route = fleet(models)
+    try:
+        pair = reqs[:2]
+        sid_e = _session_on(gw, route, f"http://127.0.0.1:{servers[0].port}")
+        hdr = lambda i: {"x-session-id": sid_e}  # noqa: E731
+        res0, _ = _fleet_burst(gw.http_port, pair, hdr)
+        box = {}
+        r0 = STREAM_RESUMES.labels(service="lm", outcome="ok").value
+        kill_mid_stream(models[0].engine, after_tokens=8,
+                        action=killer(servers[0], box))
+        res1, _ = _fleet_burst(gw.http_port, pair, hdr)
+        w32, g32 = [r["tokens"] for r in res0], [r["tokens"] for r in res1]
+        same32, bad32 = _compare_greedy(torch, models[1].engine.model, pair, w32, g32)
+        out["e_f32_pair"] = {"killed": "t_kill" in box,
+                             "resumes": resumed(r0, len(pair)),
+                             "identical": same32, "diverged": bad32}
+        checks["e"] = ("t_kill" in box and same32 and _clean(res0) and _clean(res1)
+                       and out["e_f32_pair"]["resumes"] >= 1)
+    finally:
+        gw.stop()
+        for s in servers:
+            s.stop()
+    TRACER.sample_every = 16
+    out["seconds"] = time.perf_counter() - t_phase
+    out["checks"] = checks
     out["ok"] = all(checks.values()) and len(checks) == 7
     emit(out)
     return out["ok"]
 
 
 # --------------------------------------------------------------------------- #
-# phase 8: the dense KV cache — the causal-lm runtime and the dense engine
+# phase 9: the dense KV cache — the causal-lm runtime and the dense engine
 # --------------------------------------------------------------------------- #
 
 #: bench_engine's dense engine (``bench.py:990-993``)
@@ -2218,7 +2591,7 @@ def phase_dense(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 9: the KServe BERT predictor
+# phase 10: the KServe BERT predictor
 # --------------------------------------------------------------------------- #
 
 #: the JAX ``bench_serving`` request (``bench.py:736-744``) and its counts
@@ -2504,7 +2877,7 @@ def phase_bert(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 10: training through Trainer.fit at full width
+# phase 11: training through Trainer.fit at full width
 # --------------------------------------------------------------------------- #
 
 TRAIN_BATCH, TRAIN_SEQ = 8, 512
@@ -2872,7 +3245,8 @@ def main(argv=None) -> int:
     runners = {"kernels": phase_kernels, "forward": phase_forward,
                "serving": phase_serving, "parity": phase_parity,
                "engine": phase_engine, "contract": phase_contract,
-               "disagg": phase_disagg, "dense": phase_dense,
+               "disagg": phase_disagg, "fleet": phase_fleet,
+               "dense": phase_dense,
                "bert": phase_bert, "train": phase_train,
                "profile": phase_profile}
     ok = True
@@ -2893,11 +3267,13 @@ def main(argv=None) -> int:
         kernels = []
         train = state.get("train_launches", {})
         served = state.get("paged_launches_by_body", {})
-        # paged decode on the served burst (the decode body's launches);
+        fleet = state.get("fleet_paged_launches_by_body", {})
+        # paged decode on the served burst and the fleet's bursts (the
+        # decode body's launches);
         # the flash forward, timed at the training shape, on the training
         # run (it also ran the no-cache forward phase's 12 launches)
         for key, launches, src, rep in (
-            ("paged_main", served.get("decode", 0),
+            ("paged_main", served.get("decode", 0) + fleet.get("decode", 0),
              "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
              "kubeflow_tpu/ops/paged_attention.py:185"),
             ("flash_main", train.get("flash_forward", 0),
@@ -2920,6 +3296,9 @@ def main(argv=None) -> int:
                     "launches_disagg_phase_by_s": state.get("disagg_paged_launches_by_s"),
                     "launches_disagg_phase_by_body":
                         state.get("disagg_paged_launches_by_body"),
+                    # the replicas behind the gateway, in launches too
+                    "launches_fleet_phase_by_s": state.get("fleet_paged_launches_by_s"),
+                    "launches_fleet_phase_by_body": fleet,
                     # the dense runs of the dense phase: none, by design
                     "launches_dense_phase": state.get("dense_paged_launches"),
                     "launches_bert_phase": state.get("bert_paged_launches")}
@@ -2945,8 +3324,9 @@ def main(argv=None) -> int:
             "name": "paged_attention_mma", "route": "cuda",
             "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "kubeflow_tpu/ops/paged_attention.py:185",
-            "body": r["body"], "case": r["case"], "launches": served.get("mma", 0),
-            "launches_by_body": served,
+            "body": r["body"], "case": r["case"],
+            "launches": served.get("mma", 0) + fleet.get("mma", 0),
+            "launches_by_body": served, "launches_fleet_phase_by_body": fleet,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -85,9 +85,56 @@ ENGINE_RESTARTS_TOTAL = "kft_engine_restarts_total"
 
 # -- request latency ----------------------------------------------------- #
 
-#: histogram{model} — server-side time-to-first-token, milliseconds
-#: (engine enqueue → first token on the host)
+#: histogram{model} — server-side time-to-first-token of traced requests,
+#: milliseconds (engine enqueue → first token on the host)
 SERVER_TTFT_MS = "kft_server_ttft_ms"
 #: histogram{model} — server-side mean time-per-output-token after the
 #: first, milliseconds
 SERVER_TPOT_MS = "kft_server_tpot_ms"
+
+# -- request tracing (obs/trace.py) -------------------------------------- #
+
+#: counter{decision} — tail-sampler verdicts on finished traces
+#: (error / slow / sampled / dropped); error+slow+sampled are retained
+TRACE_SAMPLER_DECISIONS_TOTAL = "kft_trace_sampler_decisions_total"
+
+# -- inference gateway (gateway/) --------------------------------------- #
+
+#: counter{service,code} — requests answered at the edge, by HTTP status
+GATEWAY_REQUESTS_TOTAL = "kft_gateway_requests_total"
+#: histogram{service} — edge-observed request latency (activator queue
+#: time included: the client experienced it)
+GATEWAY_LATENCY_SECONDS = "kft_gateway_latency_seconds"
+#: gauge{service} — requests parked in the activator FIFO right now
+GATEWAY_QUEUE_DEPTH = "kft_gateway_queue_depth"
+#: counter{service,reason} — requests shed at the edge
+#: (rate_limit / inflight_cap / queue_full / activation_timeout / no_backend)
+GATEWAY_SHED_TOTAL = "kft_gateway_shed_total"
+#: counter{service} — transparent re-dispatches after a backend failure
+GATEWAY_RETRIES_TOTAL = "kft_gateway_retries_total"
+#: counter{service} — hedged second requests dispatched
+GATEWAY_HEDGES_TOTAL = "kft_gateway_hedges_total"
+#: counter{service} — requests routed by prefix/session affinity
+GATEWAY_AFFINITY_ROUTED_TOTAL = "kft_gateway_affinity_routed_total"
+#: gauge{backend} — 1 while the backend's circuit breaker is open/half-open
+GATEWAY_BREAKER_OPEN = "kft_gateway_breaker_open"
+#: counter{backend} — closed→open breaker transitions
+GATEWAY_BREAKER_OPENS_TOTAL = "kft_gateway_breaker_opens_total"
+#: gauge{service} — backends currently eligible for selection
+GATEWAY_BACKENDS_READY = "kft_gateway_backends_ready"
+#: counter{service} — scale-from-zero kicks issued by the activator
+GATEWAY_ACTIVATIONS_TOTAL = "kft_gateway_activations_total"
+#: gauge{service} — activator FIFO depth under its autoscaler-facing name
+GATEWAY_ACTIVATOR_QUEUE_DEPTH = "kft_gateway_activator_queue_depth"
+#: gauge{service} — 1 while a cold-episode scale-up kick is outstanding
+GATEWAY_ACTIVATOR_COLD_EPISODE = "kft_gateway_activator_cold_episode"
+#: counter{service,outcome} — mid-stream failovers: a decode stream whose
+#: upstream died after bytes were committed, re-dispatched to a healthy
+#: peer with the x-kft-resume-tokens contract (outcome: ok /
+#: budget_exhausted / no_backend / failed)
+GATEWAY_STREAM_RESUMES_TOTAL = "kft_gateway_stream_resumes_total"
+
+# -- chaos harness (chaos/injectors.py) ---------------------------------- #
+
+#: counter{kind} — faults the chaos harness injected
+CHAOS_INJECTED_TOTAL = "kft_chaos_injected_total"

@@ -24,8 +24,10 @@ batcher's:
   re-run alone, so one malformed request fails only its own caller
   (``fail_isolations`` counts these events).
 
-Request tracing (the JAX ``batcher.wait``/``batcher.flush`` spans) is not
-ported yet (ROADMAP queue 1 item 12).
+Request tracing: a caller's dataplane span (``trace=``) parents a
+``batcher.wait`` span over the entry's time in the queue; each flush opens
+one ``batcher.flush`` span under the first traced caller's wait span, as
+the JAX batcher does.
 """
 
 from __future__ import annotations
@@ -36,11 +38,12 @@ import time
 from concurrent.futures import Future
 from typing import Any, Callable, Sequence
 
+from kubeflow_tpu_torch.obs.trace import TRACER
 from kubeflow_tpu_torch.serve.deadline import DEADLINE_EXPIRED, DeadlineExceeded
 
 #: queue entry: (instances, caller future, absolute deadline or None,
-#: arrival time on ``time.monotonic()``)
-_Entry = tuple[list[Any], Future, "float | None", float]
+#: arrival time on ``time.monotonic()``, wait span or None)
+_Entry = tuple[list[Any], Future, "float | None", float, Any]
 
 
 @dataclasses.dataclass
@@ -91,16 +94,24 @@ class Batcher:
         return sum(len(e[0]) for e in self._queue)
 
     def submit(self, instances: list[Any], *,
-               deadline: float | None = None) -> list[Any]:
+               deadline: float | None = None, trace: Any = None) -> list[Any]:
         """Block until ``instances`` are served; their outputs, in order.
         ``deadline`` (absolute ``time.monotonic()``) rides the entry: one
         that passes before its flush is shed with
-        :class:`DeadlineExceeded` instead of costing a forward."""
+        :class:`DeadlineExceeded` instead of costing a forward. ``trace``
+        (the caller's dataplane span) parents a ``batcher.wait`` span
+        covering the entry's time in the queue."""
         fut: Future = Future()
+        wspan = TRACER.span("batcher.wait", parent=trace) if trace else None
+        if wspan:
+            wspan.set_attr("instances", len(instances))
         with self._cv:
             if self._closed:
+                if wspan:
+                    wspan.end("error")
                 raise RuntimeError("batcher is closed")
-            self._queue.append((instances, fut, deadline, time.monotonic()))
+            self._queue.append(
+                (instances, fut, deadline, time.monotonic(), wspan))
             if self._thread is None:
                 self._thread = threading.Thread(
                     target=self._flush_loop, name="batcher-flush", daemon=True)
@@ -140,10 +151,13 @@ class Batcher:
         now = time.monotonic()
         kept = []
         for entry in queue:
-            deadline, fut = entry[2], entry[1]
+            deadline, fut, wspan = entry[2], entry[1], entry[4]
             if deadline is not None and now > deadline:
                 self.stats["deadline_shed"] += 1
                 DEADLINE_EXPIRED.labels(stage="batch_queue").inc()
+                if wspan:
+                    wspan.event("deadline_expired", stage="batch_queue")
+                    wspan.end("deadline")
                 fut.set_exception(DeadlineExceeded(
                     "deadline expired in the batch queue", stage="batch_queue"))
             else:
@@ -157,6 +171,18 @@ class Batcher:
         flat: list[Any] = []
         for entry in queue:
             flat.extend(entry[0])
+        # one flush span per batch, parented to the first traced caller;
+        # every caller's wait span ends here with the flush size it joined
+        fspan = None
+        for entry in queue:
+            wspan = entry[4]
+            if wspan:
+                if fspan is None:
+                    fspan = TRACER.span("batcher.flush", parent=wspan)
+                    fspan.set_attr("flush_size", len(flat))
+                    fspan.set_attr("callers", len(queue))
+                wspan.set_attr("flush_size", len(flat))
+                wspan.end()
         try:
             outputs: list[Any] = []
             step = self.config.max_batch_size
@@ -166,22 +192,30 @@ class Batcher:
         except Exception as e:  # noqa: BLE001 — delivered to the callers
             if len(queue) == 1:
                 queue[0][1].set_exception(e)
+                if fspan:
+                    fspan.end("error")
                 return
             # isolate the offender: re-run each caller's instances alone so
             # one malformed request does not fail every co-batched one; the
             # re-runs count toward "instances", so occupancy stays honest
             self.stats["fail_isolations"] += 1
-            for instances, fut, _, _ in queue:
+            if fspan:
+                fspan.event("fail_isolation", callers=len(queue))
+            for instances, fut, *_ in queue:
                 try:
                     fut.set_result(list(self._handler(list(instances))))
                     self.stats["batches"] += 1
                     self.stats["instances"] += len(instances)
                 except Exception as per:  # noqa: BLE001 — this caller's own
                     fut.set_exception(per)
+            if fspan:
+                fspan.end()
             return
         self.stats["instances"] += len(flat)
         off = 0
-        for instances, fut, _, _ in queue:
+        for instances, fut, *_ in queue:
             n = len(instances)
             fut.set_result(outputs[off : off + n])
             off += n
+        if fspan:
+            fspan.end()

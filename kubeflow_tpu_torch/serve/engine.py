@@ -92,6 +92,13 @@ from kubeflow_tpu_torch.models.transformer import (
     init_paged_kv_cache,
 )
 from kubeflow_tpu_torch.obs import names, prom
+from kubeflow_tpu_torch.obs.trace import (  # noqa: F401 — TTFT/TPOT re-exported
+    TPOT_MS,
+    TRACER,
+    TTFT_MS,
+    ctx_from_headers,
+    observe_request_latency,
+)
 from kubeflow_tpu_torch.serve.deadline import (
     ADMISSION_SHED,
     DEADLINE_EXPIRED,
@@ -111,6 +118,7 @@ from kubeflow_tpu_torch.serve.generate import (
 from kubeflow_tpu_torch.serve.headers import (
     PREFILL_PEER_HEADER,
     SESSION_HEADER,
+    TRACE_HEADER,
     header_get,
 )
 from kubeflow_tpu_torch.serve.hostio import OutputRing, Uploader
@@ -132,20 +140,6 @@ from kubeflow_tpu_torch.serve.threefry import seeded_sample
 _IDLE_PARK_S = 5.0
 _INT32 = np.iinfo(np.int32)
 
-#: server-side TTFT/TPOT of the requests a serving model labels (every
-#: request through the server; warmup and direct submits record nothing)
-TTFT_MS = prom.REGISTRY.histogram(
-    names.SERVER_TTFT_MS,
-    "server-side time-to-first-token of served requests (ms)",
-    ("model",),
-    buckets=prom.MS_BUCKETS,
-)
-TPOT_MS = prom.REGISTRY.histogram(
-    names.SERVER_TPOT_MS,
-    "server-side mean time-per-output-token after the first (ms)",
-    ("model",),
-    buckets=prom.MS_BUCKETS,
-)
 #: disaggregated serving on the wire: span bytes by leg (``export`` on the
 #: prefill replica, ``import`` on the decode replica) and one ship's time
 KV_SHIP_BYTES = prom.REGISTRY.counter(
@@ -284,8 +278,15 @@ class _Request:
     # host KV tier: finished rows swap their span out under this key, and
     # the session's next turn swaps it back in
     session: str | None = None
-    # serving model's label: set, the request's TTFT/TPOT are recorded
-    model: str | None = None
+    # request tracing (obs/trace.py): only a request whose submit carried
+    # a trace context has spans; warmup and untraced callers pay nothing.
+    # ``espan`` is the engine-stage span, qspan / pspan its queue.wait /
+    # prefill children; finish() closes them all from whatever terminal
+    # state the request reached, and records TTFT/TPOT under ``model``
+    model: str = "engine"
+    espan: Any = None
+    qspan: Any = None
+    pspan: Any = None
     t_enqueue: float = 0.0
     t_first: float = 0.0
     t_last: float = 0.0
@@ -303,18 +304,52 @@ class _Request:
             self.live.put(list(toks))
 
     def finish(self) -> None:
-        # record once: finish can race between the enqueue path and drains
-        label, self.model = self.model, None
-        if label is not None and self.t_first:
-            TTFT_MS.labels(model=label).observe(
-                (self.t_first - self.t_enqueue) * 1e3)
-            n = len(self.tokens)
-            if n >= 2 and self.t_last > self.t_first:
-                TPOT_MS.labels(model=label).observe(
-                    (self.t_last - self.t_first) / (n - 1) * 1e3)
+        self._end_trace()
         if self.live is not None:
             self.live.put(None)  # stream sentinel
         self.done.set()
+
+    def _end_trace(self) -> None:
+        """Close the engine-stage spans from the request's terminal state
+        and record its TTFT/TPOT — only under a span, as the JAX engine
+        does. Idempotent (finish can race between the enqueue path and
+        the drain): the espan handle is taken once."""
+        span, self.espan = self.espan, None
+        if span is None:
+            return
+        err = self.error
+        if err is None:
+            status = "cancelled" if self.cancelled.is_set() else "ok"
+        elif isinstance(err, DeadlineExceeded):
+            status = "deadline"
+            span.event("deadline_expired", stage=err.stage)
+        elif isinstance(err, AdmissionShed):
+            status = "shed"
+            span.event("admission_shed", reason=err.reason)
+        elif type(err).__name__ == "EngineRestarting":
+            # the watchdog poisoned this engine mid-flight; the failure is
+            # retryable on a fresh engine or a peer replica
+            status = "poisoned"
+            span.event("watchdog_poisoned", retryable=True)
+        else:
+            status = "error"
+            span.set_attr("error", f"{type(err).__name__}: {err}")
+        for sub in (self.qspan, self.pspan):
+            if sub is not None:
+                sub.end(status if status != "ok" else None)
+        self.qspan = self.pspan = None
+        n = len(self.tokens)
+        span.set_attr("tokens_emitted", n)
+        if self.t_first:
+            ttft_ms = (self.t_first - self.t_enqueue) * 1e3
+            tpot_ms = None
+            if n >= 2 and self.t_last > self.t_first:
+                tpot_ms = (self.t_last - self.t_first) / (n - 1) * 1e3
+            span.set_attr("ttft_ms", round(ttft_ms, 3))
+            if tpot_ms is not None:
+                span.set_attr("tpot_ms", round(tpot_ms, 3))
+            observe_request_latency(self.model, ttft_ms=ttft_ms, tpot_ms=tpot_ms)
+        span.end(status)
 
 
 class _TokenStream:
@@ -380,6 +415,9 @@ class _PendingChunk:
 
     staged: dict
     slots: list
+    # dispatch stamp (time.monotonic): the drain records one
+    # ``decode.chunk`` span per traced resident row from it
+    t_dispatch: float = 0.0
 
 
 class LMEngine:
@@ -490,8 +528,9 @@ class LMEngine:
         #: fault seam: a "pre_chunk" hook runs on the scheduler thread
         #: before each chunk dispatch (tests wedge or slow the loop here)
         self._fault_hooks: dict[str, Any] = {}
-        #: the serving model's name, set by ``LMEngineModel``
-        self.model_name: str | None = None
+        #: the serving model's name, set by ``LMEngineModel``: engine
+        #: spans and the TTFT/TPOT histograms label by it
+        self.model_name = "engine"
         self.stats = {
             "admitted": 0, "completed": 0, "chunks": 0, "max_concurrent": 0,
             "prefix_hits": 0, "prefix_tokens_reused": 0,
@@ -925,7 +964,7 @@ class LMEngine:
 
     def _enqueue(self, ids, max_new_tokens, temperature, *, live: bool,
                  deadline: float, priority: int = 0, resume: int = 0,
-                 seed: int | None = None, label: str | None = None,
+                 seed: int | None = None, trace: Any = None,
                  want_kv_span: bool = False,
                  kv_inject: PreparedKVSpan | None = None,
                  session: str | None = None) -> _Request:
@@ -1012,12 +1051,27 @@ class LMEngine:
         req = _Request(
             list(ids), max_new_tokens, temperature,
             live=queue.Queue() if live else None, deadline=deadline,
-            priority=priority, seed=seed, model=label,
-            t_enqueue=time.monotonic(), want_kv_span=want_kv_span,
-            kv_inject=kv_inject, session=session,
+            priority=priority, seed=seed, t_enqueue=time.monotonic(),
+            want_kv_span=want_kv_span, kv_inject=kv_inject, session=session,
         )
         if resume:  # committed tokens of a mid-stream failover joined ids
             self.stats["resume_admits"] += 1
+        if trace is not None:
+            # engine-stage span under the caller's wire context (a Span or
+            # a parsed TraceContext — both carry trace_id/span_id); its
+            # queue.wait child covers admission-queue time, closed at admit
+            espan = TRACER.span("engine", parent=trace)
+            if espan:
+                espan.set_attr("model", self.model_name)
+                espan.set_attr("prompt_tokens", len(req.ids))
+                espan.set_attr("max_new_tokens", max_new_tokens)
+                if priority:
+                    espan.set_attr("priority", priority)
+                if resume:
+                    espan.set_attr("resume_tokens", resume)
+                req.model = self.model_name
+                req.espan = espan
+                req.qspan = TRACER.span("queue.wait", parent=espan)
         self._pending.put(req)
         self._work.set()
         if (self._stop.is_set() or self._fatal is not None) and not req.done.is_set():
@@ -1081,7 +1135,7 @@ class LMEngine:
         temperature: float = 0.0, timeout_s: float = 300.0,
         deadline: float | None = None, priority: int = 0,
         seed: int | None = None, resume_tokens: list[int] | None = None,
-        label: str | None = None, kv_span: PreparedKVSpan | None = None,
+        trace: Any = None, kv_span: PreparedKVSpan | None = None,
         session: str | None = None,
     ) -> list[int]:
         """Generate up to ``max_new_tokens`` after ``ids``; blocks until
@@ -1091,18 +1145,20 @@ class LMEngine:
         position-folded sampling (``serve/threefry.py``);
         ``resume_tokens`` (already-committed generated tokens) extend the
         prompt and shrink the budget — only the tokens past them return.
-        ``label`` (the serving model's name) records the request's TTFT
-        and TPOT under it. ``kv_span`` (a :meth:`prepare_kv_span` result
-        for these exact ids, resume tokens included) admits by implanting
-        the peer-prefilled span: no prefill piece runs here. ``session``
-        keys the host KV tier when it is on."""
+        ``trace`` (a ``Span`` or a parsed ``TraceContext``) parents the
+        engine-stage spans, and only a traced request records its TTFT
+        and TPOT; None (warmup, direct callers) records nothing.
+        ``kv_span`` (a :meth:`prepare_kv_span` result for these exact
+        ids, resume tokens included) admits by implanting the
+        peer-prefilled span: no prefill piece runs here. ``session`` keys
+        the host KV tier when it is on."""
         if deadline is None:
             deadline = time.monotonic() + timeout_s
         ids, max_new_tokens, resume = self._resume_args(
             ids, max_new_tokens, resume_tokens)
         req = self._enqueue(ids, max_new_tokens, temperature, live=False,
                             deadline=deadline, priority=priority,
-                            resume=resume, seed=seed, label=label,
+                            resume=resume, seed=seed, trace=trace,
                             kv_inject=kv_span, session=session)
         if not req.done.wait(max(0.0, deadline - time.monotonic())):
             # hand the row back: nobody will read its tokens
@@ -1119,7 +1175,7 @@ class LMEngine:
         temperature: float = 0.0, timeout_s: float = 300.0,
         deadline: float | None = None, priority: int = 0,
         seed: int | None = None, resume_tokens: list[int] | None = None,
-        label: str | None = None, kv_span: PreparedKVSpan | None = None,
+        trace: Any = None, kv_span: PreparedKVSpan | None = None,
         session: str | None = None,
     ) -> _TokenStream:
         """Admit now (so a shed or overload raises here, before a caller
@@ -1133,14 +1189,14 @@ class LMEngine:
             ids, max_new_tokens, resume_tokens)
         req = self._enqueue(ids, max_new_tokens, temperature, live=True,
                             deadline=deadline, priority=priority,
-                            resume=resume, seed=seed, label=label,
+                            resume=resume, seed=seed, trace=trace,
                             kv_inject=kv_span, session=session)
         return _TokenStream(self, req, deadline)
 
     def prefill_span(
         self, ids: list[int], *, temperature: float = 0.0,
         timeout_s: float = 120.0, deadline: float | None = None,
-        seed: int | None = None,
+        seed: int | None = None, trace: Any = None,
     ) -> tuple[dict, dict]:
         """The prefill replica's half of disaggregated serving: run ONLY
         the (chunked) prefill of ``ids`` and return ``(tree, meta)``: the
@@ -1150,7 +1206,8 @@ class LMEngine:
         decode replica needs (``real_len``, ``first_tok``, ``valid``).
         The row retires when the span is extracted; no decode chunk runs
         for it. The device-to-host copy runs here, on the caller's
-        thread."""
+        thread. ``trace`` (the decode replica's ``kv.ship`` context off the
+        wire) parents this engine's spans under the same trace id."""
         n16 = -(-len(ids) // 16) * 16
         # the budget only reserves pages: the whole ceil-16 extract window
         # must be backed by the row's own pages. A dense row is max_seq
@@ -1160,7 +1217,8 @@ class LMEngine:
         if deadline is None:
             deadline = time.monotonic() + timeout_s
         req = self._enqueue(list(ids), budget, temperature, live=False,
-                            deadline=deadline, seed=seed, want_kv_span=True)
+                            deadline=deadline, seed=seed, trace=trace,
+                            want_kv_span=True)
         if not req.done.wait(max(0.0, deadline - time.monotonic())):
             req.cancelled.set()
             self._work.set()
@@ -1531,6 +1589,17 @@ class LMEngine:
             "req": req, "rest": rest, "base": base, "C": C,
             "n_pieces": n_pieces, "piece": 0,
         }
+        if req.qspan is not None:
+            req.qspan.end()
+            req.qspan = None
+        if req.espan is not None:
+            req.pspan = (
+                TRACER.span("prefill", parent=req.espan)
+                .set_attr("row", row)
+                .set_attr("prefix_hit", base > 0)
+                .set_attr("prefix_tokens_reused", base)
+                .set_attr("pieces", n_pieces)
+            )
         # admission epoch: mirrors and the table changed
         self._carry_dirty = True
         if n_pieces == 1:
@@ -1551,6 +1620,11 @@ class LMEngine:
         self._implant(span.tree, row, span.n16)
         self._occupy(req, row, len(req.ids) if self.paged else span.n16)
         self.stats["kv_injected"] += 1
+        if req.qspan is not None:
+            req.qspan.end()
+            req.qspan = None
+        if req.espan is not None:
+            req.espan.set_attr("kv_injected", True)
         tok, valid = int(span.meta["first_tok"]), bool(span.meta["valid"])
         if valid:
             req.push([tok])
@@ -1612,6 +1686,9 @@ class LMEngine:
         if not final:
             return  # a throwaway sample from a non-final position
         del self._prefilling[row]
+        if req.pspan is not None:
+            req.pspan.end()
+            req.pspan = None
         if self._prefix_cache is not None:
             self._store_prefix(req.ids, row)
         tok = int(tok)  # prefill is synchronous by design
@@ -1879,7 +1956,7 @@ class LMEngine:
         named.update(active_in=active_in, last_tok=res["last_tok"],
                      gen_count=res["gen_count"], active_out=res["active"])
         return _PendingChunk(staged=self._outputs.stage(named),
-                             slots=list(self._slots))
+                             slots=list(self._slots), t_dispatch=time.monotonic())
 
     def _drain_chunk(self, p: _PendingChunk) -> None:
         """Wait for one chunk's staged outputs (its own event — never the
@@ -1928,6 +2005,18 @@ class LMEngine:
                         break
                     fresh.append(int(toks[row, j]))
             req.push(fresh)
+            if req.espan is not None and fresh:
+                # retroactive decode.chunk span (host ints only): stamped
+                # at dispatch, reported here so the loop never holds an
+                # open span per chunk
+                attrs: dict[str, Any] = {"row": row, "tokens": len(fresh)}
+                if self.spec_k:
+                    attrs["spec_proposed"] = row_prop
+                    attrs["spec_accepted"] = row_acc
+                TRACER.record_span(
+                    "decode.chunk", parent=req.espan,
+                    start=p.t_dispatch, end=time.monotonic(), attrs=attrs,
+                )
             # per-row mirror refresh: rows edited by admit/prefill since
             # dispatch keep their newer host values
             self.last_tok[row] = o["last_tok"][row]
@@ -1972,7 +2061,7 @@ class _AdmittedStream:
 
 def fetch_kv_span(
     engine: LMEngine, peer: str, model_name: str, ids, temperature: float,
-    *, timeout_s: float = 30.0, seed: int | None = None,
+    *, trace: Any = None, timeout_s: float = 30.0, seed: int | None = None,
 ) -> PreparedKVSpan | None:
     """The decode replica's half of a disaggregated dispatch: pull the
     finished span for ``ids`` from the prefill replica at ``peer`` (the
@@ -1981,11 +2070,19 @@ def fetch_kv_span(
     gone mid-ship, bad payload, layout or quantization mismatch, the
     ``kv_ship`` fault hook), counted in ``kv_ship_fallbacks``: the caller
     then prefills locally, and the client sees the same tokens. Runs on
-    an HTTP thread (blocking ``urllib``), never the scheduler's."""
+    an HTTP thread (blocking ``urllib``), never the scheduler's. The
+    ``kv.ship`` span (under ``trace``) bridges the two legs of one trace
+    id: its context goes to the peer, so the prefill replica's engine
+    spans land under the trace the gateway minted."""
     import json
     import urllib.request
 
     t0 = time.monotonic()
+    span = TRACER.span("kv.ship", parent=trace)
+    if span:
+        span.set_attr("peer", peer)
+        span.set_attr("model", model_name)
+        span.set_attr("prompt_tokens", len(ids))
     try:
         hook = engine._fault_hooks.get("kv_ship")
         if hook is not None:
@@ -1996,10 +2093,12 @@ def fetch_kv_span(
             # the peer's first token (in the meta) must come from the same
             # seeded stream as the rest
             payload["seed"] = int(seed)
+        hdrs = {"Content-Type": "application/json"}
+        if span:
+            hdrs[TRACE_HEADER] = span.header()
         req = urllib.request.Request(
             f"{peer.rstrip('/')}/v2/models/{model_name}/kv_span:prefill",
-            data=json.dumps(payload).encode(),
-            headers={"Content-Type": "application/json"}, method="POST",
+            data=json.dumps(payload).encode(), headers=hdrs, method="POST",
         )
         with urllib.request.urlopen(req, timeout=timeout_s) as resp:
             blob = resp.read()
@@ -2007,12 +2106,18 @@ def fetch_kv_span(
         if not entries or meta is None:
             raise ValueError("span payload missing entries or meta")
         prepared = engine.prepare_kv_span(ids, entries[0][1], meta)
-    except Exception:  # noqa: BLE001 — every failed ship degrades to a
-        engine._count("kv_ship_fallbacks")  # local prefill
+    except Exception as e:  # noqa: BLE001 — every failed ship degrades to
+        engine._count("kv_ship_fallbacks")  # a local prefill
+        if span:
+            span.set_attr("error", f"{type(e).__name__}: {e}")
+            span.end("error")
         return None
     KV_SHIP_BYTES.labels(model=model_name, direction="import").inc(len(blob))
     KV_SHIP_MS.observe((time.monotonic() - t0) * 1e3)
     engine._count("kv_ship_bytes", len(blob))
+    if span:
+        span.set_attr("bytes", len(blob))
+        span.end()
     return prepared
 
 
@@ -2176,7 +2281,7 @@ class LMEngineModel(LMRuntimeModel):
         Eager programs have no shape-keyed compile, so one pass per path
         warms it. Warmup traffic must not pollute production metrics:
         ``stats`` and ``overlap`` restart at zero and ``ttft_ms`` empties;
-        warmup requests carry no label, so the TTFT/TPOT histograms never
+        warmup requests carry no trace, so the TTFT/TPOT histograms never
         see them. Returns (and keeps as ``warmup_report``) the seconds it
         took, the kernel libraries it loaded and whether the model was
         already reporting ready while it ran (not when ``load`` ran it)."""
@@ -2224,7 +2329,8 @@ class LMEngineModel(LMRuntimeModel):
             return self.max_new_tokens
         return max(1, min(int(req), self.max_new_tokens))
 
-    def _pull_kv_span(self, row, peer, deadline, *, ids=None, seed=None):
+    def _pull_kv_span(self, row, peer, trace, deadline, *, ids=None,
+                      seed=None):
         """The row's span from its prefill peer; None without a peer or on
         any failed ship (then the engine prefills locally). ``ids``
         overrides the row's prompt: a resumed dispatch pulls the span of
@@ -2237,18 +2343,18 @@ class LMEngineModel(LMRuntimeModel):
             timeout_s = max(0.1, min(timeout_s, deadline - time.monotonic()))
         return fetch_kv_span(
             eng, peer, self.name, row["ids"] if ids is None else ids,
-            row["temperature"], timeout_s=timeout_s, seed=seed,
+            row["temperature"], trace=trace, timeout_s=timeout_s, seed=seed,
         )
 
     def _submit_row(self, row, deadline: float | None = None,
                     priority: int = 0, seed: int | None = None,
-                    peer: str | None = None,
-                    session: str | None = None) -> dict:
-        kv_span = self._pull_kv_span(row, peer, deadline, seed=seed)
+                    peer: str | None = None, session: str | None = None,
+                    trace: Any = None) -> dict:
+        kv_span = self._pull_kv_span(row, peer, trace, deadline, seed=seed)
         toks = self.engine.submit(
             row["ids"], max_new_tokens=self._row_budget(row),
             temperature=row["temperature"], deadline=deadline,
-            priority=priority, seed=seed, label=self.name, kv_span=kv_span,
+            priority=priority, seed=seed, trace=trace, kv_span=kv_span,
             session=session,
         )
         return {"token_ids": toks}
@@ -2280,10 +2386,11 @@ class LMEngineModel(LMRuntimeModel):
         seed = seed_from_headers(headers)
         peer = header_get(headers, PREFILL_PEER_HEADER)
         session = header_get(headers, SESSION_HEADER)
+        ctx = ctx_from_headers(headers)
         self._admit(len(rows))
         try:
             futs = [self._executor.submit(self._submit_row, r, deadline,
-                                          priority, seed, peer, session)
+                                          priority, seed, peer, session, ctx)
                     for r in rows]
             cf.wait(futs)
         finally:
@@ -2304,17 +2411,18 @@ class LMEngineModel(LMRuntimeModel):
         resume = resume_from_headers(headers)
         peer = header_get(headers, PREFILL_PEER_HEADER)
         session = header_get(headers, SESSION_HEADER)
+        ctx = ctx_from_headers(headers)
         self._admit(1)
         try:
             kv_span = self._pull_kv_span(
-                row, peer, deadline, seed=seed,
+                row, peer, ctx, deadline, seed=seed,
                 ids=list(row["ids"]) + list(resume or ()),
             )
             it = self.engine.stream(
                 row["ids"], max_new_tokens=self._row_budget(row),
                 temperature=row["temperature"], deadline=deadline,
                 priority=priority, seed=seed, resume_tokens=resume,
-                label=self.name, kv_span=kv_span, session=session,
+                trace=ctx, kv_span=kv_span, session=session,
             )
         except BaseException:
             self._release(1)

@@ -7,8 +7,12 @@ JAX package's ``obs/headers.py`` names.
   deadline, stamped once by the server at admission; a client's copy is
   stripped, since it never crosses a process.
 - ``x-kft-priority``: integer tenant priority, higher is shed last.
-- ``x-kft-trace``: W3C ``traceparent``-shaped trace context. The port
-  accepts and ignores it (request tracing is ROADMAP queue 1 item 12).
+- ``x-kft-tenant``: tenant identity for the gateway's policy lookup
+  (rate limit, in-flight cap, priority).
+- ``x-kft-trace``: W3C ``traceparent``-shaped trace context
+  (``00-<trace32hex>-<span16hex>-<flags2hex>``), minted at the gateway
+  or accepted from the client, restamped with a child span id at every
+  hop (``obs/trace.py``).
 - ``x-kft-prefill-peer``: the URL of a prefill replica; the decode
   replica pulls each row's finished KV span from it (``kv_span:prefill``)
   and runs no prefill, or prefills locally when the ship fails.
@@ -29,6 +33,7 @@ from typing import Mapping
 DEADLINE_HEADER = "x-kft-deadline-ms"
 DEADLINE_ABS_HEADER = "x-kft-deadline-abs"
 PRIORITY_HEADER = "x-kft-priority"
+TENANT_HEADER = "x-kft-tenant"
 TRACE_HEADER = "x-kft-trace"
 PREFILL_PEER_HEADER = "x-kft-prefill-peer"
 SESSION_HEADER = "x-kft-session"

@@ -34,6 +34,9 @@ lines.
   "seed"?}`` → the finished KV span of ``ids`` with its ``__meta__``, an
   npz body: the prefill replica's half of disaggregated serving
 - ``GET  /metrics`` → Prometheus text
+- ``GET  /debug/traces`` (``limit`` 1–256, default 64;
+  ``format=perfetto``) → the tail-sampled request traces
+  (``obs/trace.py``), or their Chrome/Perfetto ``trace_event`` JSON
 
 ``role`` (``"both"``, ``"prefill"`` or ``"decode"``, the ``kft serve
 --role`` split) is advertised by readiness; every replica answers every
@@ -41,6 +44,13 @@ route, and a gateway steers by the role. ``batcher`` (a
 ``BatcherConfig``) puts a dynamic batcher (``serve/batcher.py``) in
 front of every model: ``:predict``, ``/infer`` and ``/generate`` rows
 are coalesced across requests, up to the model's top batch bucket.
+
+Request tracing: ``:predict``, ``/infer`` and ``/generate`` run under a
+``dataplane`` span, ``/generate_stream`` under a ``dataplane.stream``
+span; each continues the ``x-kft-trace`` context off the wire (or mints
+a trace) and restamps the header, so the batcher's and the engine's spans
+parent onto it. ``kv_span:prefill`` hands the caller's context to the
+engine, so a shipped prefill lands in the decode replica's trace.
 
 Request headers reach the model with lower-cased names. The deadline
 contract is normalized once at admission (:meth:`ModelServer.
@@ -60,11 +70,13 @@ from __future__ import annotations
 import json
 import math
 import re
+import socket
 import sys
 import threading
 import time
 import traceback
 import urllib.error
+import urllib.parse
 import urllib.request
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -72,6 +84,14 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from kubeflow_tpu_torch.obs import names
+from kubeflow_tpu_torch.obs import trace as _trace
+from kubeflow_tpu_torch.obs.trace import (
+    TPOT_MS,
+    TRACER,
+    TTFT_MS,
+    ctx_from_headers,
+    debug_traces,
+)
 from kubeflow_tpu_torch.serve.batcher import Batcher, BatcherConfig
 from kubeflow_tpu_torch.serve.deadline import (
     DEADLINE_ABS_HEADER,
@@ -83,10 +103,9 @@ from kubeflow_tpu_torch.serve.deadline import (
 from kubeflow_tpu_torch.serve.engine import (
     KV_SHIP_BYTES,
     KV_SHIP_MS,
-    TPOT_MS,
-    TTFT_MS,
     EngineOverloaded,
 )
+from kubeflow_tpu_torch.serve.headers import TRACE_HEADER
 from kubeflow_tpu_torch.serve.kv_codec import decode_kv_entries, encode_kv_entries
 from kubeflow_tpu_torch.serve.model import Model, TorchModel
 from kubeflow_tpu_torch.serve.protocol import decode_v2, encode_v2
@@ -131,6 +150,26 @@ def _error_status(e: Exception) -> tuple[int, dict]:
     return 500, {}
 
 
+def _span_status(e: BaseException) -> str:
+    """Span terminal status for the error taxonomy: shed, deadline and
+    poisoned statuses put the trace in the tail-sampler's keep pool."""
+    if isinstance(e, DeadlineExceeded):
+        return "deadline"
+    if isinstance(e, (AdmissionShed, EngineOverloaded)):
+        return "shed"
+    if isinstance(e, EngineRestarting):
+        return "poisoned"
+    return "error"
+
+
+def _end_failed(span, e: BaseException) -> None:
+    if span:
+        status = _span_status(e)
+        if status == "error":
+            span.set_attr("error", f"{type(e).__name__}: {e}")
+        span.end(status)
+
+
 class _HTTPServer(ThreadingHTTPServer):
     daemon_threads = True
     #: the listen backlog (socketserver's default is 5): a burst of
@@ -145,10 +184,11 @@ class _HTTPServer(ThreadingHTTPServer):
 
 
 class _Stream:
-    """A route's answer that is a token stream (sent as SSE)."""
+    """A route's answer that is a token stream (sent as SSE), with its
+    ``dataplane.stream`` span."""
 
-    def __init__(self, name: str, it):
-        self.name, self.it = name, it
+    def __init__(self, name: str, it, span=None):
+        self.name, self.it, self.span = name, it, span
 
 
 class ModelServer:
@@ -183,7 +223,9 @@ class ModelServer:
         #: load signal, and what the drain waits on
         self.inflight: dict[str, int] = {}
         self.metrics: dict[str, dict] = {"requests_total": {}, "latency_ms": {}}
-        self._lock = threading.Lock()  # guards inflight and metrics
+        self._lock = threading.Lock()  # guards inflight, metrics, _conns
+        #: open client connections, for :meth:`kill`
+        self._conns: set = set()
         self.models: dict[str, Model] = {}
         self.batchers: dict[str, Batcher] = {}
         for m in models:
@@ -216,6 +258,16 @@ class ModelServer:
 
             def log_message(self, fmt, *args):  # quiet: no per-request stderr
                 return
+
+            def setup(self):
+                super().setup()
+                with server._lock:
+                    server._conns.add(self.connection)
+
+            def finish(self):
+                with server._lock:
+                    server._conns.discard(self.connection)
+                super().finish()
 
             def do_GET(self):
                 self._respond(server._get, self.path)
@@ -280,6 +332,24 @@ class ModelServer:
             b.close()
         for m in self.models.values():
             m.unload()
+
+    def kill(self) -> None:
+        """Die as a killed replica would: every open connection is shut
+        down at once, mid-frame if a stream is writing, and the listener
+        closes, with no drain. The models stay loaded (a new server over
+        them can take this one's place). A chaos harness's in-process
+        stand-in for SIGKILL."""
+        with self._lock:
+            conns = list(self._conns)
+        for sock in conns:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        httpd, self._httpd = self._httpd, None
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
 
     # -- load signals ------------------------------------------------------- #
 
@@ -355,6 +425,9 @@ class ModelServer:
             return 200, {"models": sorted(self.models)}
         if path == "/metrics":
             return 200, self._metrics_text()
+        url = urllib.parse.urlsplit(path)
+        if url.path == "/debug/traces":
+            return 200, debug_traces(url.query)  # a bad limit: ValueError, 400
         if m := _PREFIX_INDEX.match(path):
             keys = self._prefix_engine(m.group(1)).prefix_index()
             return 200, {"keys": [list(k) for k in keys], "count": len(keys),
@@ -440,19 +513,35 @@ class ModelServer:
             # batch correctly and keep attention_mask/token_type_ids
             payload = {"instances": TorchModel.payload_rows(payload)}
         headers, deadline = self.effective_headers(headers)
+        # continue the wire context (gateway or client) or mint a trace for
+        # direct traffic; the restamped header parents the engine spans
+        span = TRACER.span("dataplane", ctx=ctx_from_headers(headers))
+        ctok = None
+        if span:
+            span.set_attr("model", name)
+            span.set_attr("request_id", headers.get("x-request-id", ""))
+            headers[TRACE_HEADER] = span.header()
+            ctok = _trace.set_current(span)
         t0 = time.perf_counter()
         self._enter(name)
         try:
             batcher = self.batchers.get(name)
             if batcher is not None and "instances" in payload:
                 result = {"predictions": batcher.submit(
-                    list(payload["instances"]), deadline=deadline)}
+                    list(payload["instances"]), deadline=deadline,
+                    trace=span if span else None)}
             else:
                 result = model(payload, headers)
-        except BaseException:
+        except BaseException as e:
             self._leave(name, None)
+            _end_failed(span, e)
             raise
+        finally:
+            if ctok is not None:
+                _trace.reset_current(ctok)
         self._leave(name, t0)
+        if span:
+            span.end()
         return result
 
     def _open_stream(self, name: str, body: bytes, headers) -> _Stream:
@@ -466,8 +555,19 @@ class ModelServer:
         if not model.ready:
             raise _HTTPError(503, f"model '{name}' not ready")
         row = model.preprocess({"instances": [self._json(body)]})[0]
-        headers, _ = self.effective_headers(headers)
-        return _Stream(name, stream_rows(row, headers))
+        # the stream's own dataplane span: continue the wire context or
+        # mint one, restamped so the engine spans parent onto it
+        span = TRACER.span("dataplane.stream", ctx=ctx_from_headers(headers))
+        if span:
+            span.set_attr("model", name)
+        try:
+            headers, _ = self.effective_headers(headers)
+            if span:
+                headers[TRACE_HEADER] = span.header()
+            return _Stream(name, stream_rows(row, headers), span)
+        except BaseException as e:
+            _end_failed(span, e)
+            raise
 
     # -- KV movement between replicas --------------------------------------- #
 
@@ -521,8 +621,11 @@ class ModelServer:
         if not ids:
             raise _HTTPError(400, "empty ids")
         _, deadline = self.effective_headers(headers)
+        # the decode replica's kv.ship context parents this engine's spans
+        # under the same trace id
         tree, meta = eng.prefill_span(ids, temperature=temperature,
-                                      deadline=deadline, seed=seed)
+                                      deadline=deadline, seed=seed,
+                                      trace=ctx_from_headers(headers))
         blob = encode_kv_entries([(tuple(ids), tree)], meta)
         KV_SHIP_BYTES.labels(model=name, direction="export").inc(len(blob))
         return blob
@@ -542,6 +645,8 @@ class ModelServer:
         t0 = time.perf_counter()
         self._enter(s.name)
         total = 0
+        gone = False
+        ctok = _trace.set_current(s.span) if s.span else None
         try:
             handler.send_response(200)
             handler.send_header("Content-Type", "text/event-stream")
@@ -568,9 +673,15 @@ class ModelServer:
             chunk(b"")  # the terminating zero-length chunk
         except ConnectionError:
             handler.close_connection = True  # the client went away
+            gone = True
         finally:
             s.it.close()
             self._leave(s.name, t0)
+            if s.span:
+                s.span.set_attr("tokens_streamed", total)
+                s.span.end("cancelled" if gone else None)
+            if ctok is not None:
+                _trace.reset_current(ctok)
 
     # -- /metrics ----------------------------------------------------------- #
 

@@ -1,7 +1,9 @@
 """Static checks of the PyTorch port's package boundary.
 
 ``kubeflow_tpu_torch`` and ``chip_smoke.py`` stand alone: they import
-neither JAX nor its libraries nor any module of the JAX package. Every
+neither JAX nor its libraries nor any module of the JAX package, nor
+aiohttp, which the card's host does not have (the port's HTTP, gateway
+included, is the standard library's). Every
 CUDA source under ``ops/csrc/`` has a Python wrapper that builds it and
 counts its launches, and no library attention or compiler stands in for
 a kernel.
@@ -21,7 +23,7 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "kubeflow_tpu_torch"
 FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu", "aiohttp")
 CSRC = sorted((PKG / "ops" / "csrc").glob("*.cu"))
 
 
@@ -41,6 +43,7 @@ def _forbidden(module: str) -> bool:
 def test_forbidden_matcher():
     assert _forbidden("kubeflow_tpu.ops.paged_attention")
     assert _forbidden("kubeflow_tpu") and _forbidden("jax.numpy")
+    assert _forbidden("aiohttp.web") and _forbidden("aiohttp")
     assert not _forbidden("kubeflow_tpu_torch.ops.paged_attention")
 
 
