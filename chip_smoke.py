@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs eleven phases:
+sm_90a, into the git-ignored ``build/``) and runs twelve phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -99,13 +99,28 @@ sm_90a, into the git-ignored ``build/``) and runs eleven phases:
    backward kernels: 5 f32 steps against plain attention (gradients and
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
    whose forward, dq and dk/dv launches must all run the tensor-core
-   bodies.
+   bodies;
+12. load — the JAX ``bench_serving_load``'s three runs (``bench.py:
+   625-660``: its mix, seeds, rates, durations and KPA shapes) through the
+   port's ``run_serving_load``: an open-loop client, the gateway, the KPA
+   autoscaler and a fleet of full-width bf16 replicas on the paged pool
+   with the kernel, all in this process; steady (Poisson, 2 pinned
+   replicas), chaos (an engine wedged for 3 s) and scale (on/off bursts
+   from 1 replica, ``min_replicas=0``, then a timed cold request through
+   the activator). A line a run: goodput, outcomes, TTFT p50/p99, TPOT
+   p50, e2e p99, the chaos window, scale-up latency, cold recovery and
+   fleet events, the client's lag against its schedule, the autoscaler's
+   scrape ms a tick and the paged launches by body. It fails on an error
+   in the steady run, a client-visible failure in the chaos run, a scale
+   run that never reaches 2 replicas, never drains to 0 or does not
+   complete its cold request, a completed request short of its budget,
+   or a run without paged launches on both bodies.
 
-Each phase prints one JSON line. The line before the last lists every
-kernel with its launches on its path, error, times and bound; the last
-line is ``{"ok": true, "device": {...}}``. Any failed phase, or a host
-without CUDA or without the package, exits non-zero and prints no
-result. ``--phases`` runs a subset (for debugging); ``--phases profile``
+Each phase prints one JSON line (load: one a run, then its summary).
+The line before the last lists every kernel with its launches on its
+path, error, times and bound; the last line is ``{"ok": true,
+"device": {...}}``. Any failed phase, or a host without CUDA or without
+the package, exits non-zero and prints no result. ``--phases`` runs a subset (for debugging); ``--phases profile``
 adds a ``torch.profiler`` breakdown of one served batch and of 3
 training steps.
 """
@@ -129,7 +144,7 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
-          "disagg", "fleet", "dense", "bert", "train")
+          "disagg", "fleet", "dense", "bert", "train", "load")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -3041,6 +3056,150 @@ def phase_train(torch, state):
     return ok
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: open-loop load through the gateway over an autoscaled fleet
+# --------------------------------------------------------------------------- #
+
+#: bench_serving_load's mix (``bench.py:627-642``): 4 shapes, SLO 2 s
+LOAD_SLO_MS = 2_000.0
+
+
+def load_configs(torch):
+    """The three runs of bench_serving_load (``bench.py:643-660``) through
+    the port's harness: steady (Poisson 4/s for 8 s on 2 pinned
+    replicas), chaos (the same schedule with an engine wedged for 3 s at
+    3 s), scale (on/off 1/30 per s, 4 s period, 8 s, from 1 replica with
+    ``min_replicas=0``, then a timed cold request). The replicas run the
+    full-width ``MODEL`` in bf16 on the paged pool with the kernel."""
+    import dataclasses
+
+    from kubeflow_tpu_torch.chaos.plan import FaultPlan, WedgeEngine
+    from kubeflow_tpu_torch.loadgen import (
+        ChaosOverlay,
+        HarnessConfig,
+        TenantSpec,
+        WorkloadMix,
+    )
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+
+    mix = WorkloadMix(
+        prompt_lens=(6, 10), output_lens=(4, 8),
+        tenants=(TenantSpec("interactive", weight=2.0, priority=2,
+                            deadline_ms=30_000.0, slo_ms=LOAD_SLO_MS),
+                 TenantSpec("batch", weight=1.0, priority=0, adapter="batch-v1",
+                            slo_ms=LOAD_SLO_MS)),
+        vocab=80, seed=7)
+    replicas = dict(
+        model_config=TransformerConfig(dtype=torch.bfloat16, attn_impl="flash",
+                                       **MODEL),
+        engine_kwargs=dict(kv_pool_tokens=ENGINE["kv_pool_tokens"],
+                           page_size=ENGINE["page_size"], paged_attn_impl="kernel"),
+        device="cuda")
+    steady = HarnessConfig(seed=7, process="poisson", rate_rps=4.0, duration_s=8.0,
+                           mix=mix, initial_replicas=2, max_replicas=2,
+                           min_replicas=2, **replicas)
+    chaos = dataclasses.replace(steady, chaos=ChaosOverlay(
+        plan=FaultPlan(faults=(WedgeEngine(model="m", hold_s=3.0),), seed=7),
+        at_s=3.0, window_s=5.0))
+    scale = HarnessConfig(seed=7, process="onoff", rate_rps=1.0, burst_rps=30.0,
+                          period_s=4.0, duration_s=8.0, mix=mix, initial_replicas=1,
+                          max_replicas=2, min_replicas=0, kpa_target=0.3,
+                          measure_cold_recovery=True, **replicas)
+    return {"steady": steady, "chaos": chaos, "scale": scale}
+
+
+def _median_max(values):
+    return ({"median": statistics.median(values), "max": max(values), "n": len(values)}
+            if values else None)
+
+
+def phase_load(torch, state):
+    """bench_serving_load's three runs through the port's
+    ``run_serving_load``: the load client, the gateway, the KPA autoscaler
+    and the fleet of full-width bf16 replicas on the paged kernel, all in
+    this process. One line a run: goodput and outcomes, TTFT p50/p99 and
+    TPOT p50 (server histograms), client e2e p99, the chaos window, the
+    scale-up latency, cold recovery and fleet events, how late the
+    client fired against its schedule, the autoscaler's scrape ms a tick,
+    and the paged launches by span and body. Gates: no error in the
+    steady run, no client-visible failure in the chaos run, the scale run
+    reaching 2 replicas, draining to 0 and completing its cold request;
+    every completed request got its whole budget; each run launched the
+    paged kernel, S=1 on ``decode`` and S=32 on ``mma``."""
+    from kubeflow_tpu_torch.loadgen import run_serving_load
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    checks = {}
+    by_body_all = {}
+    for name, cfg in load_configs(torch).items():
+        t_run = time.perf_counter()
+        stats = {}
+        _zero_paged(pa)
+        rep = run_serving_load(cfg, harness_stats=stats)
+        launches, by_s, by_body = _paged_counts(pa)
+        for k, n in by_body.items():
+            by_body_all[k] = by_body_all.get(k, 0) + n
+        g = rep["goodput"]["overall"]
+        lat = rep["latency"]
+        out = {"phase": "load", "run": name, "card": state["card"],
+               "offered": g["offered"], "goodput": g["goodput"],
+               "outcomes": {k: g[k] for k in ("completed_in_slo", "completed_late",
+                                              "shed", "error")},
+               "ttft_ms_p50": lat["ttft_ms"]["p50"], "ttft_ms_p99": lat["ttft_ms"]["p99"],
+               "tpot_ms_p50": lat["tpot_ms"]["p50"],
+               "client_ttft_ms_p50": lat["client_ttft_ms"]["p50"],
+               "client_e2e_ms_p99": lat["client_e2e_ms"]["p99"],
+               "server": rep["server"],
+               "client_lag_ms": _median_max(stats["client_lag_ms"]),
+               "scrape_ms": _median_max(stats["scrape_ms"]),
+               "paged_launches": launches, "paged_launches_by_s": by_s,
+               "paged_launches_by_body": by_body}
+        if "chaos" in rep:
+            c = rep["chaos"]
+            out["chaos"] = {"faults": c["faults"], "window_s": c["window_s"],
+                            "goodput_in_window": c["in_window"]["goodput"],
+                            "goodput_outside_window": c["outside_window"]["goodput"],
+                            "goodput_dip": c["goodput_dip"],
+                            "client_visible_failures": c["client_visible_failures"]}
+        if "autoscale" in rep:
+            a = rep["autoscale"]
+            out["autoscale"] = {k: a[k] for k in ("replicas_peak", "first_reached_s",
+                                                  "scale_up_latency_s", "events")}
+        if "cold_recovery" in rep:
+            out["cold_recovery"] = rep["cold_recovery"]
+        results = stats["results"]
+        whole = all(r.tokens == min(spec.max_new_tokens, cfg.max_new_tokens_cap)
+                    for r, spec in zip(results, cfg.mix.plan(len(results)))
+                    if r.outcome.startswith("completed"))
+        ok = (g["offered"] == len(results) == rep["run"]["offered_requests"] > 0
+              and whole and by_body.get("decode", 0) == by_s.get(1, 0) > 0
+              and by_body.get("mma", 0) > 0
+              and _bodies_follow_rule(pa, by_s, by_body, torch.bfloat16))
+        if name == "steady":
+            ok &= g["error"] == 0
+        elif name == "chaos":
+            ok &= (g["error"] == 0 and out["chaos"]["client_visible_failures"] == 0
+                   and out["chaos"]["faults"] == ["WedgeEngine"])
+        else:
+            events = out.get("autoscale", {}).get("events", [])
+            ok &= (out.get("autoscale", {}).get("replicas_peak", 0) >= 2
+                   and any(e["replicas"] == 0 for e in events)
+                   and str(rep.get("cold_recovery", {}).get("outcome", "")
+                           ).startswith("completed"))
+        out["whole_budgets"] = whole
+        out["seconds"] = time.perf_counter() - t_run
+        out["ok"] = bool(ok)
+        checks[name] = bool(ok)
+        emit(out)
+        torch.cuda.empty_cache()
+    state["load_paged_launches_by_body"] = by_body_all
+    emit({"phase": "load", "card": state["card"], "paged_launches_by_body": by_body_all,
+          "seconds": time.perf_counter() - t_phase, "checks": checks,
+          "ok": all(checks.values()) and len(checks) == 3})
+    return all(checks.values()) and len(checks) == 3
+
+
 def _device_summary(prof):
     """(kernels, busy ms, kernels by device time) of a profile: busy is
     the union of kernel intervals on the card. Ranges that user
@@ -3248,7 +3407,7 @@ def main(argv=None) -> int:
                "disagg": phase_disagg, "fleet": phase_fleet,
                "dense": phase_dense,
                "bert": phase_bert, "train": phase_train,
-               "profile": phase_profile}
+               "load": phase_load, "profile": phase_profile}
     ok = True
     for p in phases:
         try:
@@ -3268,12 +3427,14 @@ def main(argv=None) -> int:
         train = state.get("train_launches", {})
         served = state.get("paged_launches_by_body", {})
         fleet = state.get("fleet_paged_launches_by_body", {})
-        # paged decode on the served burst and the fleet's bursts (the
-        # decode body's launches);
+        load = state.get("load_paged_launches_by_body", {})
+        # paged decode on the served burst, the fleet's bursts and the
+        # load runs (the decode body's launches);
         # the flash forward, timed at the training shape, on the training
         # run (it also ran the no-cache forward phase's 12 launches)
         for key, launches, src, rep in (
-            ("paged_main", served.get("decode", 0) + fleet.get("decode", 0),
+            ("paged_main",
+             served.get("decode", 0) + fleet.get("decode", 0) + load.get("decode", 0),
              "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
              "kubeflow_tpu/ops/paged_attention.py:185"),
             ("flash_main", train.get("flash_forward", 0),
@@ -3299,6 +3460,8 @@ def main(argv=None) -> int:
                     # the replicas behind the gateway, in launches too
                     "launches_fleet_phase_by_s": state.get("fleet_paged_launches_by_s"),
                     "launches_fleet_phase_by_body": fleet,
+                    # the load harness's replicas, over its three runs
+                    "launches_load_phase_by_body": load,
                     # the dense runs of the dense phase: none, by design
                     "launches_dense_phase": state.get("dense_paged_launches"),
                     "launches_bert_phase": state.get("bert_paged_launches")}
@@ -3325,8 +3488,9 @@ def main(argv=None) -> int:
             "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "kubeflow_tpu/ops/paged_attention.py:185",
             "body": r["body"], "case": r["case"],
-            "launches": served.get("mma", 0) + fleet.get("mma", 0),
+            "launches": served.get("mma", 0) + fleet.get("mma", 0) + load.get("mma", 0),
             "launches_by_body": served, "launches_fleet_phase_by_body": fleet,
+            "launches_load_phase_by_body": load,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -1,2 +1,3 @@
-"""Fault injectors of the chaos harness (``kubeflow_tpu/chaos``), as far as
-the port's slices need them."""
+"""Chaos harness (``kubeflow_tpu/chaos``), as far as the port's slices
+need it: the serving fault plans (``plan``) and the engine-seam
+injectors (``injectors``)."""

@@ -134,6 +134,31 @@ GATEWAY_ACTIVATOR_COLD_EPISODE = "kft_gateway_activator_cold_episode"
 #: budget_exhausted / no_backend / failed)
 GATEWAY_STREAM_RESUMES_TOTAL = "kft_gateway_stream_resumes_total"
 
+# -- serving autoscaler (autoscale/) ------------------------------------ #
+
+#: gauge{service} — the recommender's current desired replica count
+AUTOSCALER_DESIRED_REPLICAS = "kft_autoscaler_desired_replicas"
+#: gauge{service} — stable-window average observed concurrency
+AUTOSCALER_STABLE_CONCURRENCY = "kft_autoscaler_stable_concurrency"
+#: gauge{service} — panic-window average observed concurrency
+AUTOSCALER_PANIC_CONCURRENCY = "kft_autoscaler_panic_concurrency"
+#: gauge{service} — 1 while the service is in panic mode (no scale-down)
+AUTOSCALER_PANIC_MODE = "kft_autoscaler_panic_mode"
+#: counter{service,direction} — actuated replica-count changes (up/down)
+AUTOSCALER_SCALE_EVENTS_TOTAL = "kft_autoscaler_scale_events_total"
+#: counter{service} — prefix-KV entries moved between replicas after a
+#: hash-ring remap (scale-up pull / scale-down evacuation)
+AUTOSCALER_KV_TRANSFERS_TOTAL = "kft_autoscaler_kv_transfers_total"
+#: gauge{service} — replicas a fleet currently runs (the actuated count,
+#: as opposed to the recommender's desired count above)
+FLEET_REPLICAS = "kft_fleet_replicas"
+
+# -- load harness (loadgen/) --------------------------------------------- #
+
+#: counter{tenant,outcome} — client-side verdict on every loadgen request
+#: (completed_in_slo / completed_late / shed / error)
+LOADGEN_REQUESTS_TOTAL = "kft_loadgen_requests_total"
+
 # -- chaos harness (chaos/injectors.py) ---------------------------------- #
 
 #: counter{kind} — faults the chaos harness injected

@@ -21,6 +21,9 @@ JAX package's ``obs/headers.py`` names.
   committed to the client; the engine continues after them.
 - ``x-kft-seed``: per-request sampling seed, token t drawn from
   ``fold_in(PRNGKey(seed), position of t)`` (``serve/threefry.py``).
+- ``x-kft-adapter``: the adapter a request asks for (opaque, client-set);
+  it rides the wire untouched, so the load harness can offer per-tenant
+  adapter mixes (``loadgen/workload.py``).
 
 Header maps may carry the lower-case name or its ``.title()`` spelling;
 :func:`header_get` probes both.
@@ -39,6 +42,7 @@ PREFILL_PEER_HEADER = "x-kft-prefill-peer"
 SESSION_HEADER = "x-kft-session"
 RESUME_TOKENS_HEADER = "x-kft-resume-tokens"
 SEED_HEADER = "x-kft-seed"
+ADAPTER_HEADER = "x-kft-adapter"
 
 
 def header_get(headers: Mapping[str, str] | None, name: str) -> str | None:
