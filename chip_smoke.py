@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs twelve phases:
+sm_90a, into the git-ignored ``build/``) and runs thirteen phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -100,7 +100,23 @@ sm_90a, into the git-ignored ``build/``) and runs twelve phases:
    losses), then ``Trainer.fit`` in bf16 over f32 weights, 3 + 20 steps,
    whose forward, dq and dk/dv launches must all run the tensor-core
    bodies;
-12. load — the JAX ``bench_serving_load``'s three runs (``bench.py:
+12. mlm — the rest of the training path: (a) bert-base MLM in f32 (TF32
+   off), flash against plain attention from the same weights, batches
+   and threefry masks, 5 steps at B=8, S=128 (per-step losses, step-1
+   gradients; 12 forward, dq and dk/dv launches a step on ``fma``,
+   non-causal); (b) ``Trainer.fit`` of bert-base MLM in bf16 over f32
+   weights at the bench's 32 × 128, 3 + 20 steps (finite, falling loss;
+   12 launches of each kernel a step on ``wgmma``; step ms, tokens/s,
+   MFU against 989 TFLOP/s by ``bench.py``'s FLOP count); (c) the train
+   phase's LM in f32 with ``remat`` None and "dots" against no remat, 2
+   steps (losses and gradients; the forward launched twice a layer a
+   step, peak memory each); (d) ``check_numerics="checkify"`` and
+   ``debug_nans`` on a poisoned MNIST batch (the located error, weights
+   as the last update left them, hooks gone; clean runs equal the
+   default; step ms a mode); (e) ``examples/mnist.py``'s fit (batch 64,
+   ``adam(1e-3)``, 100 steps) and ResNet-50 CIFAR in bf16 at batch 64,
+   ``adam(3e-5)``, 10 steps (step ms);
+13. load — the JAX ``bench_serving_load``'s three runs (``bench.py:
    625-660``: its mix, seeds, rates, durations and KPA shapes) through the
    port's ``run_serving_load``: an open-loop client, the gateway, the KPA
    autoscaler and a fleet of full-width bf16 replicas on the paged pool
@@ -116,7 +132,8 @@ sm_90a, into the git-ignored ``build/``) and runs twelve phases:
    complete its cold request, a completed request short of its budget,
    or a run without paged launches on both bodies.
 
-Each phase prints one JSON line (load: one a run, then its summary).
+Each phase prints one JSON line (load: one a run, then its summary;
+mlm: one a part).
 The line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is ``{"ok": true,
 "device": {...}}``. Any failed phase, or a host without CUDA or without
@@ -129,6 +146,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import math
 import statistics
@@ -144,7 +162,7 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
-          "disagg", "fleet", "dense", "bert", "train", "load")
+          "disagg", "fleet", "dense", "bert", "train", "mlm", "load")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -506,6 +524,10 @@ def flash_cases(torch):
         ("cross_q128_kv64_bf16", dict(base, Sq=128, S=64, dtype=torch.bfloat16)),
         ("cross_q160_kv100_bf16", dict(base, Sq=160, S=100, dtype=torch.bfloat16)),
         ("cross_q160_kv100_f32", dict(base, Sq=160, S=100, dtype=torch.float32)),
+        # bert-base MLM training (the mlm phase's bf16 fit): non-causal, one
+        # segment a row (the loss passes no padding mask)
+        ("mlm_s128_bf16", dict(B=32, H=12, D=64, S=128, causal=False,
+                               ones=True, dtype=torch.bfloat16)),
     ]
 
 
@@ -534,6 +556,8 @@ def flash_case_inputs(torch, name, c):
         lens = torch.tensor(c["pad"], device="cuda")
         seg = kseg = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
                       ).to(torch.int32).contiguous()
+    if c.get("ones"):  # BertEncoder's default mask: one segment a row
+        seg = kseg = torch.ones(B, S, device="cuda", dtype=torch.int32)
     if c.get("dead"):
         kseg = torch.randint(0, 2, (B, S), generator=g, device="cuda",
                              dtype=torch.int32)
@@ -654,6 +678,10 @@ def bwd_cases(torch):
                                 pad=BERT_VALID_LENS, dtype=torch.bfloat16)),
         # D=48 in a 64-column tile: loads read zeros past D, stores stop there
         ("causal_s512_d48_bf16", dict(base, D=48, S=512, dtype=torch.bfloat16)),
+        # bert-base MLM training (the mlm phase's bf16 fit, bench.py's 32 x
+        # 128): non-causal, one segment a row
+        ("mlm_s128_bf16", dict(B=32, H=12, D=64, S=128, causal=False,
+                               ones=True, dtype=torch.bfloat16)),
     ]
 
 
@@ -704,6 +732,8 @@ def bwd_case_inputs(torch, name, c):
         lens = torch.tensor(c["pad"], device="cuda")
         qseg = kseg = (torch.arange(S, device="cuda")[None, :] < lens[:, None]
                        ).to(torch.int32).contiguous()
+    if c.get("ones"):  # BertEncoder's default mask: one segment a row
+        qseg = kseg = torch.ones(B, S, device="cuda", dtype=torch.int32)
     if c.get("dead"):
         kseg = torch.randint(0, 2, (B, S), generator=g, device="cuda",
                              dtype=torch.int32)
@@ -888,6 +918,8 @@ def phase_kernels(torch, state):
             state["bwd_main"] = r
         elif name == "causal_s128_f32":
             state["bwd_f32"] = r
+        elif name in ("mlm_s128_bf16", "bert_s128_f32"):
+            state.setdefault("bwd_mlm", {})[name] = r
     for name, c in paged_cases(torch):
         r = run_paged_case(torch, name, c, flush)
         emit(r)
@@ -908,6 +940,8 @@ def phase_kernels(torch, state):
             state["flash_main"] = r
         elif name.startswith("bert_"):
             state.setdefault("flash_bert", {})[name] = r
+        elif name == "mlm_s128_bf16":
+            state["flash_mlm"] = r
     return ok
 
 
@@ -2921,6 +2955,26 @@ def train_flops_per_step():
     return 6 * n_matmul * tokens + attn
 
 
+def _plain_steps(model, opt, loss_fn, batches):
+    """One optimizer step a placed batch, outside the trainer, with the
+    trainer's step keys: ``(losses, aux of each step, step-1 gradients of
+    every parameter that got one)``."""
+    from kubeflow_tpu_torch.serve.threefry import key_of
+
+    losses, auxes, grads = [], [], None
+    for i, batch in enumerate(batches):
+        opt.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(model, batch, key_of(0, i))
+        loss.backward()
+        if i == 0:
+            grads = {n: p.grad.clone() for n, p in model.named_parameters()
+                     if p.grad is not None}
+        opt.step()
+        losses.append(loss.item())
+        auxes.append({k: v.item() for k, v in aux.items()})
+    return losses, auxes, grads
+
+
 def _zero_flash_counts(fa, fb):
     fa.LAUNCHES = fb.DQ_LAUNCHES = fb.DKV_LAUNCHES = 0
     for counts in (fa.LAUNCHES_BY_BODY, fb.DQ_LAUNCHES_BY_BODY, fb.DKV_LAUNCHES_BY_BODY):
@@ -2967,16 +3021,8 @@ def phase_train(torch, state):
         else:
             model.load_state_dict(sd0)
         opt = adamw(1e-3)(model.parameters())
-        losses, grads = [], None
         _zero_flash_counts(fa, fb)
-        for i, batch in enumerate(batches):
-            opt.zero_grad(set_to_none=True)
-            loss, _ = loss_fn(model, batch)
-            loss.backward()
-            if i == 0:
-                grads = {n: p.grad.clone() for n, p in model.named_parameters()}
-            opt.step()
-            losses.append(loss.item())
+        losses, _, grads = _plain_steps(model, opt, loss_fn, batches)
         runs[impl] = (losses, grads)
         if impl == "flash":
             torch.cuda.synchronize()
@@ -3057,7 +3103,390 @@ def phase_train(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 12: open-loop load through the gateway over an autoscaled fleet
+# phase 12: the rest of the training path (BERT MLM, remat, checked
+# numerics, the MNIST CNN and ResNet-50)
+# --------------------------------------------------------------------------- #
+
+#: ``bench.py`` BERT_BATCH x BERT_SEQ; the f32 parity steps at rows 3c/4c's B
+MLM_BATCH, MLM_SEQ, MLM_PARITY_BATCH = 32, 128, 8
+MLM_WARM, MLM_TIMED, MLM_PARITY_STEPS = 3, 20, 5
+REMAT_STEPS = 2
+#: ``examples/mnist.py``'s defaults; ResNet-50 on CIFAR shapes
+MNIST_BATCH, MNIST_STEPS, RESNET_BATCH, RESNET_STEPS = 64, 100, 64, 10
+
+
+def bert_train_flops_per_step(batch, seq, *, layers=12, hidden=768,
+                              inter=3072, vocab=30522):
+    """Matmul FLOPs of one ``BertForMaskedLM`` train step (a copy of
+    ``bench.py:209-221``): fwd = 2·S·P_matmul + 4·L·S²·H (QKᵀ and AV,
+    bidirectional), train = 3 × fwd; gathers and norms excluded."""
+    p_matmul = layers * (4 * hidden * hidden + 2 * hidden * inter)
+    p_head = hidden * hidden + hidden * vocab  # mlm_transform + unembed
+    fwd = 2 * seq * (p_matmul + p_head) + 4 * layers * seq * seq * hidden
+    return 3.0 * batch * fwd
+
+
+def _mlm_data(batch, start_step=0):
+    from kubeflow_tpu_torch.data import TokenLMDataset, local_shard_iterator
+
+    ds = TokenLMDataset(vocab_size=30522, seq_len=MLM_SEQ, seed=0)
+    return local_shard_iterator(ds, batch, start_step=start_step)
+
+
+def _quiet_writer():
+    """A metric writer whose step lines go nowhere (the phase prints its
+    own summary); its NaN alarm stays on."""
+    import io
+
+    from kubeflow_tpu_torch.train.metrics import MetricWriter
+
+    return MetricWriter(None, stdout=io.StringIO())
+
+
+def _stamped_fit(torch, trainer, data):
+    """``trainer.fit(data)`` with each step's ready time (drain thread):
+    ``(history, {step: perf_counter})``."""
+    ready = {}
+
+    def stamp(step, m):
+        ready[step] = time.perf_counter()
+
+    _, history = trainer.fit(data, writer=_quiet_writer(), hooks=[stamp])
+    torch.cuda.synchronize()
+    return history, ready
+
+
+def _rel_errs(torch, got, want):
+    """max |got − want| / max(max |want|, 1e-3 · G) of each named tensor,
+    G the largest |want| of all: a gradient that is 0 in exact arithmetic
+    (a key projection's bias: softmax ignores a shift shared by every key)
+    is rounding noise in both runs, measured against the model's scale."""
+    floor = 1e-3 * max(w.abs().max().item() for w in want.values())
+    return {n: ((got[n] - want[n]).abs().max().item()
+                / max(want[n].abs().max().item(), floor)) for n in want}
+
+
+def _mlm_parity(torch, fa, fb):
+    """(a): bert-base in f32, TF32 off, flash against plain attention: the
+    same initial weights, batches and threefry masks, 5 steps of
+    adamw(1e-4); each flash step launches forward, dq and dk/dv 12 times
+    on ``fma``."""
+    from kubeflow_tpu_torch.models.bert import (
+        bert_base, make_mlm_init_fn, make_mlm_loss_fn,
+    )
+    from kubeflow_tpu_torch.train import adamw
+    from kubeflow_tpu_torch.train.prefetch import device_placer
+
+    place = device_placer(torch.device("cuda"))
+    batches = [place(b).claim() for b, _ in zip(_mlm_data(MLM_PARITY_BATCH),
+                                                range(MLM_PARITY_STEPS))]
+    loss_fn = make_mlm_loss_fn()
+    runs, sd0, launches = {}, None, None
+    for impl in ("flash", "reference"):
+        model = make_mlm_init_fn(bert_base(attn_impl=impl))(0, torch.device("cuda"))
+        if sd0 is None:
+            sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(sd0)
+        opt = adamw(1e-4)(model.parameters())
+        _zero_flash_counts(fa, fb)
+        # the pooler is not on the MLM path: it gets no gradient
+        losses, auxes, grads = _plain_steps(model, opt, loss_fn, batches)
+        accs = [a["masked_accuracy"] for a in auxes]
+        if impl == "flash":
+            torch.cuda.synchronize()
+            launches = _flash_counts_by_body(fa, fb)
+        runs[impl] = (losses, accs, grads)
+        del model, opt
+    torch.cuda.empty_cache()
+    (fl, fa_, fg), (rl, ra, rg) = runs["flash"], runs["reference"]
+    grad_tol, loss_rtol = 1e-3, 1e-4
+    grad_rel = _rel_errs(torch, fg, rg)
+    worst = max(grad_rel, key=grad_rel.get)
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(fl, rl)]
+    want = 12 * MLM_PARITY_STEPS
+    ok = (set(fg) == set(rg) and grad_rel[worst] <= grad_tol
+          and max(loss_rel) <= loss_rtol
+          and launches == {k: {"wgmma": 0, "fma": want} for k in launches})
+    return {"part": "a_f32_parity", "dtype": "f32", "tf32": False,
+            "shape": [MLM_PARITY_BATCH, MLM_SEQ], "steps": MLM_PARITY_STEPS,
+            "losses_flash": fl, "losses_reference": rl,
+            "masked_accuracy_flash": fa_, "masked_accuracy_reference": ra,
+            "loss_rel_err_max": max(loss_rel), "loss_rtol": loss_rtol,
+            "grad_rel_err_max": grad_rel[worst], "grad_rel_err_worst_param": worst,
+            "grad_tol": grad_tol, "params_with_grad": len(fg),
+            "launches_by_body": launches, "launches_wanted": want, "ok": ok}
+
+
+def _mlm_fit(torch, fa, fb, card):
+    """(b): ``Trainer.fit`` in bf16 over f32 master weights at the bench's
+    shape, 3 warm-up and 20 timed steps; each step launches every flash
+    kernel 12 times on ``wgmma``."""
+    from kubeflow_tpu_torch.models.bert import (
+        bert_base, make_mlm_init_fn, make_mlm_loss_fn,
+    )
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, adamw
+    from kubeflow_tpu_torch.train.prefetch import live_kft_threads
+
+    steps = MLM_WARM + MLM_TIMED
+    trainer = Trainer(
+        init_params=make_mlm_init_fn(bert_base(dtype=torch.bfloat16)),
+        loss_fn=make_mlm_loss_fn(), optimizer=adamw(1e-4),
+        config=TrainConfig(mesh=None, global_batch=MLM_BATCH, steps=steps,
+                           log_every=1, prefetch_depth=2),
+    )
+    torch.cuda.reset_peak_memory_stats()
+    _zero_flash_counts(fa, fb)
+    history, ready = _stamped_fit(torch, trainer, lambda s: _mlm_data(MLM_BATCH, s))
+    by_body = _flash_counts_by_body(fa, fb)
+    losses = [h["loss"] for h in history]
+    timed_s = ready[steps] - ready[MLM_WARM]
+    step_ms = timed_s / MLM_TIMED * 1e3
+    flops = bert_train_flops_per_step(MLM_BATCH, MLM_SEQ)
+    want = 12 * steps
+    finite = all(map(math.isfinite, losses))
+    ok = (finite and len(losses) == steps and losses[-1] < losses[0]
+          and by_body == {k: {"wgmma": want, "fma": 0} for k in by_body}
+          and live_kft_threads() == [])
+    return {"part": "b_fit_bf16", "dtype": "bf16", "param_dtype": "f32",
+            "shape": [MLM_BATCH, MLM_SEQ], "steps": steps,
+            "timed_steps": MLM_TIMED, "first_loss": losses[0],
+            "last_loss": losses[-1], "finite": finite,
+            "masked_accuracy_last": history[-1]["masked_accuracy"],
+            "step_ms": step_ms, "tokens_per_s":
+                MLM_BATCH * MLM_SEQ * MLM_TIMED / timed_s,
+            "compile_ms": history[0].get("compile_ms"),
+            "data_stall_ms": history[-1].get("data_stall_ms"),
+            "model_flops_per_step": flops,
+            "mfu_bf16_dense": flops / (step_ms / 1e3) / PEAK_FLOPS["bf16"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches_by_body": by_body, "launches_wanted": want,
+            "card": card, "ok": ok}
+
+
+def _remat(torch, fa, fb):
+    """(c): the train phase's LM in f32 with remat None and "dots" against
+    no remat, 2 steps each from one initial state on the same batches:
+    losses and step-1 gradients agree, and the forward launches twice a
+    layer a step under remat (once without), dq and dk/dv once."""
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, make_init_fn, make_loss_fn,
+    )
+    from kubeflow_tpu_torch.train import adamw
+    from kubeflow_tpu_torch.train.prefetch import device_placer
+
+    place = device_placer(torch.device("cuda"))
+    batches = [place(b).claim() for b, _ in zip(_train_data(), range(REMAT_STEPS))]
+    loss_fn = make_loss_fn()
+    out, runs, sd0 = {}, {}, None
+    L = MODEL["n_layers"]
+    for name, knobs in (("none", {}), ("full", dict(remat=True)),
+                        ("dots", dict(remat=True, remat_policy="dots"))):
+        cfg = TransformerConfig(dtype=torch.float32, attn_impl="flash", **MODEL,
+                                **knobs)
+        model = make_init_fn(cfg)(0, torch.device("cuda"))
+        if sd0 is None:
+            sd0 = {k: v.clone() for k, v in model.state_dict().items()}
+        else:
+            model.load_state_dict(sd0)
+        opt = adamw(1e-3)(model.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero_flash_counts(fa, fb)
+        losses, _, grads = _plain_steps(model, opt, loss_fn, batches)
+        torch.cuda.synchronize()
+        fwd_each = 2 if knobs else 1
+        counts = {"flash_forward": fa.LAUNCHES, "flash_bwd_dq": fb.DQ_LAUNCHES,
+                  "flash_bwd_dkv": fb.DKV_LAUNCHES}
+        wanted = {"flash_forward": fwd_each * L * REMAT_STEPS,
+                  "flash_bwd_dq": L * REMAT_STEPS, "flash_bwd_dkv": L * REMAT_STEPS}
+        out[name] = {"losses": losses, "launches": counts,
+                     "launches_wanted": wanted,
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "peak_over_state_gb":
+                         (torch.cuda.max_memory_allocated() - base) / 1e9}
+        runs[name] = (losses, grads)
+        # the optimizer sits in a reference cycle: collect it now, or the
+        # next variant's base holds this one's state until a collection
+        # frees it part way through that variant's steps
+        del model, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    ok = all(o["launches"] == o["launches_wanted"] for o in out.values())
+    tol = 1e-5
+    for name in ("full", "dots"):
+        rel = _rel_errs(torch, runs[name][1], runs["none"][1])
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(runs[name][0], runs["none"][0]))
+        out[name].update(grad_rel_err_max=max(rel.values()),
+                         loss_rel_err_max=loss_rel,
+                         grads_bitwise=all(torch.equal(runs[name][1][n],
+                                                       runs["none"][1][n])
+                                           for n in rel))
+        ok &= max(rel.values()) <= tol and loss_rel <= tol
+    return {"part": "c_remat", "dtype": "f32", "shape": [TRAIN_BATCH, TRAIN_SEQ],
+            "steps": REMAT_STEPS, "tol": tol, "variants": out, "ok": ok}
+
+
+def _mnist_trainer(torch, steps, models, batch=MNIST_BATCH, **cfg):
+    from kubeflow_tpu_torch.models.mnist_cnn import make_init_fn, make_loss_fn
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, adam
+
+    init = make_init_fn()
+
+    def init_params(seed, device):
+        model = init(seed, device)
+        models.append(model)
+        return model
+
+    return Trainer(init_params=init_params, loss_fn=make_loss_fn(),
+                   optimizer=adam(1e-3),
+                   config=TrainConfig(mesh=None, global_batch=batch, steps=steps,
+                                      log_every=1, **cfg))
+
+
+def _mnist_stream(poison_at=None, image_shape=(28, 28, 1), batch=MNIST_BATCH):
+    import numpy as np
+
+    from kubeflow_tpu_torch.data import ClassPrototypeDataset, local_shard_iterator
+
+    def factory(start_step):
+        it = local_shard_iterator(ClassPrototypeDataset(image_shape=image_shape),
+                                  batch, start_step=start_step)
+        for step, (x, y) in enumerate(it, start=start_step):
+            if step == poison_at:
+                x = x.copy()
+                x[0, 0, 0, 0] = np.nan  # one poisoned pixel
+            yield x, y
+
+    return factory
+
+
+def _checked(torch):
+    """(d): checkify and debug_nans on a poisoned MNIST batch (the second):
+    each raises its located error and leaves the weights as the last
+    update left them; clean runs in each mode equal the default run
+    (deterministic cuDNN for the comparison); step ms a mode."""
+    from kubeflow_tpu_torch.train.numerics import CheckifyError
+
+    out, ok = {}, True
+    for mode, knob, err in (("checkify", {"check_numerics": "checkify"}, CheckifyError),
+                            ("debug_nans", {"debug_nans": True}, FloatingPointError)):
+        models, snaps = [], []
+        trainer = _mnist_trainer(torch, 3, models, **knob)
+        real = trainer.optimizer
+
+        def optimizer(params, real=real, snaps=snaps):
+            opt = real(params)
+            opt.register_step_post_hook(lambda o, a, k: snaps.append(
+                [p.detach().clone() for g in o.param_groups for p in g["params"]]))
+            return opt
+
+        trainer.optimizer = optimizer
+        message = None
+        try:
+            trainer.fit(_mnist_stream(poison_at=1), writer=_quiet_writer())
+        except err as e:
+            message = str(e)
+        unchanged = bool(snaps) and all(
+            torch.equal(a, b) for a, b in zip(models[0].parameters(), snaps[-1]))
+        hooks_gone = all(not m._forward_hooks for m in models[0].modules())
+        good = (message is not None and "nan" in message and "Conv_0" in message
+                and len(snaps) == 1 and unchanged and hooks_gone
+                and not torch.is_anomaly_enabled())
+        out[mode] = {"error": message, "updates_before": len(snaps),
+                     "weights_unchanged": unchanged, "hooks_gone": hooks_gone,
+                     "ok": good}
+        ok &= good
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for mode, knob in (("default", {}), ("checkify", {"check_numerics": "checkify"}),
+                           ("debug_nans", {"debug_nans": True})):
+            steps = 20
+            hist, ready = _stamped_fit(torch, _mnist_trainer(torch, steps, [], **knob),
+                                       _mnist_stream())
+            runs[mode] = [h["loss"] for h in hist]
+            out.setdefault("step_ms", {})[mode] = (ready[steps] - ready[5]) / (steps - 5) * 1e3
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    for mode in ("checkify", "debug_nans"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(runs[mode], runs["default"]))
+        out[f"{mode}_clean_loss_rel_err"] = rel
+        ok &= rel <= 1e-6
+    return {"part": "d_checked_numerics", "model": "mnist_cnn", "batch": MNIST_BATCH,
+            "poisoned_step": 2, **out, "ok": ok}
+
+
+def _zoo(torch, card):
+    """(e): ``examples/mnist.py``'s fit (batch 64, adam(1e-3), 100 steps)
+    and ResNet-50 CIFAR at full width in bf16, batch 64, 10 steps of
+    adam(3e-5)."""
+    from kubeflow_tpu_torch.models.mnist_cnn import make_loss_fn
+    from kubeflow_tpu_torch.models.resnet import make_init_fn, resnet50_cifar
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, adam
+
+    hist, _ = _stamped_fit(torch, _mnist_trainer(torch, MNIST_STEPS, []),
+                           _mnist_stream())
+    mnist = {"first_loss": hist[0]["loss"], "last_loss": hist[-1]["loss"],
+             "last_accuracy": hist[-1]["accuracy"]}
+    mnist_ok = (mnist["last_accuracy"] > 0.9
+                or mnist["last_loss"] < mnist["first_loss"])
+    # adam(3e-5): without a warm-up the bench's sgd(0.1, momentum 0.9), and
+    # adam at 1e-4, throw this GroupNorm ResNet's loss up for several steps
+    trainer = Trainer(
+        init_params=make_init_fn(resnet50_cifar(dtype=torch.bfloat16)),
+        loss_fn=make_loss_fn(), optimizer=adam(3e-5),
+        config=TrainConfig(mesh=None, global_batch=RESNET_BATCH,
+                           steps=RESNET_STEPS, log_every=1))
+    torch.cuda.reset_peak_memory_stats()
+    hist, ready = _stamped_fit(torch, trainer, _mnist_stream(
+        image_shape=(32, 32, 3), batch=RESNET_BATCH))
+    losses = [h["loss"] for h in hist]
+    resnet = {"dtype": "bf16", "param_dtype": "f32", "batch": RESNET_BATCH,
+              "steps": RESNET_STEPS, "losses": losses,
+              "step_ms": (ready[RESNET_STEPS] - ready[2]) / (RESNET_STEPS - 2) * 1e3,
+              "images_per_s": RESNET_BATCH * (RESNET_STEPS - 2)
+                  / (ready[RESNET_STEPS] - ready[2]),
+              "compile_ms": hist[0].get("compile_ms"),
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    resnet_ok = all(map(math.isfinite, losses)) and losses[-1] < losses[0]
+    return {"part": "e_zoo", "mnist": {**mnist, "steps": MNIST_STEPS,
+                                       "batch": MNIST_BATCH, "ok": mnist_ok},
+            "resnet50": {**resnet, "ok": resnet_ok}, "card": card,
+            "ok": mnist_ok and resnet_ok}
+
+
+def phase_mlm(torch, state):
+    """BERT MLM training through the non-causal flash kernels ((a) f32
+    parity, (b) the bf16 fit), remat (c), checked numerics (d) and the
+    CNNs (e); one JSON line a part. No part depends on another."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ok = True
+    for part in (lambda: _mlm_parity(torch, fa, fb),
+                 lambda: _mlm_fit(torch, fa, fb, state["card"]),
+                 lambda: _remat(torch, fa, fb),
+                 lambda: _checked(torch),
+                 lambda: _zoo(torch, state["card"])):
+        r = part()
+        emit({"phase": "mlm", **r})
+        ok &= r["ok"]
+        if r["part"] == "a_f32_parity":
+            state["mlm_parity_launches"] = r["launches_by_body"]
+        elif r["part"] == "b_fit_bf16":
+            state["mlm_launches"] = r["launches_by_body"]
+        torch.cuda.empty_cache()
+    return ok
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: open-loop load through the gateway over an autoscaled fleet
 # --------------------------------------------------------------------------- #
 
 #: bench_serving_load's mix (``bench.py:627-642``): 4 shapes, SLO 2 s
@@ -3406,10 +3835,12 @@ def main(argv=None) -> int:
                "engine": phase_engine, "contract": phase_contract,
                "disagg": phase_disagg, "fleet": phase_fleet,
                "dense": phase_dense,
-               "bert": phase_bert, "train": phase_train,
+               "bert": phase_bert, "train": phase_train, "mlm": phase_mlm,
                "load": phase_load, "profile": phase_profile}
     ok = True
+    seconds = {"build": build_s}
     for p in phases:
+        tp = time.perf_counter()
         try:
             good = runners[p](torch, state)
         except Exception:  # noqa: BLE001 — reported, and the run fails
@@ -3418,7 +3849,9 @@ def main(argv=None) -> int:
             good = False
         ok &= bool(good)
         torch.cuda.empty_cache()
-    emit({"phase": "total", "seconds": time.perf_counter() - t0})
+        seconds[p] = time.perf_counter() - tp
+    emit({"phase": "total", "seconds": time.perf_counter() - t0,
+          "by_phase": seconds})
     if not ok:
         print("chip_smoke: a phase failed", file=sys.stderr)
         return 1
@@ -3553,6 +3986,42 @@ def main(argv=None) -> int:
                 "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],
                 "library_ms": r["library_ms"],
             })
+        # bert-base MLM training: the three flash kernels, timed at the bf16
+        # fit's shape and launched by it (``wgmma``), with the f32 parity
+        # steps' ``fma`` launches beside them
+        r, bwd = state.get("flash_mlm"), state.get("bwd_mlm", {}).get("mlm_s128_bf16")
+        mlm = state.get("mlm_launches", {})
+        parity = state.get("mlm_parity_launches", {})
+        if r is not None and bwd is not None:
+            kernels.append({
+                "name": "flash_attention_mlm", "route": "cuda",
+                "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
+                "replaces": "kubeflow_tpu/ops/flash_attention.py:120",
+                "body": r["body"], "case": "mlm_s128_bf16",
+                "launches": mlm.get("flash_forward", {}).get("wgmma", 0),
+                "launches_f32_parity_fma": parity.get("flash_forward", {}).get("fma", 0),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
+            for name, part, launch_key, rep in (
+                ("flash_attention_bwd_dq_mlm", "dq", "flash_bwd_dq",
+                 "kubeflow_tpu/ops/flash_attention.py:453"),
+                ("flash_attention_bwd_dkv_mlm", "dkv", "flash_bwd_dkv",
+                 "kubeflow_tpu/ops/flash_attention.py:484"),
+            ):
+                err = bwd["max_abs_err"]
+                kernels.append({
+                    "name": name, "route": "cuda",
+                    "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                    "replaces": rep, "body": bwd["body"][part], "case": "mlm_s128_bf16",
+                    "launches": mlm.get(launch_key, {}).get("wgmma", 0),
+                    "launches_f32_parity_fma": parity.get(launch_key, {}).get("fma", 0),
+                    "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
+                    "ms": bwd["ms"][part], "plain_ms": bwd["plain_ms"],
+                    "bound_ms": bwd["bound_ms"][part], "bound_by": bwd["bound_by"][part],
+                    "library_ms": bwd["library_ms"],
+                })
         emit({"kernels": kernels})
     print(card, flush=True)
     # the cards this run used: one

@@ -1,7 +1,8 @@
-"""Input pipeline of the port: the synthetic LM dataset and its sharded
-host iterator (numpy, bit-equal to the JAX package's)."""
+"""Input pipeline of the port: the synthetic image and LM datasets and
+their sharded host iterator (numpy, bit-equal to the JAX package's)."""
 
 from kubeflow_tpu_torch.data.synthetic import (  # noqa: F401
+    ClassPrototypeDataset,
     TokenLMDataset,
     local_shard_iterator,
 )

@@ -1,5 +1,6 @@
-"""Deterministic synthetic LM data: a numpy copy of the JAX package's
-``data/synthetic.py`` ``TokenLMDataset`` and ``local_shard_iterator``.
+"""Deterministic synthetic data: a numpy copy of the JAX package's
+``data/synthetic.py`` ``ClassPrototypeDataset``, ``TokenLMDataset`` and
+``local_shard_iterator``.
 
 The same arguments give bit-equal batches in both packages (the same
 ``np.random.RandomState`` draws in the same order), so the port and the
@@ -14,6 +15,34 @@ import time
 from typing import Iterator
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassPrototypeDataset:
+    """Image-classification surrogate (MNIST: 28x28x1 in 10 classes,
+    CIFAR: 32x32x3): each class has a fixed random prototype, and an
+    example is its class's prototype plus Gaussian noise."""
+
+    image_shape: tuple[int, ...] = (28, 28, 1)
+    num_classes: int = 10
+    noise: float = 0.8
+    seed: int = 0
+
+    def prototypes(self) -> np.ndarray:
+        rng = np.random.RandomState(self.seed)
+        return rng.randn(self.num_classes, *self.image_shape).astype(np.float32)
+
+    def batch(self, batch_size: int, *, step: int,
+              offset: int = 0) -> tuple[np.ndarray, np.ndarray]:
+        """``(images, labels)`` for ``(step, offset)``: NHWC f32 and
+        int32."""
+        rng = np.random.RandomState(
+            (self.seed * 1_000_003 + step * 997 + offset) % (2**31 - 1)
+        )
+        labels = rng.randint(0, self.num_classes, size=batch_size)
+        protos = self.prototypes()[labels]
+        x = protos + self.noise * rng.randn(*protos.shape).astype(np.float32)
+        return x.astype(np.float32), labels.astype(np.int32)
 
 
 @dataclasses.dataclass(frozen=True)

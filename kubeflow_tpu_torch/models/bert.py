@@ -22,12 +22,21 @@ The dtype flow is the flax one, step for step:
 - the embedding sum is ``(embed + pos) + types`` in ``cfg.dtype``;
 - the MLM ``unembed`` and the classifier compute in f32.
 
-Projection weights are stored in ``cfg.dtype`` (the serving layout: the
-cast is deterministic, so storing the cast weight gives the same
-result); embeddings, norm parameters and the f32 heads are f32. The JAX config's
-``interpret_kernels`` has no counterpart (a CUDA kernel has no interpret
-mode). MLM training (``make_mlm_loss_fn``, ``make_mlm_init_fn``) is not
-ported yet (ROADMAP queue 1 item 9).
+Projection weights are stored in ``param_dtype``, by default
+``cfg.dtype`` (the serving layout: the cast is deterministic, so storing
+the cast weight gives the same result); training stores them in f32 and
+casts weight and bias to ``cfg.dtype`` at every call, as flax does with
+its f32 params. Embeddings, norm parameters and the f32 heads are f32.
+The JAX config's ``interpret_kernels`` has no counterpart (a CUDA kernel
+has no interpret mode).
+
+:func:`make_mlm_loss_fn` and :func:`make_mlm_init_fn` are the MLM
+training plumbing of the JAX module: 15% of the tokens, drawn by
+``jax.random.bernoulli`` under the trainer's step key (the port's
+threefry, bit for bit), become :data:`MASK_TOKEN`, and the loss is the
+cross-entropy over the masked positions. No padding mask is passed, so
+every row is one segment and the attention runs non-causal over all of
+it.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
     dispatch_attention,
 )
+from kubeflow_tpu_torch.serve.threefry import bernoulli
 
 BERT_ATTN_IMPLS = ("flash", "reference")
 
@@ -106,16 +116,20 @@ def bert_tiny(**overrides) -> BertConfig:
 # --------------------------------------------------------------------------- #
 
 class BiasDense(nn.Linear):
-    """flax ``nn.Dense(dtype=dtype)`` with its bias, weight and bias
-    stored in ``dtype``: the input is cast to it, and the product rounded
-    to it before the bias is added in it."""
+    """flax ``nn.Dense(dtype=dtype)`` with its bias: weight and bias are
+    stored in ``param_dtype`` (default ``dtype``) and cast to ``dtype``,
+    the input is cast to it, and the product rounded to it before the
+    bias is added in it."""
 
     def __init__(self, n_in: int, n_out: int, *, dtype: torch.dtype,
-                 device: torch.device):
-        super().__init__(n_in, n_out, bias=True, device=device, dtype=dtype)
+                 device: torch.device, param_dtype: torch.dtype | None = None):
+        super().__init__(n_in, n_out, bias=True, device=device,
+                         dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.weight.dtype), self.weight) + self.bias
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
 
 
 class LayerNorm(nn.Module):
@@ -138,20 +152,24 @@ class LayerNorm(nn.Module):
 
 
 def _dense(cfg: BertConfig, n_in: int, n_out: int, device,
-           dtype=None) -> BiasDense:
-    return BiasDense(n_in, n_out, dtype=dtype or cfg.dtype, device=device)
+           param_dtype=None, dtype=None) -> BiasDense:
+    """A projection computing in ``dtype`` (default ``cfg.dtype``) with
+    weights stored in ``param_dtype`` (default the compute dtype)."""
+    dtype = dtype or cfg.dtype
+    return BiasDense(n_in, n_out, dtype=dtype, device=device,
+                     param_dtype=param_dtype or dtype)
 
 
 class BertSelfAttention(nn.Module):
-    def __init__(self, cfg: BertConfig, device):
+    def __init__(self, cfg: BertConfig, device, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.attn_cfg = cfg.attention_cfg()
         H = cfg.hidden_size
-        self.q_proj = _dense(cfg, H, H, device)
-        self.k_proj = _dense(cfg, H, H, device)
-        self.v_proj = _dense(cfg, H, H, device)
-        self.o_proj = _dense(cfg, H, H, device)
+        self.q_proj = _dense(cfg, H, H, device, param_dtype)
+        self.k_proj = _dense(cfg, H, H, device, param_dtype)
+        self.v_proj = _dense(cfg, H, H, device, param_dtype)
+        self.o_proj = _dense(cfg, H, H, device, param_dtype)
 
     def forward(self, x: torch.Tensor, attention_mask: torch.Tensor):
         cfg = self.cfg
@@ -169,15 +187,15 @@ class BertSelfAttention(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, cfg: BertConfig, device):
+    def __init__(self, cfg: BertConfig, device, param_dtype=None):
         super().__init__()
         eps = cfg.layer_norm_eps
-        self.attn = BertSelfAttention(cfg, device)
+        self.attn = BertSelfAttention(cfg, device, param_dtype)
         self.ln1 = LayerNorm(cfg.hidden_size, eps, device)
         self.up_proj = _dense(cfg, cfg.hidden_size, cfg.intermediate_size,
-                              device)
+                              device, param_dtype)
         self.down_proj = _dense(cfg, cfg.intermediate_size, cfg.hidden_size,
-                                device)
+                                device, param_dtype)
         self.ln2 = LayerNorm(cfg.hidden_size, eps, device)
 
     def forward(self, x: torch.Tensor, attention_mask: torch.Tensor):
@@ -193,7 +211,7 @@ class BertEncoder(nn.Module):
     """``forward(input_ids, attention_mask=None, token_type_ids=None)`` →
     ``(sequence_output (B, S, H), pooled_output (B, H))``."""
 
-    def __init__(self, cfg: BertConfig, device):
+    def __init__(self, cfg: BertConfig, device, param_dtype=None):
         super().__init__()
         self.cfg = cfg
         self.embed = Embedding(cfg.vocab_size, cfg.hidden_size, cfg.dtype, device)
@@ -203,8 +221,9 @@ class BertEncoder(nn.Module):
                                     cfg.dtype, device)
         self.ln_embed = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps, device)
         self.layers = nn.ModuleList(
-            BertLayer(cfg, device) for _ in range(cfg.num_layers))
-        self.pooler = _dense(cfg, cfg.hidden_size, cfg.hidden_size, device)
+            BertLayer(cfg, device, param_dtype) for _ in range(cfg.num_layers))
+        self.pooler = _dense(cfg, cfg.hidden_size, cfg.hidden_size, device,
+                             param_dtype)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None):
         cfg = self.cfg
@@ -227,17 +246,21 @@ class BertEncoder(nn.Module):
 class BertForMaskedLM(nn.Module):
     """MLM logits ``(B, S, vocab)`` in f32. Parameters are allocated
     uninitialized on ``device`` (``None`` = the CUDA card): load a state
-    dict or call :func:`init_bert_weights`."""
+    dict or call :func:`init_bert_weights`. ``param_dtype`` stores the
+    ``cfg.dtype`` projections in another dtype (f32 master weights for
+    training); ``None`` stores them in ``cfg.dtype``."""
 
-    def __init__(self, cfg: BertConfig, *, device=None):
+    def __init__(self, cfg: BertConfig, *, device=None,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.cfg = cfg
         dev = resolve_device(device)
         H = cfg.hidden_size
-        self.encoder = BertEncoder(cfg, dev)
-        self.mlm_transform = _dense(cfg, H, H, dev)
+        self.encoder = BertEncoder(cfg, dev, param_dtype)
+        self.mlm_transform = _dense(cfg, H, H, dev, param_dtype)
         self.mlm_ln = LayerNorm(H, cfg.layer_norm_eps, dev)
-        self.unembed = _dense(cfg, H, cfg.vocab_size, dev, dtype=torch.float32)
+        self.unembed = _dense(cfg, H, cfg.vocab_size, dev,
+                              dtype=torch.float32)
 
     @property
     def device(self) -> torch.device:
@@ -283,3 +306,47 @@ def init_bert_weights(model: nn.Module, seed: int) -> nn.Module:
         else:
             p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
     return model
+
+
+# --------------------------------------------------------------------------- #
+# Trainer plumbing (BASELINE config 3)
+# --------------------------------------------------------------------------- #
+
+#: conventionally [MASK]; the synthetic data only needs an id
+MASK_TOKEN = 3
+
+
+def make_mlm_loss_fn(mask_rate: float = 0.15):
+    """``(model, {"inputs"}, key) -> (loss, {"masked_accuracy"})``: the
+    JAX ``make_mlm_loss_fn``. The mask is ``bernoulli(key, mask_rate,
+    (B, S))`` through the port's threefry (bit-equal to JAX's under the
+    same key); masked tokens become :data:`MASK_TOKEN`; the loss is the
+    f32 cross-entropy summed over masked positions over ``max(#masked,
+    1)``, and the accuracy counts argmax hits (first index on ties) there
+    over the same denominator."""
+
+    def loss_fn(model: BertForMaskedLM, batch, key):
+        tokens = batch["inputs"].long()
+        mask = bernoulli(key, mask_rate, tuple(tokens.shape), tokens.device)
+        corrupted = torch.where(mask, MASK_TOKEN, tokens)
+        logits = model(corrupted)
+        per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  tokens.reshape(-1), reduction="none")
+        denom = mask.sum().clamp(min=1)
+        loss = torch.where(mask.reshape(-1), per_tok, 0.0).sum() / denom
+        hits = (logits.argmax(-1) == tokens) & mask
+        return loss, {"masked_accuracy": hits.sum() / denom}
+
+    return loss_fn
+
+
+def make_mlm_init_fn(cfg: BertConfig):
+    """``init_params(seed, device) -> BertForMaskedLM`` for the trainer:
+    f32 master weights (``param_dtype=torch.float32``, compute in
+    ``cfg.dtype``) drawn by :func:`init_bert_weights` from ``seed``."""
+
+    def init_params(seed: int, device) -> BertForMaskedLM:
+        model = BertForMaskedLM(cfg, device=device, param_dtype=torch.float32)
+        return init_bert_weights(model, seed)
+
+    return init_params

@@ -31,6 +31,19 @@ LayerNorm ``scale``/``bias``, ``pos_embedding`` and each table's
     encoder/layers_{i}/attn/q_proj/kernel -> encoder.layers.{i}.attn.q_proj.weight
     encoder/layers_{i}/ln1/scale       -> encoder.layers.{i}.ln1.scale
     mlm_transform/bias, unembed/kernel -> mlm_transform.bias, unembed.weight
+
+:func:`cnn_params_to_state_dict` and :func:`cnn_state_dict_to_params` do
+it for the JAX ``MnistCNN`` and ``ResNet`` trees (``kubeflow_tpu/
+models/mnist_cnn.py``, ``resnet.py``) against ``models/mnist_cnn.py``
+and ``models/resnet.py``, whose submodules carry the flax names: the
+path is the key, a dense ``kernel`` ``(in, out)`` becomes ``weight``
+``(out, in)`` and a conv ``kernel`` ``(kh, kw, in, out)`` becomes
+``weight`` ``(out, in, kh, kw)``; GroupNorm ``scale``/``bias`` and dense
+or conv ``bias`` keep their names:
+
+    Conv_0/kernel, Dense_1/bias        -> Conv_0.weight, Dense_1.bias
+    stage1_block0/conv2/kernel         -> stage1_block0.conv2.weight
+    stage1_block0/gn_proj/scale        -> stage1_block0.gn_proj.scale
 """
 
 from __future__ import annotations
@@ -137,3 +150,49 @@ def bert_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
     """The port's BERT ``state_dict`` → JAX param tree (nested dict of f32
     numpy); an unknown key raises."""
     return _to_params(sd, _BERT_KNOWN)
+
+
+_CNN_KNOWN = re.compile(
+    r"^((Conv|Dense)_\d+\.(weight|bias)|"
+    r"(stem|head|stage\d+_block\d+\.(conv[123]|proj))\.(weight|bias)|"
+    r"(gn_stem|stage\d+_block\d+\.gn(\d|_proj))\.(scale|bias))$"
+)
+#: flax conv kernel (kh, kw, in, out) <-> torch weight (out, in, kh, kw)
+_HWIO_TO_OIHW = (3, 2, 0, 1)
+_OIHW_TO_HWIO = (2, 3, 1, 0)
+
+
+def cnn_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``MnistCNN`` or ``ResNet`` param tree → the port's
+    ``state_dict`` (f32 CPU tensors); an unknown path raises."""
+    sd = {}
+    for path, arr in _flatten(params).items():
+        a = np.asarray(arr, dtype=np.float32)
+        parts = list(path)
+        if parts[-1] == "kernel":
+            parts[-1] = "weight"
+            a = a.transpose(_HWIO_TO_OIHW) if a.ndim == 4 else a.T
+        name = ".".join(parts)
+        if not _CNN_KNOWN.match(name):
+            raise ValueError(f"unknown param path {'/'.join(path)!r}")
+        sd[name] = torch.tensor(np.ascontiguousarray(a))
+    return sd
+
+
+def cnn_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The port's ``MnistCNN`` / ``ResNet`` ``state_dict`` → JAX param tree
+    (nested dict of f32 numpy); an unknown key raises."""
+    tree: dict[str, Any] = {}
+    for name, t in sd.items():
+        if not _CNN_KNOWN.match(name):
+            raise ValueError(f"unknown state_dict key {name!r}")
+        parts = name.split(".")
+        a = t.detach().float().cpu().numpy()
+        if parts[-1] == "weight":
+            parts[-1] = "kernel"
+            a = a.transpose(_OIHW_TO_HWIO) if a.ndim == 4 else a.T
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = np.ascontiguousarray(a)
+    return tree

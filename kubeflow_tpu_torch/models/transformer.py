@@ -31,6 +31,12 @@ training builds with ``param_dtype=torch.float32`` so that optimizer
 updates land on f32 master weights. Norm scales, the embedding table and
 the unembed are f32 in both layouts, as in the JAX package.
 
+Under ``remat`` each block of a no-cache forward that records gradients
+runs inside ``torch.utils.checkpoint`` and is recomputed in the backward,
+as ``nn.remat(Block)`` is in JAX: the attention kernel's forward then
+launches twice a layer a step. ``dropout_rate`` is accepted and unused,
+as in the JAX model.
+
 :func:`make_init_fn` and :func:`make_loss_fn` are the trainer plumbing of
 the JAX module (``make_init_fn``/``make_loss_fn``).
 """
@@ -38,11 +44,18 @@ the JAX module (``make_init_fn``/``make_loss_fn``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from kubeflow_tpu_torch import resolve_device
 from kubeflow_tpu_torch.ops.flash_attention import (
@@ -76,8 +89,16 @@ class TransformerConfig:
     #: sliding-window attention (causal only): each position attends to
     #: the previous ``attn_window`` tokens
     attn_window: int | None = None
+    #: recompute each block in the backward (``torch.utils.checkpoint``,
+    #: non-reentrant) instead of keeping its activations
     remat: bool = False
+    #: with ``remat``: None recomputes everything; "dots" keeps the outputs
+    #: of the products without batch dims (``aten.mm``/``aten.addmm``, JAX's
+    #: ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
+    #: attention kernel included
+    remat_policy: str | None = None
     moe_every: int = 0
+    #: accepted and unused, as in the JAX model (nothing there reads it)
     dropout_rate: float = 0.0
     embed_impl: str = "gather"
 
@@ -105,11 +126,12 @@ class TransformerConfig:
             raise NotImplementedError(
                 "MoE layers are not ported yet (ROADMAP queue 1 item 10)"
             )
-        if self.remat or self.dropout_rate:
-            raise NotImplementedError(
-                "remat and dropout are not ported yet (ROADMAP queue 1 "
-                "item 9, the rest of the training path)"
+        if self.remat_policy not in (None, "dots"):
+            raise ValueError(
+                f"remat_policy {self.remat_policy!r} not in (None, 'dots')"
             )
+        if self.remat_policy is not None and not self.remat:
+            raise ValueError("remat_policy requires remat=True")
         if self.embed_impl != "gather":
             raise NotImplementedError(
                 f"embed_impl {self.embed_impl!r} is not ported yet "
@@ -195,6 +217,14 @@ def _linear(cfg: TransformerConfig, n_in: int, n_out: int,
             device: torch.device, param_dtype: torch.dtype) -> Dense:
     return Dense(n_in, n_out, dtype=cfg.dtype, param_dtype=param_dtype,
                  device=device)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):  # noqa: ARG001
+    """The ``"dots"`` remat policy: keep the products without batch dims,
+    recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def _grouped_cache_attention(q, K, V, mask, groups):
@@ -496,6 +526,11 @@ class TransformerLM(nn.Module):
         x = self.embed(tokens)
         if not cfg.use_rope:
             x = x + self.pos_embedding[positions].to(cfg.dtype)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
+        context_fn = noop_context_fn
+        if cfg.remat_policy == "dots":
+            context_fn = functools.partial(
+                create_selective_checkpoint_contexts, _dots_saveable)
         cached = dict(
             cache_index=cache_index, kv_mask=kv_mask,
             page_table=page_table, page_size=page_size,
@@ -509,6 +544,9 @@ class TransformerLM(nn.Module):
                     x, positions, segment_ids, layer_cache=cache[name],
                     **cached,
                 )
+            elif remat:
+                x = checkpoint(block, x, positions, segment_ids,
+                               use_reentrant=False, context_fn=context_fn)
             else:
                 x = block(x, positions, segment_ids)
         logits = self.unembed(self.ln_f(x).float())
@@ -611,14 +649,14 @@ def make_init_fn(cfg: TransformerConfig):
 
 
 def make_loss_fn():
-    """``(model, {"inputs", "targets"}, generator) -> (loss, metrics)``:
+    """``(model, {"inputs", "targets"}, key) -> (loss, metrics)``:
     the mean token cross-entropy of the f32 logits (optax's
     ``softmax_cross_entropy_with_integer_labels(...).mean()``) and the
     argmax accuracy (first index on ties, as ``jnp.argmax``). MoE layers,
     whose aux loss the JAX function adds, raise in ``cfg.validate()``."""
 
-    def loss_fn(model: TransformerLM, batch, generator=None):
-        del generator  # no dropout in the ported model
+    def loss_fn(model: TransformerLM, batch, key=None):
+        del key  # the model draws nothing
         targets = batch["targets"].long()
         logits = model(batch["inputs"])
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),

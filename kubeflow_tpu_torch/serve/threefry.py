@@ -24,6 +24,8 @@ CUDA. Seeds are 32-bit, as the engine's int32 seed mirror holds them.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -117,18 +119,41 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
 
 
+def key_of(seed: int, *data: int) -> torch.Tensor:
+    """``fold_in(...fold_in(PRNGKey(seed), data[0])..., data[-1])``
+    computed on the host with Python integers: a ``(2,)`` int64 CPU
+    tensor, the key the JAX trainer folds a step (and a microbatch) into."""
+    k = (0, seed & MASK)
+    for d in data:
+        k = threefry2x32(*k, 0, d & MASK)
+    return torch.tensor(k, dtype=torch.int64)
+
+
+def uniform_one_key(key, shape, device, minval: float = 0.0,
+                    maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)`` of ONE
+    key: element ``i`` in row-major order comes from counter ``(0, i)``,
+    the flat index partitionable threefry gives any shape, so a 2-D draw
+    is the flat draw reshaped. ``key`` is a ``(2,)`` tensor or a pair of
+    words; the bits are computed on ``device``."""
+    k1, k2 = (int(w) for w in (key.tolist() if torch.is_tensor(key) else key))
+    n = math.prod(shape)
+    lo = torch.arange(n, device=device, dtype=torch.int64)
+    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
+    return _to_uniform(b1 ^ b2, minval, maxval).reshape(shape)
+
+
+def bernoulli(key, p: float, shape, device) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)``: ``uniform(key, shape) <
+    p`` with ``p`` rounded to f32 first, as JAX casts it."""
+    return uniform_one_key(key, shape, device) < float(np.float32(p))
+
+
 def categorical_one_key(key, logits: torch.Tensor) -> torch.Tensor:
     """``jax.random.categorical(key, logits, axis=-1)`` of ONE key over
     f32 ``logits (B, V)``: the Gumbel noise of element ``(b, v)`` comes
-    from counter ``(0, b·V + v)``, the flat row-major index that
-    partitionable threefry gives a ``(B, V)`` draw. ``key`` is a ``(2,)``
-    tensor or a pair of words; the bits are computed on the logits'
-    device."""
-    k1, k2 = (int(w) for w in (key.tolist() if torch.is_tensor(key) else key))
-    B, V = logits.shape
-    lo = torch.arange(B * V, device=logits.device, dtype=torch.int64)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(lo), lo)
-    u = _to_uniform(b1 ^ b2, TINY, 1.0).reshape(B, V)
+    from counter ``(0, b·V + v)`` (:func:`uniform_one_key`)."""
+    u = uniform_one_key(key, logits.shape, logits.device, TINY, 1.0)
     return torch.argmax(-torch.log(-torch.log(u)) + logits, dim=-1)
 
 

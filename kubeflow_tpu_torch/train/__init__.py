@@ -7,4 +7,4 @@ from kubeflow_tpu_torch.train.checkpoint import (  # noqa: F401
 )
 from kubeflow_tpu_torch.train.loop import TrainConfig, Trainer  # noqa: F401
 from kubeflow_tpu_torch.train.metrics import MetricWriter  # noqa: F401
-from kubeflow_tpu_torch.train.optim import adamw  # noqa: F401
+from kubeflow_tpu_torch.train.optim import adam, adamw  # noqa: F401

@@ -10,10 +10,16 @@ spelling of the JAX one: the forward in ``cfg.dtype`` over f32 master
 weights, ``loss.backward()``, ``optimizer.step()``; the optimizer updates
 the weights in place, which is what ``donate_state`` buys in JAX.
 
+The loss's third argument is the JAX step key: ``fold_in(PRNGKey(seed),
+step)``, folded again with the microbatch index under gradient
+accumulation, from the port's own threefry (``serve/threefry.py``), so a
+loss that draws from it (the BERT MLM mask) draws what the JAX loss
+draws. ``check_numerics="checkify"`` and ``debug_nans`` run the step
+under ``train/numerics.py``'s hooks for the length of ``fit``.
+
 Only the single-device layout is ported: ``mesh`` must be ``None``.
-Sharding (``param_spec_fn``), checkify, ``debug_nans`` and the
-orchestrator heartbeat raise ``NotImplementedError`` naming their
-ROADMAP item.
+Sharding (``param_spec_fn``) and the orchestrator heartbeat raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,12 +36,15 @@ from typing import Any, Callable, Iterable, Mapping
 import torch
 
 from kubeflow_tpu_torch import resolve_device
+from kubeflow_tpu_torch.serve.threefry import key_of
 from kubeflow_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
 from kubeflow_tpu_torch.train.metrics import MetricWriter
+from kubeflow_tpu_torch.train.numerics import NumericsGuard
 from kubeflow_tpu_torch.train.prefetch import (
     MetricsDrain,
     device_placer,
     make_fetcher,
+    map_batch,
 )
 
 logger = logging.getLogger(__name__)
@@ -102,8 +111,13 @@ class TrainConfig:
     #: each holds device memory
     prefetch_depth: int = 2
     #: "metrics": the MetricWriter raises NonFiniteMetricError on a NaN/inf
-    #: logged metric; "off": no checks; "checkify" is not ported
+    #: logged metric; "checkify": every step's outputs, gradients and loss
+    #: are tested on the card, read back once a step, and the first
+    #: non-finite one raises ``CheckifyError`` naming its module or
+    #: parameter before the update; "off": no checks
     check_numerics: str = "metrics"
+    #: raise FloatingPointError at the first non-finite module output or
+    #: gradient (a sync per test), for the length of ``fit``
     debug_nans: bool = False
 
     def __post_init__(self) -> None:
@@ -134,23 +148,14 @@ class TrainConfig:
                 "TrainConfig.mesh: only mesh=None (one device) is ported; "
                 "meshes are ROADMAP queue 1 item 10"
             )
-        if self.check_numerics == "checkify":
-            raise NotImplementedError(
-                "check_numerics='checkify' is not ported (ROADMAP queue 1 "
-                "item 9, the rest of the training path)"
-            )
-        if self.debug_nans:
-            raise NotImplementedError(
-                "debug_nans is not ported (ROADMAP queue 1 item 9, the rest "
-                "of the training path)"
-            )
 
 
 class Trainer:
     """Single-device trainer.
 
     ``init_params(seed, device) -> nn.Module`` builds the model with f32
-    parameters; ``loss_fn(model, batch, generator) -> (loss, aux_dict)``;
+    parameters; ``loss_fn(model, batch, key) -> (loss, aux_dict)``, with
+    ``key`` the JAX step key as a ``(2,)`` int64 CPU tensor;
     ``optimizer(parameters) -> torch.optim.Optimizer`` (``train/optim.py``).
     ``device=None`` means the CUDA card.
     """
@@ -178,6 +183,8 @@ class Trainer:
         #: preemption notice (SIGTERM or an explicit call), checked between
         #: steps
         self._preempt = threading.Event()
+        #: checkify / debug_nans hooks, installed for the length of ``fit``
+        self._guard: NumericsGuard | None = None
 
     def request_preemption(self) -> None:
         """Deliver a preemption notice in-process (what the SIGTERM handler
@@ -201,36 +208,31 @@ class Trainer:
         model.train()
         return TrainState(model, self.optimizer(model.parameters()), 0)
 
-    def _generator(self, *key: int) -> torch.Generator:
-        """A generator for (seed, step[, microbatch]): ``fold_in``'s role."""
-        seed = self.config.seed
-        for k in key:
-            seed = (seed * 1_000_003 + k + 1) % (2**63 - 1)
-        return torch.Generator(device=self.device).manual_seed(seed)
-
-    def _step(self, state: TrainState, batch: Mapping[str, torch.Tensor]) -> dict:
+    def _step(self, state: TrainState, batch: Any) -> dict:
         """One optimizer step; returns the step's metric tensors (not
-        synchronised)."""
+        synchronised, unless checked numerics read them back)."""
         accum = self.config.grad_accum_steps
         model, opt = state.model, state.optimizer
         opt.zero_grad(set_to_none=True)
+        key = key_of(self.config.seed, state.step)
         if accum == 1:
-            loss, aux = self.loss_fn(model, batch, self._generator(state.step))
+            loss, aux = self.loss_fn(model, batch, key)
             loss.backward()
             aux = dict(aux)
         else:
-            micro = {k: v.chunk(accum) for k, v in batch.items()}
             loss, aux = 0.0, {}
             for i in range(accum):
-                mb = {k: v[i] for k, v in micro.items()}
+                mb = map_batch(lambda v: v.chunk(accum)[i], batch)
                 loss_i, aux_i = self.loss_fn(
-                    model, mb, self._generator(state.step, i))
+                    model, mb, key_of(self.config.seed, state.step, i))
                 (loss_i / accum).backward()
                 loss = loss + loss_i.detach()
                 for k, v in aux_i.items():
                     aux[k] = aux.get(k, 0.0) + v
             loss = loss / accum
             aux = {k: v / accum for k, v in aux.items()}
+        if self._guard is not None:
+            self._guard.check_step(model, loss, state.step)
         opt.step()
         state.step += 1
         return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
@@ -307,6 +309,10 @@ class Trainer:
         ckpt: Checkpointer | None = None
         try:
             state = self.init_state()
+            mode = ("debug_nans" if cfg.debug_nans else
+                    "checkify" if cfg.check_numerics == "checkify" else None)
+            if mode is not None:
+                self._guard = NumericsGuard(state.model, mode)
             start_step = 0
             if cfg.checkpoint is not None:
                 ckpt = Checkpointer(cfg.checkpoint)
@@ -332,6 +338,9 @@ class Trainer:
             return self._fit_loop(state, it, ckpt, writer, hooks, history,
                                   start_step)
         finally:
+            if self._guard is not None:
+                self._guard.remove()
+                self._guard = None
             if sigterm_installed:
                 try:
                     _signal.signal(

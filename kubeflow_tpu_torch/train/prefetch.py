@@ -41,46 +41,64 @@ DRAIN_THREAD_NAME = "kft-metrics-drain"
 # placement
 # --------------------------------------------------------------------- #
 
+def map_batch(fn: Callable[[Any], Any], batch: Any) -> Any:
+    """``fn`` applied to every leaf of a batch: a dict (``{"inputs",
+    "targets"}``), a tuple or list (``(images, labels)``), or one array."""
+    if isinstance(batch, Mapping):
+        return {k: fn(v) for k, v in batch.items()}
+    if isinstance(batch, (tuple, list)):
+        return type(batch)(fn(v) for v in batch)
+    return fn(batch)
+
+
+def batch_leaves(batch: Any) -> list:
+    """The leaves of a batch, in :func:`map_batch`'s order."""
+    leaves: list = []
+    map_batch(leaves.append, batch)
+    return leaves
+
+
 class PlacedBatch:
     """A batch already on its device, with the event its copy recorded
     (``None`` on the CPU)."""
 
     __slots__ = ("tensors", "event")
 
-    def __init__(self, tensors: dict, event: torch.cuda.Event | None):
+    def __init__(self, tensors: Any, event: torch.cuda.Event | None):
         self.tensors = tensors
         self.event = event
 
-    def claim(self) -> dict:
+    def claim(self) -> Any:
         """The tensors, made safe to use on the current stream."""
         if self.event is not None:
             stream = torch.cuda.current_stream(self.event.device)
             stream.wait_event(self.event)
-            for t in self.tensors.values():
+            for t in batch_leaves(self.tensors):
                 t.record_stream(stream)
         return self.tensors
 
 
-def device_placer(device: torch.device) -> Callable[[Mapping[str, Any]], PlacedBatch]:
-    """``place(host_batch) -> PlacedBatch`` for ``device``: numpy arrays
-    become tensors; on CUDA through pinned memory and a side stream."""
+def device_placer(device: torch.device) -> Callable[[Any], PlacedBatch]:
+    """``place(host_batch) -> PlacedBatch`` for ``device``: the numpy
+    arrays of a batch (:func:`map_batch`) become tensors; on CUDA through
+    pinned memory and a side stream."""
     if device.type != "cuda":
-        def place_cpu(host: Mapping[str, Any]) -> PlacedBatch:
+        def place_cpu(host: Any) -> PlacedBatch:
             return PlacedBatch(
-                {k: torch.from_numpy(np.array(v)) for k, v in host.items()}, None
+                map_batch(lambda v: torch.from_numpy(np.array(v)), host), None
             )
 
         return place_cpu
 
     stream = torch.cuda.Stream(device)
 
-    def place(host: Mapping[str, Any]) -> PlacedBatch:
+    def place(host: Any) -> PlacedBatch:
         with torch.cuda.stream(stream):
-            out = {
-                k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
-                    device, non_blocking=True)
-                for k, v in host.items()
-            }
+            out = map_batch(
+                lambda v: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
+                    device, non_blocking=True),
+                host,
+            )
             event = torch.cuda.Event()
             event.record(stream)
         return PlacedBatch(out, event)

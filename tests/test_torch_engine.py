@@ -252,13 +252,31 @@ UNPORTED_MODEL = [
     ("dropout", dict(dropout_rate=0.1)),
     ("onehot_embed", dict(embed_impl="onehot")),
 ]
+#: knobs this list once held that are ported now: they build a model
+#: that scores what the plain model scores
+PORTED_MODEL = ("remat", "dropout")
 
 
 @pytest.mark.parametrize("name,knob", UNPORTED_MODEL,
                          ids=[u[0] for u in UNPORTED_MODEL])
 def test_unported_model_knobs_raise(name, knob):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TransformerLM(TransformerConfig(**KW, **knob), device="cpu")
+    """An unported knob raises naming its ROADMAP item. ``remat`` and
+    ``dropout_rate`` are ported: the model's logits, with and without
+    gradients recorded (remat runs only when they are), equal the plain
+    model's from the same weights (``tests/test_torch_zoo.py`` holds
+    remat's gradients)."""
+    if name not in PORTED_MODEL:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TransformerLM(TransformerConfig(**KW, **knob), device="cpu")
+        return
+    _, plain = _models()
+    model = TransformerLM(TransformerConfig(**KW, **knob), device="cpu")
+    model.load_state_dict(plain.state_dict())
+    toks = torch.tensor(_prompts(5, (12, 12)))
+    with torch.no_grad():
+        want = plain(toks)
+        torch.testing.assert_close(model.eval()(toks), want, rtol=0, atol=0)
+    torch.testing.assert_close(model.train()(toks).detach(), want, rtol=0, atol=0)
 
 
 def test_dense_cache_branch_raises():

@@ -8,7 +8,7 @@ parameters, optax's ``adamw`` against the port's. Then the JAX trainer's
 contracts of ``tests/test_train.py`` are re-run on the port: gradient
 accumulation, prefetch on/off, checkpoint resume, corrupt-step walk-back,
 preemption, the NaN alarm, thread joins, and every unported knob
-raising. Sizes: 2 layers, d_model 64, 4 heads, 2 kv heads, vocab 128,
+raising (the ported ``checkify`` and ``debug_nans`` training a step). Sizes: 2 layers, d_model 64, 4 heads, 2 kv heads, vocab 128,
 sequence 32.
 """
 
@@ -349,11 +349,26 @@ UNPORTED = [
 ]
 
 
+#: knobs this list once held that are ported now: the config builds and a
+#: clean one-step fit succeeds under it
+PORTED = ("checkify", "debug_nans")
+
+
 @pytest.mark.parametrize("name,make", UNPORTED, ids=[u[0] for u in UNPORTED])
 def test_unported_knobs_raise(name, make, tmp_path, monkeypatch):
+    """An unported knob raises naming its ROADMAP item. ``checkify`` and
+    ``debug_nans`` are ported (``tests/test_torch_numerics.py`` holds
+    them): the config builds and one clean step trains."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make()
+    if name not in PORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            make()
+        return
+    cfg = make()
+    t = _trainer(steps=1, check_numerics=cfg.check_numerics,
+                 debug_nans=cfg.debug_nans)
+    state, hist = t.fit(_data())
+    assert state.step == 1 and np.isfinite(hist[0]["loss"])
 
 
 def test_orchestrator_heartbeat_wiring_raises(monkeypatch, tmp_path):
