@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs thirteen phases:
+sm_90a, into the git-ignored ``build/``) and runs fourteen phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -116,7 +116,22 @@ sm_90a, into the git-ignored ``build/``) and runs thirteen phases:
    default; step ms a mode); (e) ``examples/mnist.py``'s fit (batch 64,
    ``adam(1e-3)``, 100 steps) and ResNet-50 CIFAR in bf16 at batch 64,
    ``adam(3e-5)``, 10 steps (step ms);
-13. load — the JAX ``bench_serving_load``'s three runs (``bench.py:
+13. mesh — the parallel training path in one world of four ranks on
+   this card, spawned once (``core/distributed.py`` ``launch``; gloo,
+   collectives staged through pinned host memory): (a) ring and Ulysses
+   attention over ``seq=4`` against one-rank flash at row 2's and row
+   2d's shapes, forward and gradients, ring rank j launching each flash
+   kernel 1 + j times; (b) ``Trainer.fit`` of the full-width LM in bf16,
+   3 steps of 8 x 512 under ``MeshSpec(model=2, seq=2)``, ring attention,
+   the ``onehot`` embedding and ``transformer_rules()`` (step ms,
+   tokens/s, MFU, loss, launches a step by rank, bytes staged, peak
+   memory); (c) the same LM with MoE every second block under
+   ``MeshSpec(fsdp=2, expert=2)`` (``moe_dropped_frac``, aux loss);
+   (d) f32 parity of both meshes at 2 layers against the one-rank
+   trainer; (e) 1F1B against GPipe on ``MeshSpec(pipe=4)``. The flash
+   launches of (a)-(c) are counted by shape too, and a launched shape
+   that no kernels-phase case holds against the twin fails the phase;
+14. load — the JAX ``bench_serving_load``'s three runs (``bench.py:
    625-660``: its mix, seeds, rates, durations and KPA shapes) through the
    port's ``run_serving_load``: an open-loop client, the gateway, the KPA
    autoscaler and a fleet of full-width bf16 replicas on the paged pool
@@ -133,7 +148,7 @@ sm_90a, into the git-ignored ``build/``) and runs thirteen phases:
    or a run without paged launches on both bodies.
 
 Each phase prints one JSON line (load: one a run, then its summary;
-mlm: one a part).
+mlm and mesh: one a part).
 The line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is ``{"ok": true,
 "device": {...}}``. Any failed phase, or a host without CUDA or without
@@ -162,7 +177,7 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
-          "disagg", "fleet", "dense", "bert", "train", "mlm", "load")
+          "disagg", "fleet", "dense", "bert", "train", "mlm", "mesh", "load")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -528,6 +543,22 @@ def flash_cases(torch):
         # segment a row (the loss passes no padding mask)
         ("mlm_s128_bf16", dict(B=32, H=12, D=64, S=128, causal=False,
                                ones=True, dtype=torch.bfloat16)),
+        # ring attention's hops (mesh phase): Sq = Skv = S/seq, the causal
+        # diagonal and the full blocks of earlier ranks. (b): seq=2 with 8
+        # of 16 heads a model rank; (a): seq=4, bf16 and f32 (its causal
+        # hops are causal_s128_bf16 / _f32)
+        ("ring_hop_s256_h8_bf16", dict(B=8, H=8, D=64, S=256, dtype=torch.bfloat16)),
+        ("ring_hop_full_s256_h8_bf16", dict(B=8, H=8, D=64, S=256, causal=False,
+                                            dtype=torch.bfloat16)),
+        ("ring_hop_full_s128_bf16", dict(base, S=128, causal=False,
+                                         dtype=torch.bfloat16)),
+        ("ring_hop_full_s128_f32", dict(base, S=128, causal=False,
+                                        dtype=torch.float32)),
+        # (c): the MoE LM's attention over its fsdp=2 rows (B=4 a rank)
+        ("mesh_fsdp_b4_s512_bf16", dict(base, B=4, S=512, dtype=torch.bfloat16)),
+        # (a)'s Ulysses: the whole sequence, 16 / seq=4 heads a rank
+        ("ulysses_s512_h4_bf16", dict(base, H=4, S=512, dtype=torch.bfloat16)),
+        ("ulysses_s512_h4_f32", dict(base, H=4, S=512, dtype=torch.float32)),
     ]
 
 
@@ -682,7 +713,33 @@ def bwd_cases(torch):
         # 128): non-causal, one segment a row
         ("mlm_s128_bf16", dict(B=32, H=12, D=64, S=128, causal=False,
                                ones=True, dtype=torch.bfloat16)),
+        # ring attention's backward hops (mesh phase), as the forward's
+        ("ring_hop_s256_h8_bf16", dict(base, H=8, S=256, dtype=torch.bfloat16)),
+        ("ring_hop_full_s256_h8_bf16", dict(base, H=8, S=256, causal=False,
+                                            dtype=torch.bfloat16)),
+        ("ring_hop_s128_bf16", dict(base, S=128, dtype=torch.bfloat16)),
+        ("ring_hop_full_s128_bf16", dict(base, S=128, causal=False,
+                                         dtype=torch.bfloat16)),
+        ("ring_hop_full_s128_f32", dict(base, S=128, causal=False,
+                                        dtype=torch.float32)),
+        # the MoE LM's and (a)'s Ulysses backward, as the forward's
+        ("mesh_fsdp_b4_s512_bf16", dict(base, B=4, S=512, dtype=torch.bfloat16)),
+        ("ulysses_s512_h4_bf16", dict(base, H=4, S=512, dtype=torch.bfloat16)),
+        ("ulysses_s512_h4_f32", dict(base, H=4, S=512, dtype=torch.float32)),
     ]
+
+
+def case_shape(c) -> str:
+    """A flash case's shape as the wrappers' ``*_BY_SHAPE`` counters name
+    it."""
+    from kubeflow_tpu_torch.ops.flash_attention import shape_key
+
+    return shape_key(c["dtype"], c["B"], c["H"], c.get("Sq", c["S"]), c["S"],
+                     c["D"], c.get("causal", True))
+
+
+#: the cases of the mesh phase's shapes (their results feed the kernels line)
+MESH_CASE_PREFIXES = ("ring_hop", "mesh_fsdp", "ulysses")
 
 
 def bwd_tolerance(torch, fa, q, k, v, out, lse, dout, kw, refs):
@@ -920,6 +977,8 @@ def phase_kernels(torch, state):
             state["bwd_f32"] = r
         elif name in ("mlm_s128_bf16", "bert_s128_f32"):
             state.setdefault("bwd_mlm", {})[name] = r
+        elif name.startswith(MESH_CASE_PREFIXES):
+            state.setdefault("bwd_mesh", {})[name] = dict(r, shape=case_shape(c))
     for name, c in paged_cases(torch):
         r = run_paged_case(torch, name, c, flush)
         emit(r)
@@ -942,6 +1001,8 @@ def phase_kernels(torch, state):
             state.setdefault("flash_bert", {})[name] = r
         elif name == "mlm_s128_bf16":
             state["flash_mlm"] = r
+        elif name.startswith(MESH_CASE_PREFIXES):
+            state.setdefault("flash_mesh", {})[name] = dict(r, shape=case_shape(c))
     return ok
 
 
@@ -2980,6 +3041,9 @@ def _zero_flash_counts(fa, fb):
     for counts in (fa.LAUNCHES_BY_BODY, fb.DQ_LAUNCHES_BY_BODY, fb.DKV_LAUNCHES_BY_BODY):
         for k in counts:
             counts[k] = 0
+    for counts in (fa.LAUNCHES_BY_SHAPE, fb.DQ_LAUNCHES_BY_SHAPE,
+                   fb.DKV_LAUNCHES_BY_SHAPE):
+        counts.clear()
 
 
 def _flash_counts_by_body(fa, fb):
@@ -3486,7 +3550,431 @@ def phase_mlm(torch, state):
 
 
 # --------------------------------------------------------------------------- #
-# phase 13: open-loop load through the gateway over an autoscaled fleet
+# phase 13: the parallel training path, four ranks on one card
+# --------------------------------------------------------------------------- #
+
+MESH_RANKS = 4
+#: (a)'s shapes: row 2 (bf16) and row 2d's causal f32 at S=512
+MESH_ATTN = dict(B=8, H=16, S=512, D=64)
+MESH_STEPS, MESH_PARITY_STEPS, MESH_PARITY_LAYERS = 3, 2, 2
+#: the pipeline check: ``dryrun_multichip``'s stages and data
+#: (``__graft_entry__.py:139-182``)
+MESH_PIPE = dict(stages=4, width=64, batch=16, micro=4)
+
+
+#: the flash kernels' launch counters, by the kernels line's names
+FLASH_KERNELS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _mesh_counts():
+    """This rank's flash launches by kernel and body, by kernel and shape
+    (``<kernel>_by_shape``), and ring hops."""
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
+    from kubeflow_tpu_torch.parallel import ring_attention as ra
+
+    shapes = (fa.LAUNCHES_BY_SHAPE, fb.DQ_LAUNCHES_BY_SHAPE, fb.DKV_LAUNCHES_BY_SHAPE)
+    return {**_flash_counts_by_body(fa, fb),
+            **{f"{k}_by_shape": dict(c) for k, c in zip(FLASH_KERNELS, shapes)},
+            "ring_hops": ra.HOPS}
+
+
+def _mesh_zero():
+    from kubeflow_tpu_torch.core import collectives as coll
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
+    from kubeflow_tpu_torch.parallel import ring_attention as ra
+
+    _zero_flash_counts(fa, fb)
+    ra.HOPS = 0
+    coll.reset_counters()
+
+
+def _mesh_attention(torch, dist, dev):
+    """(a) ring and Ulysses over seq=4 against one-rank flash on the same
+    inputs, forward and gradients; every rank checks its own block."""
+    from kubeflow_tpu_torch.core.mesh import Axis, MeshSpec, build_mesh
+    from kubeflow_tpu_torch.ops.flash_attention import flash_attention
+    from kubeflow_tpu_torch.parallel.ring_attention import (
+        ring_attention_local, shard_global)
+    from kubeflow_tpu_torch.parallel.ulysses import ulysses_attention_local
+
+    mesh = build_mesh(MeshSpec(seq=MESH_RANKS), device=dev)
+    out = {}
+    c = MESH_ATTN
+    for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        gen = torch.Generator(device=dev).manual_seed(20)
+        shape = (c["B"], c["H"], c["S"], c["D"])
+        q, k, v, dout = (torch.randn(shape, device=dev, generator=gen) / (
+            1.0 if i == 3 else c["D"] ** 0.5) for i in range(4))
+        q, k, v = (t.to(dt) for t in (q, k, v))
+
+        def grads(fn, q, k, v, dout):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+            o = fn(*leaves)
+            o.backward(dout.to(o.dtype))
+            return [o.detach()] + [t.grad for t in leaves]
+
+        full = lambda *a: flash_attention(*a, causal=True)  # noqa: E731
+        for impl, local in (("ring", ring_attention_local),
+                            ("ulysses", ulysses_attention_local)):
+            _mesh_zero()
+            blk = lambda t: shard_global(t, mesh, Axis.SEQ).contiguous()  # noqa: E731
+            got = grads(lambda a, b, cc: local(a, b, cc, causal=True, mesh=mesh),
+                        blk(q), blk(k), blk(v), blk(dout))
+            _mesh_sync(torch, dev)
+            counts = _mesh_counts()
+            # the one-rank kernel and, in f32 units, the f32 run of the same
+            # rounded inputs: the parallel strategy is judged by how far it
+            # sits from f32 against how far one-rank flash in this dtype does
+            want = [blk(t) for t in grads(full, q, k, v, dout)]
+            ref32 = [blk(t) for t in grads(full, q.float(), k.float(), v.float(),
+                                            dout.float())]
+            errs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+            err32 = [float((g.float() - r).abs().max()) for g, r in zip(got, ref32)]
+            base32 = [float((w.float() - r).abs().max()) for w, r in zip(want, ref32)]
+            scale = [float(r.abs().max()) for r in ref32]
+            if dt == torch.float32:
+                ok = errs[0] <= 2e-5 and max(errs[1:]) <= 5e-4
+            else:  # f32 units: no worse than twice one-rank bf16's error + 1e-3 of scale
+                ok = all(e <= 2 * b + 1e-3 * s for e, b, s in zip(err32, base32, scale))
+            out[f"{impl}_{dt_name}"] = {
+                "ok": bool(ok), "max_abs_err_vs_one_rank": errs,
+                "max_abs_err_vs_f32": err32, "one_rank_err_vs_f32": base32,
+                "launches": counts, "seq_rank": mesh.index(Axis.SEQ)}
+    dist.barrier()
+    return out
+
+
+def _mesh_lm(torch, dev, spec_kw, *, dtype, layers, steps, attn_impl, moe,
+             reference=False):
+    """``Trainer.fit`` of the full-width LM (``layers`` deep) under a mesh,
+    or with ``reference`` the one-rank trainer on the same weights and
+    global batches. Returns its figures and, for the parity check, the
+    full final parameters (rank 0)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.core import collectives as coll
+    from kubeflow_tpu_torch.core.mesh import MeshSpec
+    from kubeflow_tpu_torch.data import TokenLMDataset, local_shard_iterator
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, make_init_fn, make_loss_fn)
+    from kubeflow_tpu_torch.parallel.expert import MoEConfig
+    from kubeflow_tpu_torch.parallel.sharding import transformer_rules
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, adamw
+
+    spec = MeshSpec(**spec_kw)
+    cfg = TransformerConfig(**dict(MODEL, n_layers=layers), dtype=dtype,
+                            attn_impl=attn_impl, embed_impl="onehot",
+                            moe_every=2 if moe else 0, moe=MoEConfig())
+    ds = TokenLMDataset(vocab_size=MODEL["vocab_size"], seq_len=TRAIN_SEQ, seed=0)
+    trainer = Trainer(
+        init_params=make_init_fn(cfg), loss_fn=make_loss_fn(), optimizer=adamw(1e-3),
+        config=TrainConfig(mesh=None if reference else spec,
+                           global_batch=TRAIN_BATCH, steps=steps, log_every=1,
+                           prefetch_depth=0),
+        param_spec_fn=None if reference else transformer_rules(), device=dev)
+
+    def data(start):
+        if not reference:
+            return local_shard_iterator(ds, TRAIN_BATCH, start_step=start,
+                                        mesh=trainer.mesh)
+
+        def glob():  # the partitions' rows in partition order
+            parts = spec.batch_partitions
+            step = start
+            while True:
+                rows = [ds.batch(TRAIN_BATCH // parts, step=step, offset=p)
+                        for p in range(parts)]
+                yield {k: np.concatenate([r[k] for r in rows]) for k in rows[0]}
+                step += 1
+        return glob()
+
+    _mesh_zero()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    ready = {}
+
+    def stamp(step, m):
+        ready[step] = time.perf_counter()
+
+    state, history = trainer.fit(data, writer=_quiet_writer(), hooks=[stamp])
+    _mesh_sync(torch, dev)
+    counts = _mesh_counts()
+    step_ms = [(ready[s] - ready[s - 1]) * 1e3 for s in range(2, steps + 1)]
+    res = {"losses": [h["loss"] for h in history],
+           "moe_dropped_frac": [h.get("moe_dropped_frac") for h in history],
+           "moe_aux": [h.get("moe_aux") for h in history],
+           "step_ms": statistics.median(step_ms) if step_ms else None,
+           "launches_per_step": {k: ({b: n / steps for b, n in v.items()}
+                                     if isinstance(v, dict) else v / steps)
+                                 for k, v in counts.items()},
+           "staged_bytes_per_step": coll.STAGED_BYTES / steps,
+           "collective_ms_per_step": coll.COLLECTIVE_S * 1e3 / steps,
+           "collective_calls_per_step": {k: n / steps for k, n in
+                                         coll.COLLECTIVE_CALLS.items()},
+           "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                       if dev.type == "cuda" else None)}
+    return res, trainer, state
+
+
+def _mesh_pipeline(torch, dev):
+    """(e) 1F1B against GPipe on pipe=4 with ``dryrun_multichip``'s stage
+    function and data."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from kubeflow_tpu_torch.parallel.pipeline import (
+        live_activation_buffers, pipeline_value_and_grad)
+
+    p = MESH_PIPE
+    mesh = build_mesh(MeshSpec(pipe=p["stages"]), device=dev)
+    rng = np.random.RandomState(0)
+    w = torch.tensor(rng.randn(p["stages"], p["width"], p["width"]) * 0.2,
+                     dtype=torch.float32, device=dev)
+    x = torch.tensor(rng.randn(p["batch"], p["width"]), dtype=torch.float32,
+                     device=dev)
+    stage = lambda prm, h: torch.tanh(h @ prm["w"])  # noqa: E731
+    loss = lambda y: (y ** 2).mean()  # noqa: E731
+    out = {}
+    for sched in ("gpipe", "1f1b"):
+        stats = {}
+        lv, g = pipeline_value_and_grad(stage, loss, {"w": w}, x, mesh,
+                                        n_microbatches=p["micro"],
+                                        schedule=sched, stats=stats)
+        out[sched] = (float(lv), g["w"].float().cpu(), stats["live_buffers"])
+    (lg, gg, bg), (l1, g1, b1) = out["gpipe"], out["1f1b"]
+    gerr = float((gg - g1).abs().max())
+    return {"loss_gpipe": lg, "loss_1f1b": l1, "loss_diff": abs(lg - l1),
+            "grad_max_abs_diff": gerr,
+            "ok": abs(lg - l1) < 1e-5 and gerr < 1e-4,
+            "live_buffers_measured": {"gpipe": bg, "1f1b": b1},
+            "live_activation_buffers": {
+                s: live_activation_buffers(s, p["stages"], p["micro"])
+                for s in ("gpipe", "1f1b")}}
+
+
+def _mesh_sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _mesh_rank(device="cuda"):
+    """One rank of the mesh phase (all four run this): (a)-(e) in order;
+    returns this rank's figures. Any exception fails the world.
+    (``device="cpu"`` runs the same code on the kernels' plain twins.)"""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.core.mesh import Axis
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    res = {"rank": rank, "backend": dist.get_backend(),
+           "a_attention": _mesh_attention(torch, dist, dev)}
+    # (b) the full-width LM over model=2 x seq=2 with ring attention
+    ring_kw = dict(model=2, seq=2)
+    res["b_ring_lm"], tr, st = _mesh_lm(
+        torch, dev, ring_kw, dtype=torch.bfloat16, layers=MODEL["n_layers"],
+        steps=MESH_STEPS, attn_impl="ring", moe=False)
+    res["b_ring_lm"]["seq_rank"] = tr.mesh.index(Axis.SEQ)
+    del tr, st
+    # (c) the same LM with MoE every second block over fsdp=2 x expert=2
+    moe_kw = dict(fsdp=2, expert=2)
+    res["c_moe_lm"], tr, st = _mesh_lm(
+        torch, dev, moe_kw, dtype=torch.bfloat16, layers=MODEL["n_layers"],
+        steps=MESH_STEPS, attn_impl="flash", moe=True)
+    del tr, st
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    # (d) f32 parity at 2 layers against the one-rank trainer (rank 0)
+    res["d_parity"] = {}
+    for name, kw, impl, moe in (("ring", ring_kw, "ring", False),
+                                ("moe", moe_kw, "flash", True)):
+        got, tr, st = _mesh_lm(torch, dev, kw, dtype=torch.float32,
+                               layers=MESH_PARITY_LAYERS,
+                               steps=MESH_PARITY_STEPS, attn_impl=impl, moe=moe)
+        full = {k: v.float().cpu() for k, v in
+                tr.full_state_dict(st)["model"].items()}
+        del tr, st
+        entry = {"losses": got["losses"], "moe_dropped_frac": got["moe_dropped_frac"]}
+        if rank == 0:
+            want, ref, rst = _mesh_lm(torch, dev, kw, dtype=torch.float32,
+                                      layers=MESH_PARITY_LAYERS,
+                                      steps=MESH_PARITY_STEPS, attn_impl="flash",
+                                      moe=moe, reference=True)
+            wfull = {k: v.float().cpu() for k, v in rst.model.state_dict().items()}
+            del ref, rst
+            diffs = {k: (full[k] - wfull[k]).abs() for k in wfull}
+            worst = max(diffs, key=lambda k: float(diffs[k].max()))
+            close = float(sum(int((d <= 1e-5).sum()) for d in diffs.values())
+                          / sum(d.numel() for d in diffs.values()))
+            loss_rel = max(abs(a - b) / abs(b) for a, b in
+                           zip(got["losses"], want["losses"]))
+            drop = [abs(a - b) for a, b in zip(got["moe_dropped_frac"],
+                                                want["moe_dropped_frac"])
+                    if a is not None]
+            tokens = TRAIN_BATCH * TRAIN_SEQ * 2  # top-2 choices a token
+            entry.update({
+                "reference_losses": want["losses"],
+                "reference_moe_dropped_frac": want["moe_dropped_frac"],
+                "loss_max_rel_diff": loss_rel,
+                "moe_dropped_frac_max_diff": max(drop) if drop else 0.0,
+                "param_max_abs_diff": float(diffs[worst].max()),
+                "param_worst": worst, "param_frac_within_1e-5": close,
+                # losses within 2e-5; drops within 4 of the k x T choices;
+                # weights within 2 lr (all Adam can part two runs in 2
+                # steps) and nearly all within 1e-5
+                "ok": (loss_rel <= 2e-5 and (max(drop) if drop else 0.0) <= 4 / tokens
+                       and float(diffs[worst].max()) <= 2e-3 and close >= 0.999)})
+        dist.barrier()
+        res["d_parity"][name] = entry
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    res["e_pipeline"] = _mesh_pipeline(torch, dev)
+    return res
+
+
+def phase_mesh(torch, state):
+    """One world of four ranks on this card (gloo, host-staged; spawned
+    once, the kernels built here first): (a) ring and Ulysses over seq=4
+    against one-rank flash at rows 2 and 2d's shapes, forward and
+    gradients, with each rank's launches (ring: 1 + j forward, dq and
+    dk/dv launches on seq rank j) and hops; (b) ``Trainer.fit`` of the
+    full-width LM in bf16 over f32 weights, 3 steps of 8 x 512 under
+    ``MeshSpec(model=2, seq=2)`` with ring attention, the ``onehot``
+    embedding and ``transformer_rules()``: step ms, tokens/s, MFU
+    (989 TFLOP/s, one card), the loss, flash launches a step by rank
+    (12 (1 + j) of each), bytes staged through the host a step, peak
+    memory by rank; (c) the same LM with MoE every second block
+    (``MoEConfig()``) under ``MeshSpec(fsdp=2, expert=2)`` on flash:
+    the same figures and ``moe_dropped_frac`` and the aux loss; (d) f32
+    at full width, 2 layers, 2 steps, both meshes against the one-rank
+    trainer on the same weights and batches (losses, drops, weights);
+    (e) 1F1B against GPipe on ``MeshSpec(pipe=4)`` with
+    ``dryrun_multichip``'s stages (losses within 1e-5, gradients 1e-4,
+    the live activation buffers). A line a part and a closing one with
+    the backend and the wall seconds. The step times of four ranks
+    sharing one card and the host link say nothing of a multi-card job."""
+    from kubeflow_tpu_torch.core.distributed import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(_mesh_rank, MESH_RANKS, timeout_s=900.0, pg_timeout_s=300.0)
+    ok = True
+    by_rank = sorted(ranks, key=lambda r: r["rank"])
+    # (a)
+    for name in by_rank[0]["a_attention"]:
+        rows = [r["a_attention"][name] for r in by_rank]
+        good = all(x["ok"] for x in rows)
+        if name.startswith("ring"):
+            # rank j ran the diagonal and j full hops, each kernel once a hop
+            for x in rows:
+                j = x["seq_rank"]
+                c = x["launches"]
+                good &= all(sum(c[k].values()) == 1 + j for k in
+                            ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"))
+                good &= c["ring_hops"] == 2 * (1 + j)
+        else:  # one kernel of each over the full sequence, local heads
+            good &= all(sum(x["launches"][k].values()) == 1 for x in rows
+                        for k in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"))
+        ok &= good
+        emit({"phase": "mesh", "part": "a_attention", "case": name, "ok": good,
+              "shape": MESH_ATTN, "causal": True,
+              "tolerance": ("2e-5 out, 5e-4 grads against one-rank flash"
+                            if name.endswith("f32") else
+                            "f32 units: error against f32 <= 2 x one-rank "
+                            "bf16 flash's + 1e-3 x the largest value"),
+              "by_rank": [{k: x[k] for k in ("seq_rank", "launches",
+                                             "max_abs_err_vs_one_rank",
+                                             "max_abs_err_vs_f32",
+                                             "one_rank_err_vs_f32")} for x in rows]})
+    # (b), (c)
+    flops = train_flops_per_step()
+    for part in ("b_ring_lm", "c_moe_lm"):
+        rows = [r[part] for r in by_rank]
+        r0 = rows[0]
+        losses = r0["losses"]
+        good = all(math.isfinite(x) for x in losses) and all(
+            x["losses"] == losses for x in rows)
+        if part == "b_ring_lm":
+            for x in rows:
+                want = MODEL["n_layers"] * (1 + x["seq_rank"])
+                good &= all(sum(x["launches_per_step"][k].values()) == want
+                            for k in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"))
+        else:
+            good &= all(sum(x["launches_per_step"][k].values()) == MODEL["n_layers"]
+                        for x in rows for k in ("flash_forward", "flash_bwd_dq",
+                                                "flash_bwd_dkv"))
+            good &= all(f is not None and 0.0 <= f < 1.0 for f in r0["moe_dropped_frac"])
+        step_ms = statistics.median(x["step_ms"] for x in rows)
+        ok &= good
+        emit({"phase": "mesh", "part": part, "ok": good,
+              "mesh": {"model": 2, "seq": 2} if part == "b_ring_lm" else
+              {"fsdp": 2, "expert": 2},
+              "attn_impl": "ring" if part == "b_ring_lm" else "flash",
+              "steps": MESH_STEPS, "tokens_per_step": TRAIN_BATCH * TRAIN_SEQ,
+              "loss": losses, "step_ms": step_ms,
+              "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3),
+              "mfu_bf16_one_card": flops / (step_ms / 1e3) / PEAK_FLOPS["bf16"],
+              **({"moe_dropped_frac": r0["moe_dropped_frac"],
+                  "moe_aux": r0["moe_aux"]} if part == "c_moe_lm" else {}),
+              "by_rank": [{k: x.get(k) for k in (
+                  "seq_rank", "launches_per_step", "staged_bytes_per_step",
+                  "collective_ms_per_step", "collective_calls_per_step",
+                  "peak_gb", "step_ms")} for x in rows]})
+    # (d)
+    for name, entry in by_rank[0]["d_parity"].items():
+        good = entry["ok"] and all(r["d_parity"][name]["losses"] == entry["losses"]
+                                   for r in by_rank)
+        ok &= good
+        emit({"phase": "mesh", "part": "d_parity", "case": name, "ok": good,
+              "dtype": "f32", "tf32": False, "layers": MESH_PARITY_LAYERS,
+              "steps": MESH_PARITY_STEPS, **entry})
+    # (e)
+    pipe = by_rank[0]["e_pipeline"]
+    good = all(r["e_pipeline"]["ok"] for r in by_rank)
+    ok &= good
+    emit({"phase": "mesh", "part": "e_pipeline", "ok": good, **pipe,
+          "by_rank_live_buffers": [r["e_pipeline"]["live_buffers_measured"]
+                                   for r in by_rank]})
+    # the flash launches of the phase's main path, every rank and part,
+    # by body and by shape
+    total, by_shape = {}, {}
+    for r in by_rank:
+        for x in (r["b_ring_lm"], r["c_moe_lm"]):
+            for k in FLASH_KERNELS:
+                for into, got in ((total, x["launches_per_step"][k]),
+                                  (by_shape, x["launches_per_step"][f"{k}_by_shape"])):
+                    for b, n in got.items():
+                        into.setdefault(k, {}).setdefault(b, 0)
+                        into[k][b] += int(round(n * MESH_STEPS))
+    state["mesh_launches_by_shape"] = by_shape
+    # every shape the phase launched a kernel at, in (a), (b) and (c), is
+    # one the kernels phase holds against the plain twin
+    held = {"flash_forward": {case_shape(c) for _, c in flash_cases(torch)}}
+    held["flash_bwd_dq"] = held["flash_bwd_dkv"] = {
+        case_shape(c) for _, c in bwd_cases(torch)}
+    launched = {k: set(by_shape.get(k, {})) for k in FLASH_KERNELS}
+    for r in by_rank:
+        for x in r["a_attention"].values():
+            for k in FLASH_KERNELS:
+                launched[k] |= set(x["launches"][f"{k}_by_shape"])
+    unheld = {k: sorted(launched[k] - held[k]) for k in FLASH_KERNELS
+              if launched[k] - held[k]}
+    ok &= not unheld
+    backend = sorted({r["backend"] for r in by_rank})
+    emit({"phase": "mesh", "ok": bool(ok), "ranks": MESH_RANKS,
+          "backend": backend, "host_staged": backend == ["gloo"],
+          "launches_b_c": total, "launches_b_c_by_shape": by_shape,
+          "shapes_not_held": unheld, "seconds": time.perf_counter() - t0})
+    return ok
+
+
+# --------------------------------------------------------------------------- #
+# phase 14: open-loop load through the gateway over an autoscaled fleet
 # --------------------------------------------------------------------------- #
 
 #: bench_serving_load's mix (``bench.py:627-642``): 4 shapes, SLO 2 s
@@ -3836,7 +4324,8 @@ def main(argv=None) -> int:
                "disagg": phase_disagg, "fleet": phase_fleet,
                "dense": phase_dense,
                "bert": phase_bert, "train": phase_train, "mlm": phase_mlm,
-               "load": phase_load, "profile": phase_profile}
+               "mesh": phase_mesh, "load": phase_load,
+               "profile": phase_profile}
     ok = True
     seconds = {"build": build_s}
     for p in phases:
@@ -4017,6 +4506,45 @@ def main(argv=None) -> int:
                     "replaces": rep, "body": bwd["body"][part], "case": "mlm_s128_bf16",
                     "launches": mlm.get(launch_key, {}).get("wgmma", 0),
                     "launches_f32_parity_fma": parity.get(launch_key, {}).get("fma", 0),
+                    "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
+                    "ms": bwd["ms"][part], "plain_ms": bwd["plain_ms"],
+                    "bound_ms": bwd["bound_ms"][part], "bound_by": bwd["bound_by"][part],
+                    "library_ms": bwd["library_ms"],
+                })
+        # the mesh phase's LM fits (b and c, every rank): each kernel once
+        # a shape they launch it at, timed at that shape: (b)'s ring hops
+        # (B=8, 8 heads, 256 against 256 keys: a full block of an earlier
+        # rank and the causal diagonal) and (c)'s attention over its
+        # fsdp=2 rows (B=4, 16 heads, S=512, causal)
+        by_shape = state.get("mesh_launches_by_shape", {})
+        for suffix, case in (("ring_hop", "ring_hop_full_s256_h8_bf16"),
+                             ("ring_diag", "ring_hop_s256_h8_bf16"),
+                             ("mesh_fsdp", "mesh_fsdp_b4_s512_bf16")):
+            r = state.get("flash_mesh", {}).get(case)
+            bwd = state.get("bwd_mesh", {}).get(case)
+            if r is None or bwd is None:
+                continue
+            kernels.append({
+                "name": f"flash_attention_{suffix}", "route": "cuda",
+                "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
+                "replaces": "kubeflow_tpu/ops/flash_attention.py:120",
+                "body": r["body"], "case": case, "shape": r["shape"],
+                "launches": by_shape.get("flash_forward", {}).get(r["shape"], 0),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
+            for part, launch_key, rep in (
+                ("dq", "flash_bwd_dq", "kubeflow_tpu/ops/flash_attention.py:453"),
+                ("dkv", "flash_bwd_dkv", "kubeflow_tpu/ops/flash_attention.py:484"),
+            ):
+                err = bwd["max_abs_err"]
+                kernels.append({
+                    "name": f"flash_attention_bwd_{part}_{suffix}", "route": "cuda",
+                    "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+                    "replaces": rep, "body": bwd["body"][part], "case": case,
+                    "shape": bwd["shape"],
+                    "launches": by_shape.get(launch_key, {}).get(bwd["shape"], 0),
                     "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
                     "ms": bwd["ms"][part], "plain_ms": bwd["plain_ms"],
                     "bound_ms": bwd["bound_ms"][part], "bound_by": bwd["bound_by"][part],

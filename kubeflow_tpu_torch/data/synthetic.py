@@ -4,7 +4,9 @@
 
 The same arguments give bit-equal batches in both packages (the same
 ``np.random.RandomState`` draws in the same order), so the port and the
-JAX trainer can be held against each other step by step. Batches are
+JAX trainer can be held against each other step by step.
+``local_shard_iterator`` also takes a rank's mesh and then yields its
+block of the global batch. Batches are
 host numpy arrays; the trainer's fetcher places them on the device.
 """
 
@@ -85,20 +87,43 @@ def local_shard_iterator(
     process_count: int = 1,
     start_step: int = 0,
     host_cost_ms: float = 0.0,
+    mesh=None,
 ) -> Iterator:
     """Process ``process_index`` of ``process_count`` draws only its shard
     (``offset=process_index``) of each global batch, which ``step``
-    defines. The port runs one process until the distributed slice lands,
-    hence the defaults. ``host_cost_ms`` adds a fixed per-batch host delay
-    that emulates decode/augment cost."""
+    defines. ``host_cost_ms`` adds a fixed per-batch host delay that
+    emulates decode/augment cost.
+
+    Under a ``mesh`` (``core/mesh.py``, one rank a process) the shard is
+    this rank's batch partition: ``offset`` is its index over data x fsdp
+    x dcn_data (``Mesh.batch_index``) and the shard ``global_batch``
+    over the partitions, so ranks that differ only in ``model``,
+    ``expert``, ``seq`` or ``pipe`` draw the same rows; a ``seq`` rank
+    then keeps its chunk of every sequence. The global batch is the
+    partitions' rows in partition order, as the JAX trainer's is the
+    processes' in process order."""
+    if mesh is not None:
+        process_index, process_count = mesh.batch_index, mesh.spec.batch_partitions
     if global_batch % process_count:
         raise ValueError(
             f"global batch {global_batch} not divisible by {process_count} hosts"
         )
     local = global_batch // process_count
+    n_seq = 1 if mesh is None else mesh.spec.seq
+    j = 0 if mesh is None else mesh.coords["seq"]
     step = start_step
     while True:
         if host_cost_ms > 0:
             time.sleep(host_cost_ms / 1e3)
-        yield dataset.batch(local, step=step, offset=process_index)
+        batch = dataset.batch(local, step=step, offset=process_index)
+        if n_seq > 1:
+            batch = {k: _seq_chunk(v, n_seq, j) for k, v in batch.items()}
+        yield batch
         step += 1
+
+
+def _seq_chunk(a: np.ndarray, n: int, j: int) -> np.ndarray:
+    if a.shape[1] % n:
+        raise ValueError(f"sequence length {a.shape[1]} not divisible by seq={n}")
+    w = a.shape[1] // n
+    return np.ascontiguousarray(a[:, j * w:(j + 1) * w])

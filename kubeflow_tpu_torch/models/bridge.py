@@ -10,11 +10,15 @@ arrays (or anything ``np.asarray`` takes). Paths map one to one:
     layers_{i}/ln1/scale, ln2/scale    -> layers.{i}.ln1.scale, ln2.scale
     layers_{i}/attn/{q,k,v,o}_proj/kernel -> layers.{i}.attn.{..}_proj.weight
     layers_{i}/mlp/{up,gate,down}_proj/kernel -> layers.{i}.mlp.{..}_proj.weight
+    layers_{i}/experts/{router,up,down}_kernel -> layers.{i}.experts.{..}_kernel
     ln_f/scale                         -> ln_f.scale
     unembed/kernel                     -> unembed.weight
 
 Flax ``Dense`` kernels are ``(in, out)`` and ``nn.Linear.weight`` is
-``(out, in)``, so kernels are transposed. The bridge is pure numpy and
+``(out, in)``, so kernels are transposed; the MoE expert weights are raw
+parameters in the JAX layout (``(d_model, E)``, ``(E, d_model, F)``,
+``(E, F, d_model)``) and keep it. :func:`jax_path` names a port
+parameter's JAX path (the sharding rules are keyed by it). The bridge is pure numpy and
 host-side; ``TransformerLM.load_state_dict`` casts to the model's dtypes.
 
 :func:`bert_params_to_state_dict` and :func:`bert_state_dict_to_params`
@@ -59,7 +63,8 @@ _KNOWN = re.compile(
     r"^(embed\.embedding|pos_embedding|ln_f\.scale|unembed\.weight|"
     r"layers\.\d+\.(ln1|ln2)\.scale|"
     r"layers\.\d+\.attn\.[qkvo]_proj\.weight|"
-    r"layers\.\d+\.mlp\.(up|gate|down)_proj\.weight)$"
+    r"layers\.\d+\.mlp\.(up|gate|down)_proj\.weight|"
+    r"layers\.\d+\.experts\.(router|up|down)_kernel)$"
 )
 
 
@@ -127,11 +132,26 @@ def _to_params(sd: Mapping[str, torch.Tensor], known) -> dict[str, Any]:
 def params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """JAX ``TransformerLM`` param tree → port ``state_dict`` (f32 CPU
     tensors)."""
-    if any(p == "experts" for path in _flatten(params) for p in path):
-        raise NotImplementedError(
-            "MoE expert params are not ported yet (ROADMAP queue 1 item 10)"
-        )
     return _to_state_dict(params, _KNOWN)
+
+
+def jax_path(name: str) -> tuple[str, bool]:
+    """A port ``TransformerLM`` parameter name → ``(its JAX param path,
+    whether the port stores it transposed)``:
+    ``layers.0.attn.q_proj.weight`` → ``("layers_0/attn/q_proj/kernel",
+    True)``."""
+    if not _KNOWN.match(name):
+        raise ValueError(f"unknown state_dict key {name!r}")
+    parts = []
+    for p in name.split("."):
+        if p.isdigit() and parts and parts[-1] == "layers":
+            parts[-1] = f"layers_{p}"
+        else:
+            parts.append(p)
+    transposed = parts[-1] == "weight"
+    if transposed:
+        parts[-1] = "kernel"
+    return "/".join(parts), transposed
 
 
 def state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:

@@ -5,9 +5,11 @@ Same architecture and parameter layout as the JAX ``TransformerLM``
 weights move across with ``models/bridge.py``. Two attention branches are
 ported:
 
-- the **no-cache** forward, through :func:`dispatch_attention` with the
-  single-device ``reference`` and ``flash`` strategies (``flash`` runs the
-  CUDA kernel of ``ops/flash_attention.py`` on the card);
+- the **no-cache** forward, through :func:`dispatch_attention`: the
+  ``reference`` and ``flash`` strategies (``flash`` runs the CUDA kernel
+  of ``ops/flash_attention.py`` on the card) and, under a mesh, ``ring``
+  and ``ulysses`` over the ``seq`` axis (``parallel/``), which run the same
+  kernels per hop or over the full sequence;
 - the **dense** cache branch of ``make_generate_fn`` and the dense
   serving engine: this call's keys/values are written in place into a
   ``(B, kv_heads, max_len, head_dim)`` cache from :func:`init_kv_cache`
@@ -30,6 +32,21 @@ deterministic, so storing the cast weight gives the same result);
 training builds with ``param_dtype=torch.float32`` so that optimizer
 updates land on f32 master weights. Norm scales, the embedding table and
 the unembed are f32 in both layouts, as in the JAX package.
+
+**Under a mesh** (``core/mesh.py`` ``mesh_context``, one rank a process)
+the model computes on its rank's block of the batch: rows over the
+batch axes, positions over ``seq`` (RoPE positions offset by the
+rank's chunk). Parameters the trainer sharded (``kft_spec``,
+``parallel/sharding.py``) are used Megatron-style: dims over ``fsdp`` are
+gathered at use; q/k/v/up/gate sharded over ``model`` on their output
+dim are column-parallel (local heads, local d_ff), o/down on their input
+dim row-parallel with one sum over ``model``; a vocabulary sharded over
+``model`` makes the embedding a masked lookup (or the ``onehot``
+product) summed over ``model`` and the unembed return this rank's
+vocabulary columns, which :func:`make_loss_fn` reduces as a
+vocab-parallel cross-entropy. Every ``moe_every``-th block's FFN is the
+MoE of ``parallel/expert.py``, whose aux and z losses the loss adds as
+the JAX loss does.
 
 Under ``remat`` each block of a no-cache forward that records gradients
 runs inside ``torch.utils.checkpoint`` and is recomputed in the backward,
@@ -58,6 +75,8 @@ from torch.utils.checkpoint import (
 )
 
 from kubeflow_tpu_torch import resolve_device
+from kubeflow_tpu_torch.core import collectives as coll
+from kubeflow_tpu_torch.core.mesh import Axis, Mesh, current_mesh
 from kubeflow_tpu_torch.ops.flash_attention import (
     flash_attention,
     reference_attention,
@@ -67,6 +86,10 @@ from kubeflow_tpu_torch.ops.paged_attention import (
     paged_attention,
     quantize_kv,
 )
+from kubeflow_tpu_torch.parallel.expert import MoEConfig, moe_ffn
+from kubeflow_tpu_torch.parallel.ring_attention import ring_attention_local
+from kubeflow_tpu_torch.parallel.sharding import gather_at_use
+from kubeflow_tpu_torch.parallel.ulysses import ulysses_attention_local
 
 ATTN_IMPLS = ("reference", "flash", "ring", "ulysses")
 NEG_INF = -1e30
@@ -97,9 +120,12 @@ class TransformerConfig:
     #: ``dots_with_no_batch_dims_saveable``) and recomputes the rest, the
     #: attention kernel included
     remat_policy: str | None = None
-    moe_every: int = 0
+    moe_every: int = 0               # every Nth layer uses MoE FFN (0 = never)
+    moe: MoEConfig = dataclasses.field(default_factory=MoEConfig)
     #: accepted and unused, as in the JAX model (nothing there reads it)
     dropout_rate: float = 0.0
+    #: "gather": table lookup; "onehot": one-hot product (the JAX
+    #: package's SPMD-clean form for a vocabulary-sharded table)
     embed_impl: str = "gather"
 
     @property
@@ -117,26 +143,15 @@ class TransformerConfig:
     def validate(self) -> None:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in {ATTN_IMPLS}")
-        if self.attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn_impl {self.attn_impl!r} is not ported yet "
-                "(ROADMAP queue 1 item 10, distributed and parallel)"
-            )
-        if self.moe_every:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP queue 1 item 10)"
-            )
         if self.remat_policy not in (None, "dots"):
             raise ValueError(
                 f"remat_policy {self.remat_policy!r} not in (None, 'dots')"
             )
         if self.remat_policy is not None and not self.remat:
             raise ValueError("remat_policy requires remat=True")
-        if self.embed_impl != "gather":
-            raise NotImplementedError(
-                f"embed_impl {self.embed_impl!r} is not ported yet "
-                "(ROADMAP queue 1 item 10); 'gather' is"
-            )
+        if self.embed_impl not in ("gather", "onehot"):
+            raise ValueError(
+                f"embed_impl {self.embed_impl!r} not in ('gather', 'onehot')")
         if self.attn_window is not None:
             if self.attn_window < 1:
                 raise ValueError(
@@ -144,6 +159,12 @@ class TransformerConfig:
                 )
             if not self.causal:
                 raise ValueError("attn_window requires causal=True")
+            if self.attn_impl not in ("flash", "reference"):
+                raise ValueError(
+                    "attn_window supports attn_impl 'flash'/'reference' "
+                    f"(got {self.attn_impl!r}); window + context parallelism "
+                    "is not implemented"
+                )
         if self.n_kv_heads is not None and self.n_kv_heads < 1:
             raise ValueError(f"n_kv_heads must be >= 1, got {self.n_kv_heads}")
         if self.n_heads % self.kv_heads:
@@ -158,18 +179,42 @@ class TransformerConfig:
 # --------------------------------------------------------------------------- #
 
 class Embedding(nn.Module):
-    """Token embedding: a gather from an f32 table, cast to ``dtype``."""
+    """Token embedding from an f32 table, cast to ``dtype``: a lookup
+    (``gather``) or the one-hot product (``onehot``, the table cast to
+    ``dtype`` first, as the JAX ``oh @ table.astype(dtype)``). A table
+    whose vocabulary is sharded over ``model`` looks up the ids in this
+    rank's range and sums the rows over ``model``."""
 
     def __init__(self, vocab_size: int, features: int, dtype: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, impl: str = "gather"):
         super().__init__()
         self.dtype = dtype
+        self.impl = impl
         self.embedding = nn.Parameter(
             torch.empty(vocab_size, features, device=device)
         )
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embedding).to(self.dtype)
+    def forward(self, tokens: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
+        table = gather_at_use(self.embedding, mesh)
+        local = table.shape[0]
+        sharded = mesh is not None and _split(self.embedding, Axis.MODEL)
+        ids, keep = tokens, None
+        if sharded:
+            ids = tokens - mesh.index(Axis.MODEL) * local
+            keep = (ids >= 0) & (ids < local)
+            ids = torch.where(keep, ids, 0)
+        if self.impl == "onehot":
+            oh = F.one_hot(ids.long(), local).to(self.dtype)
+            if keep is not None:
+                oh = oh * keep[..., None].to(self.dtype)
+            x = oh @ table.to(self.dtype)
+        else:
+            x = F.embedding(ids, table).to(self.dtype)
+            if keep is not None:
+                x = x * keep[..., None].to(self.dtype)
+        if sharded:
+            x = coll.psum(x, Axis.MODEL, mesh=mesh)
+        return x
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, *,
@@ -197,10 +242,22 @@ class RMSNorm(nn.Module):
         return (y * self.scale).to(x.dtype)
 
 
+def _split(p, axis: str) -> bool:
+    """Whether the trainer sharded parameter ``p`` over ``axis``."""
+    spec = getattr(p, "kft_spec", None)
+    return spec is not None and any(
+        axis in ((e,) if isinstance(e, str) else tuple(e or ())) for e in spec)
+
+
 class Dense(nn.Linear):
     """Bias-free projection with flax ``nn.Dense`` dtype semantics: the
     weight is stored in ``param_dtype`` and input and weight are cast to
-    the compute ``dtype`` at every call (a no-op when the two agree)."""
+    the compute ``dtype`` at every call (a no-op when the two agree).
+    Under a mesh a sharded weight is gathered at use over its non-local
+    axes, and one whose input dim is split over ``model`` is row-parallel:
+    its partial output is summed over ``model``. (A weight whose output
+    dim is split over ``model`` is column-parallel; its caller passes the
+    input through ``collectives.enter`` once for all its projections.)"""
 
     def __init__(self, n_in: int, n_out: int, *, dtype: torch.dtype,
                  param_dtype: torch.dtype, device: torch.device):
@@ -208,9 +265,19 @@ class Dense(nn.Linear):
                          dtype=param_dtype)
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mesh: Mesh | None = None) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt))
+        w = gather_at_use(self.weight, mesh)
+        y = F.linear(x.to(dt), w.to(dt))
+        if mesh is not None and w.shape[1] < self.in_features:
+            y = coll.psum(y, Axis.MODEL, mesh=mesh)
+        return y
+
+    def column_parallel(self) -> bool:
+        """Whether this weight's output dim is split over ``model``."""
+        spec = getattr(self.weight, "kft_spec", None)
+        return spec is not None and Axis.MODEL in (
+            (spec[0],) if isinstance(spec[0], str) else tuple(spec[0] or ()))
 
 
 def _linear(cfg: TransformerConfig, n_in: int, n_out: int,
@@ -242,27 +309,41 @@ def _grouped_cache_attention(q, K, V, mask, groups):
     return o.reshape(B, H, S, D)
 
 
-def dispatch_attention(q, k, v, cfg: TransformerConfig, *, segment_ids=None):
+def dispatch_attention(q, k, v, cfg: TransformerConfig, *, segment_ids=None,
+                       mesh: Mesh | None = None):
     """Route to the configured attention strategy. q/k/v: (B, H, S, D)
-    with kv heads already repeated. Only the single-device strategies are
-    ported; ``ring``/``ulysses`` are rejected by ``cfg.validate()``."""
+    with kv heads already repeated; under a mesh, this rank's block
+    (local rows, heads and sequence chunk). ``ring`` and ``ulysses``
+    raise the JAX error outside a mesh; ``flash`` and ``reference``
+    cannot shard ``seq``."""
+    seg = None
+    if segment_ids is not None:
+        seg = segment_ids.to(torch.int32).contiguous()
+    if (cfg.attn_impl in ("flash", "reference") and mesh is not None
+            and mesh.size(Axis.SEQ) > 1):
+        raise ValueError(
+            f"attn_impl={cfg.attn_impl!r} cannot shard the seq axis; use "
+            "'ring' or 'ulysses' for sequence parallelism"
+        )
     if cfg.attn_impl == "reference":
         return reference_attention(
             q, k, v, causal=cfg.causal, window=cfg.attn_window,
             q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
         )
-    if cfg.attn_impl != "flash":
-        raise NotImplementedError(
-            f"attn_impl {cfg.attn_impl!r} is not ported yet "
-            "(ROADMAP queue 1 item 10)"
+    if cfg.attn_impl != "flash" and mesh is None:
+        raise ValueError(
+            f"attn_impl {cfg.attn_impl!r} needs a mesh context (mesh_context)"
         )
-    seg = None
-    if segment_ids is not None:
-        seg = segment_ids.to(torch.int32).contiguous()
-    return flash_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), causal=cfg.causal,
-        window=cfg.attn_window, q_segment_ids=seg, kv_segment_ids=seg,
-    )
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if cfg.attn_impl == "flash":
+        return flash_attention(
+            q, k, v, causal=cfg.causal, window=cfg.attn_window,
+            q_segment_ids=seg, kv_segment_ids=seg,
+        )
+    local = ring_attention_local if cfg.attn_impl == "ring" \
+        else ulysses_attention_local
+    return local(q, k, v, axis_name=Axis.SEQ, causal=cfg.causal,
+                 segment_ids=seg, mesh=mesh)
 
 
 class Attention(nn.Module):
@@ -281,14 +362,23 @@ class Attention(nn.Module):
         cache_index=None, kv_mask=None,
         page_table=None, page_size=None, page_write_ok=None,
         paged_attn_impl="gather", kv_quant="none", quant_stats=None,
+        mesh: Mesh | None = None,
     ):
         cfg = self.cfg
         B, S, _ = x.shape
         H, Hkv, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim
         groups = H // Hkv
-        q = self.q_proj(x).view(B, S, H, D).transpose(1, 2)
-        k = self.k_proj(x).view(B, S, Hkv, D).transpose(1, 2)
-        v = self.v_proj(x).view(B, S, Hkv, D).transpose(1, 2)
+        if mesh is not None and self.q_proj.column_parallel():
+            # column-parallel q/k/v: this rank's heads; the input's
+            # gradient is summed over model once for all three
+            if not (self.k_proj.column_parallel() and self.v_proj.column_parallel()):
+                raise NotImplementedError(
+                    "q_proj is split over 'model' but k_proj/v_proj are not")
+            x = coll.enter(x, Axis.MODEL, mesh=mesh)
+            H, Hkv = H // mesh.size(Axis.MODEL), Hkv // mesh.size(Axis.MODEL)
+        q = self.q_proj(x, mesh).view(B, S, H, D).transpose(1, 2)
+        k = self.k_proj(x, mesh).view(B, S, Hkv, D).transpose(1, 2)
+        v = self.v_proj(x, mesh).view(B, S, Hkv, D).transpose(1, 2)
         if cfg.use_rope:
             q, k = rope(q, positions), rope(k, positions)
         new_cache = None
@@ -304,9 +394,10 @@ class Attention(nn.Module):
             if groups > 1:
                 k = k.repeat_interleave(groups, dim=1)
                 v = v.repeat_interleave(groups, dim=1)
-            o = dispatch_attention(q, k, v, cfg, segment_ids=segment_ids)
+            o = dispatch_attention(q, k, v, cfg, segment_ids=segment_ids,
+                                   mesh=mesh)
         o = o.transpose(1, 2).reshape(B, S, H * D).to(cfg.dtype)
-        out = self.o_proj(o)
+        out = self.o_proj(o, mesh)
         if layer_cache is not None:
             return out, new_cache
         return out
@@ -435,20 +526,55 @@ class Mlp(nn.Module):
         self.gate_proj = _linear(cfg, cfg.d_model, cfg.d_ff, device, param_dtype)
         self.down_proj = _linear(cfg, cfg.d_ff, cfg.d_model, device, param_dtype)
 
-    def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+    def forward(self, x, mesh: Mesh | None = None):
+        if mesh is not None and self.up_proj.column_parallel():
+            x = coll.enter(x, Axis.MODEL, mesh=mesh)
+        gate, up = self.gate_proj(x, mesh), self.up_proj(x, mesh)
+        return self.down_proj(F.silu(gate) * up, mesh)
+
+
+class Experts(nn.Module):
+    """The MoE FFN's weights in the JAX layout (``router_kernel``
+    ``(d_model, E)``, ``up_kernel`` ``(E, d_model, F)``, ``down_kernel``
+    ``(E, F, d_model)``), applied by ``parallel/expert.py`` ``moe_ffn``."""
+
+    def __init__(self, cfg: TransformerConfig, device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        moe, d = cfg.moe, cfg.d_model
+        self.router_kernel = nn.Parameter(
+            torch.empty(d, moe.num_experts, device=device))
+        self.up_kernel = nn.Parameter(
+            torch.empty(moe.num_experts, d, moe.expert_dim, device=device))
+        self.down_kernel = nn.Parameter(
+            torch.empty(moe.num_experts, moe.expert_dim, d, device=device))
+
+    def forward(self, y, mesh: Mesh | None = None, moe_stats=None):
+        B, S, d = y.shape
+        out, aux, stats = moe_ffn(
+            y.reshape(B * S, d), gather_at_use(self.router_kernel, mesh),
+            gather_at_use(self.up_kernel, mesh),
+            gather_at_use(self.down_kernel, mesh), self.cfg.moe,
+            rows=B, mesh=mesh)
+        if moe_stats is not None:
+            moe_stats.append((aux, stats))
+        return out.reshape(B, S, d)
 
 
 class Block(nn.Module):
     def __init__(self, cfg: TransformerConfig, device: torch.device,
-                 param_dtype: torch.dtype):
+                 param_dtype: torch.dtype, use_moe: bool = False):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device)
         self.attn = Attention(cfg, device, param_dtype)
         self.ln2 = RMSNorm(cfg.d_model, device)
-        self.mlp = Mlp(cfg, device, param_dtype)
+        if use_moe:
+            self.experts = Experts(cfg, device)
+        else:
+            self.mlp = Mlp(cfg, device, param_dtype)
 
-    def forward(self, x, positions, segment_ids=None, layer_cache=None, **cached):
+    def forward(self, x, positions, segment_ids=None, layer_cache=None,
+                mesh: Mesh | None = None, moe_stats=None, **cached):
         new_cache = None
         if layer_cache is not None:
             h, new_cache = self.attn(
@@ -456,9 +582,12 @@ class Block(nn.Module):
                 **cached,
             )
         else:
-            h = self.attn(self.ln1(x), positions, segment_ids)
+            h = self.attn(self.ln1(x), positions, segment_ids, mesh=mesh)
         x = x + h
-        out = x + self.mlp(self.ln2(x))
+        if hasattr(self, "experts"):
+            out = x + self.experts(self.ln2(x), mesh, moe_stats)
+        else:
+            out = x + self.mlp(self.ln2(x), mesh)
         if layer_cache is not None:
             return out, new_cache
         return out
@@ -490,13 +619,16 @@ class TransformerLM(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         param_dtype = cfg.dtype if param_dtype is None else param_dtype
-        self.embed = Embedding(cfg.vocab_size, cfg.d_model, cfg.dtype, dev)
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, cfg.dtype, dev,
+                               impl=cfg.embed_impl)
         if not cfg.use_rope:
             self.pos_embedding = nn.Parameter(
                 torch.empty(cfg.max_seq_len, cfg.d_model, device=dev)
             )
         self.layers = nn.ModuleList(
-            Block(cfg, dev, param_dtype) for _ in range(cfg.n_layers)
+            Block(cfg, dev, param_dtype,
+                  use_moe=cfg.moe_every > 0 and (i + 1) % cfg.moe_every == 0)
+            for i in range(cfg.n_layers)
         )
         self.ln_f = RMSNorm(cfg.d_model, dev)
         self.unembed = nn.Linear(
@@ -513,17 +645,21 @@ class TransformerLM(nn.Module):
         cache_index=None, kv_mask=None,
         page_table=None, page_size=None, page_write_ok=None,
         paged_attn_impl="gather", kv_quant="none", quant_stats=None,
+        moe_stats=None,
     ):
         cfg = self.cfg
         B, S = tokens.shape
+        mesh = current_mesh() if cache is None else None
         if positions is None:
             ar = torch.arange(S, device=tokens.device)
             if torch.is_tensor(cache_index) and cache_index.ndim == 1:
                 positions = cache_index[:, None] + ar
             else:
                 start = 0 if cache_index is None else int(cache_index)
+                if mesh is not None:  # this rank's chunk of the sequence
+                    start = mesh.index(Axis.SEQ) * S
                 positions = (start + ar).expand(B, S)
-        x = self.embed(tokens)
+        x = self.embed(tokens, mesh)
         if not cfg.use_rope:
             x = x + self.pos_embedding[positions].to(cfg.dtype)
         remat = cache is None and cfg.remat and torch.is_grad_enabled()
@@ -546,10 +682,20 @@ class TransformerLM(nn.Module):
                 )
             elif remat:
                 x = checkpoint(block, x, positions, segment_ids,
-                               use_reentrant=False, context_fn=context_fn)
+                               use_reentrant=False, context_fn=context_fn,
+                               mesh=mesh, moe_stats=moe_stats)
             else:
-                x = block(x, positions, segment_ids)
-        logits = self.unembed(self.ln_f(x).float())
+                x = block(x, positions, segment_ids, mesh=mesh,
+                          moe_stats=moe_stats)
+        h = self.ln_f(x).float()
+        if mesh is None:
+            logits = self.unembed(h)
+        else:
+            w = gather_at_use(self.unembed.weight, mesh)
+            if _split(self.unembed.weight, Axis.MODEL):
+                # this rank's vocabulary columns (make_loss_fn reduces them)
+                h = coll.enter(h, Axis.MODEL, mesh=mesh)
+            logits = F.linear(h, w)
         if cache is not None:
             return logits, cache
         return logits
@@ -626,7 +772,7 @@ def init_weights(model: TransformerLM, seed: int) -> TransformerLM:
         elif name == "pos_embedding":
             p.normal_(0.0, 0.02, generator=gen)
         else:
-            fan_in = p.shape[1]
+            fan_in = p.shape[0] if name.endswith("router_kernel") else p.shape[1]
             p.normal_(0.0, fan_in ** -0.5, generator=gen)
     return model
 
@@ -648,20 +794,82 @@ def make_init_fn(cfg: TransformerConfig):
     return init_params
 
 
+def _vocab_parallel_ce(logits, targets, mesh):
+    """Per-token cross-entropy and argmax-hit of logits whose vocabulary
+    is split over ``model`` (this rank holds columns ``[i*V_l,
+    (i+1)*V_l)``): the max and the sum of exponentials are reduced over
+    ``model``, the target's logit comes from the rank that holds it."""
+    V_l = logits.shape[-1]
+    start = mesh.index(Axis.MODEL) * V_l
+    local_max = logits.detach().amax(-1, keepdim=True)
+    m = coll.pmax(local_max, Axis.MODEL, mesh=mesh)
+    sumexp = coll.psum(torch.exp(logits - m).sum(-1), Axis.MODEL, mesh=mesh)
+    t = targets - start
+    mine = (t >= 0) & (t < V_l)
+    picked = torch.gather(logits, -1, torch.where(mine, t, 0)[..., None])[..., 0]
+    target_logit = coll.psum(torch.where(mine, picked, 0.0), Axis.MODEL, mesh=mesh)
+    ce = torch.log(sumexp) + m[..., 0] - target_logit
+    # global argmax, first index on ties: the largest local max wins, the
+    # lower rank (lower vocabulary ids) on equal maxima
+    arg = logits.detach().argmax(-1) + start
+    both = coll._all_gather(torch.stack([local_max[..., 0], arg.float()], -1),
+                            mesh, Axis.MODEL, -1, tiled=False)
+    vals, ids = both[..., 0, :], both[..., 1, :]
+    best = torch.argmax(vals, dim=-1, keepdim=True)   # first of equal maxima
+    hit = torch.gather(ids, -1, best)[..., 0].long() == targets
+    return ce, hit
+
+
 def make_loss_fn():
     """``(model, {"inputs", "targets"}, key) -> (loss, metrics)``:
     the mean token cross-entropy of the f32 logits (optax's
     ``softmax_cross_entropy_with_integer_labels(...).mean()``) and the
-    argmax accuracy (first index on ties, as ``jnp.argmax``). MoE layers,
-    whose aux loss the JAX function adds, raise in ``cfg.validate()``."""
+    argmax accuracy (first index on ties, as ``jnp.argmax``), plus, with
+    MoE layers, their aux and z losses as ``moe_aux`` (added to the loss,
+    as the JAX function adds them) and the mean ``moe_dropped_frac``.
+
+    Under a mesh each rank scores its block of tokens and the loss and
+    metrics are the global means, by sums over the token axes whose
+    gradient passes through unchanged: every rank returns the same loss,
+    and its backward yields its share of the global gradient. A
+    vocabulary split over ``model`` is reduced as a vocab-parallel
+    cross-entropy."""
 
     def loss_fn(model: TransformerLM, batch, key=None):
         del key  # the model draws nothing
         targets = batch["targets"].long()
-        logits = model(batch["inputs"])
-        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                               targets.reshape(-1))
-        acc = (logits.argmax(-1) == targets).float().mean()
-        return loss, {"lm_loss": loss.detach(), "accuracy": acc}
+        moe: list = []
+        logits = model(batch["inputs"], moe_stats=moe)
+        mesh = current_mesh()
+        vocab_split = logits.shape[-1] < model.cfg.vocab_size
+        if not vocab_split and (mesh is None or mesh.group(Axis.TOKENS) is None):
+            loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                   targets.reshape(-1))
+            acc = (logits.argmax(-1) == targets).float().mean()
+        else:
+            if vocab_split:
+                ce, hit = _vocab_parallel_ce(logits, targets, mesh)
+            else:
+                ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                     targets.reshape(-1), reduction="none")
+                hit = logits.argmax(-1) == targets
+            n = targets.numel() * mesh.size(Axis.TOKENS)
+            loss = _token_sum(ce.sum(), mesh) / n
+            acc = _token_sum(hit.float().sum(), mesh) / n
+        metrics = {"lm_loss": loss.detach()}
+        if moe:
+            aux = sum(a for a, _ in moe)
+            loss = loss + aux
+            metrics["moe_aux"] = aux.detach()
+            metrics["moe_dropped_frac"] = (
+                sum(st["moe_dropped_frac"] for _, st in moe) / len(moe)).detach()
+        metrics["accuracy"] = acc
+        return loss, metrics
 
     return loss_fn
+
+
+def _token_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    if mesh.group(Axis.TOKENS) is None:
+        return x
+    return coll.psum(x, Axis.TOKENS, mesh=mesh)

@@ -38,6 +38,8 @@ NEG_INF = -1e30  # large-but-finite: keeps exp() defined on masked rows
 LAUNCHES = 0
 #: the same launches split by the body that ran (see :func:`body`)
 LAUNCHES_BY_BODY = {"wgmma": 0, "fma": 0}
+#: the same launches split by shape (see :func:`shape_key`)
+LAUNCHES_BY_SHAPE: dict[str, int] = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _MAX_HEAD_DIM = 128  # the kernel's shared-memory tiles hold D <= 128
@@ -56,6 +58,17 @@ def body(dtype: torch.dtype, head_dim: int) -> str:
     ``flash_fwd_wgmma_kernel``) where :func:`tensor_cores`, else ``"fma"``
     (register-tiled f32 FMAs, ``flash_fwd_fma_kernel``)."""
     return "wgmma" if tensor_cores(dtype, head_dim) else "fma"
+
+
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
+
+
+def shape_key(dtype: torch.dtype, B: int, H: int, Sq: int, Skv: int, D: int,
+              causal: bool) -> str:
+    """A launch's shape as the ``*_BY_SHAPE`` counters name it, e.g.
+    ``"bf16 B8 H8 Sq256 Skv256 D64 causal"``."""
+    mask = "causal" if causal else "full"
+    return f"{_DTYPE_NAMES[dtype]} B{B} H{H} Sq{Sq} Skv{Skv} D{D} {mask}"
 
 
 def _full_mask(q_shape, k_shape, q_seg, kv_seg, causal, window, device):
@@ -299,6 +312,8 @@ def _launch(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         LAUNCHES += 1
         LAUNCHES_BY_BODY[body(q.dtype, D)] += 1
+        key = shape_key(q.dtype, B, H, Sq, Skv, D, causal)
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
         code = lib.kft_flash_forward(
             ptr(q), ptr(k), ptr(v),
             ptr(q_segment_ids) if seg else none,

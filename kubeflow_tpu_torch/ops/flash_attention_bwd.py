@@ -23,16 +23,21 @@ import ctypes
 import torch
 
 from kubeflow_tpu_torch.ops import _build
-from kubeflow_tpu_torch.ops.flash_attention import _DTYPE_CODES, _check_launch, tensor_cores
+from kubeflow_tpu_torch.ops.flash_attention import (
+    _DTYPE_CODES, _check_launch, shape_key, tensor_cores)
 
 #: dq kernel launches since the counter was last set to 0
 DQ_LAUNCHES = 0
 #: the same launches split by the body that ran (see :func:`dq_body`)
 DQ_LAUNCHES_BY_BODY = {"wgmma": 0, "fma": 0}
+#: the same launches split by shape (``flash_attention.shape_key``)
+DQ_LAUNCHES_BY_SHAPE: dict[str, int] = {}
 #: dk/dv kernel launches since the counter was last set to 0
 DKV_LAUNCHES = 0
 #: the same launches split by the body that ran (see :func:`dkv_body`)
 DKV_LAUNCHES_BY_BODY = {"wgmma": 0, "fma": 0}
+#: the same launches split by shape (``flash_attention.shape_key``)
+DKV_LAUNCHES_BY_SHAPE: dict[str, int] = {}
 
 
 def dq_body(dtype: torch.dtype, head_dim: int) -> str:
@@ -91,6 +96,8 @@ def launch_dq(q, k, v, dout, lse, delta, *, causal, scale, q_segment_ids,
         args = _common(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids)
         DQ_LAUNCHES += 1
         DQ_LAUNCHES_BY_BODY[dq_body(q.dtype, dims[4])] += 1
+        key = shape_key(q.dtype, *dims, causal)
+        DQ_LAUNCHES_BY_SHAPE[key] = DQ_LAUNCHES_BY_SHAPE.get(key, 0) + 1
         code = lib.kft_flash_bwd_dq(
             *args, ctypes.c_void_p(dq.data_ptr()),
             *_dims(dims, causal, window, scale, q.dtype, q.device),
@@ -111,6 +118,8 @@ def launch_dkv(q, k, v, dout, lse, delta, *, causal, scale, q_segment_ids,
         args = _common(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids)
         DKV_LAUNCHES += 1
         DKV_LAUNCHES_BY_BODY[dkv_body(q.dtype, dims[4])] += 1
+        key = shape_key(q.dtype, *dims, causal)
+        DKV_LAUNCHES_BY_SHAPE[key] = DKV_LAUNCHES_BY_SHAPE.get(key, 0) + 1
         code = lib.kft_flash_bwd_dkv(
             *args, ctypes.c_void_p(dk.data_ptr()), ctypes.c_void_p(dv.data_ptr()),
             *_dims(dims, causal, window, scale, q.dtype, q.device),

@@ -199,7 +199,7 @@ def _reject_unported(c: LMEngineConfig) -> None:
     the JAX constructor's own checks run after them."""
     unported = [
         (c.mesh is not None or c.rules is not None,
-         "tensor-parallel serving (mesh/rules)", "queue 1 item 10"),
+         "tensor-parallel serving (mesh/rules)", "queue 1 item 13"),
         (c.page_size is None,
          "the measured page-size table (page_size=None)", "queue 2 item 5"),
     ]

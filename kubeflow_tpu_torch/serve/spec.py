@@ -5,7 +5,7 @@ A ``ServingRuntime`` maps model formats to a ``Model`` factory (KServe
 maps them to a container image); a ``RuntimeRegistry`` resolves a
 component's format, or its explicit runtime name, to the
 highest-priority runtime. Components carry no ``mesh``: multi-card
-serving is not ported yet (ROADMAP queue 1 item 10).
+serving is not ported yet (ROADMAP queue 1 item 13).
 """
 
 from __future__ import annotations

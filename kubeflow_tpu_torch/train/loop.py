@@ -17,16 +17,34 @@ loss that draws from it (the BERT MLM mask) draws what the JAX loss
 draws. ``check_numerics="checkify"`` and ``debug_nans`` run the step
 under ``train/numerics.py``'s hooks for the length of ``fit``.
 
-Only the single-device layout is ported: ``mesh`` must be ``None``.
-Sharding (``param_spec_fn``) and the orchestrator heartbeat raise
-``NotImplementedError`` naming their ROADMAP item.
+**Under a mesh** (``TrainConfig.mesh``, a ``MeshSpec``) the trainer is
+SPMD across processes, one rank each, brought up from the JAX env
+contract (``core/distributed.py``): ``Trainer`` builds this rank's
+``core/mesh.py`` mesh and runs every step under it. ``init_state``
+builds the full model and keeps this rank's shard of each parameter by
+its spec (``param_spec_fn``, e.g. ``parallel/sharding.py``
+``transformer_rules()``; replicated without one): dims over ``fsdp``
+are gathered at use (their gradient reduce-scattered back), ``model``
+and ``expert`` slices are computed with as they are. Each rank feeds its
+block of the batch (``data/synthetic.py`` ``local_shard_iterator(...,
+mesh=)``); the loss is the global mean, every rank's backward yields its
+share of the gradient, and the shares are summed over the token axes a
+parameter is not gathered over, one bucket a set of axes. Logged loss
+and metrics are global, as the JAX jitted step's are. A checkpoint
+under a mesh holds the full state (parameters and optimizer state
+gathered, written by rank 0) in the single-device format, so it
+resumes on one device or under another mesh.
+
+Under the orchestrator's gang wiring (``KFT_WORKDIR``,
+``KFT_REPLICA_TYPE``, ``KFT_REPLICA_INDEX``) ``fit`` runs the heartbeat
+writer of ``obs/heartbeat.py`` and stamps every completed step into it,
+as the JAX trainer does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
-import os
 import signal as _signal
 import threading
 import time
@@ -36,6 +54,14 @@ from typing import Any, Callable, Iterable, Mapping
 import torch
 
 from kubeflow_tpu_torch import resolve_device
+from kubeflow_tpu_torch.core import collectives as coll
+from kubeflow_tpu_torch.core.mesh import (
+    Axis, Mesh, MeshSpec, build_mesh, mesh_context, per_device_batch,
+)
+from kubeflow_tpu_torch.obs.heartbeat import HeartbeatWriter
+from kubeflow_tpu_torch.parallel.sharding import (
+    P, check_spec, gathered_axes, shard_tensor, spec_axes,
+)
 from kubeflow_tpu_torch.serve.threefry import key_of
 from kubeflow_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
 from kubeflow_tpu_torch.train.metrics import MetricWriter
@@ -52,11 +78,6 @@ logger = logging.getLogger(__name__)
 #: the container convention for SIGTERM death (128 + 15): retryable, so a
 #: preempted job restarts and resumes
 PREEMPTED_EXIT_CODE = 143
-
-#: the orchestrator's gang wiring; under it the JAX trainer beats a
-#: heartbeat file, which the port does not write yet
-_HEARTBEAT_ENV = ("KFT_WORKDIR", "KFT_REPLICA_TYPE", "KFT_REPLICA_INDEX")
-
 
 class Preempted(SystemExit):
     """Raised out of ``fit`` after a preemption notice was honoured: the
@@ -88,8 +109,9 @@ class TrainState:
 
 @dataclasses.dataclass
 class TrainConfig:
-    #: the device layout; only ``None`` (one device) is ported
-    mesh: Any
+    #: the device layout: a ``MeshSpec`` over the ranks of the default
+    #: process group, or ``None`` for one device
+    mesh: MeshSpec | None
     global_batch: int
     steps: int
     log_every: int = 10
@@ -143,20 +165,20 @@ class TrainConfig:
                 f"global batch {self.global_batch} not divisible by "
                 f"grad_accum_steps={self.grad_accum_steps}"
             )
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "TrainConfig.mesh: only mesh=None (one device) is ported; "
-                "meshes are ROADMAP queue 1 item 10"
-            )
+        if self.mesh is not None and not isinstance(self.mesh, MeshSpec):
+            raise TypeError(
+                f"TrainConfig.mesh must be a MeshSpec or None, got {self.mesh!r}")
 
 
 class Trainer:
-    """Single-device trainer.
+    """Trainer on one device or, under ``config.mesh``, one rank of a mesh.
 
     ``init_params(seed, device) -> nn.Module`` builds the model with f32
     parameters; ``loss_fn(model, batch, key) -> (loss, aux_dict)``, with
     ``key`` the JAX step key as a ``(2,)`` int64 CPU tensor;
     ``optimizer(parameters) -> torch.optim.Optimizer`` (``train/optim.py``).
+    ``param_spec_fn(model) -> {parameter name: spec}`` lays the
+    parameters out over the mesh (``parallel/sharding.py``).
     ``device=None`` means the CUDA card.
     """
 
@@ -170,16 +192,21 @@ class Trainer:
         param_spec_fn: Callable[[Any], Any] | None = None,
         device=None,
     ):
-        if param_spec_fn is not None:
-            raise NotImplementedError(
-                "param_spec_fn (sharded parameters) is not ported "
-                "(ROADMAP queue 1 item 10)"
-            )
         self.config = config
         self.loss_fn = loss_fn
         self.optimizer = optimizer
         self.init_params_fn = init_params
+        self.param_spec_fn = param_spec_fn
         self.device = resolve_device(device)
+        #: this rank's mesh (``None`` without ``config.mesh``)
+        self.mesh: Mesh | None = None
+        if config.mesh is not None:
+            self.mesh = build_mesh(config.mesh, device=self.device)
+        #: parameter name -> spec, set by ``init_state``
+        self.specs: dict[str, P] = {}
+        #: the step of the newest checkpoint this run wrote or resumed
+        #: (under a mesh every rank decides saves from it alike)
+        self._last_saved: int | None = None
         #: preemption notice (SIGTERM or an explicit call), checked between
         #: steps
         self._preempt = threading.Event()
@@ -205,8 +232,90 @@ class Trainer:
                 f"parameters in {low}: the trainer keeps f32 master weights "
                 "(build the model with param_dtype=torch.float32)"
             )
+        if self.param_spec_fn is not None or self.mesh is not None:
+            self._shard(model)
         model.train()
         return TrainState(model, self.optimizer(model.parameters()), 0)
+
+    # -- the mesh layout ------------------------------------------------- #
+
+    def _shard(self, model: torch.nn.Module) -> None:
+        """Keep this rank's shard of every parameter (``kft_spec`` names
+        its spec) and group the parameters by the axes their gradient
+        shares are summed over."""
+        specs = dict(self.param_spec_fn(model)) if self.param_spec_fn else {}
+        self.specs = {}
+        for name, p in model.named_parameters():
+            spec = P(*specs.get(name, P())).padded(p.dim())
+            check_spec(spec)
+            self.specs[name] = spec
+            if self.mesh is not None:
+                try:
+                    p.data = shard_tensor(p.data, spec, self.mesh)
+                except ValueError as e:
+                    raise ValueError(f"{name}: {e}") from None
+                p.kft_spec = spec
+        self._buckets: dict[tuple[str, ...], list[str]] = {}
+        if self.mesh is not None:
+            for name in self.specs:
+                axes = tuple(a for a in Axis.TOKENS
+                             if a not in gathered_axes(self.specs[name]))
+                self._buckets.setdefault(axes, []).append(name)
+
+    def _sync_grads(self, model: torch.nn.Module) -> None:
+        """Sum each parameter's gradient share over the token axes it was
+        not gathered over: one all-reduce a bucket."""
+        params = dict(model.named_parameters())
+        for axes, names in self._buckets.items():
+            if self.mesh.group(axes) is None:
+                continue
+            ps = [params[n] for n in names]
+            flat = torch.cat([(p.grad if p.grad is not None
+                               else torch.zeros_like(p)).reshape(-1) for p in ps])
+            flat = coll._all_reduce(flat, self.mesh, axes)
+            for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+                p.grad = g.view_as(p)
+
+    def _full(self, t: torch.Tensor, spec: P) -> torch.Tensor:
+        """The full tensor from every rank's shard (a collective)."""
+        for dim, entry in enumerate(spec):
+            axes = spec_axes(entry)
+            if axes and self.mesh.group(axes) is not None:
+                t = coll._all_gather(t.contiguous(), self.mesh, axes, dim)
+        return t
+
+    def full_state_dict(self, state: TrainState) -> dict:
+        """The state in the single-device checkpoint format: under a mesh
+        every parameter and optimizer-state tensor gathered to its full
+        shape (a collective: every rank calls it)."""
+        sd = state.state_dict()
+        if self.mesh is None:
+            return sd
+        names = [n for n, _ in state.model.named_parameters()]
+        sd["model"] = {k: self._full(v, self.specs[k]) if k in self.specs else v
+                       for k, v in sd["model"].items()}
+        for idx, st in sd["optimizer"]["state"].items():
+            spec = self.specs[names[idx]]
+            sd["optimizer"]["state"][idx] = {
+                k: self._full(v, spec) if torch.is_tensor(v) and v.dim() else v
+                for k, v in st.items()}
+        return sd
+
+    def _load_full(self, state: TrainState, sd: Mapping[str, Any]) -> None:
+        """Restore a single-device (full) state, keeping this rank's shards."""
+        if self.mesh is not None:
+            names = [n for n, _ in state.model.named_parameters()]
+            sd = dict(sd)
+            sd["model"] = {k: shard_tensor(v, self.specs[k], self.mesh)
+                           if k in self.specs else v for k, v in sd["model"].items()}
+            opt = dict(sd["optimizer"])
+            opt["state"] = {
+                idx: {k: shard_tensor(v, self.specs[names[idx]], self.mesh)
+                      if torch.is_tensor(v) and v.dim() else v
+                      for k, v in st.items()}
+                for idx, st in sd["optimizer"]["state"].items()}
+            sd["optimizer"] = opt
+        state.load_state_dict(sd)
 
     def _step(self, state: TrainState, batch: Any) -> dict:
         """One optimizer step; returns the step's metric tensors (not
@@ -231,6 +340,8 @@ class Trainer:
                     aux[k] = aux.get(k, 0.0) + v
             loss = loss / accum
             aux = {k: v / accum for k, v in aux.items()}
+        if self.mesh is not None:
+            self._sync_grads(model)
         if self._guard is not None:
             self._guard.check_step(model, loss, state.step)
         opt.step()
@@ -275,16 +386,19 @@ class Trainer:
         plain iterator is accepted for runs that do not resume.
         """
         cfg = self.config
-        if all(os.environ.get(k) is not None for k in _HEARTBEAT_ENV):
-            raise NotImplementedError(
-                "running under the orchestrator's gang wiring "
-                f"({', '.join(_HEARTBEAT_ENV)}): the heartbeat writer is not "
-                "ported (ROADMAP queue 1 item 10)"
-            )
+        if self.mesh is not None:
+            per_device_batch(cfg.global_batch, cfg.mesh)
+            per_device_batch(cfg.global_batch // cfg.grad_accum_steps, cfg.mesh)
         own_writer = writer is None
         writer = writer or MetricWriter(
             cfg.metrics_logdir, nan_alarm=cfg.check_numerics != "off",
+            is_writer=self.mesh is None or self.mesh.rank == 0,
         )
+        # liveness under the orchestrator's gang wiring: a background beat
+        # and a stamp a completed step (no-op outside a gang)
+        hb = HeartbeatWriter.from_env()
+        if hb is not None:
+            hb.start()
 
         self._preempt.clear()
         prev_sigterm = None
@@ -316,10 +430,11 @@ class Trainer:
             start_step = 0
             if cfg.checkpoint is not None:
                 ckpt = Checkpointer(cfg.checkpoint)
+                self._last_saved = ckpt.latest_step()
                 if cfg.resume and ckpt.latest_step() is not None:
                     # the newest step whose sha256 manifest verifies: a
                     # corrupt latest checkpoint costs one save interval
-                    state.load_state_dict(ckpt.restore())
+                    self._load_full(state, ckpt.restore())
                     start_step = state.step
                     logger.info("resumed from checkpoint at step %d", start_step)
                     print(f"resume_step={start_step}", flush=True)
@@ -335,9 +450,12 @@ class Trainer:
                     )
                 it = iter(data)
             history: list[dict] = []
-            return self._fit_loop(state, it, ckpt, writer, hooks, history,
-                                  start_step)
+            with mesh_context(self.mesh):
+                return self._fit_loop(state, it, ckpt, writer, hooks, history,
+                                      start_step, hb)
         finally:
+            if hb is not None:
+                hb.stop()
             if self._guard is not None:
                 self._guard.remove()
                 self._guard = None
@@ -355,7 +473,8 @@ class Trainer:
             if own_writer:
                 writer.close()
 
-    def _fit_loop(self, state, it, ckpt, writer, hooks, history, start_step):
+    def _fit_loop(self, state, it, ckpt, writer, hooks, history, start_step,
+                  hb=None):
         """The overlapped hot loop: batches are placed ``prefetch_depth``
         ahead by a producer thread, each step's metrics go to a drain
         thread with an event recorded after the step, and the loop thread
@@ -365,7 +484,7 @@ class Trainer:
         cuda = self.device.type == "cuda"
         fetcher = make_fetcher(it, device_placer(self.device),
                                depth=cfg.prefetch_depth)
-        drain = MetricsDrain(writer, history=history, hooks=hooks)
+        drain = MetricsDrain(writer, history=history, hooks=hooks, heartbeat=hb)
         compile_ms = None
         t_last = time.perf_counter()
         last_logged = start_step
@@ -384,8 +503,8 @@ class Trainer:
                     compile_ms = (time.perf_counter() - t0) * 1e3
                 else:
                     metrics = self._step(state, batch)
-                if ckpt is not None and ckpt.should_save(step + 1):
-                    ckpt.save(step + 1, state.state_dict())
+                if ckpt is not None and self._due(ckpt, step + 1):
+                    self._save(ckpt, step + 1, state)
                 is_log = (step + 1) % cfg.log_every == 0 or step + 1 == cfg.steps
                 extra = None
                 if is_log:
@@ -415,14 +534,30 @@ class Trainer:
         drain.poll()
         return state, history
 
-    @staticmethod
-    def _preemption_save(ckpt: Checkpointer | None, state: TrainState,
+    def _due(self, ckpt: Checkpointer, step: int) -> bool:
+        """``Checkpointer.should_save`` on this run's own record of the
+        newest step, which every rank of a mesh keeps alike (rank 0's
+        write may still be in flight)."""
+        return (step % ckpt.config.save_every_steps == 0
+                and (self._last_saved is None or step > self._last_saved))
+
+    def _save(self, ckpt: Checkpointer, step: int, state: TrainState) -> None:
+        if self.mesh is None:
+            ckpt.save(step, state.state_dict(), force=True)
+        else:
+            full = self.full_state_dict(state)  # every rank gathers
+            if self.mesh.rank == 0:
+                ckpt.save(step, full, force=True)
+        self._last_saved = (step if self._last_saved is None
+                            else max(self._last_saved, step))
+
+    def _preemption_save(self, ckpt: Checkpointer | None, state: TrainState,
                          step: int) -> None:
         """Force-save the current state (the loop-top invariant is
         ``state.step == step``) so the restart resumes at exactly
         ``step``; ``fit``'s ``ckpt.close()`` makes it durable."""
-        if ckpt is not None and ckpt.latest_step() != step:
-            ckpt.save(step, state.state_dict(), force=True)
+        if ckpt is not None and self._last_saved != step:
+            self._save(ckpt, step, state)
         logger.warning(
             "preempted at step %d: final checkpoint %s; exiting %d",
             step,
@@ -431,7 +566,6 @@ class Trainer:
             PREEMPTED_EXIT_CODE,
         )
 
-    @staticmethod
-    def _final_save(ckpt: Checkpointer, state: TrainState) -> None:
-        if ckpt.latest_step() != state.step:
-            ckpt.save(state.step, state.state_dict(), force=True)
+    def _final_save(self, ckpt: Checkpointer, state: TrainState) -> None:
+        if self._last_saved != state.step:
+            self._save(ckpt, state.step, state)

@@ -303,8 +303,13 @@ class MetricsDrain:
     :meth:`poll` or :meth:`close`.
     """
 
-    def __init__(self, writer, *, history: list[dict], hooks=(), depth: int = 64):
+    def __init__(self, writer, *, history: list[dict], hooks=(), depth: int = 64,
+                 heartbeat=None):
         self._writer = writer
+        #: ``obs/heartbeat.py`` ``HeartbeatWriter`` (or None): every drained
+        #: step is stamped into the beat file, so the supervisor's progress
+        #: watch sees steps complete, not just a live thread
+        self._hb = heartbeat
         self._history = history
         self._hooks = tuple(hooks or ())
         self._q: queue.Queue = queue.Queue(maxsize=depth)
@@ -377,6 +382,8 @@ class MetricsDrain:
     def _process(self, step, metrics, log, event, extra) -> None:
         if event is not None:
             event.synchronize()  # this step has run on the card
+        if self._hb is not None:
+            self._hb.beat(step)
         now = time.perf_counter()
         if self._last_ready is not None:
             self._win_step_s += now - self._last_ready

@@ -31,6 +31,7 @@ from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
     init_kv_cache,
+    init_weights,
 )
 from kubeflow_tpu_torch.serve.engine import (
     EngineOverloaded,
@@ -163,7 +164,7 @@ def test_request_validation():
 
 
 UNPORTED = [
-    ("mesh", dict(mesh=object()), "tensor-parallel"),
+    ("mesh", dict(mesh=object()), r"tensor-parallel .*queue 1 item 13"),
     ("measured_page_size", dict(page_size=None), "page-size"),
 ]
 #: dense mode (``kv_pool_tokens=None``, the JAX default) is ported; like
@@ -254,20 +255,33 @@ UNPORTED_MODEL = [
 ]
 #: knobs this list once held that are ported now: they build a model
 #: that scores what the plain model scores
-PORTED_MODEL = ("remat", "dropout")
+PORTED_MODEL = ("remat", "dropout", "onehot_embed")
 
 
 @pytest.mark.parametrize("name,knob", UNPORTED_MODEL,
                          ids=[u[0] for u in UNPORTED_MODEL])
 def test_unported_model_knobs_raise(name, knob):
-    """An unported knob raises naming its ROADMAP item. ``remat`` and
-    ``dropout_rate`` are ported: the model's logits, with and without
+    """Every knob of this list is ported now; none raises
+    ``NotImplementedError``. ``remat``, ``dropout_rate`` and the
+    ``onehot`` embedding build a model whose logits, with and without
     gradients recorded (remat runs only when they are), equal the plain
     model's from the same weights (``tests/test_torch_zoo.py`` holds
-    remat's gradients)."""
-    if name not in PORTED_MODEL:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TransformerLM(TransformerConfig(**KW, **knob), device="cpu")
+    remat's gradients). ``ring`` and ``ulysses`` build and raise the JAX
+    ValueError outside a mesh (``tests/test_torch_parallel_attention.py``
+    holds them under one); ``moe_every`` builds experts in every second
+    block and scores finite logits (``tests/test_torch_moe.py`` holds
+    them against JAX)."""
+    if name in ("ring", "ulysses"):
+        model = TransformerLM(TransformerConfig(**KW, **knob), device="cpu")
+        with pytest.raises(ValueError, match="needs a mesh context"):
+            model(torch.tensor(_prompts(5, (12,))))
+        return
+    if name == "moe":
+        model = TransformerLM(TransformerConfig(**KW, **knob), device="cpu")
+        init_weights(model, 0)
+        assert [hasattr(b, "experts") for b in model.layers] == [False, True]
+        with torch.no_grad():
+            assert torch.isfinite(model(torch.tensor(_prompts(5, (12,))))).all()
         return
     _, plain = _models()
     model = TransformerLM(TransformerConfig(**KW, **knob), device="cpu")

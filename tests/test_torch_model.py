@@ -88,12 +88,18 @@ def test_bridge_round_trips_every_param_path(use_rope):
 
 
 def test_bridge_rejects_experts_and_unknown_paths():
+    """The MoE expert weights are ported: they cross in the JAX layout,
+    untransposed, both ways. Unknown paths still raise."""
     _, _, params = _jax()
     moe = dict(params)
-    moe["layers_1"] = dict(params["layers_1"], experts={
-        "router_kernel": np.zeros((64, 4), np.float32)})
-    with pytest.raises(NotImplementedError, match="MoE"):
-        params_to_state_dict(moe)
+    router = np.arange(64 * 4, dtype=np.float32).reshape(64, 4)
+    moe["layers_1"] = dict(params["layers_1"], experts={"router_kernel": router})
+    sd = params_to_state_dict(moe)
+    np.testing.assert_array_equal(sd["layers.1.experts.router_kernel"].numpy(),
+                                  router)
+    back = state_dict_to_params(sd)
+    np.testing.assert_array_equal(back["layers_1"]["experts"]["router_kernel"],
+                                  router)
     with pytest.raises(ValueError, match="unknown param path"):
         params_to_state_dict(dict(params, extra={"kernel": np.zeros((2, 2))}))
 

@@ -22,7 +22,10 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "kubeflow_tpu_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+#: the package, the card's smoke script and the rank bodies the CPU tests
+#: spawn (children import them by name, so they must stay JAX-free too)
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "tests" / "torch_worlds.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "kubeflow_tpu", "aiohttp")
 CSRC = sorted((PKG / "ops" / "csrc").glob("*.cu"))
 
@@ -71,6 +74,16 @@ def test_no_library_attention_or_compiler(path):
         node.attr == "compile" and isinstance(node.value, ast.Name)
         and node.value.id == "torch" for node in attrs
     )
+
+
+def test_parallel_subpackages_are_covered():
+    """The distributed slice's modules exist and are among the files the
+    import checks above walk."""
+    for rel in ("core/distributed.py", "core/mesh.py", "core/collectives.py",
+                "parallel/sharding.py", "parallel/ring_attention.py",
+                "parallel/ulysses.py", "parallel/expert.py",
+                "parallel/pipeline.py", "obs/heartbeat.py"):
+        assert PKG / rel in FILES, rel
 
 
 def test_kernel_sources_exist():

@@ -15,6 +15,7 @@ sequence 32.
 from __future__ import annotations
 
 import io
+import os
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +30,7 @@ from kubeflow_tpu.models import transformer as jtf
 from kubeflow_tpu.train import metrics as jmetrics
 from kubeflow_tpu.train.loop import TrainConfig as JTrainConfig
 from kubeflow_tpu.train.loop import Trainer as JTrainer
+from kubeflow_tpu_torch.core.mesh import MeshSpec as TMeshSpec
 from kubeflow_tpu_torch.data import synthetic as tsyn
 from kubeflow_tpu_torch.models import transformer as ttf
 from kubeflow_tpu_torch.models.bridge import (
@@ -43,6 +45,7 @@ from kubeflow_tpu_torch.train.loop import (
     TrainConfig,
     Trainer,
 )
+from kubeflow_tpu_torch.parallel.sharding import transformer_rules
 from kubeflow_tpu_torch.train.optim import adamw
 from kubeflow_tpu_torch.train.prefetch import live_kft_threads
 
@@ -335,15 +338,17 @@ def test_train_config_validation_matches_jax():
 
 
 UNPORTED = [
-    ("mesh", lambda: TrainConfig(mesh=object(), global_batch=BATCH, steps=1)),
+    ("mesh", lambda: TrainConfig(mesh=TMeshSpec(), global_batch=BATCH, steps=1)),
     ("checkify", lambda: TrainConfig(mesh=None, global_batch=BATCH, steps=1,
                                      check_numerics="checkify")),
     ("debug_nans", lambda: TrainConfig(mesh=None, global_batch=BATCH, steps=1,
                                        debug_nans=True)),
     ("param_spec_fn", lambda: Trainer(
-        init_params=None, loss_fn=None, optimizer=None,
-        config=TrainConfig(mesh=None, global_batch=BATCH, steps=1),
-        param_spec_fn=lambda p: None, device="cpu")),
+        init_params=ttf.make_init_fn(ttf.TransformerConfig(**KW)),
+        loss_fn=ttf.make_loss_fn(), optimizer=adamw(1e-3),
+        config=TrainConfig(mesh=TMeshSpec(), global_batch=BATCH, steps=1,
+                           log_every=1),
+        param_spec_fn=transformer_rules(), device="cpu")),
     ("register", lambda: Checkpointer(CheckpointConfig(directory="unused")).save(
         1, {}, force=True, register=object())),
 ]
@@ -351,18 +356,35 @@ UNPORTED = [
 
 #: knobs this list once held that are ported now: the config builds and a
 #: clean one-step fit succeeds under it
-PORTED = ("checkify", "debug_nans")
+PORTED = ("checkify", "debug_nans", "mesh", "param_spec_fn")
 
 
 @pytest.mark.parametrize("name,make", UNPORTED, ids=[u[0] for u in UNPORTED])
 def test_unported_knobs_raise(name, make, tmp_path, monkeypatch):
     """An unported knob raises naming its ROADMAP item. ``checkify`` and
     ``debug_nans`` are ported (``tests/test_torch_numerics.py`` holds
-    them): the config builds and one clean step trains."""
+    them): the config builds and one clean step trains. ``mesh`` and
+    ``param_spec_fn`` are ported (``tests/test_torch_parallel_train.py``
+    holds them over gloo worlds): a one-device ``MeshSpec()`` with
+    ``transformer_rules()`` trains the step the ``mesh=None`` trainer
+    does, to the bit; a mesh that is not a ``MeshSpec`` raises."""
     monkeypatch.chdir(tmp_path)
     if name not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make()
+        return
+    if name in ("mesh", "param_spec_fn"):
+        with pytest.raises(TypeError, match="MeshSpec"):
+            TrainConfig(mesh=object(), global_batch=BATCH, steps=1)
+        if name == "mesh":
+            t = Trainer(init_params=ttf.make_init_fn(ttf.TransformerConfig(**KW)),
+                        loss_fn=ttf.make_loss_fn(), optimizer=adamw(1e-3),
+                        config=make(), device="cpu")
+        else:
+            t = make()
+        _, hist = t.fit(_data())
+        _, want = _trainer(steps=1).fit(_data())
+        assert hist[0]["loss"] == want[0]["loss"]
         return
     cfg = make()
     t = _trainer(steps=1, check_numerics=cfg.check_numerics,
@@ -372,11 +394,25 @@ def test_unported_knobs_raise(name, make, tmp_path, monkeypatch):
 
 
 def test_orchestrator_heartbeat_wiring_raises(monkeypatch, tmp_path):
+    """Under the gang wiring (which once raised here) ``fit`` writes the
+    heartbeat file the JAX supervisor reads: ``read_heartbeat`` sees the
+    last step, this process and the attempt, and ``is_stale`` holds it
+    fresh, then stale past its timeout."""
+    import time
+
+    from kubeflow_tpu.obs.heartbeat import heartbeat_path, is_stale, read_heartbeat
+
     for key, val in (("KFT_WORKDIR", str(tmp_path)), ("KFT_REPLICA_TYPE", "worker"),
-                     ("KFT_REPLICA_INDEX", "0")):
+                     ("KFT_REPLICA_INDEX", "0"), ("KFT_ATTEMPT", "2")):
         monkeypatch.setenv(key, val)
-    with pytest.raises(NotImplementedError, match="heartbeat"):
-        _trainer(steps=1).fit(_data())
+    state, _ = _trainer(steps=3).fit(_data())
+    path = heartbeat_path(tmp_path, "worker", 0)
+    hb = read_heartbeat(path)
+    assert hb is not None and hb.step == 3 == state.step
+    assert hb.pid == os.getpid() and hb.attempt == 2
+    assert not is_stale(path, timeout=60.0)
+    assert is_stale(path, timeout=1.0, now=time.monotonic() + 5.0)
+    assert not is_stale(path, timeout=1.0, min_attempt=3, now=time.monotonic() + 5.0)
 
 
 def test_fit_sets_the_overlap_gauges_on_the_registry():
