@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs fourteen phases:
+sm_90a, into the git-ignored ``build/``) and runs sixteen phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -145,10 +145,24 @@ sm_90a, into the git-ignored ``build/``) and runs fourteen phases:
    in the steady run, a client-visible failure in the chaos run, a scale
    run that never reaches 2 replicas, never drains to 0 or does not
    complete its cold request, a completed request short of its budget,
-   or a run without paged launches on both bodies.
+   or a run without paged launches on both bodies;
+15. tp — tensor-parallel serving in one world of two ranks on this card
+   (gloo, collectives staged through pinned host memory): the full-width
+   model in bf16 over ``MeshSpec(model=2)``, each rank holding half the
+   heads of every layer and of the paged pool, on the paged kernel, the
+   serving phase's burst held against the one-rank engine on the same
+   weights by the near-tie rule, then at f32 and 2 layers, identical;
+   tokens/s, TTFT p50, decode-step ms, bytes staged a step, the
+   collective share, paged launches by rank and shape (each launched
+   shape held by a kernels-phase case at the ranks' share of the heads)
+   and peak memory by rank;
+16. job — the port's JAXJob workers as two processes on this card from
+   an env contract written here: ``examples/mnist.py`` (metrics on rank
+   0 only, a falling loss, a checkpoint, a second run resuming at the
+   next step) and ``examples/multislice.py`` (its three ``ok`` lines).
 
 Each phase prints one JSON line (load: one a run, then its summary;
-mlm and mesh: one a part).
+mlm, mesh, tp and job: one a part).
 The line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is ``{"ok": true,
 "device": {...}}``. Any failed phase, or a host without CUDA or without
@@ -177,7 +191,8 @@ import zlib
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
-          "disagg", "fleet", "dense", "bert", "train", "mlm", "mesh", "load")
+          "disagg", "fleet", "dense", "bert", "train", "mlm", "mesh", "load",
+          "tp", "job")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -355,7 +370,38 @@ def paged_cases(torch):
         ("verify_d128_bf16", dict(d128, S=5, pos0_spread=(20, 120), dtype=torch.bfloat16)),
         ("window_cluster_bf16", dict(narrow, dtype=torch.bfloat16)),
         ("window_cluster_f32", dict(narrow, dtype=torch.float32)),
-    ]
+    ] + tp_paged_cases(torch)
+
+
+#: the tp phase's mesh: two ranks, the heads split over ``model``
+TP_RANKS = 2
+
+
+def tp_paged_cases(torch):
+    """The shapes a rank of the tp phase launches the paged kernel at: its
+    share of the heads (16 / ``TP_RANKS``), the served decode (B=8, S=1)
+    at each table width the engine's pow2 horizon takes (1, 2 and 4 pages
+    of 32), and the prefill piece (B=1, S=32, one page), in bf16 (the
+    served model) and f32 (the parity run)."""
+    H = MODEL["n_heads"] // TP_RANKS
+    decode = dict(B=8, H=H, Hkv=H, D=64, P=32, T=1152, S=1)
+    piece = dict(decode, B=1, S=32, W=1, live_rows=True)
+    out = []
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        out += [(f"tp_decode_{tag}_w{w}", dict(decode, W=w, dtype=dt))
+                for w in (1, 2, 4)]
+        out.append((f"tp_prefill_{tag}_w1", dict(piece, dtype=dt)))
+    return out
+
+
+def paged_case_key(torch, c):
+    """A paged case's shape as the wrapper's ``LAUNCHES_BY_SHAPE`` names a
+    launch."""
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    kv = torch.int8 if c.get("quant") else c["dtype"]
+    return pa.shape_key(c["dtype"], kv, c["B"], c["H"], c["Hkv"], c["S"],
+                        c["D"], c["P"], c["W"])
 
 
 def paged_inputs(torch, name, c):
@@ -440,6 +486,7 @@ def run_paged_case(torch, name, c, flush):
     t_ops = flops / PEAK_FLOPS[_dtname(torch, dt)] * 1e3
     return {
         "kernel": "paged_attention", "case": name, "shape": [B, H, Hkv, S, D, P, W],
+        "launch_shape": paged_case_key(torch, c),
         "dtype": _dtname(torch, dt), "body": pa.body(H // Hkv, S, dt),
         "kv": "int8" if ks is not None else _dtname(torch, dt),
         "window": window, "max_abs_err": err, "tol": tol, "bitwise_repeat": repeat,
@@ -937,6 +984,7 @@ def _zero_paged(pa):
     """Set the paged kernel's launch counts to 0: in all, by span, by body."""
     pa.LAUNCHES = 0
     pa.LAUNCHES_BY_S.clear()
+    pa.LAUNCHES_BY_SHAPE.clear()
     for k in pa.LAUNCHES_BY_BODY:
         pa.LAUNCHES_BY_BODY[k] = 0
 
@@ -987,6 +1035,8 @@ def phase_kernels(torch, state):
             state["paged_main"] = r
         elif name == "prefill_bf16":
             state["paged_mma"] = r
+        elif name.startswith("tp_"):
+            state.setdefault("paged_tp", {})[name] = r
     for name, dt, S, W in paged_invariance_cases(torch):
         r = run_paged_invariance(torch, name, dt, S, W)
         emit(r)
@@ -1010,13 +1060,16 @@ def phase_kernels(torch, state):
 # phase 2: full-width no-cache forward, flash kernel vs plain attention
 # --------------------------------------------------------------------------- #
 
-def _model(torch, dtype, attn_impl, seed=0, state_dict=None):
+def _model(torch, dtype, attn_impl, seed=0, state_dict=None, layers=None,
+           device="cuda"):
+    """``MODEL`` (at ``layers`` blocks when given) on ``device``."""
     from kubeflow_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM, init_weights,
     )
 
-    cfg = TransformerConfig(dtype=dtype, attn_impl=attn_impl, **MODEL)
-    m = TransformerLM(cfg, device="cuda")
+    cfg = TransformerConfig(dtype=dtype, attn_impl=attn_impl,
+                            **dict(MODEL, n_layers=layers or MODEL["n_layers"]))
+    m = TransformerLM(cfg, device=device)
     if state_dict is None:
         init_weights(m, seed)
     else:
@@ -1055,12 +1108,12 @@ def phase_forward(torch, state):
 # phases 3-4: the served engine
 # --------------------------------------------------------------------------- #
 
-def sharpened_state(torch, dtype):
+def sharpened_state(torch, dtype, layers=None, device="cuda"):
     """Random weights from a seed with the unembed tied to the embedding
     and the residual branches tempered (bench.py's paged-attention model):
     a fully random head has near-tied logits, so any rounding would flip
     a greedy argmax; this keeps margins a trained LM would have."""
-    m = _model(torch, dtype, "flash", seed=0)
+    m = _model(torch, dtype, "flash", seed=0, layers=layers, device=device)
     sd = {k: v.clone() for k, v in m.state_dict().items()}
     del m
     sd["unembed.weight"] = sd["embed.embedding"].clone()
@@ -1264,7 +1317,7 @@ def _greedy_margin(torch, model, ids, want, got):
     i = next((j for j, (a, b) in enumerate(zip(want, got)) if a != b),
              min(len(want), len(got)))
     with torch.inference_mode():
-        logits = model(torch.tensor([ids + want[:i]], device="cuda"))[0, -1]
+        logits = model(torch.tensor([ids + want[:i]], device=model.device))[0, -1]
     top = torch.topk(logits.float(), 2).values
     return {"position": i, "top2_margin": (top[0] - top[1]).item()}
 
@@ -4117,6 +4170,319 @@ def phase_load(torch, state):
     return all(checks.values()) and len(checks) == 3
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: tensor-parallel serving, two ranks on one card
+# --------------------------------------------------------------------------- #
+
+#: the f32 parity run's depth (full width)
+TP_F32_LAYERS = 2
+
+
+def _tp_burst(torch, dist, eng, reqs):
+    """The burst on a started TP engine: the leader submits every request
+    at once and stops the engine; a follower follows until that stop.
+    Returns the leader's streams and wall seconds (None on a follower)."""
+    if not eng.is_leader:
+        eng.start()
+        return None, None
+    eng.start()
+    try:
+        t0 = time.perf_counter()
+        got = _concurrent(lambda p: eng.submit(p, max_new_tokens=MAX_NEW), reqs)
+        return got, time.perf_counter() - t0
+    finally:
+        eng.stop()
+
+
+def _tp_counts(torch, dev):
+    """This rank's paged launches (by shape and body), staged bytes,
+    collective seconds and calls since they were set to 0, and its peak
+    memory."""
+    from kubeflow_tpu_torch.core import collectives as coll
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    return {"paged_launches": pa.LAUNCHES,
+            "paged_by_shape": dict(pa.LAUNCHES_BY_SHAPE),
+            "paged_by_body": dict(pa.LAUNCHES_BY_BODY),
+            "staged_bytes": coll.STAGED_BYTES,
+            "collective_s": coll.COLLECTIVE_S,
+            "collective_calls": dict(coll.COLLECTIVE_CALLS),
+            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 2**30
+                        if dev.type == "cuda" else None)}
+
+
+def _tp_zero(torch, dist, dev):
+    from kubeflow_tpu_torch.core import collectives as coll
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+
+    dist.barrier()
+    _zero_paged(pa)
+    coll.reset_counters()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _tp_free(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _tp_rank(device="cuda"):
+    """One rank of the tp phase (both run this): (a) the full-width bf16
+    model served over ``MeshSpec(model=2)`` on the paged kernel, a warm
+    burst and then the counted one; rank 0 then serves the same burst on
+    the one-rank engine over the full weights; (b) the same at f32 with
+    TF32 off and ``TP_F32_LAYERS`` blocks. (``device="cpu"`` runs the
+    same code on the kernel's plain twin.)"""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    mesh = build_mesh(MeshSpec(model=TP_RANKS), device=dev)
+    reqs = prompts()
+    kw = dict(ENGINE, paged_attn_impl="kernel")
+    res = {"rank": rank, "backend": dist.get_backend()}
+    for part, dtype, layers in (("a_bf16", torch.bfloat16, MODEL["n_layers"]),
+                                ("b_f32", torch.float32, TP_F32_LAYERS)):
+        sd = sharpened_state(torch, dtype, layers, dev)
+        model = _model(torch, dtype, "flash", state_dict=sd, layers=layers,
+                       device=dev)
+        # the warm burst (kernel libraries loaded, allocator warm) ...
+        _tp_burst(torch, dist, LMEngine(model, mesh=mesh, **kw), reqs)
+        gc.collect()
+        _tp_free(torch, dev)
+        # ... then the counted one: every count set to 0 just before it
+        eng = LMEngine(model, mesh=mesh, **kw)
+        _tp_zero(torch, dist, dev)
+        got, wall = _tp_burst(torch, dist, eng, reqs)
+        _mesh_sync(torch, dev)
+        out = _tp_counts(torch, dev)
+        out["records"] = eng.tp_records
+        out["kv_heads_held"] = next(iter(eng.cache.values()))["k"].shape[0]
+        if eng.is_leader:
+            tokens = sum(len(t) for t in got)
+            steps = eng.stats["chunks"] * eng.chunk_steps
+            out.update({
+                "streams": got, "wall_s": wall, "tokens": tokens,
+                "tokens_per_s": tokens / wall,
+                "ttft_p50_ms": statistics.median(eng.ttft_ms),
+                "decode_step_ms": eng.overlap["decode_gap_ms"] / eng.chunk_steps,
+                "chunks": eng.stats["chunks"],
+                "prefill_pieces": eng.stats["prefill_pieces"],
+                "staged_bytes_per_step": out["staged_bytes"] / max(steps, 1),
+                "collective_share": out["collective_s"] / wall,
+            })
+        del eng, model
+        gc.collect()
+        _tp_free(torch, dev)
+        dist.barrier()
+        if rank == 0:
+            full = _model(torch, dtype, "flash", state_dict=sd, layers=layers,
+                          device=dev)
+            want = _engine_streams(torch, full, "kernel", reqs)
+            if dtype == torch.float32:
+                same, bad = _compare_greedy(torch, full, reqs, want, got)
+                judged = same
+            else:
+                judged, bad = _judged(torch, full, reqs, want, got)
+                same = want == got
+            out.update({"one_rank_streams_equal": same, "judged": judged,
+                        "divergences": bad})
+            del full
+            gc.collect()
+            _tp_free(torch, dev)
+        dist.barrier()
+        del sd
+        res[part] = out
+    return res
+
+
+def phase_tp(torch, state):
+    """Tensor-parallel serving in one world of two ranks on this card
+    (gloo, ``LOCAL_WORLD_SIZE=2``, collectives staged through pinned host
+    memory; spawned once, the kernels built here first): the full-width
+    ``MODEL`` in bf16 over ``MeshSpec(model=2)`` on the paged pool with
+    the kernel, the serving phase's burst (``N_REQ`` requests,
+    ``MAX_NEW`` new tokens), held against the one-rank engine on the same
+    weights by the near-tie rule; then at f32 with ``TP_F32_LAYERS``
+    blocks, token-identical. A line a part: tokens/s, TTFT p50, the
+    decode-step ms (the decode-gap EWMA over the chunk's steps), bytes
+    staged a decode step (prefill pieces included), the collective share
+    of the burst's wall, paged launches by rank and shape, and peak
+    memory by rank; then ``shapes_not_held``, which fails the phase when
+    a shape the ranks launched the paged kernel at has no kernels-phase
+    case. Two ranks sharing one card and the host link say nothing of a
+    multi-card TP server."""
+    from kubeflow_tpu_torch.core.distributed import launch
+
+    t0 = time.perf_counter()
+    ranks = sorted(launch(_tp_rank, TP_RANKS, timeout_s=900.0, pg_timeout_s=300.0),
+                   key=lambda r: r["rank"])
+    ok = True
+    launched: dict[str, int] = {}
+    for part in ("a_bf16", "b_f32"):
+        rows = [r[part] for r in ranks]
+        lead = rows[0]
+        heads = MODEL["n_heads"] // TP_RANKS
+        good = (lead["judged"] and all(x["paged_launches"] > 0 for x in rows)
+                and all(x["kv_heads_held"] == heads for x in rows)
+                and len({x["records"] for x in rows}) == 1)
+        if part == "b_f32":
+            good &= lead["one_rank_streams_equal"]
+        for x in rows:
+            for k, n in x["paged_by_shape"].items():
+                launched[k] = launched.get(k, 0) + n
+        ok &= good
+        emit({"phase": "tp", "part": part, "ok": good,
+              "mesh": {"model": TP_RANKS}, "dtype": part.split("_")[1],
+              "layers": MODEL["n_layers"] if part == "a_bf16" else TP_F32_LAYERS,
+              "requests": N_REQ, "max_new": MAX_NEW,
+              "one_rank_streams_equal": lead["one_rank_streams_equal"],
+              "judged_by_near_tie": part == "a_bf16", "near_tie": NEAR_TIE,
+              "divergences": lead["divergences"],
+              **{k: lead[k] for k in (
+                  "tokens", "wall_s", "tokens_per_s", "ttft_p50_ms",
+                  "decode_step_ms", "chunks", "prefill_pieces",
+                  "staged_bytes_per_step", "collective_share")},
+              "records": lead["records"],
+              "by_rank": [{k: x[k] for k in (
+                  "paged_launches", "paged_by_shape", "paged_by_body",
+                  "staged_bytes", "collective_s", "collective_calls",
+                  "peak_gb", "kv_heads_held")} for x in rows]})
+    held = {paged_case_key(torch, c) for _, c in paged_cases(torch)}
+    unheld = sorted(set(launched) - held)
+    ok &= not unheld
+    state["tp_launches_by_shape"] = launched
+    backend = sorted({r["backend"] for r in ranks})
+    emit({"phase": "tp", "ok": bool(ok), "ranks": TP_RANKS, "backend": backend,
+          "host_staged": backend == ["gloo"], "launches_by_shape": launched,
+          "shapes_not_held": unheld, "seconds": time.perf_counter() - t0,
+          "note": "two ranks share one card and its host link: no figure "
+                  "here says anything of a multi-card TP server"})
+    return ok
+
+
+# --------------------------------------------------------------------------- #
+# phase 16: the JAXJob workers from the env contract
+# --------------------------------------------------------------------------- #
+
+#: each worker run's limit (seconds)
+JOB_TIMEOUT_S = 240
+
+
+def _job_run(module, argv, nprocs=2):
+    """``python -m kubeflow_tpu_torch.examples.<module>`` as ``nprocs``
+    processes on this card, wired by the env contract written here (the
+    coordinator, the world, each rank, and ``LOCAL_WORLD_SIZE``: the
+    ranks share the card, so the backend is gloo). Returns ``(return
+    codes, stdout by rank, seconds)``; every process is ended."""
+    import os
+    import tempfile
+
+    from kubeflow_tpu_torch.core.distributed import free_port
+
+    port = free_port()
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(nprocs):
+            env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES=str(nprocs), JAX_PROCESS_ID=str(rank),
+                       LOCAL_WORLD_SIZE=str(nprocs), PYTHONUNBUFFERED="1")
+            log = tempfile.TemporaryFile(mode="w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", f"kubeflow_tpu_torch.examples.{module}",
+                 *argv], env=env, stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + JOB_TIMEOUT_S
+        for p in procs:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(10)
+    out = []
+    for log in logs:
+        log.seek(0)
+        out.append(log.read())
+        log.close()
+    return [p.returncode for p in procs], out, time.perf_counter() - t0
+
+
+def _final_line(text):
+    line = next((x for x in text.splitlines() if x.startswith("final_loss=")), "")
+    return {k: float(v) for k, v in (kv.split("=") for kv in line.split())}
+
+
+def phase_job(torch, state):
+    """The port's JAXJob workers as two processes on this card, started
+    from the env contract this script writes (no orchestrator): (a)
+    ``examples/mnist.py``, 6 steps of 32 with a checkpoint every 3 (the
+    JAX ``test_e2e_mnist`` run): both exit 0, the metrics of steps 2, 4
+    and 6 only on rank 0's stdout, the loss falls, a checkpoint is
+    written; (b) the same to 8 steps: both ranks resume at step 6 and
+    rank 0 logs step 8 alone; (c) ``examples/multislice.py`` of 2
+    processes, 4 steps at sequence 64: its three ``ok`` lines. A line a
+    run with its seconds (process start and CUDA set-up included)."""
+    import os
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.train.metrics import parse_stdout_metrics
+
+    ckpt = tempfile.mkdtemp(prefix="kft-job-ckpt-")
+    ok = True
+    try:
+        for part, steps in (("a_mnist", 6), ("b_resume", 8)):
+            rcs, logs, secs = _job_run("mnist", [
+                "--steps", str(steps), "--global-batch", "32", "--log-every", "2",
+                "--lr", "3e-3", "--checkpoint-dir", ckpt, "--checkpoint-every", "3"])
+            m0, m1 = parse_stdout_metrics(logs[0]), parse_stdout_metrics(logs[1])
+            final = _final_line(logs[0])
+            want_steps = [2, 4, 6] if part == "a_mnist" else [8]
+            good = (rcs == [0, 0] and [m["step"] for m in m0] == want_steps
+                    and m1 == [] and "final_loss=" not in logs[1] and bool(final)
+                    and all("1 local / 2 global cuda devices (backend gloo)" in x
+                            for x in logs))
+            if part == "a_mnist":
+                good &= m0[-1]["loss"] < m0[0]["loss"] if len(m0) == 3 else False
+                good &= any(os.scandir(ckpt))
+            else:
+                good &= all("resume_step=6" in x for x in logs)
+            ok &= good
+            emit({"phase": "job", "part": part, "ok": good, "returncodes": rcs,
+                  "rank0_metric_steps": [m["step"] for m in m0],
+                  "rank1_metric_lines": len(m1),
+                  "losses": [m["loss"] for m in m0], **final,
+                  "seconds": secs,
+                  **({} if good else {"logs": [x[-3000:] for x in logs]})})
+        rcs, logs, secs = _job_run("multislice", ["--steps", "4", "--seq-len", "64"])
+        lines = ("dcn placement ok: 2 slices x 1 devices",
+                 "cross-slice psum ok: 3.0", "multislice training ok: steps=4")
+        good = (rcs == [0, 0] and all(x in logs[0] for x in lines)
+                and lines[0] in logs[1] and lines[2] not in logs[1])
+        ok &= good
+        emit({"phase": "job", "part": "c_multislice", "ok": good, "returncodes": rcs,
+              "ok_lines_rank0": [x for x in lines if x in logs[0]],
+              "attn_impl": "reference", "seconds": secs,
+              **({} if good else {"logs": [x[-3000:] for x in logs]})})
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return ok
+
+
 def _device_summary(prof):
     """(kernels, busy ms, kernels by device time) of a profile: busy is
     the union of kernel intervals on the card. Ranges that user
@@ -4325,6 +4691,7 @@ def main(argv=None) -> int:
                "dense": phase_dense,
                "bert": phase_bert, "train": phase_train, "mlm": phase_mlm,
                "mesh": phase_mesh, "load": phase_load,
+               "tp": phase_tp, "job": phase_job,
                "profile": phase_profile}
     ok = True
     seconds = {"build": build_s}
@@ -4550,6 +4917,21 @@ def main(argv=None) -> int:
                     "bound_ms": bwd["bound_ms"][part], "bound_by": bwd["bound_by"][part],
                     "library_ms": bwd["library_ms"],
                 })
+        # the tp phase's paged launches at the ranks' share of the heads:
+        # each TP case of the kernels phase, timed at its shape and
+        # launched there by both ranks
+        tp = state.get("tp_launches_by_shape", {})
+        for case, r in state.get("paged_tp", {}).items():
+            kernels.append({
+                "name": f"paged_attention_{case}", "route": "cuda",
+                "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
+                "replaces": "kubeflow_tpu/ops/paged_attention.py:185",
+                "body": r["body"], "case": case, "shape": r["launch_shape"],
+                "launches": tp.get(r["launch_shape"], 0),
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
         emit({"kernels": kernels})
     print(card, flush=True)
     # the cards this run used: one

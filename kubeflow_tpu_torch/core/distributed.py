@@ -161,6 +161,32 @@ def rank_device(cfg: DistributedConfig, device=None):
 
 
 _initialized = False
+#: the default group's timeout, given to every group a mesh creates
+_timeout: datetime.timedelta | None = None
+
+
+def group_timeout() -> datetime.timedelta:
+    """The timeout for every group a mesh or an engine creates, whose own
+    default would be torch's 30 minutes, so a collective that a dead or
+    wedged peer never joins fails the rank within the same bound as one
+    on the default group: the default group's timeout when this module
+    brought it up; when another launcher did (``torchrun``), that group's
+    own timeout as its gloo backend reports it; else
+    ``DEFAULT_TIMEOUT_S``."""
+    if _timeout is not None:
+        return _timeout
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        try:  # private in torch: read it where it is there
+            pg = dist.distributed_c10d._get_default_group()
+            own = pg._get_backend(torch.device("cpu")).options._timeout
+            if isinstance(own, datetime.timedelta):
+                return own
+        except (AttributeError, RuntimeError):
+            pass
+    return datetime.timedelta(seconds=DEFAULT_TIMEOUT_S)
 
 
 def initialize(cfg: DistributedConfig, *, device=None,
@@ -171,7 +197,7 @@ def initialize(cfg: DistributedConfig, *, device=None,
     import torch
     import torch.distributed as dist
 
-    global _initialized
+    global _initialized, _timeout
     if _initialized or dist.is_initialized():
         return dist.get_backend()
     if not cfg.is_multiprocess:
@@ -182,9 +208,10 @@ def initialize(cfg: DistributedConfig, *, device=None,
     init_method = addr if addr.startswith("file://") else f"tcp://{addr}"
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    _timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
         backend, init_method=init_method, world_size=cfg.num_processes,
-        rank=cfg.process_id, timeout=datetime.timedelta(seconds=timeout_s),
+        rank=cfg.process_id, timeout=_timeout,
     )
     _initialized = True
     logger.info("torch.distributed up: rank %d/%d via %s, backend %s%s",
@@ -206,10 +233,11 @@ def shutdown() -> None:
     """Tear the default process group down (the launcher's ranks call it)."""
     import torch.distributed as dist
 
-    global _initialized
+    global _initialized, _timeout
     if dist.is_initialized():
         dist.destroy_process_group()
     _initialized = False
+    _timeout = None
 
 
 # --------------------------------------------------------------------------- #
@@ -223,8 +251,19 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+#: variables of the env contract and the gang wiring that a rank of
+#: :func:`launch` takes from the launcher alone, never from the parent's
+#: environment (a parent inside a gang, or one that a caller left them in)
+_RANK_ENV = (ENV_COORDINATOR_ADDRESS, ENV_NUM_PROCESSES, ENV_PROCESS_ID,
+             ENV_LOCAL_DEVICE_IDS, ENV_TPU_WORKER_ID, ENV_TPU_WORKER_HOSTNAMES,
+             ENV_LOCAL_WORLD_SIZE, "KFT_WORKDIR", "KFT_REPLICA_TYPE",
+             "KFT_REPLICA_INDEX")
+
+
 def _rank_main(fn, inputs, rank, env, device, timeout_s, results,
                world_timeout_s):
+    for key in _RANK_ENV:
+        os.environ.pop(key, None)
     os.environ.update(env)
     # a rank still running when the world's time is nearly up prints
     # where each of its threads is before the launcher kills it

@@ -255,6 +255,8 @@ class Mesh:
         every coordinate, on every rank, in one order."""
         import torch.distributed as dist
 
+        from kubeflow_tpu_torch.core.distributed import group_timeout
+
         names = tuple(a for a in _axes(axes) if self.spec.size(a) > 1)
         if not names:
             return None
@@ -270,7 +272,8 @@ class Mesh:
                             for a in Axis.GRID)
                 ranks = [int(r) for r in self.grid[sel].reshape(-1)]
                 assert len(ranks) == n
-                g = dist.new_group(ranks, backend=self.backend)
+                g = dist.new_group(ranks, backend=self.backend,
+                                   timeout=group_timeout())
                 if self.rank in ranks:
                     mine = g
             self._groups[names] = mine

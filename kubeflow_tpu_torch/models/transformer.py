@@ -46,7 +46,12 @@ product) summed over ``model`` and the unembed return this rank's
 vocabulary columns, which :func:`make_loss_fn` reduces as a
 vocab-parallel cross-entropy. Every ``moe_every``-th block's FFN is the
 MoE of ``parallel/expert.py``, whose aux and z losses the loss adds as
-the JAX loss does.
+the JAX loss does. A cached forward (dense or paged) under a mesh is
+tensor-parallel serving: the rank's heads write and read the rank's
+share of the cache (``init_kv_cache``/``init_paged_kv_cache`` with
+``kv_heads``), o/down sum over ``model`` as in training, and the
+vocabulary columns are gathered over ``model`` so that every rank holds
+the whole logits; ``seq`` is not split there.
 
 Under ``remat`` each block of a no-cache forward that records gradients
 runs inside ``torch.utils.checkpoint`` and is recomputed in the backward,
@@ -443,7 +448,7 @@ class Attention(nn.Module):
             if cfg.attn_window is not None:
                 mask = mask & (kpos[None, None, :]
                                > qpos[:, :, None] - cfg.attn_window)
-        o = _grouped_cache_attention(q, K, V, mask, cfg.n_heads // Hkv)
+        o = _grouped_cache_attention(q, K, V, mask, q.shape[1] // Hkv)
         return o, layer_cache
 
     def _paged(self, q, k, v, positions, layer_cache, page_table, P,
@@ -457,7 +462,7 @@ class Attention(nn.Module):
         (the JAX model's sown ``quant_stats``)."""
         cfg = self.cfg
         B, Hkv, S, D = k.shape
-        groups = cfg.n_heads // Hkv
+        groups = q.shape[1] // Hkv
         W = page_table.shape[1] * P
         table = page_table.long()
         # clamped lookup: only rows with page_write_ok False can reach
@@ -579,7 +584,7 @@ class Block(nn.Module):
         if layer_cache is not None:
             h, new_cache = self.attn(
                 self.ln1(x), positions, segment_ids, layer_cache=layer_cache,
-                **cached,
+                mesh=mesh, **cached,
             )
         else:
             h = self.attn(self.ln1(x), positions, segment_ids, mesh=mesh)
@@ -649,15 +654,19 @@ class TransformerLM(nn.Module):
     ):
         cfg = self.cfg
         B, S = tokens.shape
-        mesh = current_mesh() if cache is None else None
+        mesh = current_mesh()
+        if cache is not None and mesh is not None and mesh.size(Axis.SEQ) > 1:
+            raise NotImplementedError(
+                "a cached forward under a mesh splits heads over 'model'; "
+                "the seq axis is not split in serving")
         if positions is None:
             ar = torch.arange(S, device=tokens.device)
             if torch.is_tensor(cache_index) and cache_index.ndim == 1:
                 positions = cache_index[:, None] + ar
             else:
                 start = 0 if cache_index is None else int(cache_index)
-                if mesh is not None:  # this rank's chunk of the sequence
-                    start = mesh.index(Axis.SEQ) * S
+                if mesh is not None and cache is None:
+                    start = mesh.index(Axis.SEQ) * S  # this rank's chunk
                 positions = (start + ar).expand(B, S)
         x = self.embed(tokens, mesh)
         if not cfg.use_rope:
@@ -678,7 +687,7 @@ class TransformerLM(nn.Module):
                 name = f"layers_{i}"
                 x, cache[name] = block(
                     x, positions, segment_ids, layer_cache=cache[name],
-                    **cached,
+                    mesh=mesh, **cached,
                 )
             elif remat:
                 x = checkpoint(block, x, positions, segment_ids,
@@ -692,10 +701,15 @@ class TransformerLM(nn.Module):
             logits = self.unembed(h)
         else:
             w = gather_at_use(self.unembed.weight, mesh)
-            if _split(self.unembed.weight, Axis.MODEL):
+            split = _split(self.unembed.weight, Axis.MODEL)
+            if split:
                 # this rank's vocabulary columns (make_loss_fn reduces them)
                 h = coll.enter(h, Axis.MODEL, mesh=mesh)
             logits = F.linear(h, w)
+            if split and cache is not None:
+                # serving: every rank's sampler sees the whole vocabulary
+                logits = coll._all_gather(logits.contiguous(), mesh,
+                                          Axis.MODEL, logits.dim() - 1)
         if cache is not None:
             return logits, cache
         return logits
@@ -708,13 +722,15 @@ def init_kv_cache(
     dtype: torch.dtype | None = None,
     *,
     device=None,
+    kv_heads: int | None = None,
 ) -> dict:
     """Zeroed DENSE decode cache: one ``(batch, kv_heads, max_len,
     head_dim)`` K and V per layer in ``dtype`` (default the model's), so
-    GQA configs pay for kv_heads, not n_heads."""
+    GQA configs pay for kv_heads, not n_heads. ``kv_heads`` is the heads
+    this rank holds (default all; a tensor-parallel rank's share)."""
     dev = resolve_device(device)
     dtype = dtype or cfg.dtype
-    shape = (batch, cfg.kv_heads, max_len, cfg.head_dim)
+    shape = (batch, kv_heads or cfg.kv_heads, max_len, cfg.head_dim)
     return {
         f"layers_{i}": {
             "k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -731,13 +747,15 @@ def init_paged_kv_cache(
     kv_quant: str = "none",
     *,
     device=None,
+    kv_heads: int | None = None,
 ) -> dict:
     """Zeroed PAGED cache: one flat (kv_heads, pool_tokens, head_dim) K and
     V per layer, shared by every row through a block table. ``kv_quant=
     "int8"`` stores int8 codes plus (kv_heads, pool_tokens) f32
-    ``k_scale``/``v_scale``."""
+    ``k_scale``/``v_scale``. ``kv_heads`` is the heads this rank holds
+    (default all; a tensor-parallel rank's share)."""
     dev = resolve_device(device)
-    shape = (cfg.kv_heads, pool_tokens, cfg.head_dim)
+    shape = (kv_heads or cfg.kv_heads, pool_tokens, cfg.head_dim)
     if kv_quant == "int8":
         return {
             f"layers_{i}": {

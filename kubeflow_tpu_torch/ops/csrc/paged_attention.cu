@@ -42,8 +42,11 @@
 //   and runs S = Q.K^T and O = P.V on mma.sync.m16n8k16 with f32
 //   accumulators (tile_mma.cuh), the mask and online softmax on the
 //   accumulator fragments (per-element masks only on a chunk that is not
-//   wholly visible), p packed to q's type for P.V as the flash kernels
-//   do. Why mma.sync and not wgmma: a span has 5-32 rows a kv head on the
+//   wholly visible), p packed to q's type for P.V in two 16-bit halves
+//   (hi, then lo = p - hi), two products adding up to p to 16 more bits:
+//   one 16-bit p alone puts a relative 2^-9 on each term, which a row of
+//   a few keys whose values cancel (a piece's first rows at position 0)
+//   shows far above its output's rounding. Why mma.sync and not wgmma: a span has 5-32 rows a kv head on the
 //   served path, and wgmma's 64-row minimum would leave most of every
 //   product as padding; the span's flop per byte is about its row count,
 //   far below the ridge, so the tensor cores cut per-row issue latency,
@@ -51,10 +54,8 @@
 //   [-127, 127] are exact in bf16 and f16, so the warp widens a chunk's
 //   codes into a swizzled 16-bit tile, multiplies each key's score by its
 //   k scale after Q.K^T and folds the v scale into p before it is packed
-//   (sum_j p_j (c_j s_j) = sum_j (p_j s_j) c_j); p s is packed as two
-//   16-bit halves (hi, then lo = p s - hi) in two products, since one
-//   16-bit p s would double the rounding of a pool of q's type, where p =
-//   1 is exact.
+//   (sum_j p_j (c_j s_j) = sum_j (p_j s_j) c_j), and p s is packed in
+//   the same two halves.
 //
 // Loads. Every warp streams its own keys in chunks of KCH (a page, or 32
 // keys of a longer one) through a ring of up to NSTAGE stages in shared
@@ -319,10 +320,11 @@ __host__ __device__ constexpr int blocks_of(int floor_bytes, int cap) {
 }
 // at most 3 blocks an SM (170 registers a thread) for the decode body,
 // whose unrolled score loop spills at 128; the mma body holds Q and O
-// fragments (DP / 4 + DP / 2 registers) and gets 2 blocks at DP = 128
+// fragments (DP / 4 + DP / 2 registers) and the halves of p, and gets 3
+// blocks at DP = 64 and 2 at DP = 128
 __host__ __device__ constexpr int dec_blocks(int DP, int eb) { return blocks_of(dec_floor(DP, eb), 3); }
 __host__ __device__ constexpr int mma_blocks(int DP, bool quant) {
-  return blocks_of(mma_floor(DP, quant), DP == 64 ? 4 : 2);
+  return blocks_of(mma_floor(DP, quant), DP == 64 ? 3 : 2);
 }
 
 // ------------------------------------------------------ pages and groups
@@ -956,15 +958,14 @@ __global__ void __launch_bounds__(THREADS, mma_blocks(DP, QUANT)) paged_attn_mma
         oacc[n][3] *= al_b;
       }
 
-      // O += P.V, p packed to q's type from the accumulators. With int8
-      // codes as V, p times the v scale is no longer exact in 16 bits
-      // where p = 1 was: it goes in as two 16-bit halves, hi = p rounded
-      // and lo = p - hi, two products adding up to p to 16 more bits.
+      // O += P.V, p (int8: p times the v scale) packed to q's type from
+      // the accumulators as two 16-bit halves, hi = p rounded and lo = p -
+      // hi, two products adding up to p to 16 more bits
 #pragma unroll
       for (int kk = 0; kk < 2; ++kk) {
         if (kk < n16) {
           uint32_t pa[4], pl[4];
-          if (QUANT) {
+          {
             float lo[2][4];
 #pragma unroll
             for (int x = 0; x < 2; ++x) {
@@ -987,10 +988,8 @@ __global__ void __launch_bounds__(THREADS, mma_blocks(DP, QUANT)) paged_attn_mma
             tile::ldsm_x4_t(bf, vt + (ch / 8) * BOXB + tile::swz<64>(key, ch % 8));
             tile::mma<TQ>(oacc[2 * cp], pa, bf[0], bf[1]);
             tile::mma<TQ>(oacc[2 * cp + 1], pa, bf[2], bf[3]);
-            if (QUANT) {
-              tile::mma<TQ>(oacc[2 * cp], pl, bf[0], bf[1]);
-              tile::mma<TQ>(oacc[2 * cp + 1], pl, bf[2], bf[3]);
-            }
+            tile::mma<TQ>(oacc[2 * cp], pl, bf[0], bf[1]);
+            tile::mma<TQ>(oacc[2 * cp + 1], pl, bf[2], bf[3]);
           }
         }
       }

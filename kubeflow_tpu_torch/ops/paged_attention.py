@@ -13,7 +13,8 @@ arithmetic on positions, so no mask operand exists.
 tensors and runs :func:`paged_attention_reference` for CPU tensors — the
 choice follows the tensors' device only, never a fallback on error.
 ``LAUNCHES`` counts kernel launches (``LAUNCHES_BY_S`` by span length,
-``LAUNCHES_BY_BODY`` by body), so a run can show the serving path went
+``LAUNCHES_BY_BODY`` by body, ``LAUNCHES_BY_SHAPE`` by :func:`shape_key`),
+so a run can show the serving path went
 through the kernel. The kernel has two bodies, chosen by q's dtype and
 the rows a kv head ``G * S`` alone (:func:`body`): ``"decode"``, one lane
 a key on f32 FMAs, for every dtype (f32 is the parity path) and for
@@ -48,6 +49,8 @@ LAUNCHES = 0
 LAUNCHES_BY_S: dict[int, int] = {}
 #: the same launches by kernel body (:func:`body`); set to 0 with LAUNCHES
 LAUNCHES_BY_BODY: dict[str, int] = {"decode": 0, "mma": 0}
+#: the same launches by :func:`shape_key`; cleared with LAUNCHES
+LAUNCHES_BY_SHAPE: dict[str, int] = {}
 
 _DTYPE_CODES = {
     torch.float32: 0, torch.bfloat16: 1, torch.float16: 2, torch.int8: 3,
@@ -56,6 +59,19 @@ _MAX_HEAD_DIM = 128  # the decode body's lanes own at most 4 output columns each
 #: rows a kv head (G * S) above which bf16/f16 spans take the "mma" body;
 #: ``MMA_MIN_GS`` in ``csrc/paged_attention.cu``
 _MMA_MIN_GS = 4
+
+
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16",
+                torch.float16: "f16", torch.int8: "int8"}
+
+
+def shape_key(q_dtype: torch.dtype, kv_dtype: torch.dtype, B: int, H: int,
+              Hkv: int, S: int, D: int, page_size: int, pages: int) -> str:
+    """A launch's shape as ``LAUNCHES_BY_SHAPE`` names it, e.g.
+    ``"bf16 kv=bf16 B8 H8 Hkv8 S1 D64 P32 W4"`` (``W``: the table's
+    width in pages)."""
+    return (f"{_DTYPE_NAMES[q_dtype]} kv={_DTYPE_NAMES[kv_dtype]} B{B} H{H} "
+            f"Hkv{Hkv} S{S} D{D} P{page_size} W{pages}")
 
 
 def body(groups: int, span: int, q_dtype: torch.dtype) -> str:
@@ -256,6 +272,9 @@ def _launch(q, k_pool, v_pool, page_table, pos0, page_size, window, scale,
         LAUNCHES += 1
         LAUNCHES_BY_S[S] = LAUNCHES_BY_S.get(S, 0) + 1
         LAUNCHES_BY_BODY[body(H // Hkv, S, q.dtype)] += 1
+        key = shape_key(q.dtype, k_pool.dtype, B, H, Hkv, S, D, page_size,
+                        page_table.shape[1])
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
         code = lib.kft_paged_attention(
             ptr(q), ptr(k_pool), ptr(v_pool),
             ptr(k_scale) if quant else none, ptr(v_scale) if quant else none,

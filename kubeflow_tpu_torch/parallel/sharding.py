@@ -142,6 +142,68 @@ def module_specs(rules: ShardingRules, module) -> dict[str, P]:
     return out
 
 
+def param_shapes(module) -> dict:
+    """A port ``TransformerLM``'s parameters as the JAX param tree of
+    their JAX shapes (nested by path), for :meth:`ShardingRules.
+    validate_divisibility`."""
+    from kubeflow_tpu_torch.models.bridge import jax_path
+
+    tree: dict = {}
+    for name, p in module.named_parameters():
+        path, transposed = jax_path(name)
+        node = tree
+        *parents, leaf = path.split("/")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = tuple(p.shape)[::-1] if transposed else tuple(p.shape)
+    return tree
+
+
+def shard_module(module, specs: Mapping[str, P], mesh) -> dict[str, P]:
+    """Keep this rank's shard of every parameter of ``module`` in place
+    (``{state_dict name: spec}``, replicated where absent) and tag each
+    with its spec (``kft_spec``), which the layers read to compute with
+    it, and with the mesh and rank it was cut for (``kft_mesh``);
+    returns the padded specs by name."""
+    out = {}
+    for name, p in module.named_parameters():
+        spec = P(*specs.get(name, P())).padded(p.dim())
+        check_spec(spec)
+        try:
+            p.data = shard_tensor(p.data, spec, mesh)
+        except ValueError as e:
+            raise ValueError(f"{name}: {e}") from None
+        p.kft_spec = spec
+        p.kft_mesh = (mesh.spec, mesh.rank)
+        out[name] = spec
+    return out
+
+
+def split_parameters(module) -> list[str]:
+    """Names of the parameters of ``module`` that hold only a part of
+    their tensor: cut by :func:`shard_module` over an axis of more than
+    one rank."""
+    out = []
+    for name, p in module.named_parameters():
+        spec, cut = getattr(p, "kft_spec", None), getattr(p, "kft_mesh", None)
+        if spec is not None and cut is not None and any(
+                cut[0].size(a) > 1 for e in spec for a in spec_axes(e)):
+            out.append(name)
+    return out
+
+
+def unshard_tensor(t, spec: P, mesh):
+    """The full tensor from every rank's shard under ``spec`` (an
+    all-gather a split dim: a collective every rank calls)."""
+    from kubeflow_tpu_torch.core import collectives as coll
+
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes and mesh.group(axes) is not None:
+            t = coll._all_gather(t.contiguous(), mesh, axes, dim)
+    return t
+
+
 def shard_tensor(t, spec: P, mesh):
     """This rank's shard of a full tensor under ``spec`` (each dim split
     over its axes in the order listed, the mesh's c-order)."""

@@ -65,6 +65,26 @@ Requests join and leave a running decode batch of ``max_batch`` rows:
   host tier (``serve/kv_tier.py``) on an offload thread, and the
   session's next turn swaps it back in place of the prefill.
 
+- **Tensor-parallel serving** (``mesh``, a ``MeshSpec`` over the default
+  process group, one rank a process; ``rules`` default
+  ``transformer_rules(fsdp=False)``, the JAX default): every rank builds
+  the same engine from the same arguments and keeps its shard of each
+  weight and ``kv_heads / model`` heads of the cache (dense and paged,
+  int8 scales too). Rank 0, the leader, owns the queue, the scheduler,
+  the sampler's results and the HTTP side; before each device program
+  (a prefill piece, a carry upload or table widening, a decode chunk, a
+  prefix-cache store or implant) it broadcasts one small record of that
+  program's host inputs (ids, positions, block tables, write masks, row
+  flags) on a gloo group, and every follower (``start()`` runs the
+  follower loop in the calling thread) runs the same program on its
+  shards; the model's sums over ``model`` keep the ranks in step, and
+  each rank samples the same whole logits. Replicas over ``data``
+  compute the same step. A follower that dies or wedges fails the
+  leader's next collective within the group's timeout, through the
+  fatal path. Speculative decoding, KV-span and prefix-entry movement,
+  the host KV tier and MoE layers raise ``NotImplementedError`` under a
+  mesh (ROADMAP queue 1 item 14).
+
 Greedy token streams, and seeded sampled ones, are identical to the JAX
 engine's on the same weights (``tests/test_torch_engine*.py``,
 ``tests/test_torch_spec.py``). The settings of the JAX
@@ -85,6 +105,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from kubeflow_tpu_torch.core.mesh import Axis, mesh_context
 from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
@@ -169,7 +190,8 @@ class LMEngineConfig:
     ``host_kv_bytes`` (> 0): the byte budget of the host-RAM KV tier that
     sessioned rows swap out to when they finish. ``kv_pool_tokens``
     (None: the dense cache) sizes the paged pool, ``page_size`` its
-    pages."""
+    pages. ``mesh`` (a ``MeshSpec`` or a built ``core.mesh.Mesh``) and
+    ``rules`` (``parallel/sharding.py`` rules) serve tensor-parallel."""
 
     max_batch: int = 8
     max_seq: int = 256
@@ -198,8 +220,6 @@ def _reject_unported(c: LMEngineConfig) -> None:
     """Settings of the JAX engine this port does not implement raise;
     the JAX constructor's own checks run after them."""
     unported = [
-        (c.mesh is not None or c.rules is not None,
-         "tensor-parallel serving (mesh/rules)", "queue 1 item 13"),
         (c.page_size is None,
          "the measured page-size table (page_size=None)", "queue 2 item 5"),
     ]
@@ -241,6 +261,79 @@ def _reject_unported(c: LMEngineConfig) -> None:
         c.prefill_chunk < 16 or c.prefill_chunk % 16
     ):
         raise ValueError("prefill_chunk must be a multiple of 16")
+    if c.mesh is not None:
+        unported = [
+            (c.spec_draft_tokens > 0, "speculative decoding (spec_draft_tokens)"),
+            (c.host_kv_bytes > 0, "the host KV tier (host_kv_bytes)"),
+        ]
+        for bad, what in unported:
+            if bad:
+                raise NotImplementedError(
+                    f"{what} under a tensor-parallel mesh is not ported yet "
+                    f"(ROADMAP {TP_UNPORTED})"
+                )
+    elif c.rules is not None:
+        raise ValueError("rules lay the weights out over a mesh: pass mesh= too")
+
+
+#: the ROADMAP item of the engine features a tensor-parallel mesh refuses
+TP_UNPORTED = "queue 1 item 14"
+
+
+def _tensor_parallel(model: TransformerLM, c: LMEngineConfig):
+    """Lay ``model`` out for tensor-parallel serving over ``c.mesh`` (a
+    ``MeshSpec``, built over the default process group, or a built
+    ``Mesh``): the JAX engine's checks, then this rank keeps its shard of
+    every weight by ``c.rules`` (``transformer_rules(fsdp=False)`` by
+    default). The cut is made in place: a copy would hold the full
+    weights twice. A model cut before is served as it is when it was cut
+    by these rules for this mesh and rank (an earlier engine's), and
+    refused otherwise. Returns the rank's mesh; its groups exist on
+    return."""
+    from kubeflow_tpu_torch.core.mesh import Mesh, build_mesh
+    from kubeflow_tpu_torch.parallel.sharding import (
+        P, param_shapes, shard_module, split_parameters, transformer_rules)
+
+    mesh = c.mesh if isinstance(c.mesh, Mesh) else build_mesh(
+        c.mesh, device=model.device)
+    cfg = model.cfg
+    if cfg.moe_every:
+        raise NotImplementedError(
+            f"MoE layers under a tensor-parallel mesh are not ported yet "
+            f"(ROADMAP {TP_UNPORTED})")
+    if mesh.size(Axis.SEQ) > 1 or mesh.size(Axis.PIPE) > 1:
+        raise NotImplementedError(
+            "tensor-parallel serving splits heads over 'model' and "
+            "replicates over the other axes; 'seq' and 'pipe' must be 1")
+    rules = c.rules or transformer_rules(fsdp=False)
+    split = split_parameters(model)
+    if not split:
+        rules.validate_divisibility(param_shapes(model), mesh.shape)
+    # the KV cache shards its head axis over 'model'; the rules see only
+    # the weights, so a GQA config must be checked here
+    model_size = mesh.shape.get("model", 1)
+    if cfg.kv_heads % model_size:
+        raise ValueError(
+            f"TP serving shards the KV cache over kv_heads: "
+            f"kv_heads {cfg.kv_heads} must be divisible by the "
+            f"mesh 'model' axis size {model_size}"
+        )
+    specs = rules(model)
+    if not split:
+        shard_module(model, specs, mesh)
+    else:
+        for name, p in model.named_parameters():
+            if (getattr(p, "kft_spec", None)
+                    != P(*specs.get(name, P())).padded(p.dim())
+                    or getattr(p, "kft_mesh", None) != (mesh.spec, mesh.rank)):
+                raise ValueError(
+                    f"the model's weights are cut for another layout "
+                    f"({name}: {getattr(p, 'kft_spec', None)} over "
+                    f"{getattr(p, 'kft_mesh', None)}): pass whole weights")
+    # every group the forward uses, created now in the same order on
+    # every rank (a group's creation is itself a collective)
+    mesh.group(Axis.MODEL)
+    return mesh
 
 
 class EngineOverloaded(RuntimeError):
@@ -439,6 +532,22 @@ class LMEngine:
         cfg = model.cfg
         if not cfg.causal:
             raise ValueError("LMEngine needs a causal TransformerConfig")
+        #: tensor-parallel serving (``config.mesh``): this rank's mesh; rank
+        #: 0 leads (the queue, the scheduler, the sampler's results, the
+        #: HTTP side) and every other rank follows its device programs
+        if config.mesh is None:
+            from kubeflow_tpu_torch.parallel.sharding import split_parameters
+
+            split = split_parameters(model)
+            if split:
+                raise ValueError(
+                    f"the model's weights are cut over a mesh ({split[0]}, "
+                    f"...): serve it with mesh=, or pass whole weights")
+        self.mesh = None if config.mesh is None else _tensor_parallel(
+            model, config)
+        self.is_leader = self.mesh is None or self.mesh.rank == 0
+        kv_heads = cfg.kv_heads // (
+            1 if self.mesh is None else self.mesh.size(Axis.MODEL))
         self.model = model
         self.device = model.device
         self.max_batch, self.max_seq = config.max_batch, config.max_seq
@@ -467,16 +576,15 @@ class LMEngine:
                 page_size=config.page_size,
                 max_batch=config.max_batch,
                 max_pages_per_row=-(-config.max_seq // config.page_size),
-                upload=self.uploader.upload,
             )
             self.cache = init_paged_kv_cache(
                 cfg, config.kv_pool_tokens, kv_quant=self.kv_quant,
-                device=self.device,
+                device=self.device, kv_heads=kv_heads,
             )
         else:
             self.pager = None
             self.cache = init_kv_cache(cfg, config.max_batch, config.max_seq,
-                                       device=self.device)
+                                       device=self.device, kv_heads=kv_heads)
             #: cache slot indices, the key axis of the dense decode masks
             self._kpos = torch.arange(config.max_seq, device=self.device)
         #: noise for unseeded temperature > 0 rows (threefry's engine-key
@@ -484,6 +592,20 @@ class LMEngine:
         self._gen = torch.Generator(device=self.device).manual_seed(config.seed)
         #: the decode chunk program (tests may wrap it to inject faults)
         self._chunk = self._chunk_spec if self.spec_k else self._chunk_plain
+        #: the followers' channel: the leader broadcasts one record a device
+        #: program on a gloo group of every rank (``_program``)
+        self._ctl = None
+        if self.mesh is not None and self.mesh.spec.total_devices > 1:
+            import torch.distributed as dist
+
+            from kubeflow_tpu_torch.core.distributed import group_timeout
+
+            self._ctl = dist.new_group(backend="gloo", timeout=group_timeout())
+        #: programs that threads other than the loop queue for every rank
+        #: (``_queue_program``)
+        self._tp_outbox: deque = deque()
+        #: records broadcast (leader) or followed (follower)
+        self.tp_records = 0
 
         B = config.max_batch
         # per-row host mirrors; they ride to the device once per epoch
@@ -629,9 +751,86 @@ class LMEngine:
         )
         return logits
 
-    def _suffix_prefill(self, piece, slen: int, offset: int, row: int,
-                        temperature: float, seed: int, pos: int, *,
-                        seeded: bool):
+    # -- the followers' channel -------------------------------------------- #
+
+    def _program(self, op: str, local: dict | None = None, **kw):
+        """Run device program ``op`` (``_run_<op>``) on host inputs ``kw``.
+        Under a mesh the leader first broadcasts ``(op, kw)`` to every
+        follower, which runs the same program on its shards (``local``:
+        leader-only arguments that never travel)."""
+        if self._ctl is not None:
+            self._broadcast(op, kw)
+        return getattr(self, f"_run_{op}")(**kw, **(local or {}))
+
+    def _broadcast(self, op: str, kw: dict) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([(op, kw)], src=0, group=self._ctl)
+        self.tp_records += 1
+
+    def _run_queued(self) -> None:
+        """Run the programs that other threads queued (``_queue_program``),
+        in order, on every rank. The loop calls this at the top of an
+        iteration, where no prefix lookup waits for its implant: a drop
+        never lands between a hit and the implant that reads it."""
+        while self._tp_outbox:
+            op, kw = self._tp_outbox.popleft()
+            self._program(op, **kw)
+
+    def _follow(self) -> None:
+        """A follower's loop: receive each record of the leader and run its
+        program, until the leader's ``stop`` record. A ``follower_op``
+        fault hook runs before each program (tests kill a follower
+        there)."""
+        import torch.distributed as dist
+
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self._ctl)
+            op, kw = box[0]
+            self.tp_records += 1
+            self._beat = time.monotonic()
+            if op == "stop":
+                return
+            hook = self._fault_hooks.get("follower_op")
+            if hook is not None:
+                hook(self, op)
+            getattr(self, f"_run_{op}")(**kw)
+
+    def _run_noop(self) -> None:
+        """The idle leader's keep-alive: a follower's receive must not
+        outwait the group's timeout."""
+
+    def _run_prefix_drop(self, keys) -> None:
+        """Drop stored prefix entries, on every rank at the same point of
+        the program stream: ``keys``, the leader's LRU evictions (already
+        gone from its own cache); ``None``, all of them
+        (``drop_prefix_cache``)."""
+        with self._prefix_lock:
+            if keys is None:
+                self._clear_prefix_locked()
+            for key in keys or ():
+                self._prefix_cache.pop(key, None)
+
+    def _run_prefix_store(self, key: tuple, row: int, n16: int, idx):
+        """Copy row ``row``'s first n16 KV tokens out as prefix ``key``: the
+        leader's entry is returned for its LRU, a follower keeps its shard
+        under the same key."""
+        entry = self._extract_prefix(row, n16, idx)
+        if not self.is_leader:
+            self._prefix_cache[key] = entry
+        return entry
+
+    def _run_implant(self, key: tuple, row: int, n16: int, idx,
+                     stored: dict | None = None) -> None:
+        """Implant prefix ``key`` (the leader passes its entry) into row
+        ``row``."""
+        self._implant(self._prefix_cache[key] if stored is None else stored,
+                      row, n16, idx)
+
+    def _run_prefill(self, piece, slen: int, offset: int, row: int,
+                     temperature: float, seed: int, pos: int, *,
+                     seeded: bool, table):
         """One prefill piece of row ``row`` writes tokens [offset, offset
         + S) and samples the token after the last real one — by the
         seeded draw at absolute position ``pos`` when ``seeded``. Paged,
@@ -642,14 +841,17 @@ class LMEngine:
         ``(token, qerr)``: under ``kv_quant="int8"`` qerr is the layers'
         summed ``[quantization error, magnitude]`` of the piece's K and V
         (the only program that measures it: decode chunks stay free of
-        telemetry), else None."""
+        telemetry; under a mesh summed over the ranks' heads), else None.
+        ``piece`` and ``table`` (the row's block table, paged) are host
+        arrays."""
         S = piece.shape[1]
         dev = self.device
+        piece = self.uploader.upload(piece)
         qs: list | None = [] if self.kv_quant == "int8" else None
         if self.paged:
             ar = torch.arange(S, device=dev)
-            table = self.pager.device_row(row, self._pages_w(offset + S))
-            logits = self._forward(piece, (offset + ar)[None, :], table,
+            logits = self._forward(piece, (offset + ar)[None, :],
+                                   self.uploader.upload(table),
                                    (ar < slen)[None, :], quant_stats=qs)
         else:
             row_cache = {name: {which: arr[row:row + 1]
@@ -664,7 +866,12 @@ class LMEngine:
                 last, torch.full((1,), seed, dtype=torch.int64, device=dev),
                 torch.full((1,), pos, dtype=torch.int64, device=dev), temp, tok,
             )
-        return tok[0], (torch.stack(qs).sum(0) if qs else None)
+        qerr = torch.stack(qs).sum(0) if qs else None
+        if qerr is not None and self.mesh is not None:
+            from kubeflow_tpu_torch.core import collectives as coll
+
+            qerr = coll.psum(qerr, Axis.MODEL, mesh=self.mesh)
+        return tok[0], qerr
 
     def _step_logits(self, c: dict, x, positions, gen_count, write_ok):
         """One decode step's forward of ``x (B, S)`` at ``positions``:
@@ -812,47 +1019,75 @@ class LMEngine:
         res.update(last_tok=tok, gen_count=gen_count, active=active, hist=hist)
         return res
 
-    def _extract_prefix(self, row: int, n16: int) -> dict:
+    def _extract_prefix(self, row: int, n16: int, idx=None) -> dict:
         """Copy row ``row``'s first n16 KV tokens out (paged: through its
-        block table; dense: a slice of its cache row) as new tensors:
-        ``(1, kv_heads, n16, D)`` per layer, plus ``(1, kv_heads, n16)``
-        scales for an int8 pool (the JAX entry format, the same in both
-        layouts)."""
+        block table, or the pool tokens ``idx`` when given; dense: a slice
+        of its cache row) as new tensors: ``(1, kv_heads, n16, D)`` per
+        layer, plus ``(1, kv_heads, n16)`` scales for an int8 pool (the
+        JAX entry format, the same in both layouts)."""
         if not self.paged:
             return {name: {which: arr[row:row + 1, :, :n16].clone()
                            for which, arr in lc.items()}
                     for name, lc in self.cache.items()}
-        idx = self._token_index(row, n16)
+        idx = self.uploader.upload(
+            self._token_index(row, n16) if idx is None else idx)
         out = {}
         for name, lc in self.cache.items():
             out[name] = {which: arr[:, idx][None] for which, arr in lc.items()}
         return out
 
-    def _implant(self, stored: dict, row: int, n16: int) -> None:
+    def _implant(self, stored: dict, row: int, n16: int, idx=None) -> None:
         """Copy a stored prefix into row ``row`` at token indices [0,
-        n16): paged, scattered into its pages; dense, into the front of
-        its cache row."""
+        n16): paged, scattered into its pages (or the pool tokens
+        ``idx``); dense, into the front of its cache row."""
         if not self.paged:
             for name, lc in self.cache.items():
                 for which, arr in lc.items():
                     arr[row:row + 1, :, :n16] = stored[name][which].to(arr.dtype)
             return
-        idx = self._token_index(row, n16)
+        idx = self.uploader.upload(
+            self._token_index(row, n16) if idx is None else idx)
         for name, lc in self.cache.items():
             for which, arr in lc.items():
                 arr[:, idx] = stored[name][which][0].to(arr.dtype)
 
-    def _token_index(self, row: int, n: int) -> torch.Tensor:
-        """Pool token of each of row ``row``'s first n tokens."""
+    def _token_index(self, row: int, n: int) -> np.ndarray | None:
+        """Pool token of each of row ``row``'s first n tokens (host; None
+        for the dense cache)."""
+        if not self.paged:
+            return None
         j = np.arange(n)
         P = self.page_size
-        return self.uploader.upload(
-            self.pager.table[row, j // P].astype(np.int64) * P + j % P
-        )
+        return self.pager.table[row, j // P].astype(np.int64) * P + j % P
+
+    def _queue_program(self, op: str, **kw) -> None:
+        """Queue program ``op`` from any thread; the loop runs it on every
+        rank at the top of its next iteration (``_run_queued``)."""
+        self._tp_outbox.append((op, kw))
+        self._work.set()
+
+    def _refuse_under_mesh(self, what: str) -> None:
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{what} under a tensor-parallel mesh is not ported yet "
+                f"(ROADMAP {TP_UNPORTED})")
 
     # -- lifecycle ---------------------------------------------------------- #
 
     def start(self) -> "LMEngine":
+        """Start the scheduler thread. On a follower rank, run the leader's
+        device programs in the calling thread until the leader stops (or
+        the group fails, which raises here)."""
+        if not self.is_leader:
+            try:
+                with torch.inference_mode(), mesh_context(self.mesh):
+                    if self.device.type == "cuda":
+                        torch.cuda.set_device(self.device)
+                    self._follow()
+            except Exception as e:  # noqa: BLE001 — recorded, then raised
+                self._fatal = e
+                raise
+            return self
         if self.host_kv_tier is not None and self._offload_thread is None:
             self._offload_thread = threading.Thread(
                 target=self._offload_loop, name="kv-offload", daemon=True
@@ -970,6 +1205,10 @@ class LMEngine:
                  session: str | None = None) -> _Request:
         if not ids:
             raise ValueError("empty prompt")
+        if not self.is_leader:
+            raise RuntimeError(
+                f"rank {self.mesh.rank} follows the leader's engine: submit "
+                "on rank 0")
         if self._poisoned is not None:
             raise self._poisoned
         if self._fatal is not None:
@@ -1208,6 +1447,7 @@ class LMEngine:
         for it. The device-to-host copy runs here, on the caller's
         thread. ``trace`` (the decode replica's ``kv.ship`` context off the
         wire) parents this engine's spans under the same trace id."""
+        self._refuse_under_mesh("KV-span export (prefill_span)")
         n16 = -(-len(ids) // 16) * 16
         # the budget only reserves pages: the whole ceil-16 extract window
         # must be backed by the row's own pages. A dense row is max_seq
@@ -1334,11 +1574,17 @@ class LMEngine:
             if key in self._prefix_cache:
                 self._prefix_cache.move_to_end(key)
                 return
-            self._insert_prefix_locked(key, self._extract_prefix(row, n16))
+            entry = self._program("prefix_store", key=key, row=row, n16=n16,
+                                  idx=self._token_index(row, n16))
+            evicted = self._insert_prefix_locked(key, entry)
+        if evicted and self._ctl is not None:
+            self._program("prefix_drop", keys=evicted)
 
-    def _insert_prefix_locked(self, key: tuple, entry: dict) -> None:
+    def _insert_prefix_locked(self, key: tuple, entry: dict) -> list[tuple]:
         """Insert one entry and LRU-evict to both bounds (entries, and
-        stored tokens when set). Caller holds ``_prefix_lock``."""
+        stored tokens when set); returns the evicted keys. Caller holds
+        ``_prefix_lock``."""
+        evicted = []
         n16 = len(key)
         self._prefix_cache[key] = entry
         if n16 not in self._prefix_lens:
@@ -1351,12 +1597,14 @@ class LMEngine:
             and len(self._prefix_cache) > 1
         ):
             old_key, _ = self._prefix_cache.popitem(last=False)
+            evicted.append(old_key)
             n = len(old_key)
             self._prefix_tokens_stored -= n
             self._prefix_lens[n] -= 1
             if not self._prefix_lens[n]:
                 del self._prefix_lens[n]
                 self._prefix_lens_sorted = None
+        return evicted
 
     @property
     def prefix_cache_enabled(self) -> bool:
@@ -1388,6 +1636,7 @@ class LMEngine:
         {plane: np}}), ...]``. ``keys=None`` exports all (MRU last);
         ``limit`` keeps the most recently used. The device-to-host copy
         runs outside the lock: an export must not stall admissions."""
+        self._refuse_under_mesh("prefix-entry export")
         with self._prefix_lock:
             if self._prefix_cache is None:
                 return []
@@ -1413,6 +1662,7 @@ class LMEngine:
         fit); an incompatible one is skipped, never trusted. Returns the
         entries inserted; one already present is left alone (local
         recency wins) and does not count."""
+        self._refuse_under_mesh("prefix-entry import")
         if self._prefix_cache is None:
             return 0
         prepared = []
@@ -1481,6 +1731,7 @@ class LMEngine:
         (:func:`fetch_kv_span`) then prefill locally. The upload runs on
         the caller's thread, on the stream the scheduler's implant uses,
         so it is ordered before the implant."""
+        self._refuse_under_mesh("KV-span import (prepare_kv_span)")
         try:
             real_len = int(meta["real_len"])
             first_tok = int(meta["first_tok"])
@@ -1508,16 +1759,25 @@ class LMEngine:
         )
 
     def drop_prefix_cache(self) -> int:
-        """Wipe every stored prefix entry; returns the entries dropped."""
+        """Wipe every stored prefix entry; returns the entries dropped.
+        Under a mesh the loop thread drops them, on every rank, at the top
+        of its next iteration: a lookup that already hit implants its
+        entry first."""
         with self._prefix_lock:
             if self._prefix_cache is None:
                 return 0
             n = len(self._prefix_cache)
-            self._prefix_cache.clear()
-            self._prefix_lens.clear()
-            self._prefix_lens_sorted = None
-            self._prefix_tokens_stored = 0
-            return n
+            if self._ctl is None:
+                self._clear_prefix_locked()
+        if self._ctl is not None:
+            self._queue_program("prefix_drop", keys=None)
+        return n
+
+    def _clear_prefix_locked(self) -> None:
+        self._prefix_cache.clear()
+        self._prefix_lens.clear()
+        self._prefix_lens_sorted = None
+        self._prefix_tokens_stored = 0
 
     # -- prefill ------------------------------------------------------------ #
 
@@ -1576,7 +1836,8 @@ class LMEngine:
             )
         if implanted is not None:
             base, stored, rest, C, n_pieces = implanted
-            self._implant(stored, row, base)
+            self._program("implant", local={"stored": stored}, key=key,
+                          row=row, n16=base, idx=self._token_index(row, base))
             self.stats["prefix_hits"] += 1
             self.stats["prefix_tokens_reused"] += base
         else:
@@ -1668,12 +1929,15 @@ class LMEngine:
         piece = np.full((1, C), self.pad_id, np.int64)
         piece[0, : len(piece_ids)] = piece_ids
         offset = base + i * C
-        tok, qerr = self._suffix_prefill(
-            self.uploader.upload(piece), len(piece_ids), offset, row,
-            req.temperature, -1 if req.seed is None else req.seed,
+        tok, qerr = self._program(
+            "prefill", piece=piece, slen=len(piece_ids), offset=offset,
+            row=row, temperature=req.temperature,
+            seed=-1 if req.seed is None else req.seed,
             # the sampled token's absolute position (kept only from the
             # final piece, where it is len(req.ids))
-            offset + len(piece_ids), seeded=req.seed is not None,
+            pos=offset + len(piece_ids), seeded=req.seed is not None,
+            table=(self.pager.table[row:row + 1, :self._pages_w(offset + C)]
+                   if self.paged else None),
         )
         if qerr is not None:
             # one sync a piece, as the final piece's int(tok) below:
@@ -1801,14 +2065,21 @@ class LMEngine:
 
     def _loop(self) -> None:
         try:
-            # inference mode is thread-local: the loop thread enters it
-            with torch.inference_mode():
+            # inference mode and the mesh are thread-local: the loop
+            # thread enters them
+            with torch.inference_mode(), mesh_context(self.mesh):
                 if self.device.type == "cuda":
                     torch.cuda.set_device(self.device)
                 self._loop_inner()
         except Exception as e:  # noqa: BLE001 — the loop must not die silently
             self._fatal = e
             self._fail_all(e)
+        finally:
+            if self._ctl is not None:
+                try:
+                    self._broadcast("stop", {})
+                except Exception:  # noqa: BLE001 — a dead follower's group
+                    pass
 
     def _loop_inner(self) -> None:
         pending: _PendingChunk | None = None
@@ -1816,6 +2087,7 @@ class LMEngine:
             # watchdog heartbeat: stale while work exists means the loop
             # is wedged (inside a device call or a fault hook)
             self._beat = time.monotonic()
+            self._run_queued()
             self._admit_all()
             self._advance_prefills()  # one piece per prefilling row
             if not self.active.any():
@@ -1832,6 +2104,8 @@ class LMEngine:
                 self.stats["idle_wakes"] += 1
                 self._work.wait(_IDLE_PARK_S)
                 self._work.clear()
+                if self._ctl is not None and not self._stop.is_set():
+                    self._program("noop")  # followers outwait no timeout
                 continue
             if self.pipeline_depth == 0:
                 # synchronous loop: upload, dispatch, drain each chunk
@@ -1885,16 +2159,15 @@ class LMEngine:
         an epoch pays, staged through pinned snapshots (an upload is a
         copy, so later mirror edits never reach what a chunk reads). Runs
         only with the mirrors current (no undrained chunk)."""
-        up = self.uploader.upload
         c: dict[str, Any] = {
-            "last_tok": up(self.last_tok), "gen_count": up(self.gen_count),
-            "active": up(self.active), "real_len": up(self.real_len),
-            "budget": up(self.budget), "temp": up(self.temp),
-            "seed": up(self.seeds.astype(np.int64)),
+            "last_tok": self.last_tok, "gen_count": self.gen_count,
+            "active": self.active, "real_len": self.real_len,
+            "budget": self.budget, "temp": self.temp,
+            "seed": self.seeds.astype(np.int64),
         }
         self._carry_seeded = bool((self.seeds >= 0).any())
         if self.spec_k:
-            c["hist"] = up(self.hist_host)
+            c["hist"] = self.hist_host
         if self.paged:
             act = self.active
             if act.any():
@@ -1905,11 +2178,11 @@ class LMEngine:
             w = self._pages_w(
                 max(min(self._carry_h0 + self._chunk_span, self._carry_hcap), 1)
             )
-            c["table"] = self.pager.device_table(w)
+            c["table"] = self.pager.table[:, :w]
             self._carry_pages_w = w
         else:
-            c["gen_start"] = up(self.gen_start)
-        self._carry = c
+            c["gen_start"] = self.gen_start
+        self._program("carry", host=c)
         self._carry_dirty = False
         self._carry_chunks = 0
         self.overlap["carry_uploads"] += 1
@@ -1929,8 +2202,7 @@ class LMEngine:
             "slot_occupancy",
             sum(s is not None for s in self._slots) / self.max_batch,
         )
-        c = self._carry
-        active_in = c["active"]
+        active_in = self._carry["active"]
         if self.paged:
             # page-horizon growth across chunks: active rows advance at most
             # chunk_span tokens a chunk; when the bound crosses a pow2 page
@@ -1942,13 +2214,10 @@ class LMEngine:
             )
             w = self._pages_w(max(horizon, 1))
             if w > self._carry_pages_w:
-                c["table"] = self.pager.device_table(w)
+                self._program("widen", table=self.pager.table[:, :w])
                 self._carry_pages_w = w
                 self.overlap["carry_uploads"] += 1
-        res = self._chunk(c, seeded=self._carry_seeded)
-        for k in ("last_tok", "gen_count", "active", "hist"):
-            if k in res:
-                c[k] = res[k]
+        res = self._program("chunk", seeded=self._carry_seeded)
         self._carry_chunks += 1
         self.stats["chunks"] += 1
         named = {k: res[k] for k in ("toks", "valid", "eos", "prop", "acc")
@@ -1957,6 +2226,26 @@ class LMEngine:
                      gen_count=res["gen_count"], active_out=res["active"])
         return _PendingChunk(staged=self._outputs.stage(named),
                              slots=list(self._slots), t_dispatch=time.monotonic())
+
+    def _run_carry(self, host: dict) -> None:
+        """Upload the per-row arrays of an epoch: the device carry (each a
+        pinned snapshot, so later mirror edits never reach it)."""
+        up = self.uploader.upload
+        self._carry = {k: up(v) for k, v in host.items()}
+
+    def _run_widen(self, table) -> None:
+        """Widen the carry's block table (a page bucket crossed mid-epoch)."""
+        self._carry["table"] = self.uploader.upload(table)
+
+    def _run_chunk(self, seeded: bool) -> dict:
+        """One decode chunk on the carry; its per-row outputs become the
+        carry of the next."""
+        c = self._carry
+        res = self._chunk(c, seeded=seeded)
+        for k in ("last_tok", "gen_count", "active", "hist"):
+            if k in res:
+                c[k] = res[k]
+        return res
 
     def _drain_chunk(self, p: _PendingChunk) -> None:
         """Wait for one chunk's staged outputs (its own event — never the
@@ -2077,6 +2366,7 @@ def fetch_kv_span(
     import json
     import urllib.request
 
+    engine._refuse_under_mesh("KV-span import (x-kft-prefill-peer)")
     t0 = time.monotonic()
     span = TRACER.span("kv.ship", parent=trace)
     if span:
@@ -2149,6 +2439,14 @@ class LMEngineModel(LMRuntimeModel):
     (``serve/watchdog.py``) with the JAX defaults of its thresholds; a
     trip rebuilds the engine's device state and shares only the weights
     with the old one.
+
+    ``mesh``/``rules`` (the JAX signature) serve tensor-parallel: every
+    rank constructs the same model from the same arguments and calls
+    :meth:`load`. On rank 0, the leader, ``load`` returns a ready model to
+    put behind ``ModelServer``; on every other rank it runs the leader's
+    device programs and returns when the leader's engine stops (its
+    ``unload``). A tensor-parallel engine has no watchdog rebuild yet, so
+    ``watchdog=False`` is required.
     """
 
     def __init__(
@@ -2182,6 +2480,11 @@ class LMEngineModel(LMRuntimeModel):
             **engine_kwargs,
         )
         _reject_unported(self._engine_config)
+        if self._engine_config.mesh is not None and watchdog:
+            raise NotImplementedError(
+                "the watchdog's engine rebuild under a tensor-parallel mesh "
+                f"is not ported yet (ROADMAP {TP_UNPORTED}): pass "
+                "watchdog=False")
         self.engine: LMEngine | None = None
         self._executor: cf.ThreadPoolExecutor | None = None
         #: engine watchdog: supervises ``engine``, flips ``ready`` on trips
@@ -2241,7 +2544,14 @@ class LMEngineModel(LMRuntimeModel):
             max_workers=self._engine_config.max_batch,
             thread_name_prefix=f"lm-engine-{self.name}",
         )
-        self.engine = self._make_engine().start()
+        eng = self._make_engine()
+        if not eng.is_leader:
+            # a follower rank of a tensor-parallel engine: run the leader's
+            # device programs until the leader's engine stops
+            self.engine = eng
+            eng.start()
+            return True
+        self.engine = eng.start()
         if self.engine.device.type == "cuda":
             # the first request must not pay the kernels' build
             self.warmup()

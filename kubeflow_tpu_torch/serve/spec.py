@@ -4,8 +4,10 @@
 A ``ServingRuntime`` maps model formats to a ``Model`` factory (KServe
 maps them to a container image); a ``RuntimeRegistry`` resolves a
 component's format, or its explicit runtime name, to the
-highest-priority runtime. Components carry no ``mesh``: multi-card
-serving is not ported yet (ROADMAP queue 1 item 13).
+highest-priority runtime. Components carry no ``mesh`` yet: a
+tensor-parallel model takes its mesh directly (``LMEngineModel(mesh=)``),
+and the controller that would read a component's waits for ROADMAP
+queue 1 item 11.
 """
 
 from __future__ import annotations

@@ -60,7 +60,7 @@ from kubeflow_tpu_torch.core.mesh import (
 )
 from kubeflow_tpu_torch.obs.heartbeat import HeartbeatWriter
 from kubeflow_tpu_torch.parallel.sharding import (
-    P, check_spec, gathered_axes, shard_tensor, spec_axes,
+    P, check_spec, gathered_axes, shard_module, shard_tensor, unshard_tensor,
 )
 from kubeflow_tpu_torch.serve.threefry import key_of
 from kubeflow_tpu_torch.train.checkpoint import CheckpointConfig, Checkpointer
@@ -244,17 +244,14 @@ class Trainer:
         its spec) and group the parameters by the axes their gradient
         shares are summed over."""
         specs = dict(self.param_spec_fn(model)) if self.param_spec_fn else {}
-        self.specs = {}
-        for name, p in model.named_parameters():
-            spec = P(*specs.get(name, P())).padded(p.dim())
-            check_spec(spec)
-            self.specs[name] = spec
-            if self.mesh is not None:
-                try:
-                    p.data = shard_tensor(p.data, spec, self.mesh)
-                except ValueError as e:
-                    raise ValueError(f"{name}: {e}") from None
-                p.kft_spec = spec
+        if self.mesh is not None:
+            self.specs = shard_module(model, specs, self.mesh)
+        else:
+            self.specs = {}
+            for name, p in model.named_parameters():
+                spec = P(*specs.get(name, P())).padded(p.dim())
+                check_spec(spec)
+                self.specs[name] = spec
         self._buckets: dict[tuple[str, ...], list[str]] = {}
         if self.mesh is not None:
             for name in self.specs:
@@ -278,11 +275,7 @@ class Trainer:
 
     def _full(self, t: torch.Tensor, spec: P) -> torch.Tensor:
         """The full tensor from every rank's shard (a collective)."""
-        for dim, entry in enumerate(spec):
-            axes = spec_axes(entry)
-            if axes and self.mesh.group(axes) is not None:
-                t = coll._all_gather(t.contiguous(), self.mesh, axes, dim)
-        return t
+        return unshard_tensor(t, spec, self.mesh)
 
     def full_state_dict(self, state: TrainState) -> dict:
         """The state in the single-device checkpoint format: under a mesh

@@ -13,6 +13,7 @@ engine in ``test_torch_engine_loop.py``, speculative decoding in
 
 from __future__ import annotations
 
+import copy
 import functools
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -26,6 +27,7 @@ import torch
 from kubeflow_tpu.models.transformer import TransformerConfig as JaxConfig
 from kubeflow_tpu.models.transformer import TransformerLM as JaxLM
 from kubeflow_tpu.serve.engine import LMEngine as JaxEngine
+from kubeflow_tpu_torch.core.mesh import MeshSpec
 from kubeflow_tpu_torch.models.bridge import params_to_state_dict
 from kubeflow_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -163,9 +165,18 @@ def test_request_validation():
     eng.stop()
 
 
+#: (name, knobs, message, call on the built engine or None): the
+#: engine features a tensor-parallel mesh still refuses (a one-rank mesh
+#: needs no process group) and the measured page-size table
 UNPORTED = [
-    ("mesh", dict(mesh=object()), r"tensor-parallel .*queue 1 item 13"),
-    ("measured_page_size", dict(page_size=None), "page-size"),
+    ("mesh_spec_draft", dict(mesh=MeshSpec(), spec_draft_tokens=4),
+     r"speculative .*queue 1 item 14", None),
+    ("mesh_host_kv_tier", dict(mesh=MeshSpec(), host_kv_bytes=1 << 20),
+     r"host KV tier .*queue 1 item 14", None),
+    ("mesh_kv_span_export", dict(mesh=MeshSpec()),
+     r"KV-span export .*queue 1 item 14",
+     lambda eng: eng.prefill_span([3, 4, 5])),
+    ("measured_page_size", dict(page_size=None), "page-size", None),
 ]
 #: dense mode (``kv_pool_tokens=None``, the JAX default) is ported; like
 #: the JAX engine it rejects the paged kernel and the int8 pool, which
@@ -177,16 +188,22 @@ POOL_ONLY = [
 
 
 @pytest.mark.parametrize(
-    "name,knob,what",
-    UNPORTED + [(n, k, "require paged mode") for n, k in POOL_ONLY],
+    "name,knob,what,call",
+    UNPORTED + [(n, k, "require paged mode", None) for n, k in POOL_ONLY],
     ids=[u[0] for u in UNPORTED + POOL_ONLY])
-def test_unported_engine_knobs_raise(name, knob, what):
+def test_unported_engine_knobs_raise(name, knob, what, call):
     _, tmodel = _models()
+    if "mesh" in knob:  # a mesh lays the weights out in place
+        tmodel = copy.deepcopy(tmodel)
     err = ValueError if knob.get("kv_pool_tokens", 0) is None else NotImplementedError
-    with pytest.raises(err, match=what):
-        LMEngine(tmodel, **{**ENGINE, **knob})
-    with pytest.raises(err, match="ROADMAP" if err is NotImplementedError else what):
-        LMEngine(tmodel, config=LMEngineConfig(**{**ENGINE, **knob}))
+    for kw in (dict(**{**ENGINE, **knob}),
+               dict(config=LMEngineConfig(**{**ENGINE, **knob}))):
+        with pytest.raises(err, match=what) as info:
+            eng = LMEngine(tmodel, **kw)
+            if call is not None:
+                call(eng)
+        if err is NotImplementedError:
+            assert "ROADMAP" in str(info.value)
     if err is ValueError:  # the reference raises the same
         jmodel, jcfg, params = _models()[0]
         with pytest.raises(ValueError, match=what):

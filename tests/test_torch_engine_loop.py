@@ -215,28 +215,31 @@ def test_fatal_inflight_chunk_leaks_no_request():
 
 
 def test_carry_and_staged_outputs_never_alias_host_state():
-    """JAX ``test_engine.py`` :1105 — the carry and the device table are
-    snapshots: host edits after the upload do not reach them. The output
-    ring hands each chunk in flight its own slot and refuses to reuse one
-    before its drain; on the CPU an upload holds no pinned snapshot."""
+    """JAX ``test_engine.py`` :1105 — the carry and its block table are
+    snapshots: host edits after the upload do not reach them, and a later
+    epoch uploads the table anew. The output ring hands each chunk in
+    flight its own slot and refuses to reuse one before its drain; on the
+    CPU an upload holds no pinned snapshot."""
     eng = LMEngine(_models()[1], **PAGED, max_batch=2, max_seq=64,
                    chunk_steps=2, prefill_buckets=(32,))
     eng.last_tok[:] = 7
     eng.active[:] = False
+    eng.pager.alloc(0, 2)
     eng._upload_carry()
     c = eng._carry
     eng.last_tok[:] = 99
     eng.active[:] = True
     assert c["last_tok"].tolist() == [7, 7]
     assert c["active"].tolist() == [False, False]
-    eng.pager.alloc(0, 2)
-    dev = eng.pager.device_table(4)
+    dev = c["table"]
     before = dev.clone()
     eng.pager.free(0)
     eng.pager.alloc(1, 3)
     assert torch.equal(dev, before)
-    assert eng.pager.device_table(4) is not dev  # a new version re-uploads
-    assert eng.pager.device_table(4) is eng.pager.device_table(4)
+    eng._upload_carry()  # the next epoch's table is the host's
+    assert eng._carry["table"] is not dev
+    w = eng._carry["table"].shape[1]
+    assert eng._carry["table"].tolist() == eng.pager.table[:, :w].tolist()
     assert eng.uploader.held == 0
 
     ring = eng._outputs  # depth 1: two slots

@@ -214,6 +214,26 @@ def test_launch_fails_on_a_raising_rank(tmp_path):
                      rendezvous=f"file://{tmp_path / 'rdv'}")
 
 
+def test_group_timeout_follows_the_default_group(tmp_path, monkeypatch):
+    """Groups a mesh or an engine creates take the default group's timeout,
+    also when another launcher brought that group up, and never torch's
+    30-minute default."""
+    import datetime
+
+    import torch.distributed as dist
+
+    monkeypatch.setattr(tdist, "_timeout", None)
+    assert tdist.group_timeout() == datetime.timedelta(
+        seconds=tdist.DEFAULT_TIMEOUT_S)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rdv'}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=42))
+    try:
+        assert tdist.group_timeout() == datetime.timedelta(seconds=42)
+    finally:
+        dist.destroy_process_group()
+
+
 def test_heartbeat_files_cross_both_ways(tmp_path):
     """The port's writer is read by the JAX supervisor's reader and the
     JAX writer by the port's, with the same staleness rule."""

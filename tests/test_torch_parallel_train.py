@@ -20,7 +20,7 @@ nearly all elements agree within 1e-6.
 
 from __future__ import annotations
 
-import threading
+import os
 
 import numpy as np
 import pytest
@@ -105,9 +105,9 @@ def _jax_fit(params, spec_kw, attn_impl):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    import os
-
-    os.environ["KFT_NO_COMPILATION_CACHE"] = "1"
+    """Both packages' runs of every mesh: the JAX trainers first, with the
+    persistent compilation cache off for them alone, then the 8-rank world,
+    so that no JAX compile shares the host's cores with the ranks."""
     params = _jax_params()
     ckpt = str(tmp_path_factory.mktemp("mesh_ckpt"))
     cases = [(name, dict(fn="train", spec=spec, model_cfg=MODEL, params=params,
@@ -115,22 +115,28 @@ def runs(tmp_path_factory):
                          global_batch=GLOBAL_BATCH, attn_impl=impl,
                          ckpt_dir=ckpt if name == MESHES[0][0] else None))
              for name, spec, impl in MESHES]
-    box: dict = {}
-
-    def torch_side():
-        try:
-            box["torch"] = tw.world(8, cases, tmp_path_factory.mktemp("world"))
-        except BaseException as e:  # noqa: BLE001 — re-raised below
-            box["error"] = e
-
-    th = threading.Thread(target=torch_side)
-    th.start()  # the ranks run while JAX compiles here
-    jax_runs = {name: _jax_fit(params, spec, impl) for name, spec, impl in MESHES}
-    th.join()
-    if "error" in box:
-        raise box["error"]
-    return {"params": params, "jax": jax_runs, "torch": box["torch"],
+    prev = os.environ.get("KFT_NO_COMPILATION_CACHE")
+    os.environ["KFT_NO_COMPILATION_CACHE"] = "1"
+    try:
+        jax_runs = {name: _jax_fit(params, spec, impl)
+                    for name, spec, impl in MESHES}
+    finally:
+        if prev is None:
+            del os.environ["KFT_NO_COMPILATION_CACHE"]
+        else:
+            os.environ["KFT_NO_COMPILATION_CACHE"] = prev
+    torch_runs = tw.world(8, cases, tmp_path_factory.mktemp("world"))
+    return {"params": params, "jax": jax_runs, "torch": torch_runs,
             "ckpt": ckpt}
+
+
+def _ranks(runs, name):
+    """Every rank's result of case ``name``; a rank that raised fails the
+    test with its traceback."""
+    ranks = runs["torch"][name]
+    for i, r in enumerate(ranks):
+        assert not isinstance(r, tw.RaisedInRank), f"{name}: rank {i} raised {r!r}"
+    return ranks
 
 
 def _flat(tree, prefix=()):
@@ -144,7 +150,7 @@ def _flat(tree, prefix=()):
 @pytest.mark.parametrize("name", [m[0] for m in MESHES])
 def test_losses_match_jax_trainer(runs, name):
     want, _ = runs["jax"][name]
-    ranks = runs["torch"][name]
+    ranks = _ranks(runs, name)
     got = ranks[0]["losses"]
     assert len(got) == STEPS
     np.testing.assert_allclose(got, want, rtol=LOSS_RTOL)
@@ -158,7 +164,7 @@ def test_final_params_match_jax_trainer(runs, name):
     from kubeflow_tpu_torch.models.bridge import state_dict_to_params
 
     _, want = runs["jax"][name]
-    full = runs["torch"][name][0]["params"]
+    full = _ranks(runs, name)[0]["params"]
     got = state_dict_to_params({k: torch.tensor(v) for k, v in full.items()})
     got, want = dict(_flat(got)), dict(_flat(want))
     assert set(got) == set(want)
@@ -176,7 +182,7 @@ def test_final_params_match_jax_trainer(runs, name):
 
 def test_moe_dropped_frac_is_logged(runs):
     for name, _, _ in MESHES:
-        fr = runs["torch"][name][0]["moe_dropped_frac"]
+        fr = _ranks(runs, name)[0]["moe_dropped_frac"]
         assert all(f is not None and 0.0 <= f < 1.0 for f in fr), (name, fr)
 
 
@@ -223,7 +229,7 @@ def test_mesh_checkpoint_resumes_on_one_device(runs):
     ck = Checkpointer(CheckpointConfig(runs["ckpt"]))
     assert ck.latest_step() == STEPS
     t._load_full(state, ck.restore())
-    full = runs["torch"][name][0]["params"]
+    full = _ranks(runs, name)[0]["params"]
     for k, v in state.model.state_dict().items():
         np.testing.assert_array_equal(v.numpy(), full[k], err_msg=k)
     resumed_state, resumed = t.fit(data)
@@ -250,4 +256,4 @@ def _global_batches_port(spec_kw):
 def test_ranks_stage_nothing_on_the_cpu(runs):
     """Host staging is for CUDA tensors under gloo; CPU ranks move none."""
     for name, _, _ in MESHES:
-        assert all(r["staged"] == 0 for r in runs["torch"][name])
+        assert all(r["staged"] == 0 for r in _ranks(runs, name))

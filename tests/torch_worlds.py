@@ -312,3 +312,263 @@ def refuse(bad_rank):
     if dist.get_rank() == bad_rank:
         raise RuntimeError(f"rank {bad_rank} refuses")
     dist.barrier()
+
+
+# --------------------------------------------------------------------------- #
+# tensor-parallel serving
+# --------------------------------------------------------------------------- #
+
+def _tp_model(cfg_kw, sd, dtype="float32"):
+    """The port's LM with the bridged full weights ``sd`` (each rank cuts
+    its own shard when an engine takes it)."""
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+
+    cfg = TransformerConfig(**cfg_kw, dtype=getattr(torch, dtype))
+    model = TransformerLM(cfg, device="cpu")
+    model.load_state_dict({k: _t(v) for k, v in sd.items()})
+    return model
+
+
+def _tp_drive(eng, prompts, max_new, concurrent=False, **sample):
+    """Leader: start the engine, serve ``prompts`` (one after another, or
+    all at once) and stop it; follower: follow until that stop. Returns
+    the leader's token streams (None on a follower)."""
+    import threading
+
+    if not eng.is_leader:
+        eng.start()
+        return None
+    eng.start()
+    try:
+        if not concurrent:
+            return [eng.submit(p, max_new_tokens=max_new, timeout_s=60, **sample)
+                    for p in prompts]
+        out = [None] * len(prompts)
+
+        def one(i):
+            out[i] = eng.submit(prompts[i], max_new_tokens=max_new,
+                                timeout_s=60, **sample)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(90)
+        return out
+    finally:
+        eng.stop()
+
+
+def tp_serve(spec, cfg, sd, prompts, max_new, runs):
+    """Each run ``(name, engine kwargs)`` on one tensor-parallel engine over
+    ``spec`` (every rank), then on rank 0 the one-rank engine with the
+    same kwargs and weights. Run kwargs ``dtype``, ``concurrent`` and
+    ``sample`` (submit's ``temperature``/``seed``) go to the model and
+    to :func:`_tp_drive`, not to the engine."""
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    m = _mesh(spec)
+    out = {}
+    for name, kw in runs:
+        kw = dict(kw)
+        dtype = kw.pop("dtype", "float32")
+        drive = dict(concurrent=kw.pop("concurrent", False), **kw.pop("sample", {}))
+        eng = LMEngine(_tp_model(cfg, sd, dtype), mesh=m, **kw)
+        got = {"tokens": _tp_drive(eng, prompts, max_new, **drive),
+               "records": eng.tp_records, "stats": dict(eng.stats),
+               "overlap": dict(eng.overlap),
+               "kv_heads": next(iter(eng.cache.values()))["k"].shape[0]}
+        if m.rank == 0:
+            one = LMEngine(_tp_model(cfg, sd, dtype), **kw)
+            got["one_rank"] = _tp_drive(one, prompts, max_new, **drive)
+            got["one_rank_overlap"] = dict(one.overlap)
+        out[name] = got
+    return out
+
+
+def tp_refusals(spec, cfg, sd, kw):
+    """What a tensor-parallel engine refuses: on the leader the KV-span
+    and prefix-entry movement (queue 1 item 14), on a follower a submit;
+    returns ``{what: (exception type, message)}``."""
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    eng = LMEngine(_tp_model(cfg, sd), mesh=_mesh(spec), **kw)
+    out = {}
+
+    def attempt(what, fn):
+        try:
+            fn()
+            out[what] = None
+        except Exception as e:  # noqa: BLE001 — the test reads it
+            out[what] = (type(e).__name__, str(e))
+
+    if not eng.is_leader:
+        attempt("submit", lambda: eng.submit([3, 4, 5], max_new_tokens=2))
+        eng.start()
+        return out
+    eng.start()
+    try:
+        attempt("prefill_span", lambda: eng.prefill_span([3, 4, 5]))
+        attempt("prepare_kv_span", lambda: eng.prepare_kv_span(
+            [3, 4, 5], {}, {"real_len": 3, "first_tok": 7, "valid": True}))
+        attempt("export_prefix_entries", lambda: eng.export_prefix_entries())
+        attempt("import_prefix_entries", lambda: eng.import_prefix_entries([]))
+        # the engine still serves after the refusals
+        out["served"] = eng.submit([3, 4, 5], max_new_tokens=3, timeout_s=60)
+    finally:
+        eng.stop()
+    return out
+
+
+def tp_http(spec, cfg, sd, model_kw, prompts, max_new):
+    """``LMEngineModel(mesh=)`` on every rank: rank 0 serves it behind
+    ``ModelServer`` and answers ``/v2/models/lm/generate`` for each prompt
+    over HTTP; the followers' ``load()`` returns when the server stops."""
+    import json
+    import urllib.request
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.serve.engine import LMEngineModel
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    m = _mesh(spec)
+    lm = LMEngineModel("lm", config=TransformerConfig(**cfg), device="cpu",
+                       state_dict={k: _t(v) for k, v in sd.items()},
+                       max_new_tokens=max_new, mesh=m, watchdog=False,
+                       **model_kw)
+    if m.rank != 0:
+        return {"loaded": lm.load(), "ready": lm.ready}
+    server = ModelServer([lm], http_port=0).start()
+    try:
+        out = []
+        for ids in prompts:
+            body = json.dumps({"input_ids": ids}).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/v2/models/lm/generate",
+                data=body, headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                out.append(json.loads(resp.read())["token_ids"])
+        return {"tokens": out, "ready": lm.ready}
+    finally:
+        server.stop()
+
+
+def tp_drop_race(spec, cfg, sd, kw, prompts, max_new):
+    """``drop_prefix_cache`` from another thread between a prefix hit and
+    its implant: on the leader, a lookup that hits waits for a thread that
+    drops the whole cache. Serves ``prompts`` one after another on the
+    tensor-parallel engine, then on rank 0 on the one-rank engine with
+    the same drop; returns the streams, the entries each drop reported,
+    and every rank's stored prefix keys at the end (they must agree)."""
+    import threading
+
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    def drop_at_first_hit(eng, dropped):
+        lookup = eng._lookup_prefix
+
+        def racing(ids):
+            hit = lookup(ids)
+            if hit is not None and not dropped:
+                th = threading.Thread(
+                    target=lambda: dropped.append(eng.drop_prefix_cache()))
+                th.start()
+                th.join(30)
+            return hit
+
+        eng._lookup_prefix = racing
+
+    m = _mesh(spec)
+    eng = LMEngine(_tp_model(cfg, sd), mesh=m, **kw)
+    dropped: list = []
+    if eng.is_leader:
+        drop_at_first_hit(eng, dropped)
+    out = {"tokens": _tp_drive(eng, prompts, max_new), "dropped": dropped,
+           "keys": sorted(eng._prefix_cache), "hits": eng.stats["prefix_hits"]}
+    if m.rank == 0:
+        one = LMEngine(_tp_model(cfg, sd), **kw)
+        one_dropped: list = []
+        drop_at_first_hit(one, one_dropped)
+        out["one_rank"] = _tp_drive(one, prompts, max_new)
+        out["one_rank_dropped"] = one_dropped
+    return out
+
+
+def tp_follower_dies(spec, cfg, sd, kw, prompts, max_new, victim, after):
+    """Rank ``victim`` (a follower) dies at its ``after``-th decode chunk:
+    its group goes down, as a killed process's would. The leader's
+    requests must fail through the engine's fatal path within the group's
+    timeout; returns the leader's errors and seconds. Every rank ends its
+    process group here, so this case comes last in its world."""
+    import threading
+    import time
+
+    from kubeflow_tpu_torch.core.distributed import shutdown
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    m = _mesh(spec)
+    eng = LMEngine(_tp_model(cfg, sd), mesh=m, **kw)
+    try:
+        if m.rank == victim:
+            seen = {"chunks": 0}
+
+            def die(engine, op):
+                seen["chunks"] += op == "chunk"
+                if seen["chunks"] >= after:
+                    raise RuntimeError(f"rank {victim} dies")
+
+            eng._fault_hooks["follower_op"] = die
+            try:
+                eng.start()
+            except RuntimeError as e:
+                return {"died": str(e)}
+            return {"died": None}
+        if not eng.is_leader:
+            try:
+                eng.start()
+            except Exception as e:  # noqa: BLE001 — the leader went away
+                return {"follower_error": type(e).__name__}
+            return {"follower_error": None}
+        eng.start()
+        errors: dict = {}
+        t0 = time.monotonic()
+
+        def one(i):
+            try:
+                eng.submit(prompts[i], max_new_tokens=max_new, timeout_s=60)
+            except Exception as e:  # noqa: BLE001 — the test reads it
+                errors[i] = (type(e).__name__, str(e), time.monotonic() - t0)
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(90)
+        hung = sum(th.is_alive() for th in threads)
+        fatal = repr(eng._fatal)
+        eng.stop()
+        return {"errors": errors, "hung": hung, "fatal": fatal,
+                "seconds": time.monotonic() - t0}
+    finally:
+        shutdown()
+
+
+def tp_cuts(spec, cfg, sd):
+    """Cut the full weights by ``transformer_rules(fsdp=False)`` over the
+    mesh (this rank's shards) and join the cuts again: the full state
+    dict must come back on every rank."""
+    from kubeflow_tpu_torch.parallel.sharding import (
+        shard_module, transformer_rules, unshard_tensor)
+
+    m = _mesh(spec)
+    model = _tp_model(cfg, sd)
+    specs = shard_module(model, transformer_rules(fsdp=False)(model), m)
+    split = sum(1 for s in specs.values() if any(e is not None for e in s))
+    unequal = []
+    for name, p in model.named_parameters():
+        full = unshard_tensor(p.data, specs[name], m)
+        if not torch.equal(full, _t(sd[name])):
+            unequal.append(name)
+    return {"equal": not unequal, "unequal": unequal, "split": split}
