@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs sixteen phases:
+sm_90a, into the git-ignored ``build/``) and runs seventeen phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -159,10 +159,27 @@ sm_90a, into the git-ignored ``build/``) and runs sixteen phases:
 16. job — the port's JAXJob workers as two processes on this card from
    an env contract written here: ``examples/mnist.py`` (metrics on rank
    0 only, a falling loss, a checkpoint, a second run resuming at the
-   next step) and ``examples/multislice.py`` (its three ``ok`` lines).
+   next step) and ``examples/multislice.py`` (its three ``ok`` lines);
+17. tabular — the KServe tabular predictors, no kernel of the repo on
+   their path: seeded checkpoints in the published formats (XGBoost JSON
+   ``binary:logistic``, 1000 trees of depth 8 at HIGGS's 28 features, and
+   ``multi:softprob``, 7 classes x 200 rounds at Covertype's 54; a
+   LightGBM text model of the first one's shape; a PMML forest of 100
+   depth-8 trees and a logistic ``RegressionModel``) served through
+   ``ModelServer`` (v1 and v2) at 1, 64 and 4096 rows with about 1% NaN
+   features, each answer within 1e-5 x (sum of |leaf value| on the row's
+   paths) + 1e-6 of the plain walk, classes identical and the device
+   walk's final cursors equal to the plain walk's leaves; the p50 of a
+   predict by batch size, its launches under ``torch.profiler``, the busy
+   share and the bytes resident; then a ModelMesh of 8 BERT-tiny
+   predictors and the two boosters under a budget of 3 BERT-tiny models:
+   every answer equal to the model's alone, residents as an LRU model of
+   the requests says, ``resident_bytes`` the resident weights, each
+   eviction freeing its bytes, a pinned model never evicted.
 
 Each phase prints one JSON line (load: one a run, then its summary;
-mlm, mesh, tp and job: one a part).
+mlm, mesh, tp and job: one a part; tabular: one a model, then the mesh
+and a total).
 The line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is ``{"ok": true,
 "device": {...}}``. Any failed phase, or a host without CUDA or without
@@ -192,7 +209,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
           "disagg", "fleet", "dense", "bert", "train", "mlm", "mesh", "load",
-          "tp", "job")
+          "tp", "job", "tabular")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -4483,6 +4500,613 @@ def phase_job(torch, state):
     return ok
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the tabular predictors and ModelMesh
+# --------------------------------------------------------------------------- #
+
+#: the checkpoints phase 17 writes (seeded), at the published widths of
+#: the datasets such boosters are trained on: HIGGS (28 features) and
+#: Covertype (54 features, 7 classes)
+TABULAR = dict(
+    higgs_features=28, higgs_trees=1000, cover_features=54, cover_classes=7,
+    cover_rounds=200, forest_trees=100, depth=8,
+)
+TAB_ROWS = (1, 64, 4096)
+TAB_NAN = 0.01  # share of missing (NaN) features in a request
+TAB_REL, TAB_ABS = 1e-5, 1e-6  # served error bound: REL * sum|leaf| + ABS
+TAB_REPS = {1: 20, 64: 20, 4096: 10}
+
+
+def _tab_tree(rng, n_feat, depth):
+    """One random regression tree in breadth-first node order: every node
+    above depth 3 splits, a deeper one stops early with probability 0.1,
+    and nothing splits past ``depth``. Lists of (feature, threshold,
+    default_left, left, right, leaf value); children -1 at a leaf."""
+    n_max = 2 ** (depth + 1) - 1
+    feats = rng.integers(0, n_feat, n_max)
+    thr = rng.normal(size=n_max).astype("float32")
+    dl = rng.random(n_max) < 0.5
+    stop = rng.random(n_max) < 0.1
+    val = (0.1 * rng.normal(size=n_max)).astype("float32")
+    dep, left, right = [0], [], []
+    i = 0
+    while i < len(dep):
+        if dep[i] < depth and (dep[i] < 3 or not stop[i]):
+            left.append(len(dep))
+            right.append(len(dep) + 1)
+            dep += [dep[i] + 1, dep[i] + 1]
+        else:
+            left.append(-1)
+            right.append(-1)
+        i += 1
+    n = len(dep)
+    leaf = [c == -1 for c in left]
+    return dict(
+        feat=[0 if leaf[k] else int(feats[k]) for k in range(n)],
+        thresh=[float(val[k]) if leaf[k] else float(thr[k]) for k in range(n)],
+        default_left=[bool(dl[k]) for k in range(n)], left=left, right=right,
+        leaf=leaf)
+
+
+def _xgb_doc(trees, *, n_feat, num_class, objective):
+    """An XGBoost ``save_model("model.json")`` document."""
+    return {"version": [2, 0, 0], "learner": {
+        "learner_model_param": {"base_score": "5E-1", "num_class": str(num_class),
+                                "num_feature": str(n_feat)},
+        "objective": {"name": objective},
+        "gradient_booster": {"model": {
+            "trees": [{"split_indices": t["feat"], "split_conditions": t["thresh"],
+                       "left_children": t["left"], "right_children": t["right"],
+                       "default_left": [int(d) for d in t["default_left"]],
+                       "base_weights": [0.0] * len(t["left"]),
+                       "tree_param": {"num_nodes": str(len(t["left"]))}}
+                      for t in trees],
+            "tree_info": [i % max(1, num_class) for i in range(len(trees))]}}}}
+
+
+def _lgb_text(trees, rng, *, n_feat):
+    """A LightGBM ``save_model("model.txt")`` booster of ``trees`` (binary):
+    internal nodes and leaves numbered apart, a leaf child as ``-leaf-1``,
+    ``<=`` thresholds as doubles, a mix of NaN-missing and None-missing
+    ``decision_type``s. Returns the text and the trees in that layout."""
+    lines = ["tree", "version=v4", "num_class=1", "num_tree_per_iteration=1",
+             "label_index=0", f"max_feature_idx={n_feat - 1}",
+             "objective=binary sigmoid:1",
+             "feature_names=" + " ".join(f"f{i}" for i in range(n_feat)), ""]
+    out = []
+    for ti, t in enumerate(trees):
+        internal = [k for k in range(len(t["left"])) if not t["leaf"][k]]
+        leaves = [k for k in range(len(t["left"])) if t["leaf"][k]]
+        inner = {k: i for i, k in enumerate(internal)}
+        lidx = {k: i for i, k in enumerate(leaves)}
+
+        def ref(k):
+            return inner[k] if k in inner else -lidx[k] - 1
+
+        lt = dict(
+            num_leaves=len(leaves),
+            split_feature=[t["feat"][k] for k in internal],
+            threshold=[float(t["thresh"][k]) + 1e-9 * float(rng.normal())
+                       for k in internal],
+            decision_type=[int(rng.choice([0, 2, 8, 10])) for _ in internal],
+            left_child=[ref(t["left"][k]) for k in internal],
+            right_child=[ref(t["right"][k]) for k in internal],
+            leaf_value=[t["thresh"][k] for k in leaves])
+        out.append(lt)
+        lines += [f"Tree={ti}", f"num_leaves={lt['num_leaves']}", "num_cat=0"]
+        for key in ("split_feature", "threshold", "decision_type", "left_child",
+                    "right_child", "leaf_value"):
+            lines.append(f"{key}=" + " ".join(repr(v) for v in lt[key]))
+        lines.append("")
+    lines += ["end of trees", ""]
+    return "\n".join(lines), out
+
+
+def _lgb_oracle(trees, x):
+    """LightGBM's own traversal (``<=``, negative-child leaves, NaN by
+    ``decision_type``) of binary ``trees``: the margins of rows ``x``."""
+    out = []
+    for row in x:
+        s = 0.0
+        for t in trees:
+            node = 0
+            while node >= 0:
+                v = row[t["split_feature"][node]]
+                dt = t["decision_type"][node]
+                if math.isnan(v):
+                    go_left = (bool(dt & 2) if ((dt >> 2) & 3) == 2
+                               else 0.0 <= t["threshold"][node])
+                else:
+                    go_left = v <= t["threshold"][node]
+                node = t["left_child" if go_left else "right_child"][node]
+            s += t["leaf_value"][-node - 1]
+        out.append(s)
+    return out
+
+
+def _pmml_node(t, k, pred):
+    if t["leaf"][k]:
+        return f'<Node score="{t["thresh"][k]!r}">{pred}</Node>'
+    f, v = t["feat"][k], repr(t["thresh"][k])
+    return (f"<Node>{pred}"
+            + _pmml_node(t, t["left"][k], f'<SimplePredicate field="x{f}" '
+                         f'operator="lessOrEqual" value="{v}"/>')
+            + _pmml_node(t, t["right"][k], f'<SimplePredicate field="x{f}" '
+                         f'operator="greaterThan" value="{v}"/>')
+            + "</Node>")
+
+
+def _pmml_header(n_feat):
+    return ('<?xml version="1.0"?><PMML xmlns="http://www.dmg.org/PMML-4_4" '
+            'version="4.4"><DataDictionary>'
+            + "".join(f'<DataField name="x{i}" optype="continuous" dataType="double"/>'
+                      for i in range(n_feat))
+            + '<DataField name="y" optype="continuous" dataType="double"/>'
+            "</DataDictionary>")
+
+
+def _pmml_forest(trees, n_feat):
+    """A PMML ``MiningModel`` summing ``trees`` (each a ``TreeModel``)."""
+    schema = ("<MiningSchema>" + "".join(f'<MiningField name="x{i}"/>'
+                                         for i in range(n_feat))
+              + '<MiningField name="y" usageType="target"/></MiningSchema>')
+    return (_pmml_header(n_feat) + f'<MiningModel functionName="regression">{schema}'
+            '<Segmentation multipleModelMethod="sum">'
+            + "".join('<Segment><True/><TreeModel functionName="regression">'
+                      + _pmml_node(t, 0, "<True/>") + "</TreeModel></Segment>"
+                      for t in trees)
+            + "</Segmentation></MiningModel></PMML>")
+
+
+def _pmml_logistic(W, b, n_feat):
+    """A logistic PMML ``RegressionModel``: sigmoid(x @ W + b)."""
+    return (_pmml_header(n_feat)
+            + '<RegressionModel functionName="classification" '
+            'normalizationMethod="logit"><MiningSchema>'
+            '<MiningField name="y" usageType="target"/></MiningSchema>'
+            f'<RegressionTable intercept="{float(b)!r}" targetCategory="1">'
+            + "".join(f'<NumericPredictor name="x{i}" coefficient="{float(w)!r}"/>'
+                      for i, w in enumerate(W))
+            + "</RegressionTable></RegressionModel></PMML>")
+
+
+def tabular_checkpoints(root):
+    """Write phase 17's seeded checkpoints under ``root``: ``{name: (format,
+    directory, features, extra)}``, the LightGBM trees and the logistic
+    weights in ``extra`` for their oracles."""
+    import os
+
+    import numpy as np
+
+    cfg = TABULAR
+    rng = np.random.default_rng(17)
+    out = {}
+
+    def put(name, fmt, filename, text, n_feat, extra=None):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        with open(os.path.join(d, filename), "w") as f:
+            f.write(text)
+        out[name] = (fmt, d, n_feat, extra)
+
+    F, D = cfg["higgs_features"], cfg["depth"]
+    higgs = [_tab_tree(rng, F, D) for _ in range(cfg["higgs_trees"])]
+    put("higgs_xgb", "xgboost", "model.json", json.dumps(_xgb_doc(
+        higgs, n_feat=F, num_class=0, objective="binary:logistic")), F)
+    Fc, C = cfg["cover_features"], cfg["cover_classes"]
+    cover = [_tab_tree(rng, Fc, D) for _ in range(C * cfg["cover_rounds"])]
+    put("covtype_xgb", "xgboost", "model.json", json.dumps(_xgb_doc(
+        cover, n_feat=Fc, num_class=C, objective="multi:softprob")), Fc)
+    text, lgb_trees = _lgb_text([_tab_tree(rng, F, D) for _ in range(cfg["higgs_trees"])],
+                                rng, n_feat=F)
+    put("higgs_lgb", "lightgbm", "model.txt", text, F, lgb_trees)
+    put("forest_pmml", "pmml", "model.pmml", _pmml_forest(
+        [_tab_tree(rng, F, D) for _ in range(cfg["forest_trees"])], F), F)
+    W, b = 0.3 * rng.normal(size=F), float(rng.normal())
+    put("logit_pmml", "pmml", "model.pmml", _pmml_logistic(W, b, F), F, (W, b))
+    return out
+
+
+def _tab_rows(n, n_feat, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, n_feat)).astype(np.float32)
+    x[rng.random(x.shape) < TAB_NAN] = np.nan
+    return x
+
+
+def _tab_reference(torch, model, x, extra):
+    """The plain reference of ``model`` on rows ``x``, on the host:
+    ``(outputs, class outputs, per-output error bound, extra numbers)``.
+    Trees: :func:`leaves_numpy`'s leaves (``margin_numpy``'s rule), the
+    leaf values summed in f64 and the objective's link; the bound is
+    ``TAB_REL`` x the sum of |leaf value| on the row's paths (per class
+    for margins, over the row for probabilities) + ``TAB_ABS``. The
+    logistic model: sigmoid of an f64 product, bound from sum |x_i w_i|."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serve.xgboost_runtime import _base_margin, leaves_numpy
+
+    if extra is not None and isinstance(extra, tuple):  # the logistic table
+        W, b = extra
+        terms = x.astype(np.float64) * W[None, :]
+        margin = terms.sum(1) + b
+        out = 1.0 / (1.0 + np.exp(-margin))
+        scale = np.abs(terms).sum(1) + abs(b)
+        return out, margin > 0, TAB_REL * scale + TAB_ABS, {}
+    bst = model.booster if hasattr(model, "booster") else None
+    if bst is None:
+        bst = model.predictor.booster
+    leaves = leaves_numpy(bst, x)  # (T, B)
+    vals = np.take_along_axis(bst.leaf_value, leaves, axis=1).astype(np.float64)
+    C = bst.num_class
+    margin = np.zeros((x.shape[0], C))
+    scale = np.zeros((x.shape[0], C))
+    for c in range(C):
+        rows = bst.tree_class == c
+        margin[:, c] = vals[rows].sum(0)
+        scale[:, c] = np.abs(vals[rows]).sum(0)
+    margin += _base_margin(bst)
+    if bst.objective.startswith("binary:logistic"):
+        out = 1.0 / (1.0 + np.exp(-margin[:, 0]))
+        return out, margin[:, 0] > 0, TAB_REL * scale[:, 0] + TAB_ABS, {"leaves": leaves}
+    if bst.objective == "multi:softprob":
+        e = np.exp(margin - margin.max(1, keepdims=True))
+        bound = TAB_REL * scale.sum(1, keepdims=True) + TAB_ABS
+        return (e / e.sum(1, keepdims=True), margin.argmax(1),
+                np.broadcast_to(bound, margin.shape), {"leaves": leaves})
+    return margin[:, 0], None, TAB_REL * scale[:, 0] + TAB_ABS, {"leaves": leaves}
+
+
+def _tab_classes(out):
+    import numpy as np
+
+    out = np.asarray(out)
+    return out.argmax(1) if out.ndim == 2 else out > 0.5
+
+
+def _tab_v2(x):
+    return {"inputs": [{"name": "x", "shape": list(x.shape), "datatype": "FP32",
+                        "data": x.reshape(-1).tolist()}]}
+
+
+def _tab_profile(torch, model, x):
+    """One predict under ``torch.profiler`` (a warm-up step first, whose
+    events the schedule discards): its kernels and copies on the device,
+    its kernel launches and copies as the host issued them (CUDA runtime
+    calls), and the device's busy ms."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    model.predict(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            model.predict(x)
+            torch.cuda.synchronize()
+            prof.step()
+    n, busy, top = _device_summary(prof)
+    copies = sum(c for name, (c, _) in top if name.startswith(("Memcpy", "Memset")))
+    calls = [e.name for e in prof.events() if e.name.startswith(("cudaLaunchKernel",
+                                                                 "cudaMemcpy"))]
+    return {"device_ops": n, "kernels": n - copies, "copies": copies,
+            "launch_calls": sum(c.startswith("cudaLaunchKernel") for c in calls),
+            "copy_calls": sum(c.startswith("cudaMemcpy") for c in calls),
+            "busy_ms": busy}
+
+
+def _tab_serve(torch, state, ckpts, dev):
+    """(a) every tabular checkpoint behind one ``ModelServer``: v1 and v2 at
+    each of ``TAB_ROWS``, held against the plain reference; the direct
+    walk's leaves and margins at the largest batch; p50s, launches,
+    busy share and resident bytes. Returns (ok, the loaded models)."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.serve.runtimes import default_registry
+    from kubeflow_tpu_torch.serve.server import ModelServer
+    from kubeflow_tpu_torch.serve.spec import PredictorSpec
+    from kubeflow_tpu_torch.serve.xgboost_runtime import (
+        _base_margin, build_device_predict, margin_numpy)
+
+    reg = default_registry()
+    models = {}
+    for name, (fmt, path, _, _) in ckpts.items():
+        t0 = time.perf_counter()
+        rt = reg.resolve(PredictorSpec(model_format=fmt))
+        m = rt.factory(name, path, device=dev)
+        m.load()
+        models[name] = (m, rt.name, (time.perf_counter() - t0) * 1e3)
+    srv = ModelServer([m for m, _, _ in models.values()], http_port=0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    ok = True
+    try:
+        for name, (fmt, path, n_feat, extra) in ckpts.items():
+            m, runtime, load_ms = models[name]
+            walk = getattr(m, "walk", None) or m.predictor
+            line = {"phase": "tabular", "part": "a_serve", "model": name,
+                    "runtime": runtime, "card": state["card"], "load_ms": load_ms,
+                    "features": n_feat, "resident_bytes": walk.resident_bytes}
+            if hasattr(walk, "booster"):
+                b = walk.booster
+                line.update(trees=b.n_trees, classes=b.num_class, depth=b.max_depth,
+                            nodes_a_tree=int(b.feat.shape[1]))
+            worst, mism, ties, by_rows = 0.0, 0, 0, {}
+            for n in TAB_ROWS:
+                x = _tab_rows(n, n_feat, seed=n)
+                want, classes, bound, info = _tab_reference(torch, m, x, extra)
+                _, _, t1 = _http(base, "POST", f"/v1/models/{name}:predict",
+                                 {"instances": x.tolist()})
+                _, _, t2 = _http(base, "POST", f"/v2/models/{name}/infer", _tab_v2(x))
+                v1 = np.asarray(json.loads(t1)["predictions"], np.float64)
+                o2 = json.loads(t2)["outputs"][0]
+                v2 = np.asarray(o2["data"], np.float64).reshape(o2["shape"])
+                same = v1.shape == want.shape and np.array_equal(v1, v2, equal_nan=True)
+                nan_ok = np.array_equal(np.isnan(v1), np.isnan(want))
+                fin = ~np.isnan(want)
+                err = np.abs(v1 - want)[fin] / np.asarray(bound)[fin]
+                worst = max(worst, float(err.max()) if err.size else 0.0)
+                if classes is not None:
+                    got_cls = _tab_classes(np.where(np.isnan(v1), 0.0, v1))
+                    bad = np.flatnonzero(got_cls != np.asarray(classes))
+                    if want.ndim == 2:  # a flip is a tie when the top-2 gap is in the bound
+                        top2 = np.sort(want, 1)[:, -2:]
+                        tie = (top2[:, 1] - top2[:, 0]) <= 2 * np.asarray(bound)[:, 0]
+                    else:
+                        tie = np.abs(want - 0.5) <= np.asarray(bound)
+                    bad = bad[fin[bad] if want.ndim == 1 else fin[bad].all(-1)]
+                    ties += int(tie[bad].sum())
+                    mism += int((~tie[bad]).sum())
+                ok_n = same and nan_ok and (err <= 1.0).all()
+                by_rows[str(n)] = {"v1_eq_v2": bool(same), "nan_rows_match": bool(nan_ok),
+                                   "max_err_over_bound": float(err.max()) if err.size else 0.0,
+                                   "rows_with_nan": int(np.isnan(x).any(1).sum())}
+                ok &= bool(ok_n)
+                if "leaves" in info and n == TAB_ROWS[-1]:
+                    # the walk itself: final cursors against the plain walk
+                    lv = walk.leaves(x)
+                    line["leaves_equal"] = bool(np.array_equal(lv, info["leaves"]))
+                    mw = build_device_predict(walk.booster, "margin", device=dev)
+                    got = mw(x).cpu().numpy().astype(np.float64)
+                    vals = np.take_along_axis(walk.booster.leaf_value, lv, 1)
+                    mref = np.zeros_like(got)
+                    mscale = np.zeros_like(got)
+                    for c in range(walk.booster.num_class):
+                        sel = walk.booster.tree_class == c
+                        mref[:, c] = vals[sel].astype(np.float64).sum(0)
+                        mscale[:, c] = np.abs(vals[sel]).sum(0)
+                    mref += _base_margin(walk.booster)
+                    merr = np.abs(got - mref) / (TAB_REL * mscale + TAB_ABS)
+                    line["margin_max_err_over_bound"] = float(merr.max())
+                    # the vectorised walk is margin_numpy's rule, row by row
+                    line["margin_numpy_rows_agree"] = bool(np.allclose(
+                        margin_numpy(walk.booster, x[:8]), mref[:8], rtol=0, atol=1e-9))
+                    ok &= (line["leaves_equal"] and line["margin_max_err_over_bound"] <= 1.0
+                           and line["margin_numpy_rows_agree"])
+                    if fmt == "lightgbm":  # LightGBM's own <= walk on a few rows
+                        lg = np.asarray(_lgb_oracle(extra, x[:16].astype(np.float64)))
+                        line["lightgbm_oracle_max_err"] = float(np.abs(lg - mref[:16, 0]).max())
+                        ok &= line["lightgbm_oracle_max_err"] <= 1e-6
+            line["served"] = by_rows
+            line["max_err_over_bound"] = worst
+            line["class_mismatches"], line["class_ties"] = mism, ties
+            ok &= mism == 0
+            # timing: the runtime's predict (upload, walk, copy back) and a
+            # v1 request through the server, by batch size
+            p50, http_p50, prof = {}, {}, {}
+            for n in TAB_ROWS:
+                x = _tab_rows(n, n_feat, seed=100 + n)
+                ms = []
+                for _ in range(TAB_REPS[n]):
+                    t0 = time.perf_counter()
+                    m.predict(x)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                p50[str(n)] = statistics.median(ms)
+                body = {"instances": x.tolist()}
+                hs = []
+                for _ in range(max(3, TAB_REPS[n] // 4)):
+                    t0 = time.perf_counter()
+                    _http(base, "POST", f"/v1/models/{name}:predict", body)
+                    hs.append((time.perf_counter() - t0) * 1e3)
+                http_p50[str(n)] = statistics.median(hs)
+                if dev != "cpu":
+                    pr = _tab_profile(torch, m, x)
+                    pr["busy_share"] = pr["busy_ms"] / p50[str(n)]
+                    prof[str(n)] = pr
+            line.update(predict_p50_ms=p50, http_p50_ms=http_p50, profile=prof)
+            line["ok"] = bool(ok)
+            emit(line)
+    finally:
+        srv.stop()
+    return ok
+
+
+def _tab_mesh(torch, state, ckpts, dev):
+    """(b) a ModelMesh over the card: 8 ``kubeflow-tpu-bert-tiny``
+    predictors (weights from seeds 0-7) and the two XGBoost boosters
+    behind ``MeshBackedModel``s on one ``ModelServer``, under a budget
+    that holds 3 BERT-tiny models (a booster's arrays count 0 bytes, the
+    JAX rule); two round-robin rounds of requests. Every answer equals the
+    model's alone; loads, evictions and residents follow an LRU model of
+    the same requests; ``resident_bytes`` is the resident models' weight
+    bytes; each evicted model's unload frees at least its bytes of
+    ``torch.cuda.memory_allocated`` and nothing keeps the evicted model
+    alive; a pinned model stays resident while five others load."""
+    import weakref
+
+    import numpy as np
+
+    from kubeflow_tpu_torch.models.bert import BertForMaskedLM, bert_tiny, init_bert_weights
+    from kubeflow_tpu_torch.serve.modelmesh import MeshBackedModel, ModelMesh, _device_bytes
+    from kubeflow_tpu_torch.serve.runtimes import default_registry
+    from kubeflow_tpu_torch.serve.server import ModelServer
+    from kubeflow_tpu_torch.serve.spec import PredictorSpec
+
+    reg = default_registry()
+    bert_rt = reg.resolve(PredictorSpec(model_format="bert-tiny"))
+    xgb_rt = reg.resolve(PredictorSpec(model_format="xgboost"))
+    sds = []
+    for seed in range(8):
+        mod = BertForMaskedLM(bert_tiny(), device="cpu")
+        init_bert_weights(mod, seed)
+        sds.append({k: v.clone() for k, v in mod.state_dict().items()})
+    per = sum(t.numel() * t.element_size()
+              for t in list(mod.parameters()) + list(mod.buffers()))
+    budget = 3 * per + per // 2
+    texts = ["the cat sat on the [MASK] mat", "a model [MASK] served the dog"]
+    rows = {n: _tab_rows(64, ckpts[n][2], seed=64) for n in ("higgs_xgb", "covtype_xgb")}
+    frees, made = [], []
+
+    def make_bert(i):
+        def factory():
+            m = bert_rt.factory(f"bert{i}", None, state_dict=sds[i], device=dev)
+            unload = m.unload
+
+            def audited():
+                if dev != "cpu":
+                    torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated() if dev != "cpu" else 0
+                unload()
+                after = torch.cuda.memory_allocated() if dev != "cpu" else 0
+                frees.append((m.name, before - after))
+
+            m.unload = audited
+            made.append(weakref.ref(m))
+            return m
+        return factory
+
+    def make_xgb(name):
+        return lambda: xgb_rt.factory(name, ckpts[name][1], device=dev)
+
+    # each model's answers alone, before the mesh
+    alone = {}
+    for i in range(8):
+        m = make_bert(i)()
+        m.load()
+        alone[f"bert{i}"] = m.postprocess(m.predict(m.preprocess({"instances": texts})))
+        del m
+    booster_bytes = 0
+    for n in rows:
+        m = make_xgb(n)()
+        m.load()
+        alone[n] = m.postprocess(m.predict(rows[n]))
+        booster_bytes += m.walk.resident_bytes
+        m.unload()
+    frees.clear()
+    made.clear()
+    gc.collect()
+
+    mesh = ModelMesh(budget)
+    names = [f"bert{i}" for i in range(8)] + ["higgs_xgb", "covtype_xgb"]
+    proxies = [MeshBackedModel(mesh, n, make_bert(int(n[4:])) if n.startswith("bert")
+                               else make_xgb(n)) for n in names]
+    sizes = {n: per if n.startswith("bert") else 0 for n in names}
+    srv = ModelServer(proxies, http_port=0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    ok, trail = True, []
+    lru, clock, loads, evictions = [], 0, 0, 0  # the LRU model: (name, last use)
+    try:
+        for n in names + names:
+            clock += 1
+            if n in dict(lru):
+                lru = [(k, clock if k == n else t) for k, t in lru]
+            else:
+                while sum(sizes[k] for k, _ in lru) + sizes[n] > budget:
+                    victim = min(lru, key=lambda kt: kt[1])
+                    lru.remove(victim)
+                    evictions += 1
+                lru.append((n, clock))
+                loads += 1
+            body = ({"instances": texts} if n.startswith("bert")
+                    else {"instances": rows[n].tolist()})
+            status, _, text = _http(base, "POST", f"/v1/models/{n}:predict", body)
+            got = json.loads(text) if status == 200 else text
+            want = alone[n]
+            same = status == 200 and (got == want if n.startswith("bert") else
+                                      np.array_equal(np.asarray(got["predictions"]),
+                                                     np.asarray(want["predictions"])))
+            resident = mesh.resident()
+            weight_bytes = 0
+            for k in resident:
+                inner = mesh._entries[k].model
+                weight_bytes += _device_bytes(inner)
+            step = {"request": n, "answer_equal": bool(same), "resident": resident,
+                    "lru_model": sorted(k for k, _ in lru),
+                    "resident_bytes": mesh.resident_bytes(),
+                    "weight_bytes": weight_bytes}
+            trail.append(step)
+            ok &= (same and resident == step["lru_model"]
+                   and step["resident_bytes"] == weight_bytes
+                   == per * sum(k.startswith("bert") for k in resident)
+                   and step["resident_bytes"] <= budget)
+        rr_stats = dict(mesh.stats)
+        ok &= rr_stats["loads"] == loads and rr_stats["evictions"] == evictions
+        gc.collect()
+        alive = sum(r() is not None for r in made)
+        bert_frees = [b for name, b in frees if name.startswith("bert")]
+        frees_ok = bool(bert_frees) and (dev == "cpu" or min(bert_frees) >= per)
+        ok &= frees_ok and alive == sum(k.startswith("bert") for k in mesh.resident())
+        # a pinned model stays resident while five others load
+        pin_ok = True
+        with mesh.pinned("bert0") as m0:
+            for i in range(1, 6):
+                _http(base, "POST", f"/v1/models/bert{i}:predict", {"instances": texts})
+                pin_ok &= "bert0" in mesh.resident() and m0.module is not None
+            status, _, text = _http(base, "POST", "/v1/models/bert0:predict",
+                                    {"instances": texts})
+            pin_ok &= status == 200 and json.loads(text) == alone["bert0"]
+        ok &= pin_ok
+        emit({"phase": "tabular", "part": "b_modelmesh", "ok": bool(ok),
+              "card": state["card"], "bert_tiny_bytes": per, "budget_bytes": budget,
+              "requests": len(trail), "stats": rr_stats,
+              "stats_after_pinned_part": dict(mesh.stats),
+              "lru_loads": loads, "lru_evictions": evictions,
+              "answers_equal": all(s["answer_equal"] for s in trail),
+              "residents_follow_lru": all(s["resident"] == s["lru_model"] for s in trail),
+              "resident_bytes_are_weights": all(
+                  s["resident_bytes"] == s["weight_bytes"] for s in trail),
+              "evicted_bert_frees_min_bytes": min(bert_frees) if bert_frees else None,
+              "evicted_bert_unloads": len(bert_frees), "models_alive": alive,
+              "pinned_stayed": bool(pin_ok),
+              "booster_arrays_bytes_uncounted": booster_bytes,
+              **({} if ok else {"trail": trail})})
+    finally:
+        srv.stop()
+    return ok
+
+
+def phase_tabular(torch, state):
+    """The KServe tabular predictors and ModelMesh on the card. (a) seeded
+    checkpoints in the published formats — XGBoost JSON ``binary:logistic``
+    (1000 trees of depth 8, 28 features: HIGGS's width) and
+    ``multi:softprob`` (7 classes x 200 rounds, 54 features: Covertype's),
+    a LightGBM text model of the first one's shape, a PMML ``MiningModel``
+    forest of 100 depth-8 trees and a logistic ``RegressionModel`` — each
+    served through ``ModelServer`` (v1 and v2) at 1, 64 and 4096 rows with
+    about 1% NaN features: answers within the bound of the plain walk, v2
+    equal to v1, class outputs identical, and the walk's final cursors
+    equal to the plain walk's leaves; the p50 of a predict by batch size,
+    its launches under ``torch.profiler``, the busy share and the bytes
+    resident. (b) a ModelMesh of BERT-tiny predictors and the boosters
+    (:func:`_tab_mesh`). A line a model, then one for the mesh."""
+    import shutil
+    import tempfile
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kft-tabular-")
+    try:
+        ckpts = tabular_checkpoints(root)
+        write_s = time.perf_counter() - t0
+        ok = _tab_serve(torch, state, ckpts, "cuda")
+        ok &= _tab_mesh(torch, state, ckpts, "cuda")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "tabular", "part": "total", "ok": bool(ok),
+          "checkpoint_write_s": write_s, "seconds": time.perf_counter() - t0})
+    return ok
+
+
 def _device_summary(prof):
     """(kernels, busy ms, kernels by device time) of a profile: busy is
     the union of kernel intervals on the card. Ranges that user
@@ -4691,7 +5315,7 @@ def main(argv=None) -> int:
                "dense": phase_dense,
                "bert": phase_bert, "train": phase_train, "mlm": phase_mlm,
                "mesh": phase_mesh, "load": phase_load,
-               "tp": phase_tp, "job": phase_job,
+               "tp": phase_tp, "job": phase_job, "tabular": phase_tabular,
                "profile": phase_profile}
     ok = True
     seconds = {"build": build_s}

@@ -20,6 +20,8 @@ TRAIN_STEPS_PER_SEC = "kubeflow_tpu_train_steps_per_sec"
 SERVER_INFLIGHT = "kft_server_inflight"
 #: gauge{model} — instances waiting in the batcher queue
 SERVER_QUEUE_DEPTH = "kft_server_queue_depth"
+#: counter{model} — model loads that raised (ModelMesh)
+MODELMESH_LOAD_FAILURES_TOTAL = "kft_modelmesh_load_failures_total"
 #: gauges{model} — batcher occupancy (``serve/batcher.py``)
 BATCHER_BATCHES = "kubeflow_tpu_batcher_batches"
 BATCHER_INSTANCES = "kubeflow_tpu_batcher_instances"

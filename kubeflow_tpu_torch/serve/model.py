@@ -46,6 +46,11 @@ class Model:
     def unload(self) -> None:
         self.ready = False
 
+    def explain(self, payload: Any, headers: Mapping[str, str] | None = None) -> Any:
+        """The ``:explain`` verb (KServe explainer component). Runtimes with
+        a meaningful attribution story override this; the default is 501."""
+        raise NotImplementedError(f"model '{self.name}' has no explainer")
+
     def __call__(self, payload: Any, headers: Mapping[str, str] | None = None) -> Any:
         x = self.preprocess(payload, headers)
         return self.postprocess(self.predict(x, headers), headers)

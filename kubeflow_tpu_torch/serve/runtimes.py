@@ -2,7 +2,7 @@
 runtime and the registry that resolves a model format to its runtime
 (the JAX ``kubeflow_tpu/serve/runtimes.py``).
 
-Four runtimes are registered, as in the JAX ``default_registry``:
+Eight runtimes are registered, as in the JAX ``default_registry``:
 
 - ``kubeflow-tpu-causal-lm`` (formats ``causal-lm``, ``llm``):
   :class:`~kubeflow_tpu_torch.serve.generate.LMRuntimeModel`, one
@@ -12,11 +12,11 @@ Four runtimes are registered, as in the JAX ``default_registry``:
   batching;
 - ``kubeflow-tpu-bert`` (``bert``, ``huggingface``) and
   ``kubeflow-tpu-bert-tiny`` (``bert-tiny``): :class:`BertRuntimeModel`,
-  text or ids in, MLM top-token ids out, on the bucketed predictor.
-
-The JAX package's classic runtimes are not ported yet: resolving their
-formats raises ``NotImplementedError`` naming the ROADMAP item (sklearn,
-XGBoost, LightGBM and PMML: queue 1 item 11).
+  text or ids in, MLM top-token ids out, on the bucketed predictor;
+- the classic tabular predictors, each ``(name, storage_path, *,
+  device=None)``: ``kubeflow-tpu-xgboost`` (``xgboost``),
+  ``kubeflow-tpu-lightgbm`` (``lightgbm``), ``kubeflow-tpu-pmml``
+  (``pmml``) and ``kubeflow-tpu-sklearn`` (``sklearn``).
 """
 
 from __future__ import annotations
@@ -40,16 +40,6 @@ from kubeflow_tpu_torch.models.bert import (
 )
 from kubeflow_tpu_torch.serve.model import BucketSpec, TorchModel
 from kubeflow_tpu_torch.serve.spec import RuntimeRegistry, ServingRuntime
-
-_CLASSIC = "the {} runtime is not ported yet (ROADMAP queue 1 item 11)"
-
-#: format or runtime name → why it does not resolve in the port
-UNPORTED_RUNTIMES = {
-    **{fmt: _CLASSIC.format(fmt)
-       for fmt in ("sklearn", "xgboost", "lightgbm", "pmml")},
-    **{f"kubeflow-tpu-{fmt}": _CLASSIC.format(fmt)
-       for fmt in ("sklearn", "xgboost", "lightgbm", "pmml")},
-}
 
 
 class SimpleTokenizer:
@@ -231,8 +221,20 @@ def _check_range(name: str, arr: np.ndarray, size: int) -> None:
 def default_registry() -> RuntimeRegistry:
     from kubeflow_tpu_torch.serve.engine import LMEngineModel
     from kubeflow_tpu_torch.serve.generate import LMRuntimeModel
+    from kubeflow_tpu_torch.serve.lightgbm_runtime import LightGBMRuntimeModel
+    from kubeflow_tpu_torch.serve.pmml_runtime import PMMLRuntimeModel
+    from kubeflow_tpu_torch.serve.sklearn_runtime import SklearnRuntimeModel
+    from kubeflow_tpu_torch.serve.xgboost_runtime import XGBoostRuntimeModel
 
-    reg = RuntimeRegistry(unported=UNPORTED_RUNTIMES)
+    reg = RuntimeRegistry()
+    for fmt, factory in (("xgboost", XGBoostRuntimeModel),
+                         ("lightgbm", LightGBMRuntimeModel),
+                         ("pmml", PMMLRuntimeModel),
+                         ("sklearn", SklearnRuntimeModel)):
+        reg.register(ServingRuntime(
+            name=f"kubeflow-tpu-{fmt}", supported_formats=(fmt,),
+            factory=factory, priority=1,
+        ))
     reg.register(ServingRuntime(
         name="kubeflow-tpu-causal-lm", supported_formats=("causal-lm", "llm"),
         factory=LMRuntimeModel, priority=1,

@@ -11,10 +11,14 @@ lines.
   ``"platform": "torch-cuda"``)
 - ``POST /v1/models/{m}:predict`` ``{"instances": [...]}`` →
   ``{"predictions": [...]}``
+- ``POST /v1/models/{m}:explain`` ``{"instances": [...]}`` →
+  ``{"explanations": [...]}`` from the model's ``explain`` (501 for a
+  model without an explainer, as in JAX)
 - ``POST /v2/models/{m}/infer`` ``{"inputs": [{name, shape, datatype,
   data}]}`` → ``{"model_name", "outputs": [...]}`` (``serve/protocol.py``;
   named tensors become per-instance rows, so ``attention_mask`` and
-  ``token_type_ids`` reach the model)
+  ``token_type_ids`` reach the model, and a lone tensor's rows reach a
+  tabular model as its ``(batch, features)`` matrix)
 - ``POST /v2/models/{m}/generate`` (one row) → ``{"token_ids": [...]}``,
   from an engine model or a ``causal-lm`` runtime (``LMRuntimeModel``)
 - ``POST /v2/models/{m}/generate_stream`` (engine models; 501 for a
@@ -112,6 +116,7 @@ from kubeflow_tpu_torch.serve.protocol import decode_v2, encode_v2
 from kubeflow_tpu_torch.serve.watchdog import EngineRestarting
 
 _PREDICT = re.compile(r"^/v1/models/([^/:]+):predict$")
+_EXPLAIN = re.compile(r"^/v1/models/([^/:]+):explain$")
 _INFER = re.compile(r"^/v2/models/([^/]+)/infer$")
 _GENERATE = re.compile(r"^/v2/models/([^/]+)/generate$")
 _GENERATE_STREAM = re.compile(r"^/v2/models/([^/]+)/generate_stream$")
@@ -447,6 +452,11 @@ class ModelServer:
             if not isinstance(payload, dict) or "instances" not in payload:
                 raise _HTTPError(400, "v1 request must contain 'instances'")
             return 200, self._infer(m.group(1), payload, headers)
+        if m := _EXPLAIN.match(path):
+            payload = self._json(body)
+            if not isinstance(payload, dict) or "instances" not in payload:
+                raise _HTTPError(400, "v1 request must contain 'instances'")
+            return 200, self._explain(m.group(1), payload, headers)
         if m := _INFER.match(path):
             return 200, self._v2_infer(m.group(1), body, headers)
         if m := _GENERATE.match(path):
@@ -543,6 +553,17 @@ class ModelServer:
         if span:
             span.end()
         return result
+
+    def _explain(self, name: str, payload: dict, headers: dict[str, str]) -> dict:
+        """``:explain``: the model's attributions, wrapped as
+        ``{"explanations": ...}`` unless the model wrapped them."""
+        model = self._model(name)
+        if not model.ready:
+            raise _HTTPError(503, f"model '{name}' not ready")
+        out = model.explain(payload, headers)
+        if isinstance(out, dict) and "explanations" in out:
+            return out
+        return {"explanations": out}
 
     def _open_stream(self, name: str, body: bytes, headers) -> _Stream:
         """Admit one streamed row EAGERLY: a shed, overload or expired

@@ -47,22 +47,16 @@ class PredictorSpec(ComponentSpec):
 
 
 class RuntimeRegistry:
-    """ClusterServingRuntime lookup: format → highest-priority runtime.
-    ``unported`` maps formats whose runtimes the port does not have yet
-    to the reason, which resolving them raises as
-    ``NotImplementedError``."""
+    """ClusterServingRuntime lookup: format → highest-priority runtime."""
 
-    def __init__(self, unported: Mapping[str, str] | None = None):
+    def __init__(self):
         self._runtimes: dict[str, ServingRuntime] = {}
-        self._unported = dict(unported or {})
 
     def register(self, rt: ServingRuntime) -> None:
         self._runtimes[rt.name] = rt
 
     def resolve(self, spec: ComponentSpec) -> ServingRuntime:
         if spec.runtime is not None:
-            if spec.runtime in self._unported:
-                raise NotImplementedError(self._unported[spec.runtime])
             try:
                 return self._runtimes[spec.runtime]
             except KeyError:
@@ -72,7 +66,5 @@ class RuntimeRegistry:
             if spec.model_format in rt.supported_formats
         ]
         if not candidates:
-            if spec.model_format in self._unported:
-                raise NotImplementedError(self._unported[spec.model_format])
             raise ValueError(f"no runtime supports format '{spec.model_format}'")
         return max(candidates, key=lambda rt: rt.priority)

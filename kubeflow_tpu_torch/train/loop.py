@@ -29,7 +29,10 @@ and ``expert`` slices are computed with as they are. Each rank feeds its
 block of the batch (``data/synthetic.py`` ``local_shard_iterator(...,
 mesh=)``); the loss is the global mean, every rank's backward yields its
 share of the gradient, and the shares are summed over the token axes a
-parameter is not gathered over, one bucket a set of axes. Logged loss
+parameter is not gathered over, one bucket a set of axes. Under
+gradient accumulation the step's rows are gathered over the batch axes
+and each rank keeps its partition of every microbatch, so microbatch i
+holds JAX's global rows ``[i*B/accum, (i+1)*B/accum)``. Logged loss
 and metrics are global, as the JAX jitted step's are. A checkpoint
 under a mesh holds the full state (parameters and optimizer state
 gathered, written by rank 0) in the single-device format, so it
@@ -126,8 +129,8 @@ class TrainConfig:
     handle_sigterm: bool = True
     #: no effect: the optimizer already updates the weights in place
     donate_state: bool = True
-    #: microbatches per step: equal slices of the batch, each backward
-    #: scaled by 1/accum, one optimizer step
+    #: microbatches per step: equal slices of the global batch, each
+    #: backward scaled by 1/accum, one optimizer step
     grad_accum_steps: int = 1
     #: placed batches the background producer keeps ahead (0 = inline);
     #: each holds device memory
@@ -323,8 +326,9 @@ class Trainer:
             aux = dict(aux)
         else:
             loss, aux = 0.0, {}
+            micro = map_batch(lambda v: self._microbatches(v, accum), batch)
             for i in range(accum):
-                mb = map_batch(lambda v: v.chunk(accum)[i], batch)
+                mb = map_batch(lambda v: v[i], micro)
                 loss_i, aux_i = self.loss_fn(
                     model, mb, key_of(self.config.seed, state.step, i))
                 (loss_i / accum).backward()
@@ -340,6 +344,22 @@ class Trainer:
         opt.step()
         state.step += 1
         return {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+    def _microbatches(self, v: torch.Tensor, accum: int) -> torch.Tensor:
+        """This rank's rows of each microbatch, stacked on a new dim 0.
+
+        JAX reshapes the global batch to ``[accum, B/accum, ...]`` and
+        shards each microbatch over the batch axes, so microbatch i holds
+        the global rows ``[i*B/accum, (i+1)*B/accum)``. Under a mesh the
+        step's rows are gathered over the batch axes first, and this rank
+        keeps its partition of each microbatch: the same rows as JAX's,
+        which an MoE layer's capacity and drops (counted a microbatch)
+        depend on."""
+        if self.mesh is not None:
+            v = coll._all_gather(v, self.mesh, Axis.BATCH, 0)
+            parts = self.mesh.spec.batch_partitions
+            return v.reshape(accum, parts, -1, *v.shape[1:])[:, self.mesh.batch_index]
+        return v.reshape(accum, -1, *v.shape[1:])
 
     def _stage(self, metrics: Mapping[str, torch.Tensor]) -> dict:
         """Metric tensors → host scalars the drain may read once the step's

@@ -355,7 +355,7 @@ def test_seeded_lm_runtime_samples_jax_tokens():
         assert _predict(trt, inst) == _predict(jrt, inst)
 
 
-def test_lm_runtime_through_default_registry():
+def test_lm_runtime_through_default_registry(tmp_path):
     reg = default_registry()
     rt = reg.resolve(PredictorSpec(model_format="causal-lm"))
     assert rt.name == "kubeflow-tpu-causal-lm"
@@ -378,10 +378,23 @@ def test_lm_runtime_through_default_registry():
     bert.load()
     preds = _predict(bert, ["hello [MASK] world", "the cat sat"])["predictions"]
     assert len(preds) == 2 and len(preds[0]) == 16
-    for fmt, item in (("sklearn", "item 11"), ("xgboost", "item 11"),
-                      ("lightgbm", "item 11"), ("pmml", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            reg.resolve(PredictorSpec(model_format=fmt))
+    # the classic formats resolve to their runtimes, as in JAX, and predict
+    for fmt in ("sklearn", "xgboost", "lightgbm", "pmml"):
+        assert reg.resolve(PredictorSpec(model_format=fmt)).name == f"kubeflow-tpu-{fmt}"
+        assert reg.resolve(PredictorSpec(runtime=f"kubeflow-tpu-{fmt}")).name == (
+            f"kubeflow-tpu-{fmt}")
+    pmml = tmp_path / "model.pmml"
+    pmml.write_text(
+        '<PMML version="4.4"><DataDictionary><DataField name="x0"/>'
+        '<DataField name="x1"/></DataDictionary><RegressionModel '
+        'functionName="regression"><RegressionTable intercept="1.5">'
+        '<NumericPredictor name="x0" coefficient="2.0"/>'
+        '<NumericPredictor name="x1" coefficient="-0.5"/></RegressionTable>'
+        '</RegressionModel></PMML>')
+    lin = reg.resolve(PredictorSpec(model_format="pmml")).factory(
+        "lin", str(pmml), device="cpu")
+    lin.load()
+    assert _predict(lin, [[1.0, 2.0], [0.0, 4.0]]) == {"predictions": [2.5, -0.5]}
     with pytest.raises(ValueError, match="no runtime"):
         reg.resolve(PredictorSpec(model_format="onnx"))
 

@@ -86,6 +86,23 @@ def test_parallel_subpackages_are_covered():
         assert PKG / rel in FILES, rel
 
 
+def test_tabular_modules_are_covered():
+    """The tabular predictors and ModelMesh exist and are among the files
+    the import checks above walk; ``sklearn`` and ``joblib`` are imported
+    only inside a function (the card's host has neither), never at the
+    top of a module."""
+    for rel in ("serve/tabular.py", "serve/xgboost_runtime.py",
+                "serve/lightgbm_runtime.py", "serve/pmml_runtime.py",
+                "serve/sklearn_runtime.py", "serve/modelmesh.py"):
+        assert PKG / rel in FILES, rel
+    for path in FILES:
+        tree = ast.parse(path.read_text())
+        top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+        mods = [a.name for n in top if isinstance(n, ast.Import) for a in n.names]
+        mods += [n.module for n in top if isinstance(n, ast.ImportFrom) and n.module]
+        assert not [m for m in mods if m.split(".")[0] in ("sklearn", "joblib")], path
+
+
 def test_kernel_sources_exist():
     assert {p.stem for p in CSRC} == {
         "paged_attention", "flash_attention", "flash_attention_bwd"}

@@ -8,7 +8,10 @@ same JAX-initialised weights (bridged) on the same batches. The JAX
 trainer runs on the 8 CPU devices (Pallas kernels in interpret mode); the
 port runs one gloo world of 8 CPU ranks (``tests/torch_worlds.py``), one
 rank a device. A 4-device mesh takes ``pipe=2`` in both packages to fill
-8 devices: neither trainer splits anything over ``pipe``.
+8 devices: neither trainer splits anything over ``pipe``. One more case
+takes two microbatches a step (``grad_accum_steps=2``) on a mesh of 4
+batch partitions, with an MoE capacity tight enough to drop tokens, and
+holds the losses, ``moe_aux`` and the drops a step against JAX's.
 
 Tolerances (f32): per-step losses within 1e-5 (relative); parameters after
 the last step within 1e-4 absolute, a tenth of the learning rate: Adam's
@@ -44,6 +47,15 @@ MESHES = [
     ("dcn2_fsdp2_model2_flash", dict(dcn_data=2, fsdp=2, model=2), "flash"),
 ]
 
+#: gradient accumulation under a mesh with 4 batch partitions: the MoE
+#: layer's tight capacity drops tokens, and its capacity, drops and aux
+#: loss are counted a microbatch, so they follow which rows a microbatch
+#: holds
+ACCUM = ("data2_fsdp2_expert2_accum2", dict(data=2, fsdp=2, expert=2),
+         "reference")
+ACCUM_STEPS = 2
+ACCUM_MODEL = dict(MODEL, moe=dict(MODEL["moe"], capacity_factor=0.5))
+
 
 def _jax_params():
     import jax
@@ -75,31 +87,63 @@ def _global_batches(spec):
         step += 1
 
 
-def _jax_fit(params, spec_kw, attn_impl):
+def _loss_with_drops(model):
+    """The JAX LM loss with each MoE layer's ``moe_dropped_frac`` (mean
+    over the layers) among its metrics: the JAX ``Experts`` block keeps
+    its stats to itself, so an interceptor recomputes them from the
+    block's input and weights."""
+    import flax.linen as nn
+
+    from kubeflow_tpu.models.transformer import Experts, make_loss_fn
+    from kubeflow_tpu.parallel.expert import moe_ffn
+
+    base = make_loss_fn(model)
+
+    def loss_fn(params, batch, rng):
+        drops = []
+
+        def spy(next_fun, args, kwargs, context):
+            mod = context.module
+            if isinstance(mod, Experts) and context.method_name == "__call__":
+                p = mod.variables["params"]
+                _, _, st = moe_ffn(args[0], p["router_kernel"], p["up_kernel"],
+                                   p["down_kernel"], mod.cfg.moe)
+                drops.append(st["moe_dropped_frac"])
+            return next_fun(*args, **kwargs)
+
+        with nn.intercept_methods(spy):
+            loss, metrics = base(params, batch, rng)
+        return loss, {**metrics, "moe_dropped_frac": sum(drops) / len(drops)}
+
+    return loss_fn
+
+
+def _jax_fit(params, spec_kw, attn_impl, model_cfg=MODEL, accum=1):
     import jax.numpy as jnp
     import optax
 
     from kubeflow_tpu.core.mesh import MeshSpec
-    from kubeflow_tpu.models.transformer import (
-        TransformerConfig, TransformerLM, make_loss_fn)
+    from kubeflow_tpu.models.transformer import TransformerConfig, TransformerLM
     from kubeflow_tpu.parallel.expert import MoEConfig
     from kubeflow_tpu.parallel.sharding import transformer_rules
     from kubeflow_tpu.train.loop import TrainConfig, Trainer
 
     spec = MeshSpec(**spec_kw)
-    kw = dict(MODEL, moe=MoEConfig(**MODEL["moe"]))
+    kw = dict(model_cfg, moe=MoEConfig(**model_cfg["moe"]))
     model = TransformerLM(TransformerConfig(
         **kw, attn_impl=attn_impl, interpret_kernels=True, dtype=jnp.float32))
     trainer = Trainer(
-        init_params=lambda rng: params, loss_fn=make_loss_fn(model),
+        init_params=lambda rng: params, loss_fn=_loss_with_drops(model),
         optimizer=optax.adamw(LR),
         config=TrainConfig(mesh=spec, global_batch=GLOBAL_BATCH, steps=STEPS,
-                           log_every=1, prefetch_depth=0),
+                           log_every=1, prefetch_depth=0,
+                           grad_accum_steps=accum),
         param_spec_fn=transformer_rules())
     state, hist = trainer.fit(_global_batches(spec))
     import jax
 
-    return ([h["loss"] for h in hist],
+    return ({k: [float(h[k]) for h in hist]
+             for k in ("loss", "moe_aux", "moe_dropped_frac")},
             jax.tree_util.tree_map(np.asarray, state.params))
 
 
@@ -115,11 +159,18 @@ def runs(tmp_path_factory):
                          global_batch=GLOBAL_BATCH, attn_impl=impl,
                          ckpt_dir=ckpt if name == MESHES[0][0] else None))
              for name, spec, impl in MESHES]
+    name, spec, impl = ACCUM
+    cases.append((name, dict(fn="train", spec=spec, model_cfg=ACCUM_MODEL,
+                             params=params, data=DATA, steps=STEPS, lr=LR,
+                             global_batch=GLOBAL_BATCH, attn_impl=impl,
+                             accum=ACCUM_STEPS)))
     prev = os.environ.get("KFT_NO_COMPILATION_CACHE")
     os.environ["KFT_NO_COMPILATION_CACHE"] = "1"
     try:
         jax_runs = {name: _jax_fit(params, spec, impl)
                     for name, spec, impl in MESHES}
+        name, spec, impl = ACCUM
+        jax_runs[name] = _jax_fit(params, spec, impl, ACCUM_MODEL, ACCUM_STEPS)
     finally:
         if prev is None:
             del os.environ["KFT_NO_COMPILATION_CACHE"]
@@ -149,7 +200,7 @@ def _flat(tree, prefix=()):
 
 @pytest.mark.parametrize("name", [m[0] for m in MESHES])
 def test_losses_match_jax_trainer(runs, name):
-    want, _ = runs["jax"][name]
+    want = runs["jax"][name][0]["loss"]
     ranks = _ranks(runs, name)
     got = ranks[0]["losses"]
     assert len(got) == STEPS
@@ -178,6 +229,23 @@ def test_final_params_match_jax_trainer(runs, name):
     init = dict(_flat(runs["params"]))
     assert np.abs(got["layers_0/attn/q_proj/kernel"]
                   - init["layers_0/attn/q_proj/kernel"]).max() > 1e-4
+
+
+def test_moe_microbatches_match_jax_under_a_mesh(runs):
+    """Gradient accumulation under a mesh: microbatch i holds JAX's global
+    rows ``[i*B/A, (i+1)*B/A)`` on every rank, so the MoE layer's drops
+    and aux loss, counted a microbatch, and the loss are JAX's."""
+    name = ACCUM[0]
+    want, _ = runs["jax"][name]
+    ranks = _ranks(runs, name)
+    got = ranks[0]
+    assert all(f > 0.1 for f in want["moe_dropped_frac"]), want
+    np.testing.assert_allclose(got["moe_dropped_frac"],
+                               want["moe_dropped_frac"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["moe_aux"], want["moe_aux"], rtol=LOSS_RTOL)
+    np.testing.assert_allclose(got["losses"], want["loss"], rtol=LOSS_RTOL)
+    for r in ranks[1:]:
+        assert r["losses"] == got["losses"]
 
 
 def test_moe_dropped_frac_is_logged(runs):

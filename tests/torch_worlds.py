@@ -264,8 +264,8 @@ def train(spec, model_cfg, params, data, steps, lr, global_batch,
           attn_impl, ckpt_dir=None, accum=1):
     """``Trainer.fit`` of the port's LM under ``spec`` and
     ``transformer_rules()`` from the bridged JAX ``params``; returns the
-    history's losses, the final full parameters (rank 0) and, with
-    ``ckpt_dir``, saves the final state there."""
+    history's losses and MoE metrics, the final full parameters (rank 0)
+    and, with ``ckpt_dir``, saves the final state there."""
     from kubeflow_tpu_torch.data.synthetic import (
         TokenLMDataset, local_shard_iterator)
     from kubeflow_tpu_torch.models import transformer as ttf
@@ -300,6 +300,7 @@ def train(spec, model_cfg, params, data, steps, lr, global_batch,
     full = trainer.full_state_dict(state)
     return {"losses": [h["loss"] for h in hist],
             "moe_dropped_frac": [h.get("moe_dropped_frac") for h in hist],
+            "moe_aux": [h.get("moe_aux") for h in hist],
             "params": None if full is None else
             {k: _np(v) for k, v in full["model"].items()},
             "staged": coll.STAGED_BYTES}
