@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs seventeen phases:
+sm_90a, into the git-ignored ``build/``) and runs eighteen phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -175,11 +175,23 @@ sm_90a, into the git-ignored ``build/``) and runs seventeen phases:
    predictors and the two boosters under a budget of 3 BERT-tiny models:
    every answer equal to the model's alone, residents as an LRU model of
    the requests says, ``resident_bytes`` the resident weights, each
-   eviction freeing its bytes, a pinned model never evicted.
+   eviction freeing its bytes, a pinned model never evicted;
+18. tune — Katib: ``ExperimentController`` runs a TPE search of the
+   full-width LM's learning rate (4 ``Trainer.fit`` trials of 8 steps at
+   8 x 512, bf16 over f32, 2 at a time in one process, a checkpoint at
+   the last step, medianstop on): every trial terminal and finite, the
+   optimum the argmin, each flash kernel launched once a layer a step;
+   the winner registered in a ``ModelStore`` with its ``tune_trial``
+   lineage, promoted, fetched by ``registry://lm-tuned@production``
+   (the registered sha256) and served (the serving burst, paged) with
+   tokens identical to serving the trial's checkpoint directly; then
+   DARTS and ENAS at ``NASSpace`` defaults, f32 with TF32 off, on the
+   card against the CPU from one seed (equal cells, ENAS samples equal
+   step for step, losses and alphas within tolerance).
 
 Each phase prints one JSON line (load: one a run, then its summary;
-mlm, mesh, tp and job: one a part; tabular: one a model, then the mesh
-and a total).
+mlm, mesh, tp, job and tune: one a part; tabular: one a model, then the
+mesh and a total).
 The line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is ``{"ok": true,
 "device": {...}}``. Any failed phase, or a host without CUDA or without
@@ -209,7 +221,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
           "disagg", "fleet", "dense", "bert", "train", "mlm", "mesh", "load",
-          "tp", "job", "tabular")
+          "tp", "job", "tabular", "tune")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -5107,6 +5119,380 @@ def phase_tabular(torch, state):
     return ok
 
 
+# --------------------------------------------------------------------------- #
+# phase 18: Katib — a hyperparameter search on the LM, the registry handoff
+# of the best trial to a served model, DARTS and ENAS
+# --------------------------------------------------------------------------- #
+
+#: trials, trials at a time, steps a trial (a checkpoint at the last one)
+TUNE_TRIALS, TUNE_PARALLEL, TUNE_STEPS = 4, 2, 8
+#: bilevel steps a NAS searcher takes on the card and on the CPU
+NAS_STEPS = 10
+#: card against CPU after NAS_STEPS f32 steps: losses (relative) and the
+#: DARTS alphas (absolute: adam moves every alpha by about its lr a step)
+NAS_LOSS_RTOL, NAS_ALPHA_ATOL = 1e-4, 5e-4
+#: an ENAS decision whose two best Gumbel-perturbed scores (on the CPU)
+#: are closer than this may be drawn differently on the card
+NAS_NEAR_TIE = 1e-4
+
+
+def _tune_search(torch, state, root):
+    """(a) and (b)'s search: ``ExperimentController`` over ``Trainer.fit``
+    trials of the full-width LM, the winner registered in a
+    ``ModelStore``. Returns ``(part a's line, controller, store, trial
+    directories)``."""
+    import os
+    import shutil
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, make_init_fn, make_loss_fn,
+    )
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
+    from kubeflow_tpu_torch.registry import ModelStore, set_default_store
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, adamw
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointConfig
+    from kubeflow_tpu_torch.train.prefetch import live_kft_threads
+    from kubeflow_tpu_torch.tune import spec as S
+    from kubeflow_tpu_torch.tune.controller import (
+        CallableTrialRunner, ExperimentController,
+    )
+
+    cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+    dirs, runs, lock = {}, [], threading.Lock()
+    kept = {"loss": math.inf, "dir": None}
+
+    def trial(params):
+        t0 = time.perf_counter()
+        d = os.path.join(root, "trials", f"lr-{params['lr']:.9e}")
+        trainer = Trainer(
+            init_params=make_init_fn(cfg), loss_fn=make_loss_fn(),
+            optimizer=adamw(params["lr"]),
+            config=TrainConfig(mesh=None, global_batch=TRAIN_BATCH,
+                               steps=TUNE_STEPS, log_every=1, prefetch_depth=2,
+                               checkpoint=CheckpointConfig(
+                                   directory=d, save_every_steps=TUNE_STEPS)),
+        )
+        history, ready = _stamped_fit(torch, trainer, _train_data)
+        losses = [h["loss"] for h in history]
+        with lock:
+            dirs[params["lr"]] = d
+            # only the best trial's weights are ever served: a worse
+            # trial's checkpoint (3.2 GB) leaves the disk at once
+            drop = kept["dir"]
+            if losses[-1] < kept["loss"]:
+                kept.update(loss=losses[-1], dir=d)
+            else:
+                drop = d
+            # steps 2 .. TUNE_STEPS - 1: the first builds cuBLAS handles,
+            # the last copies the state to the host for the checkpoint
+            runs.append({"lr": params["lr"], "seconds": time.perf_counter() - t0,
+                         "step_ms": (ready[TUNE_STEPS - 1] - ready[1])
+                         / (TUNE_STEPS - 2) * 1e3,
+                         "compile_ms": history[0].get("compile_ms"),
+                         "losses": losses})
+        if drop is not None:
+            shutil.rmtree(drop, ignore_errors=True)
+        return [(h["step"], h["loss"]) for h in history]
+
+    spec = S.ExperimentSpec(
+        name="lm-lr",
+        parameters=(S.ParameterSpec("lr", S.ParameterType.DOUBLE, min=1e-4,
+                                    max=3e-3, log_scale=True),),
+        objective=S.Objective("loss", S.ObjectiveType.MINIMIZE),
+        algorithm=S.AlgorithmSpec("tpe", {"n_initial": 2}),
+        parallel_trial_count=TUNE_PARALLEL, max_trial_count=TUNE_TRIALS,
+        max_failed_trial_count=0,
+        early_stopping=S.EarlyStoppingSpec(min_trials_required=2, start_step=2))
+    store = ModelStore(os.path.join(root, "registry"))
+    set_default_store(store)
+    picked = {}
+
+    def best_path(t):
+        picked["t"] = time.perf_counter()
+        return dirs[t.assignment.parameters["lr"]]
+
+    ctrl = ExperimentController(
+        spec, CallableTrialRunner(trial), seed=0, model_registry=store,
+        register_best_as="lm-tuned", best_model_path=best_path)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    _zero_flash_counts(fa, fb)
+    t0 = time.perf_counter()
+    status = ctrl.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    register_s = time.perf_counter() - picked["t"] if "t" in picked else None
+    launches = {"flash_forward": fa.LAUNCHES, "flash_bwd_dq": fb.DQ_LAUNCHES,
+                "flash_bwd_dkv": fb.DKV_LAUNCHES}
+    by_body = _flash_counts_by_body(fa, fb)
+    state["tune_flash_launches"] = launches
+    want = TUNE_TRIALS * TUNE_STEPS * MODEL["n_layers"]
+    terminal = ("Succeeded", "EarlyStopped")
+    objs = {t.assignment.trial_id: t.metrics.get("__objective__") for t in status.trials}
+    finite = all(v is not None and math.isfinite(v) for v in objs.values())
+    best = status.optimal
+    argmin = finite and best is not None and best.metrics["__objective__"] == min(objs.values())
+    ok = (len(status.trials) == TUNE_TRIALS
+          and all(t.state.value in terminal for t in status.trials)
+          and status.failed == 0 and finite and argmin
+          and all(n == want for n in launches.values())
+          and all(b == {"wgmma": want, "fma": 0} for b in by_body.values())
+          and ctrl.registered_best is not None and live_kft_threads() == [])
+    line = {"phase": "tune", "part": "search", "algorithm": "tpe",
+            "trials": [{"params": t.assignment.parameters, "state": t.state.value,
+                        "loss": t.metrics.get("__objective__"), "message": t.message}
+                       for t in status.trials],
+            "runs": sorted(runs, key=lambda r: r["lr"]),
+            "trial_seconds": [r["seconds"] for r in runs],
+            "step_ms_median": statistics.median(r["step_ms"] for r in runs) if runs else None,
+            "trials_at_a_time": TUNE_PARALLEL, "steps": TUNE_STEPS,
+            "shape": [TRAIN_BATCH, TRAIN_SEQ], "dtype": "bf16", "param_dtype": "f32",
+            "reason": status.reason, "wall_s": wall, "register_s": register_s,
+            "optimal": best.assignment.parameters if best else None,
+            "optimal_is_argmin": argmin, "early_stopped": status.early_stopped,
+            "launches": launches, "launches_by_body": by_body,
+            "launches_wanted": want, "card": state["card"], "ok": ok}
+    return line, ctrl, store, dirs
+
+
+def _tune_serve(torch, state, root, ctrl, store, dirs, register_s):
+    """(b): promote the registered winner, fetch it by
+    ``registry://lm-tuned@production``, serve the burst from the fetched
+    directory and from the trial's checkpoint directly."""
+    import os
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.registry import stages
+    from kubeflow_tpu_torch.registry.store import content_hash
+    from kubeflow_tpu_torch.serve import storage
+    from kubeflow_tpu_torch.serve.engine import LMEngineModel
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    mv = ctrl.registered_best
+    (edge,) = store.lineage_of("lm-tuned", mv.version)
+    stages.promote(store, "lm-tuned", mv.version, "production")
+    t0 = time.perf_counter()
+    local = storage.download("registry://lm-tuned@production", os.path.join(root, "mnt"))
+    fetch_s = time.perf_counter() - t0
+    blob = store.blob_path(mv.sha256)
+    # a directory's sha256 is that of its sorted (path, file sha256) list:
+    # equal digests, equal files
+    fetched_sha = content_hash(local)[0]
+    verified = storage.verify(local, uri=f"registry://lm-tuned@v{mv.version}")
+    best = ctrl.optimal_trial()
+    direct = dirs[best.assignment.parameters["lr"]]
+    cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+    models = {name: LMEngineModel(
+        name, path, config=cfg, device="cuda", max_new_tokens=MAX_NEW,
+        paged_attn_impl="kernel", **ENGINE,
+    ) for name, path in (("lm-tuned", local), ("lm-direct", direct))}
+    server = ModelServer(list(models.values()), http_port=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    reqs = prompts()
+    try:
+        for lm in models.values():  # warm-up: cuBLAS handles, allocator
+            _post(base, lm.name, reqs[0][:8])
+        torch.cuda.synchronize()
+        _zero_paged(pa)
+        fa.LAUNCHES = 0
+        outs, run = _served_burst(base, models["lm-tuned"], reqs)
+        paged_launches, by_s, by_body = _paged_counts(pa)
+        flash_launches = fa.LAUNCHES
+        direct_outs, _ = _served_burst(base, models["lm-direct"], reqs)
+    finally:
+        server.stop()
+    state["tune_paged_launches_by_body"] = by_body
+    well_formed = all(1 <= len(o) <= MAX_NEW and all(0 <= t < MODEL["vocab_size"] for t in o)
+                      for o in outs)
+    bodies = (set(by_s) == {1, 32} and by_body["decode"] == by_s[1] > 0
+              and by_body["mma"] == by_s[32] > 0)
+    ok = (fetched_sha == mv.sha256 and verified and edge.kind == "tune_trial"
+          and edge.ref == f"lm-lr/{best.assignment.trial_id}"
+          and mv.metadata["trial_id"] == best.assignment.trial_id
+          and store.resolve("lm-tuned", "production").version == mv.version
+          and outs == direct_outs and well_formed and bodies)
+    return {"phase": "tune", "part": "handoff", "version": mv.version,
+            "sha256": mv.sha256, "fetched_sha256": fetched_sha,
+            "fetch_verified": verified, "lineage": edge.to_dict(),
+            "register_s": register_s, "fetch_s": fetch_s,
+            "blob_bytes": sum(os.path.getsize(os.path.join(r, f))
+                              for r, _, fs in os.walk(blob) for f in fs),
+            "tokens_equal_direct": outs == direct_outs,
+            "rows_differing": [i for i, (a, b) in enumerate(zip(outs, direct_outs))
+                               if a != b],
+            "tokens": run["tokens"], "tokens_per_s": run["tokens_per_s"],
+            "ttft_ms_p50": run["ttft_ms_p50"], "wall_s": run["wall_s"],
+            "paged_launches": paged_launches, "paged_launches_by_s": by_s,
+            "paged_launches_by_body": by_body, "flash_launches": flash_launches,
+            "card": state["card"], "ok": ok}
+
+
+def _nas_data(step):
+    """``tests/test_nas_pbt.py``'s synthetic batches: 4 class prototypes on
+    8 x 8 x 1 images plus noise, 16 a batch, (train, val) a step."""
+    import numpy as np
+
+    protos = np.random.RandomState(0).randn(4, 8, 8, 1).astype(np.float32)
+
+    def batch(seed):
+        r = np.random.RandomState(seed)
+        y = r.randint(0, 4, size=16)
+        x = protos[y] + 0.3 * r.randn(16, 8, 8, 1).astype(np.float32)
+        return {"image": x.astype(np.float32), "label": y}
+
+    return batch(step * 2), batch(step * 2 + 1)
+
+
+def _enas_gap(torch, ctrl, key):
+    """The smallest gap between the two best Gumbel-perturbed scores over
+    the decisions of ``ctrl``'s sampled rollout from ``key``: how close
+    the draw came to picking another input or op."""
+    from kubeflow_tpu_torch.serve import threefry
+
+    sp, cell = ctrl.space, ctrl.OptimizedLSTMCell_0
+    zero = ctrl.start.new_zeros(1, ctrl.hidden)
+    carry, x, rng, gaps = (zero, zero), ctrl.start[None], key, []
+    with torch.no_grad():
+        for j in range(1, sp.nodes + 1):
+            for _slot in range(2):
+                for head, table, mask in ((ctrl.head_input, ctrl.inp_embed,
+                                           ctrl._masks[j - 1]),
+                                          (ctrl.head_op, ctrl.op_embed, 0.0)):
+                    carry = cell(carry, x)
+                    rng, k = threefry.split(rng)
+                    logits = head(carry[1])[0] + mask
+                    u = threefry.uniform_one_key(k, logits[None].shape, logits.device,
+                                                 threefry.TINY, 1.0)[0]
+                    score = -torch.log(-torch.log(u)) + logits
+                    top = torch.topk(score, 2).values
+                    gaps.append((top[0] - top[1]).item())
+                    x = table[torch.argmax(score)][None]
+    return min(gaps)
+
+
+def _tune_nas(torch, state):
+    """(c): DARTS and ENAS at ``NASSpace`` defaults, f32 with TF32 off,
+    on the card and on the CPU in lockstep from one seed."""
+    import numpy as np
+
+    from kubeflow_tpu_torch.tune.nas import DARTSSearcher, ENASSearcher, NASSpace
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sp = NASSpace()
+    out = {"phase": "tune", "part": "nas", "space": {
+        "ops": list(sp.ops), "nodes": sp.nodes, "channels": sp.channels,
+        "num_classes": sp.num_classes, "input_shape": list(sp.input_shape)},
+        "steps": NAS_STEPS, "batch": 16, "loss_rtol": NAS_LOSS_RTOL,
+        "alpha_atol": NAS_ALPHA_ATOL, "near_tie": NAS_NEAR_TIE}
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    # DARTS
+    card, cpu = (DARTSSearcher(sp, seed=0, device=d) for d in ("cuda", "cpu"))
+    loss_err, ms = 0.0, []
+    for i in range(NAS_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card.step(*_nas_data(i))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want = cpu.step(*_nas_data(i))
+        loss_err = max(loss_err, *(rel(got[k], want[k]) for k in want))
+    alpha_err = float(np.abs(card.alpha.detach().cpu().numpy()
+                             - cpu.alpha.detach().numpy()).max())
+    darts_cell, cpu_cell = card.derive().to_dict(), cpu.derive().to_dict()
+    darts_ok = (loss_err <= NAS_LOSS_RTOL and alpha_err <= NAS_ALPHA_ATOL
+                and darts_cell == cpu_cell)
+    out["darts"] = {"ms_per_step_median": statistics.median(ms), "ms_per_step": ms,
+                    "loss_rel_err_max": loss_err, "alpha_abs_err_max": alpha_err,
+                    "cell": darts_cell, "cell_cpu": cpu_cell,
+                    "entropy": card.alpha_entropy(), "last": got, "ok": darts_ok}
+
+    # ENAS: the sampled architectures step for step
+    card, cpu = (ENASSearcher(sp, seed=0, device=d) for d in ("cuda", "cpu"))
+    loss_err, ms, first_diff, gap = 0.0, [], None, None
+    for i in range(NAS_STEPS):
+        key_cpu = cpu._rng
+        before = {k: v.clone() for k, v in cpu.controller.state_dict().items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card.step(*_nas_data(i))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        want = cpu.step(*_nas_data(i))
+        if card.sampled[i] != cpu.sampled[i]:
+            # replay the CPU's two rollouts of this step from its keys
+            from kubeflow_tpu_torch.serve import threefry
+
+            probe = ENASSearcher(sp, seed=0, device="cpu").controller
+            probe.load_state_dict(before)
+            _, k1, k2 = threefry.split(key_cpu, 3)
+            first_diff, gap = i, min(_enas_gap(torch, probe, k1), _enas_gap(torch, probe, k2))
+            break
+        loss_err = max(loss_err, *(rel(got[k], want[k]) for k in
+                                   ("w_loss", "ctrl_loss", "baseline")))
+        if got["reward"] != want["reward"]:
+            first_diff, gap = i, None
+            break
+    enas_cell, cpu_cell = card.derive().to_dict(), cpu.derive().to_dict()
+    enas_ok = (first_diff is None and loss_err <= NAS_LOSS_RTOL and enas_cell == cpu_cell) \
+        or (first_diff is not None and gap is not None and gap < NAS_NEAR_TIE)
+    out["enas"] = {"ms_per_step_median": statistics.median(ms), "ms_per_step": ms,
+                   "sampled_equal_steps": first_diff if first_diff is not None else NAS_STEPS,
+                   "first_divergence": first_diff, "divergence_gap": gap,
+                   "loss_rel_err_max": loss_err, "cell": enas_cell, "cell_cpu": cpu_cell,
+                   "baseline": got["baseline"], "last": got, "ok": enas_ok}
+    out.update(card=state["card"], ok=darts_ok and enas_ok)
+    return out
+
+
+def phase_tune(torch, state):
+    """Katib on the card: (a) a TPE search of the full-width LM's learning
+    rate by ``ExperimentController`` — 4 ``Trainer.fit`` trials, 2 at a
+    time, 8 steps of 8 x 512 in bf16 over f32 each and a checkpoint at the
+    last, medianstop on — every trial terminal with a finite loss, the
+    optimum the argmin, the flash forward, dq and dk/dv kernels launched
+    once a layer a step; (b) the controller registers the winner in a
+    ``ModelStore`` (``tune_trial`` lineage), ``stages`` promotes it,
+    ``storage.download("registry://lm-tuned@production")`` fetches the
+    registered blob's files and sha256, and ``LMEngineModel`` serves the
+    burst from the fetched directory with tokens identical to the same
+    burst served from the trial's checkpoint directly (paged kernel
+    launches counted); (c) DARTS and ENAS at ``NASSpace`` defaults, f32
+    with TF32 off, on the card against the CPU from one seed: derived
+    cells equal, ENAS's samples equal step for step (or parting first at
+    a stated near-tie), losses and alphas within tolerance. A line a
+    part."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="kft-tune-")
+    try:
+        line, ctrl, store, dirs = _tune_search(torch, state, root)
+        emit(line)
+        ok = line["ok"]
+        if ctrl.registered_best is not None:
+            served = _tune_serve(torch, state, root, ctrl, store, dirs,
+                                 line["register_s"])
+            emit(served)
+            ok &= served["ok"]
+        else:
+            ok = False
+        store.close()
+    finally:
+        from kubeflow_tpu_torch.registry import set_default_store
+
+        set_default_store(None)
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    nas = _tune_nas(torch, state)
+    emit(nas)
+    return bool(ok and nas["ok"])
+
+
 def _device_summary(prof):
     """(kernels, busy ms, kernels by device time) of a profile: busy is
     the union of kernel intervals on the card. Ranges that user
@@ -5316,7 +5702,7 @@ def main(argv=None) -> int:
                "bert": phase_bert, "train": phase_train, "mlm": phase_mlm,
                "mesh": phase_mesh, "load": phase_load,
                "tp": phase_tp, "job": phase_job, "tabular": phase_tabular,
-               "profile": phase_profile}
+               "tune": phase_tune, "profile": phase_profile}
     ok = True
     seconds = {"build": build_s}
     for p in phases:
@@ -5341,16 +5727,21 @@ def main(argv=None) -> int:
         served = state.get("paged_launches_by_body", {})
         fleet = state.get("fleet_paged_launches_by_body", {})
         load = state.get("load_paged_launches_by_body", {})
-        # paged decode on the served burst, the fleet's bursts and the
-        # load runs (the decode body's launches);
+        tune = state.get("tune_paged_launches_by_body", {})
+        tune_flash = state.get("tune_flash_launches", {})
+        # paged decode on the served burst, the fleet's bursts, the load
+        # runs and the tuned model's burst (the decode body's launches);
         # the flash forward, timed at the training shape, on the training
-        # run (it also ran the no-cache forward phase's 12 launches)
+        # run and the tune phase's trials (it also ran the no-cache
+        # forward phase's 12 launches)
         for key, launches, src, rep in (
             ("paged_main",
-             served.get("decode", 0) + fleet.get("decode", 0) + load.get("decode", 0),
+             served.get("decode", 0) + fleet.get("decode", 0) + load.get("decode", 0)
+             + tune.get("decode", 0),
              "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
              "kubeflow_tpu/ops/paged_attention.py:185"),
-            ("flash_main", train.get("flash_forward", 0),
+            ("flash_main",
+             train.get("flash_forward", 0) + tune_flash.get("flash_forward", 0),
              "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
              "kubeflow_tpu/ops/flash_attention.py:120"),
         ):
@@ -5377,8 +5768,11 @@ def main(argv=None) -> int:
                     "launches_load_phase_by_body": load,
                     # the dense runs of the dense phase: none, by design
                     "launches_dense_phase": state.get("dense_paged_launches"),
-                    "launches_bert_phase": state.get("bert_paged_launches")}
+                    "launches_bert_phase": state.get("bert_paged_launches"),
+                    # the tuned model served from the registry
+                    "launches_tune_phase_by_body": tune}
                    if key == "paged_main" else {
+                    "launches_tune_phase": tune_flash.get("flash_forward"),
                     # the BERT predictor: 12 a forward, by body and dtype,
                     # and the kernel at its serving shapes
                     "launches_bert_phase": state.get("bert_flash_launches"),
@@ -5401,9 +5795,10 @@ def main(argv=None) -> int:
             "source": "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
             "replaces": "kubeflow_tpu/ops/paged_attention.py:185",
             "body": r["body"], "case": r["case"],
-            "launches": served.get("mma", 0) + fleet.get("mma", 0) + load.get("mma", 0),
+            "launches": (served.get("mma", 0) + fleet.get("mma", 0) + load.get("mma", 0)
+                         + tune.get("mma", 0)),
             "launches_by_body": served, "launches_fleet_phase_by_body": fleet,
-            "launches_load_phase_by_body": load,
+            "launches_load_phase_by_body": load, "launches_tune_phase_by_body": tune,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -5438,7 +5833,8 @@ def main(argv=None) -> int:
                 "name": name, "route": "cuda",
                 "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                 "replaces": rep, "body": r["body"][part],
-                "launches": train.get(launch_key, 0),
+                "launches": train.get(launch_key, 0) + tune_flash.get(launch_key, 0),
+                "launches_tune_phase": tune_flash.get(launch_key),
                 "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
                 "ms": r["ms"][part], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],

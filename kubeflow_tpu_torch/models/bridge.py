@@ -48,6 +48,12 @@ or conv ``bias`` keep their names:
     Conv_0/kernel, Dense_1/bias        -> Conv_0.weight, Dense_1.bias
     stage1_block0/conv2/kernel         -> stage1_block0.conv2.weight
     stage1_block0/gn_proj/scale        -> stage1_block0.gn_proj.scale
+
+:func:`supernet_params_to_state_dict` and
+:func:`controller_params_to_state_dict` take the NAS trees of
+``kubeflow_tpu/tune/nas.py`` (``SuperNet``, ``ControllerNet``) to
+``tune/nas.py``'s modules; the controller's per-gate LSTM kernels
+concatenate in flax ``OptimizedLSTMCell``'s gate order.
 """
 
 from __future__ import annotations
@@ -182,9 +188,7 @@ _HWIO_TO_OIHW = (3, 2, 0, 1)
 _OIHW_TO_HWIO = (2, 3, 1, 0)
 
 
-def cnn_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
-    """JAX ``MnistCNN`` or ``ResNet`` param tree → the port's
-    ``state_dict`` (f32 CPU tensors); an unknown path raises."""
+def _image_to_state_dict(params: Mapping[str, Any], known) -> dict[str, torch.Tensor]:
     sd = {}
     for path, arr in _flatten(params).items():
         a = np.asarray(arr, dtype=np.float32)
@@ -193,10 +197,16 @@ def cnn_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tenso
             parts[-1] = "weight"
             a = a.transpose(_HWIO_TO_OIHW) if a.ndim == 4 else a.T
         name = ".".join(parts)
-        if not _CNN_KNOWN.match(name):
+        if not known.match(name):
             raise ValueError(f"unknown param path {'/'.join(path)!r}")
         sd[name] = torch.tensor(np.ascontiguousarray(a))
     return sd
+
+
+def cnn_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``MnistCNN`` or ``ResNet`` param tree → the port's
+    ``state_dict`` (f32 CPU tensors); an unknown path raises."""
+    return _image_to_state_dict(params, _CNN_KNOWN)
 
 
 def cnn_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
@@ -216,3 +226,47 @@ def cnn_state_dict_to_params(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.ascontiguousarray(a)
     return tree
+
+
+_SUPERNET_KNOWN = re.compile(
+    r"^((Conv|Dense)_\d+\.(weight|bias)|LayerNorm_\d+\.(scale|bias))$")
+#: flax OptimizedLSTMCell's per-gate kernels, in the concatenated order
+_GATES = ("i", "f", "g", "o")
+
+
+def supernet_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX NAS ``SuperNet`` param tree (``kubeflow_tpu/tune/nas.py``) →
+    ``tune/nas.py`` ``SuperNet`` ``state_dict``: the stem and op convs
+    ``Conv_k``, ``LayerNorm_k`` a node and the ``Dense_0`` head, by the
+    CNN rules; an unknown path raises."""
+    return _image_to_state_dict(params, _SUPERNET_KNOWN)
+
+
+def controller_params_to_state_dict(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ENAS ``ControllerNet`` param tree → ``tune/nas.py``
+    ``ControllerNet`` ``state_dict``. The LSTM's per-gate kernels
+    ``OptimizedLSTMCell_0/{ii,if,ig,io}/kernel`` (no bias) and
+    ``{hi,hf,hg,ho}/{kernel,bias}`` concatenate, in flax's i, f, g, o
+    order, into ``OptimizedLSTMCell_0.w_i`` ``(4H, in)``, ``.w_h`` ``(4H,
+    H)`` and ``.b_h``; the heads are dense layers; ``inp_embed``,
+    ``op_embed`` and ``start`` keep their names and shapes."""
+    f32 = lambda a: np.asarray(a, dtype=np.float32)  # noqa: E731
+    cell = params["OptimizedLSTMCell_0"]
+    arrays = {
+        "OptimizedLSTMCell_0.w_i":
+            np.concatenate([f32(cell["i" + g]["kernel"]) for g in _GATES], -1).T,
+        "OptimizedLSTMCell_0.w_h":
+            np.concatenate([f32(cell["h" + g]["kernel"]) for g in _GATES], -1).T,
+        "OptimizedLSTMCell_0.b_h":
+            np.concatenate([f32(cell["h" + g]["bias"]) for g in _GATES]),
+    }
+    for head in ("head_input", "head_op"):
+        arrays[f"{head}.weight"] = f32(params[head]["kernel"]).T
+        arrays[f"{head}.bias"] = f32(params[head]["bias"])
+    for name in ("inp_embed", "op_embed", "start"):
+        arrays[name] = f32(params[name])
+    extra = set(params) - {"OptimizedLSTMCell_0", "head_input", "head_op",
+                           "inp_embed", "op_embed", "start"}
+    if extra or len(cell) != 8:
+        raise ValueError(f"unknown controller params {sorted(extra) or sorted(cell)}")
+    return {k: torch.tensor(np.ascontiguousarray(a)) for k, a in arrays.items()}

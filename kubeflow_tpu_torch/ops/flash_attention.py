@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -36,6 +37,8 @@ from kubeflow_tpu_torch.ops import _build
 NEG_INF = -1e30  # large-but-finite: keeps exp() defined on masked rows
 #: kernel launches since the counter was last set to 0
 LAUNCHES = 0
+#: guards the counters: trainers on several threads launch concurrently
+COUNT_LOCK = threading.Lock()
 #: the same launches split by the body that ran (see :func:`body`)
 LAUNCHES_BY_BODY = {"wgmma": 0, "fma": 0}
 #: the same launches split by shape (see :func:`shape_key`)
@@ -298,9 +301,17 @@ def _check_launch(q, k, v, q_segment_ids, kv_segment_ids, **more):
     return B, H, Sq, Skv, D
 
 
+def count_launch(body_name: str, key: str) -> None:
+    """Count one forward launch of body ``body_name`` at shape ``key``."""
+    global LAUNCHES
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_BODY[body_name] += 1
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+
+
 def _launch(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
             window):
-    global LAUNCHES
     B, H, Sq, Skv, D = _check_launch(q, k, v, q_segment_ids, kv_segment_ids)
     seg = q_segment_ids is not None
     out = torch.empty_like(q)
@@ -310,10 +321,7 @@ def _launch(q, k, v, *, causal, scale, q_segment_ids, kv_segment_ids,
     none = ctypes.c_void_p(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        LAUNCHES += 1
-        LAUNCHES_BY_BODY[body(q.dtype, D)] += 1
-        key = shape_key(q.dtype, B, H, Sq, Skv, D, causal)
-        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+        count_launch(body(q.dtype, D), shape_key(q.dtype, B, H, Sq, Skv, D, causal))
         code = lib.kft_flash_forward(
             ptr(q), ptr(k), ptr(v),
             ptr(q_segment_ids) if seg else none,

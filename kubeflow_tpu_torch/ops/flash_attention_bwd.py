@@ -24,7 +24,7 @@ import torch
 
 from kubeflow_tpu_torch.ops import _build
 from kubeflow_tpu_torch.ops.flash_attention import (
-    _DTYPE_CODES, _check_launch, shape_key, tensor_cores)
+    COUNT_LOCK, _DTYPE_CODES, _check_launch, shape_key, tensor_cores)
 
 #: dq kernel launches since the counter was last set to 0
 DQ_LAUNCHES = 0
@@ -85,19 +85,33 @@ def _dims(dims, causal, window, scale, dtype, device):
             float(scale), _DTYPE_CODES[dtype], ctypes.c_void_p(stream)]
 
 
+def count_dq(body_name: str, key: str) -> None:
+    """Count one dq launch of body ``body_name`` at shape ``key``."""
+    global DQ_LAUNCHES
+    with COUNT_LOCK:
+        DQ_LAUNCHES += 1
+        DQ_LAUNCHES_BY_BODY[body_name] += 1
+        DQ_LAUNCHES_BY_SHAPE[key] = DQ_LAUNCHES_BY_SHAPE.get(key, 0) + 1
+
+
+def count_dkv(body_name: str, key: str) -> None:
+    """Count one dk/dv launch of body ``body_name`` at shape ``key``."""
+    global DKV_LAUNCHES
+    with COUNT_LOCK:
+        DKV_LAUNCHES += 1
+        DKV_LAUNCHES_BY_BODY[body_name] += 1
+        DKV_LAUNCHES_BY_SHAPE[key] = DKV_LAUNCHES_BY_SHAPE.get(key, 0) + 1
+
+
 def launch_dq(q, k, v, dout, lse, delta, *, causal, scale, q_segment_ids,
               kv_segment_ids, window):
     """f32 dq ``(B, H, Sq, D)`` from the kernel."""
-    global DQ_LAUNCHES
     dims = _checked(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids)
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         args = _common(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids)
-        DQ_LAUNCHES += 1
-        DQ_LAUNCHES_BY_BODY[dq_body(q.dtype, dims[4])] += 1
-        key = shape_key(q.dtype, *dims, causal)
-        DQ_LAUNCHES_BY_SHAPE[key] = DQ_LAUNCHES_BY_SHAPE.get(key, 0) + 1
+        count_dq(dq_body(q.dtype, dims[4]), shape_key(q.dtype, *dims, causal))
         code = lib.kft_flash_bwd_dq(
             *args, ctypes.c_void_p(dq.data_ptr()),
             *_dims(dims, causal, window, scale, q.dtype, q.device),
@@ -109,17 +123,13 @@ def launch_dq(q, k, v, dout, lse, delta, *, causal, scale, q_segment_ids,
 def launch_dkv(q, k, v, dout, lse, delta, *, causal, scale, q_segment_ids,
                kv_segment_ids, window):
     """f32 ``(dk, dv)``, each ``(B, H, Skv, D)``, from the kernel."""
-    global DKV_LAUNCHES
     dims = _checked(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids)
     dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
     lib = _lib()
     with torch.cuda.device(q.device):
         args = _common(q, k, v, dout, lse, delta, q_segment_ids, kv_segment_ids)
-        DKV_LAUNCHES += 1
-        DKV_LAUNCHES_BY_BODY[dkv_body(q.dtype, dims[4])] += 1
-        key = shape_key(q.dtype, *dims, causal)
-        DKV_LAUNCHES_BY_SHAPE[key] = DKV_LAUNCHES_BY_SHAPE.get(key, 0) + 1
+        count_dkv(dkv_body(q.dtype, dims[4]), shape_key(q.dtype, *dims, causal))
         code = lib.kft_flash_bwd_dkv(
             *args, ctypes.c_void_p(dk.data_ptr()), ctypes.c_void_p(dv.data_ptr()),
             *_dims(dims, causal, window, scale, q.dtype, q.device),

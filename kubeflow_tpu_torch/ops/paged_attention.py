@@ -35,6 +35,7 @@ multiply ``code * scale``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -44,6 +45,8 @@ from kubeflow_tpu_torch.ops import _build
 NEG_INF = -1e30  # the gather path's masked-score fill
 #: kernel launches since the counter was last set to 0
 LAUNCHES = 0
+#: guards the counters: engines on several threads launch concurrently
+COUNT_LOCK = threading.Lock()
 #: the same launches by query span S (1: decode, K+1: a speculative
 #: verify, a bucket or chunk: a prefill piece); cleared with LAUNCHES
 LAUNCHES_BY_S: dict[int, int] = {}
@@ -233,9 +236,18 @@ def paged_attention(
                    scale, k_scale, v_scale)
 
 
+def count_launch(S: int, body_name: str, key: str) -> None:
+    """Count one launch of span ``S`` on body ``body_name`` at shape ``key``."""
+    global LAUNCHES
+    with COUNT_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_S[S] = LAUNCHES_BY_S.get(S, 0) + 1
+        LAUNCHES_BY_BODY[body_name] += 1
+        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+
+
 def _launch(q, k_pool, v_pool, page_table, pos0, page_size, window, scale,
             k_scale, v_scale):
-    global LAUNCHES
     quant = k_scale is not None
     named = {"q": q, "k_pool": k_pool, "v_pool": v_pool,
              "page_table": page_table, "pos0": pos0}
@@ -269,12 +281,9 @@ def _launch(q, k_pool, v_pool, page_table, pos0, page_size, window, scale,
     none = ctypes.c_void_p(0)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        LAUNCHES += 1
-        LAUNCHES_BY_S[S] = LAUNCHES_BY_S.get(S, 0) + 1
-        LAUNCHES_BY_BODY[body(H // Hkv, S, q.dtype)] += 1
-        key = shape_key(q.dtype, k_pool.dtype, B, H, Hkv, S, D, page_size,
-                        page_table.shape[1])
-        LAUNCHES_BY_SHAPE[key] = LAUNCHES_BY_SHAPE.get(key, 0) + 1
+        count_launch(S, body(H // Hkv, S, q.dtype),
+                     shape_key(q.dtype, k_pool.dtype, B, H, Hkv, S, D, page_size,
+                               page_table.shape[1]))
         code = lib.kft_paged_attention(
             ptr(q), ptr(k_pool), ptr(v_pool),
             ptr(k_scale) if quant else none, ptr(v_scale) if quant else none,

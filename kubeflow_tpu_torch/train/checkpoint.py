@@ -15,6 +15,13 @@ rename cannot (bit-rot, torn copies, injected corruption), and
 state to host memory on the caller's thread (a consistent snapshot),
 then writes and hashes it on a background thread that ``wait`` and
 ``close`` join.
+
+``save(register=RegisterOnSave(...))`` links training into the model
+registry (``registry/``) as the JAX ``Checkpointer`` does: a step that
+saved becomes a new model version with a ``checkpoint`` lineage edge and
+its ``step`` in the metadata, at once for a synchronous save and, for an
+asynchronous one, at the next ``save`` that finds the write finished or
+at ``wait``/``close``: the registry never hashes a half-written step.
 """
 
 from __future__ import annotations
@@ -73,6 +80,10 @@ class Checkpointer:
         self._writer: threading.Thread | None = None
         self._pending: int | None = None  # the step the writer is writing
         self._error: BaseException | None = None
+        #: registering saves not yet ingested: [(step, RegisterOnSave)]
+        self._pending_register: list[tuple[int, Any]] = []
+        #: the ModelVersion of the most recent registering save
+        self.last_registered: Any | None = None
 
     # ------------------------------------------------------------------ #
 
@@ -86,12 +97,9 @@ class Checkpointer:
     def save(self, step: int, state: Any, *, force: bool = False,
              register: Any | None = None) -> bool:
         """Save ``state`` as ``step`` if :meth:`should_save` (or ``force``,
-        unless the step exists). Returns whether it saved."""
-        if register is not None:
-            raise NotImplementedError(
-                "Checkpointer.save(register=...) needs the model registry, "
-                "which is not ported yet (ROADMAP queue 1 item 11)"
-            )
+        unless the step exists). Returns whether it saved. ``register``
+        (a ``registry.spec.RegisterOnSave``) registers the saved step."""
+        self._ingest_ready()  # the previous write may be durable now
         if step == self._pending or (self.path / str(step)).exists():
             return False
         if not (force or self.should_save(step)):
@@ -99,6 +107,8 @@ class Checkpointer:
         snapshot = _to_host(state)
         self.wait()  # one write in flight at a time, in step order
         self._pending = step
+        if register is not None:
+            self._pending_register.append((step, register))
         if self.config.async_save:
             self._writer = threading.Thread(
                 target=self._write_guarded, args=(step, snapshot),
@@ -109,6 +119,30 @@ class Checkpointer:
             self._write_guarded(step, snapshot)
             self.wait()
         return True
+
+    def _ingest_ready(self, block: bool = False) -> None:
+        """Register the pending registering saves once their write is
+        durable: at once with ``block``, else only if the writer is done."""
+        if not self._pending_register:
+            return
+        if not block and self._writer is not None and self._writer.is_alive():
+            return
+        self._join()
+        pending, self._pending_register = self._pending_register, []
+        for step, register in pending:
+            ckpt = str(self.path / str(step))
+            self.last_registered = register.store.register_version(
+                register.name,
+                ckpt,
+                source_uri="file://" + ckpt,
+                metadata={**dict(register.metadata), "step": int(step)},
+                stage=register.stage,
+                lineage=[(
+                    "checkpoint",
+                    f"{self.config.directory}@{step}",
+                    {"step": int(step)},
+                )],
+            )
 
     def _write_guarded(self, step: int, snapshot: Any) -> None:
         try:
@@ -206,18 +240,32 @@ class Checkpointer:
         return torch.load(self.path / str(step) / STATE_NAME,
                           map_location="cpu", weights_only=True)
 
-    def wait(self) -> None:
-        """Block until the write in flight is durable; re-raise its error."""
+    def _join(self) -> None:
+        """Block until the write in flight is durable; re-raise its error
+        (its registration, if any, is dropped with it)."""
         if self._writer is not None:
             self._writer.join()
             self._writer = None
         self._pending = None
         if self._error is not None:
             err, self._error = self._error, None
+            self._pending_register.clear()
             raise err
+
+    def wait(self) -> None:
+        """Block until the write in flight is durable, then run deferred
+        registrations; re-raise the write's error."""
+        self._join()
+        self._ingest_ready(block=True)
 
     def close(self) -> None:
         self.wait()
+
+    def __enter__(self) -> "Checkpointer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 def _hash_tree(root: Path) -> dict[str, str]:

@@ -323,6 +323,8 @@ class _Scripted(BaseHTTPRequestHandler):
         if self.path.endswith("/generate"):
             if mode == "shed429":
                 return self._plain(429, b"rate limited")
+            if mode == "late":  # past its 50 ms SLO whatever the host's load
+                time.sleep(0.08)
             return self._plain(200, json.dumps({"token_ids": [5, 6, 7]}).encode())
         if mode in ("shed503", "err503", "shed429", "err500"):
             code = {"shed503": 503, "err503": 503, "shed429": 429, "err500": 500}[mode]

@@ -337,6 +337,18 @@ def test_train_config_validation_matches_jax():
         _trainer().local_batch_size(process_count=3)
 
 
+def _registering_save():
+    """A forced save with ``register=`` in the working directory: the
+    checkpointer (closed) and the store it registered into."""
+    from kubeflow_tpu_torch.registry import ModelStore, RegisterOnSave
+
+    store = ModelStore("registry")
+    c = Checkpointer(CheckpointConfig(directory="ckpt", save_every_steps=1))
+    c.save(1, {"w": torch.ones(2)}, force=True, register=RegisterOnSave(store, "m"))
+    c.close()
+    return c, store
+
+
 UNPORTED = [
     ("mesh", lambda: TrainConfig(mesh=TMeshSpec(), global_batch=BATCH, steps=1)),
     ("checkify", lambda: TrainConfig(mesh=None, global_batch=BATCH, steps=1,
@@ -349,14 +361,13 @@ UNPORTED = [
         config=TrainConfig(mesh=TMeshSpec(), global_batch=BATCH, steps=1,
                            log_every=1),
         param_spec_fn=transformer_rules(), device="cpu")),
-    ("register", lambda: Checkpointer(CheckpointConfig(directory="unused")).save(
-        1, {}, force=True, register=object())),
+    ("register", _registering_save),
 ]
 
 
 #: knobs this list once held that are ported now: the config builds and a
 #: clean one-step fit succeeds under it
-PORTED = ("checkify", "debug_nans", "mesh", "param_spec_fn")
+PORTED = ("checkify", "debug_nans", "mesh", "param_spec_fn", "register")
 
 
 @pytest.mark.parametrize("name,make", UNPORTED, ids=[u[0] for u in UNPORTED])
@@ -367,11 +378,18 @@ def test_unported_knobs_raise(name, make, tmp_path, monkeypatch):
     ``param_spec_fn`` are ported (``tests/test_torch_parallel_train.py``
     holds them over gloo worlds): a one-device ``MeshSpec()`` with
     ``transformer_rules()`` trains the step the ``mesh=None`` trainer
-    does, to the bit; a mesh that is not a ``MeshSpec`` raises."""
+    does, to the bit; a mesh that is not a ``MeshSpec`` raises.
+    ``register`` is ported (``tests/test_torch_registry.py`` holds it
+    against the JAX semantics): a forced save registers its step."""
     monkeypatch.chdir(tmp_path)
     if name not in PORTED:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make()
+        return
+    if name == "register":
+        c, store = make()
+        assert c.last_registered.metadata == {"step": 1}
+        assert store.resolve("m").sha256 == c.last_registered.sha256
         return
     if name in ("mesh", "param_spec_fn"):
         with pytest.raises(TypeError, match="MeshSpec"):
