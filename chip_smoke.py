@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs eighteen phases:
+sm_90a, into the git-ignored ``build/``) and runs nineteen phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -196,11 +196,28 @@ sm_90a, into the git-ignored ``build/``) and runs eighteen phases:
    tokens identical to serving the trial's checkpoint directly; then
    DARTS and ENAS at ``NASSpace`` defaults, f32 with TF32 off, on the
    card against the CPU from one seed (equal cells, ENAS samples equal
-   step for step, losses and alphas within tolerance).
+   step for step, losses and alphas within tolerance);
+19. pipeline — Kubeflow Pipelines on the port: ``lm-pipeline``
+   (``make-data`` → ``train-lm`` → ``eval-lm``, ``lr=1e-3``,
+   ``steps=8``) compiled by the port's DSL and run by ``PipelineRunner``
+   over a ``LocalCluster`` (``gpu`` wiring, one chip of the default
+   label), with a step cache, a sqlite ``LineageStore`` and a
+   ``ModelStore``: (a) the data step in process, the train and eval
+   steps each a one-worker JAXJob on this card (conditions Created →
+   Running → Succeeded; ``Trainer.fit`` of the full-width LM in bf16
+   over f32 at 8 x 512, each flash kernel ``steps`` x 12 times on
+   ``wgmma``; the held-out loss through the forward, 12 launches), the
+   returned loss its worker's last, lineage of 3 executions, the Model
+   registered as ``lm-pipeline`` v1 with its ``pipeline_run`` edge; (b)
+   ``registry://lm-pipeline@v1`` fetched (the registered sha256) and
+   served (the serving burst, paged) with tokens identical to serving
+   the Model artifact's own directory; (c) the same run again: every
+   step a cache hit, no job submitted, v2 registered with
+   ``cache_hit`` and v1's blob.
 
 Each phase prints one JSON line (load: one a run, then its summary;
-mlm, mesh, tp, job and tune: one a part; tabular: one a model, then the
-mesh and a total).
+mlm, mesh, tp, job, tune and pipeline: one a part; tabular: one a
+model, then the mesh and a total).
 The line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is ``{"ok": true,
 "device": {...}}``. Any failed phase, or a host without CUDA or without
@@ -232,7 +249,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
           "disagg", "fleet", "dense", "bert", "train", "mlm", "mesh", "load",
-          "tp", "job", "tabular", "tune")
+          "tp", "job", "tabular", "tune", "pipeline")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -4515,9 +4532,13 @@ def _job_manifest(name, module, argv, replicas=2):
                 "env": [{"name": "PYTHONPATH", "value": REPO}]}]}}}}}}
 
 
-def _final_line(text):
-    line = next((x for x in text.splitlines() if x.startswith("final_loss=")), "")
-    return {k: float(v) for k, v in (kv.split("=") for kv in line.split())}
+def _kv_line(log, prefix):
+    """``{key: float value}`` of the ``key=value`` pairs on the first line
+    of ``log`` that starts with ``prefix``."""
+    import re
+
+    line = next((x for x in log.splitlines() if x.startswith(prefix)), "")
+    return {k: float(v) for k, v in re.findall(r"(\w+)=(\S+)", line)}
 
 
 def _shared_card_env(record, uid, ranks):
@@ -4582,7 +4603,7 @@ def _job_workers(torch, state, root):
                         "attn_impl": "reference"}
             else:
                 m0, m1 = parse_stdout_metrics(logs[0]), parse_stdout_metrics(logs[1])
-                final = _final_line(logs[0])
+                final = _kv_line(logs[0], "final_loss=")
                 good &= ([m["step"] for m in m0] == ([2, 4, 6] if part == "a_mnist"
                                                     else [8])
                          and m1 == [] and "final_loss=" not in logs[1] and bool(final)
@@ -4700,9 +4721,7 @@ def _job_trials(torch, state, root):
             uid, job = jobs[f"{spec.name}-{t.assignment.trial_id}"]
             log = cluster.logs(uid, "worker", 0)
             own = re.findall(r"\bloss=(\S+)", log)
-            kern = dict(re.findall(r"(\w+)=([\d.]+)",
-                                   next((x for x in log.splitlines()
-                                         if x.startswith("trial_kernels")), "")))
+            kern = _kv_line(log, "trial_kernels")
             for k in FLASH_KERNELS:
                 launches[k] += int(kern.get(k, 0))
             wgmma += sum(int(kern.get(k, 0))
@@ -5863,6 +5882,383 @@ def phase_tune(torch, state):
     return bool(ok and nas["ok"])
 
 
+# --------------------------------------------------------------------------- #
+# phase 19: Kubeflow Pipelines, the steps jobs on the card
+# --------------------------------------------------------------------------- #
+
+#: ``lm-pipeline``'s parameter defaults
+PIPE_LR, PIPE_STEPS = 1e-3, 8
+#: the registered name the train step asks for (``register_as``)
+PIPE_MODEL = "lm-pipeline"
+
+
+# The components below are module-level functions whose bodies import what
+# they use: the executor re-executes each one's source alone, in a step job
+# or in process. Their annotations name the port's DSL types, which
+# ``lm_pipeline`` binds here before it decorates them.
+
+def make_data(steps: int, vocab_size: int, batch: int, seq: int,
+              data: Output[Dataset]) -> None:
+    """The train phase's seeded stream (``TokenLMDataset`` seed 0): the
+    tokens of ``steps`` batches, ``[steps, batch, seq + 1]`` int32."""
+    import torch
+
+    from kubeflow_tpu_torch.data import TokenLMDataset, local_shard_iterator
+
+    it = local_shard_iterator(
+        TokenLMDataset(vocab_size=vocab_size, seq_len=seq, seed=0), batch)
+    rows = []
+    for _ in range(steps):
+        b = next(it)
+        rows.append(torch.cat([torch.from_numpy(b["inputs"]),
+                               torch.from_numpy(b["targets"][:, -1:])], 1))
+    torch.save(torch.stack(rows), data.path)
+    data.metadata["shape"] = [steps, batch, seq + 1]
+
+
+def train_lm(data: Input[Dataset], lr: float, steps: int, config: dict,
+             dtype: str, device: str, init: str, model: Output[Model]) -> float:
+    """``Trainer.fit`` of the LM (``config``, computing in ``dtype`` over
+    f32 weights, flash attention) on the Dataset's batches, from
+    ``init`` (a saved ``state_dict``) or else from seed 0, with a
+    checkpoint at the last step into the Model. Prints a ``step=N
+    loss=X`` line a step, then one line of its flash launches (all, and
+    on ``wgmma``) and its ms a step (steps 2 .. steps - 1); returns the
+    last loss."""
+    import time
+
+    import torch
+
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, make_init_fn, make_loss_fn,
+    )
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import flash_attention_bwd as fb
+    from kubeflow_tpu_torch.train import TrainConfig, Trainer, adamw
+    from kubeflow_tpu_torch.train.checkpoint import CheckpointConfig
+
+    toks = torch.load(data.path)
+
+    def stream(start):
+        for t in toks[start:]:
+            yield {"inputs": t[:, :-1].numpy(), "targets": t[:, 1:].numpy()}
+
+    cfg = TransformerConfig(dtype=getattr(torch, dtype), attn_impl="flash", **config)
+    fresh = make_init_fn(cfg)
+
+    def init_params(seed, dev):
+        m = fresh(seed, dev)
+        if init:
+            m.load_state_dict(torch.load(init))
+        return m
+
+    trainer = Trainer(
+        init_params=init_params, loss_fn=make_loss_fn(), optimizer=adamw(lr),
+        config=TrainConfig(mesh=None, global_batch=toks.shape[1], steps=steps,
+                           log_every=1, prefetch_depth=2,
+                           checkpoint=CheckpointConfig(directory=model.path,
+                                                       save_every_steps=steps)),
+        device=device)
+    ready = {}
+    _, history = trainer.fit(
+        stream, hooks=[lambda step, m: ready.__setitem__(step, time.perf_counter())])
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    step_ms = ((ready[steps - 1] - ready[1]) / (steps - 2) * 1e3
+               if steps > 2 else float("nan"))
+    print(f"pipeline_kernels flash_forward={fa.LAUNCHES} "
+          f"flash_bwd_dq={fb.DQ_LAUNCHES} flash_bwd_dkv={fb.DKV_LAUNCHES} "
+          f"wgmma_forward={fa.LAUNCHES_BY_BODY['wgmma']} "
+          f"wgmma_dq={fb.DQ_LAUNCHES_BY_BODY['wgmma']} "
+          f"wgmma_dkv={fb.DKV_LAUNCHES_BY_BODY['wgmma']} "
+          f"step_ms={step_ms:.6f}", flush=True)
+    model.metadata["register_as"] = "lm-pipeline"
+    model.metadata["losses"] = [h["loss"] for h in history]
+    return history[-1]["loss"]
+
+
+def eval_lm(model: Input[Model], steps: int, config: dict, dtype: str,
+            device: str, batch: int, seq: int, metrics: Output[Metrics]) -> None:
+    """The loss of the held-out batch (the stream's step ``steps``, the
+    first the train step did not see) through the forward alone, logged
+    as ``eval_loss``; prints a line of its flash launches and its ms."""
+    import time
+
+    import torch
+
+    from kubeflow_tpu_torch.data import TokenLMDataset, local_shard_iterator
+    from kubeflow_tpu_torch.models.transformer import (
+        TransformerConfig, make_init_fn, make_loss_fn,
+    )
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.serve.generate import restore_state
+
+    cfg = TransformerConfig(dtype=getattr(torch, dtype), attn_impl="flash", **config)
+    lm = make_init_fn(cfg)(0, torch.device(device))
+    lm.load_state_dict(restore_state(model.path))
+    lm.eval()
+    b = next(local_shard_iterator(
+        TokenLMDataset(vocab_size=config["vocab_size"], seq_len=seq, seed=0),
+        batch, start_step=steps))
+    held = {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        loss, _ = make_loss_fn()(lm, held)
+        value = loss.item()
+    ms = (time.perf_counter() - t0) * 1e3
+    metrics.log_metric("eval_loss", value)
+    print(f"pipeline_eval flash_forward={fa.LAUNCHES} "
+          f"wgmma_forward={fa.LAUNCHES_BY_BODY['wgmma']} ms={ms:.6f} "
+          f"eval_loss={value!r}", flush=True)
+
+
+def lm_pipeline(config=None, *, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                dtype="bfloat16", device="cuda", init=""):
+    """``lm-pipeline`` on the port's DSL: ``make-data`` in process, then
+    ``train-lm`` and ``eval-lm``, each asking one chip (a step job under
+    a cluster). Phase 19 runs it at ``MODEL``'s width; the CPU tests
+    build it small with ``device="cpu"``."""
+    from kubeflow_tpu_torch import pipelines as kp
+
+    globals().update(Input=kp.Input, Output=kp.Output, Dataset=kp.Dataset,
+                     Model=kp.Model, Metrics=kp.Metrics)
+    config = dict(MODEL if config is None else config)
+    make, train, evaluate = map(kp.component, (make_data, train_lm, eval_lm))
+    shared = dict(config=config, dtype=dtype, device=device)
+
+    @kp.pipeline(name="lm-pipeline", description="make-data → train-lm → eval-lm")
+    def pipe(lr: float = PIPE_LR, steps: int = PIPE_STEPS):
+        d = make(steps=steps, vocab_size=config["vocab_size"], batch=batch, seq=seq)
+        t = train(data=d.output, lr=lr, steps=steps, init=init,
+                  **shared).set_tpu_request(chips=1)
+        evaluate(model=t.outputs["model"], steps=steps, batch=batch, seq=seq,
+                 **shared).set_tpu_request(chips=1)
+
+    return pipe
+
+
+def phase_pipeline(torch, state):
+    """Kubeflow Pipelines on the card (``kubeflow_tpu_torch/pipelines``):
+    ``lm_pipeline()`` compiled and run by ``PipelineRunner`` over a
+    ``LocalCluster`` with the ``gpu`` wiring and one chip of the fleet's
+    default label (a step's ``TPURequest`` names no generation, as in the
+    JAX runner), a ``StepCache``, a sqlite ``LineageStore`` and a
+    ``ModelStore``. (a) The first run: SUCCEEDED, one attempt a task, no
+    cache hit; each step job's conditions Created → Running → Succeeded;
+    the train step's returned loss its worker's last ``loss=`` line,
+    finite and below step 1's; a finite ``eval_loss``; 3 executions in
+    the lineage, the Dataset and the Model each an output and then an
+    input; ``lm-pipeline`` v1 in the registry with its ``pipeline_run``
+    edge; the train worker's flash launches ``steps`` x 12 of each kernel
+    and the eval worker's forward 12, all on ``wgmma``. (b)
+    ``registry://lm-pipeline@v1`` fetched through ``serve/storage.py``
+    (its content hash the registered sha256) and served by
+    ``ModelServer`` + ``LMEngineModel`` on the paged kernel, the burst's
+    greedy streams identical to serving the Model artifact's directory.
+    (c) The same run again: every task a cache hit, no job submitted, v2
+    registered with ``cache_hit`` True and v1's blob. A line a part, with
+    its seconds and the card."""
+    import re
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.orchestrator.resources import Fleet
+    from kubeflow_tpu_torch.pipelines import (
+        ArtifactStore, LineageStore, PipelineRunner, StepCache, compile_pipeline,
+    )
+    from kubeflow_tpu_torch.registry import ModelStore, set_default_store
+    from kubeflow_tpu_torch.registry.store import content_hash
+    from kubeflow_tpu_torch.serve import storage
+    from kubeflow_tpu_torch.serve.engine import LMEngineModel
+    from kubeflow_tpu_torch.serve.server import ModelServer
+
+    root = tempfile.mkdtemp(prefix="kft-pipe-")
+    params = {"lr": PIPE_LR, "steps": PIPE_STEPS}
+    flow = [("Created", "JobCreated"), ("Running", "AllWorkersRunning"),
+            ("Succeeded", "AllWorkersSucceeded")]
+    ok = True
+    try:
+        ir = compile_pipeline(lm_pipeline())
+        store = ModelStore(os.path.join(root, "registry"))
+        set_default_store(store)
+        register_s = []
+        register = store.register_version
+
+        def timed_register(*a, **kw):
+            t = time.perf_counter()
+            mv = register(*a, **kw)
+            register_s.append(time.perf_counter() - t)
+            return mv
+
+        store.register_version = timed_register
+        lineage = LineageStore(os.path.join(root, "mlmd.db"))
+        cluster, record = _gpu_cluster(os.path.join(root, "cluster"),
+                                       fleet=Fleet.single_host(chips=1))
+        runner = PipelineRunner(
+            artifact_store=ArtifactStore(os.path.join(root, "artifacts")),
+            cache=StepCache(os.path.join(root, "cache")), lineage=lineage,
+            cluster=cluster, model_registry=store, job_timeout_s=JOB_TIMEOUT_S)
+        with cluster:
+            # (a) the first run
+            t0 = time.perf_counter()
+            res = runner.run(ir, params)
+            wall = time.perf_counter() - t0
+            jobs = {j.spec.labels.get("task"): (uid, j) for uid, j in cluster.jobs.list()}
+            steps_out = {}
+            for task in ("train-lm", "eval-lm"):
+                uid, job = jobs.get(task, (None, None))
+                log = cluster.logs(uid, "worker", 0) if uid else ""
+                st = job.status if job else None
+                steps_out[task] = {
+                    "conditions": record.trail(uid) if uid else [],
+                    "seconds": (st.completion_time - st.start_time
+                                if st and st.start_time and st.completion_time
+                                else None),
+                    "log": log}
+            train_log = steps_out["train-lm"]["log"]
+            worker_losses = [float(x) for x in re.findall(r"\bloss=(\S+)", train_log)]
+            tk = _kv_line(train_log, "pipeline_kernels")
+            ek = _kv_line(steps_out["eval-lm"]["log"], "pipeline_eval")
+            loss = res.output("train-lm", "Output") if res.state == "SUCCEEDED" else None
+            model_art = res.output("train-lm", "model") if loss is not None else None
+            eval_loss = (res.output("eval-lm", "metrics").metadata.get("eval_loss")
+                         if loss is not None else None)
+            execs = lineage.executions(res.run_id)
+            uses = {}
+            if model_art is not None:
+                data_uri = res.tasks["make-data"].outputs["data"]["uri"]
+                uses = {name: sorted((x["task"], x["direction"])
+                                     for x in lineage.lineage(uri))
+                        for name, uri in (("dataset", data_uri),
+                                          ("model", model_art.uri))}
+            v1 = store.resolve(PIPE_MODEL, "v1") if loss is not None else None
+            edges = ([{"kind": e.kind, "ref": e.ref, "metadata": e.metadata}
+                      for e in store.lineage_of(PIPE_MODEL, 1)] if v1 else [])
+            want = PIPE_STEPS * MODEL["n_layers"]
+            kernels_ok = (
+                all(tk.get(k) == want for k in FLASH_KERNELS)
+                and all(tk.get(k) == want for k in
+                        ("wgmma_forward", "wgmma_dq", "wgmma_dkv"))
+                and ek.get("flash_forward") == MODEL["n_layers"]
+                and ek.get("wgmma_forward") == MODEL["n_layers"])
+            good = (
+                res.state == "SUCCEEDED"
+                and all(t.attempts == 1 and not t.cache_hit for t in res.tasks.values())
+                and all(steps_out[t]["conditions"] == flow for t in steps_out)
+                and loss is not None and math.isfinite(loss)
+                and len(worker_losses) == PIPE_STEPS
+                and float(f"{loss:.6g}") == worker_losses[-1]
+                and loss < model_art.metadata["losses"][0]
+                and eval_loss is not None and math.isfinite(eval_loss)
+                and [e["task"] for e in execs] == ["make-data", "train-lm", "eval-lm"]
+                and uses == {"dataset": [("make-data", "output"), ("train-lm", "input")],
+                             "model": [("eval-lm", "input"), ("train-lm", "output")]}
+                and v1 is not None and edges == [{
+                    "kind": "pipeline_run", "ref": res.run_id,
+                    "metadata": {"pipeline": "lm-pipeline", "task": "train-lm",
+                                 "output": "model", "cache_hit": False}}]
+                and kernels_ok)
+            state["pipeline_flash_launches"] = {
+                "flash_forward": int(tk.get("flash_forward", 0)
+                                     + ek.get("flash_forward", 0)),
+                "flash_bwd_dq": int(tk.get("flash_bwd_dq", 0)),
+                "flash_bwd_dkv": int(tk.get("flash_bwd_dkv", 0))}
+            line = {"phase": "pipeline", "part": "a_run", "ok": good,
+                    "state": res.state, "wall_s": wall,
+                    "tasks": {n: {"state": t.state, "attempts": t.attempts,
+                                  "cache_hit": t.cache_hit, "error": t.error[-2000:]}
+                              for n, t in res.tasks.items()},
+                    "step_jobs": {t: {k: v for k, v in o.items() if k != "log"}
+                                  for t, o in steps_out.items()},
+                    "train_loss": loss, "worker_losses": worker_losses,
+                    "eval_loss": eval_loss, "worker_step_ms": tk.get("step_ms"),
+                    "eval_forward_ms": ek.get("ms"),
+                    "train_launches": tk, "eval_launches": ek,
+                    "launches_wanted": {"train": want, "eval": MODEL["n_layers"]},
+                    "lineage": uses, "registry_edges": edges,
+                    "register_s": register_s[:1], "shape": [TRAIN_BATCH, TRAIN_SEQ],
+                    "steps": PIPE_STEPS, "dtype": "bf16", "param_dtype": "f32",
+                    "card": state["card"]}
+            if not good:
+                line["logs"] = {t: o["log"][-3000:] for t, o in steps_out.items()}
+            emit(line)
+            ok &= good
+            if not good:
+                return False
+
+            # (b) the registered model, fetched and served
+            t0 = time.perf_counter()
+            local = storage.download(f"registry://{PIPE_MODEL}@v1",
+                                     os.path.join(root, "mnt"))
+            fetch_s = time.perf_counter() - t0
+            fetched_sha = content_hash(local)[0]
+            cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+            models = {name: LMEngineModel(
+                name, path, config=cfg, device="cuda", max_new_tokens=MAX_NEW,
+                paged_attn_impl="kernel", **ENGINE,
+            ) for name, path in (("lm-registry", local),
+                                 ("lm-artifact", model_art.path))}
+            server = ModelServer(list(models.values()), http_port=0).start()
+            base = f"http://127.0.0.1:{server.port}"
+            reqs = prompts()
+            try:
+                for lm in models.values():  # warm-up: cuBLAS handles, allocator
+                    _post(base, lm.name, reqs[0][:8])
+                torch.cuda.synchronize()
+                _zero_paged(pa)
+                outs, run = _served_burst(base, models["lm-registry"], reqs)
+                paged_launches, by_s, by_body = _paged_counts(pa)
+                direct_outs, _ = _served_burst(base, models["lm-artifact"], reqs)
+            finally:
+                server.stop()
+            state["pipeline_paged_launches_by_body"] = by_body
+            bodies = (set(by_s) == {1, 32} and by_body["decode"] == by_s[1] > 0
+                      and by_body["mma"] == by_s[32] > 0)
+            good = (fetched_sha == v1.sha256 and outs == direct_outs and bodies
+                    and all(1 <= len(o) <= MAX_NEW for o in outs))
+            emit({"phase": "pipeline", "part": "b_registry_serve", "ok": good,
+                  "version": v1.version, "sha256": v1.sha256,
+                  "fetched_sha256": fetched_sha, "fetch_s": fetch_s,
+                  "tokens_equal_artifact": outs == direct_outs,
+                  "rows_differing": [i for i, (a, b) in
+                                     enumerate(zip(outs, direct_outs)) if a != b],
+                  "tokens": run["tokens"], "tokens_per_s": run["tokens_per_s"],
+                  "ttft_ms_p50": run["ttft_ms_p50"], "wall_s": run["wall_s"],
+                  "paged_launches": paged_launches, "paged_launches_by_s": by_s,
+                  "paged_launches_by_body": by_body, "card": state["card"]})
+            ok &= good
+
+            # (c) the cached rerun
+            n_jobs = len(cluster.jobs.list())
+            t0 = time.perf_counter()
+            res2 = runner.run(ir, params)
+            wall2 = time.perf_counter() - t0
+            v2 = store.resolve(PIPE_MODEL, "v2") if res2.state == "SUCCEEDED" else None
+            edges2 = store.lineage_of(PIPE_MODEL, 2) if v2 else []
+            new_jobs = len(cluster.jobs.list()) - n_jobs
+            good = (res2.state == "SUCCEEDED"
+                    and all(t.cache_hit for t in res2.tasks.values())
+                    and new_jobs == 0 and v2 is not None
+                    and v2.metadata.get("cache_hit") is True
+                    and v2.sha256 == v1.sha256
+                    and [e.metadata["cache_hit"] for e in edges2] == [True])
+            emit({"phase": "pipeline", "part": "c_cached_rerun", "ok": good,
+                  "state": res2.state, "wall_s": wall2,
+                  "cache_hits": {n: t.cache_hit for n, t in res2.tasks.items()},
+                  "jobs_submitted": new_jobs, "version": v2.version if v2 else None,
+                  "sha256_equal_v1": bool(v2 and v2.sha256 == v1.sha256),
+                  "register_s": register_s[1:], "card": state["card"]})
+            ok &= good
+        lineage.close()
+        store.close()
+    finally:
+        set_default_store(None)
+        shutil.rmtree(root, ignore_errors=True)
+    return ok
+
+
 def _device_summary(prof):
     """(kernels, busy ms, kernels by device time) of a profile: busy is
     the union of kernel intervals on the card. Ranges that user
@@ -6072,7 +6468,8 @@ def main(argv=None) -> int:
                "bert": phase_bert, "train": phase_train, "mlm": phase_mlm,
                "mesh": phase_mesh, "load": phase_load,
                "tp": phase_tp, "job": phase_job, "tabular": phase_tabular,
-               "tune": phase_tune, "profile": phase_profile}
+               "tune": phase_tune, "pipeline": phase_pipeline,
+               "profile": phase_profile}
     ok = True
     seconds = {"build": build_s}
     for p in phases:
@@ -6100,20 +6497,23 @@ def main(argv=None) -> int:
         tune = state.get("tune_paged_launches_by_body", {})
         tune_flash = state.get("tune_flash_launches", {})
         job_flash = state.get("job_flash_launches", {})
+        pipe = state.get("pipeline_paged_launches_by_body", {})
+        pipe_flash = state.get("pipeline_flash_launches", {})
         # paged decode on the served burst, the fleet's bursts, the load
-        # runs and the tuned model's burst (the decode body's launches);
-        # the flash forward, timed at the training shape, on the training
-        # run and the tune phase's trials (it also ran the no-cache
-        # forward phase's 12 launches)
+        # runs, the tuned model's burst and the pipeline's registered
+        # model's (the decode body's launches); the flash forward, timed
+        # at the training shape, on the training run, the tune phase's
+        # trials, the job phase's trial jobs and the pipeline's train and
+        # eval jobs (it also ran the no-cache forward phase's 12 launches)
         for key, launches, src, rep in (
             ("paged_main",
              served.get("decode", 0) + fleet.get("decode", 0) + load.get("decode", 0)
-             + tune.get("decode", 0),
+             + tune.get("decode", 0) + pipe.get("decode", 0),
              "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
              "kubeflow_tpu/ops/paged_attention.py:185"),
             ("flash_main",
              train.get("flash_forward", 0) + tune_flash.get("flash_forward", 0)
-             + job_flash.get("flash_forward", 0),
+             + job_flash.get("flash_forward", 0) + pipe_flash.get("flash_forward", 0),
              "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
              "kubeflow_tpu/ops/flash_attention.py:120"),
         ):
@@ -6142,11 +6542,15 @@ def main(argv=None) -> int:
                     "launches_dense_phase": state.get("dense_paged_launches"),
                     "launches_bert_phase": state.get("bert_paged_launches"),
                     # the tuned model served from the registry
-                    "launches_tune_phase_by_body": tune}
+                    "launches_tune_phase_by_body": tune,
+                    # the pipeline's registered model, served
+                    "launches_pipeline_phase_by_body": pipe}
                    if key == "paged_main" else {
                     "launches_tune_phase": tune_flash.get("flash_forward"),
                     # the job phase's trial workers, one process each
                     "launches_job_phase": job_flash.get("flash_forward"),
+                    # the pipeline's train and eval step jobs
+                    "launches_pipeline_phase": pipe_flash.get("flash_forward"),
                     # the BERT predictor: 12 a forward, by body and dtype,
                     # and the kernel at its serving shapes
                     "launches_bert_phase": state.get("bert_flash_launches"),
@@ -6170,9 +6574,10 @@ def main(argv=None) -> int:
             "replaces": "kubeflow_tpu/ops/paged_attention.py:185",
             "body": r["body"], "case": r["case"],
             "launches": (served.get("mma", 0) + fleet.get("mma", 0) + load.get("mma", 0)
-                         + tune.get("mma", 0)),
+                         + tune.get("mma", 0) + pipe.get("mma", 0)),
             "launches_by_body": served, "launches_fleet_phase_by_body": fleet,
             "launches_load_phase_by_body": load, "launches_tune_phase_by_body": tune,
+            "launches_pipeline_phase_by_body": pipe,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
@@ -6208,9 +6613,11 @@ def main(argv=None) -> int:
                 "source": "kubeflow_tpu_torch/ops/csrc/flash_attention_bwd.cu",
                 "replaces": rep, "body": r["body"][part],
                 "launches": (train.get(launch_key, 0) + tune_flash.get(launch_key, 0)
-                             + job_flash.get(launch_key, 0)),
+                             + job_flash.get(launch_key, 0)
+                             + pipe_flash.get(launch_key, 0)),
                 "launches_tune_phase": tune_flash.get(launch_key),
                 "launches_job_phase": job_flash.get(launch_key),
+                "launches_pipeline_phase": pipe_flash.get(launch_key),
                 "max_abs_err": err["dq"] if part == "dq" else max(err["dk"], err["dv"]),
                 "ms": r["ms"][part], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"][part], "bound_by": r["bound_by"][part],

@@ -103,6 +103,19 @@ def test_tabular_modules_are_covered():
         assert not [m for m in mods if m.split(".")[0] in ("sklearn", "joblib")], path
 
 
+def test_pipelines_modules_are_covered():
+    """Every module of the JAX package's ``pipelines/`` has a twin of the
+    same name in the port, and so has ``obs/webhost.py``, which the
+    pipelines API serves on; all are among the files the import checks
+    above walk."""
+    jax_pkg = ROOT / "kubeflow_tpu"
+    names = sorted(p.name for p in (jax_pkg / "pipelines").glob("*.py"))
+    assert len(names) == 11
+    for rel in [f"pipelines/{n}" for n in names] + ["obs/webhost.py"]:
+        assert (jax_pkg / rel).exists(), rel
+        assert PKG / rel in FILES, rel
+
+
 def test_kernel_sources_exist():
     assert {p.stem for p in CSRC} == {
         "paged_attention", "flash_attention", "flash_attention_bwd"}
