@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the CUDA kernels from ``kubeflow_tpu_torch/ops/csrc/`` (nvcc,
-sm_90a, into the git-ignored ``build/``) and runs nineteen phases:
+sm_90a, into the git-ignored ``build/``) and runs twenty phases:
 
 1. kernels — each kernel against its plain PyTorch twin on the card at
    the serving and training shapes, with device times (``time_ms``: the
@@ -122,7 +122,7 @@ sm_90a, into the git-ignored ``build/``) and runs nineteen phases:
    attention over ``seq=4`` against one-rank flash at row 2's and row
    2d's shapes, forward and gradients, ring rank j launching each flash
    kernel 1 + j times; (b) ``Trainer.fit`` of the full-width LM in bf16,
-   3 steps of 8 x 512 under ``MeshSpec(model=2, seq=2)``, ring attention,
+   2 steps of 8 x 512 under ``MeshSpec(model=2, seq=2)``, ring attention,
    the ``onehot`` embedding and ``transformer_rules()`` (step ms,
    tokens/s, MFU, loss, launches a step by rank, bytes staged, peak
    memory); (c) the same LM with MoE every second block under
@@ -213,10 +213,24 @@ sm_90a, into the git-ignored ``build/``) and runs nineteen phases:
    served (the serving burst, paged) with tokens identical to serving
    the Model artifact's own directory; (c) the same run again: every
    step a cache hit, no job submitted, v2 registered with
-   ``cache_hit`` and v1's blob.
+   ``cache_hit`` and v1's blob;
+20. isvc — the KServe InferenceService control plane: (a) kserve-bert
+   from its manifest (``BERT_ISVC_MANIFEST``, the storage URI a
+   directory of seeded f32 bert-base weights) through
+   ``InferenceServiceController(default_registry())`` and a
+   ``ModelServer``, each answer equal to a direct ``BertRuntimeModel`` on
+   the same weights, 12 ``fma`` flash launches a forward; (b) a 30%
+   canary of a second revision, 400 request ids split as ``canary_slot``
+   says, then its promotion freeing the old weights on the card; (c)
+   scale to zero (weights freed) and a cold start with the same answer;
+   (d) a transformer component, ``:explain`` 501, an InferenceGraph
+   Ensemble over both revisions and a ``RequestLogger``; (e) the
+   controller feeding ``InferenceGateway``'s table, and a
+   ``causal-lm-engine`` service of the serving phase's model through it,
+   judged by near ties against a direct ``LMEngine``.
 
 Each phase prints one JSON line (load: one a run, then its summary;
-mlm, mesh, tp, job, tune and pipeline: one a part; tabular: one a
+mlm, mesh, tp, job, tune, pipeline and isvc: one a part; tabular: one a
 model, then the mesh and a total).
 The line before the last lists every kernel with its launches on its
 path, error, times and bound; the last line is ``{"ok": true,
@@ -249,7 +263,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f16": 989e12, "f32": 67e12}  # dense, non-TF32 f32
 PHASES = ("kernels", "forward", "serving", "parity", "engine", "contract",
           "disagg", "fleet", "dense", "bert", "train", "mlm", "mesh", "load",
-          "tp", "job", "tabular", "tune", "pipeline")
+          "tp", "job", "tabular", "tune", "pipeline", "isvc")
 
 # the widest LM the repo serves (the engine_decode paged bench model)
 MODEL = dict(vocab_size=32768, d_model=1024, n_layers=12, n_heads=16,
@@ -2290,6 +2304,11 @@ def _session_on(gw, route, url):
     raise RuntimeError(f"no session maps to {url}")
 
 
+#: (a)'s turns of each kind: a median and a spread, and the whole run
+#: stays inside its time
+FLEET_TURNS = 2
+
+
 def phase_fleet(torch, state):
     """Two full-width bf16 replicas (``LMEngineModel`` on the paged kernel,
     watchdog on, chunked prefill in 32-token pieces so a resumed prompt
@@ -2380,7 +2399,7 @@ def phase_fleet(torch, state):
         # (a) direct to A against through the gateway to A, in turns
         turns = {"direct": [], "gateway": []}
         streams = {"direct": [], "gateway": []}
-        for _ in range(3):
+        for _ in range(FLEET_TURNS):
             for kind, port, hdr in (
                     ("direct", servers[0].port, lambda i: seed),
                     ("gateway", gw.http_port,
@@ -2539,6 +2558,9 @@ DENSE_PAGED = dict(DENSE_ENGINE, kv_pool_tokens=8 * 192 + 32, page_size=32,
                    paged_attn_impl="kernel")
 GEN_BATCH, GEN_PROMPT, GEN_LONG, GEN_SHORT = 8, 128, 64, 16
 DENSE_NEW = 48
+#: turns of (a) and bursts of (b) each: a median and a spread, and the
+#: whole run stays inside its time
+DENSE_TURNS = 2
 DENSE_TEXTS = ["hello world", "The [MASK] sat on the mat.",
                "naive cafe, unicode: üé✓", "a.b,c;d:e?f!"]
 
@@ -2573,12 +2595,12 @@ def phase_dense(torch, state):
     (the serving model; ``sharpened_state`` weights). (a) The
     ``causal-lm`` runtime behind ``ModelServer`` with bench_generate's
     traffic, 8 prompts of 128 tokens, generating 64 and 16 tokens in
-    turns (three each): the whole generation's ms at each length, the
+    turns (``DENSE_TURNS`` each): the whole generation's ms at each length, the
     decode step from their difference / 48; the greedy streams against
     the paged engine's on the same weights; text rows over v1 against
     their tokenizer ids. (b) bench_engine's traffic (16 prompts, 48 new
     tokens) on the dense engine at depths 1 and 0 and on the paged kernel
-    engine, three bursts each in turns: tokens/s, TTFT p50, decode gap;
+    engine, ``DENSE_TURNS`` bursts each in turns: tokens/s, TTFT p50, decode gap;
     dense against paged streams. (a) and (b)'s dense runs must launch no
     paged kernel. (c) f32, TF32 off: the dense engine with K=4, with
     chunked prefill and a prefix cache, seeded with resume, and with a
@@ -2626,7 +2648,7 @@ def phase_dense(torch, state):
         pa.LAUNCHES = 0
         gen_ms = {GEN_LONG: [], GEN_SHORT: []}
         streams = None
-        for _ in range(3):
+        for _ in range(DENSE_TURNS):
             for n in (GEN_LONG, GEN_SHORT):
                 got = predict(f"gen{n}", ids_rows)
                 gen_ms[n].append(rts[n].stats["generate_ms"][-1])
@@ -2672,7 +2694,7 @@ def phase_dense(torch, state):
             e.start()
             e.submit(reqs[0][:16], max_new_tokens=8)  # warm
         torch.cuda.synchronize()
-        for _ in range(3):
+        for _ in range(DENSE_TURNS):
             for key, e in engines.items():
                 pa.LAUNCHES = 0
                 got, r = _engine_burst(e, reqs, DENSE_NEW)
@@ -3666,7 +3688,9 @@ def phase_mlm(torch, state):
 MESH_RANKS = 4
 #: (a)'s shapes: row 2 (bf16) and row 2d's causal f32 at S=512
 MESH_ATTN = dict(B=8, H=16, S=512, D=64)
-MESH_STEPS, MESH_PARITY_STEPS, MESH_PARITY_LAYERS = 3, 2, 2
+#: the LM fits' steps (one timed after the first: the whole run stays
+#: inside its time), f32 parity steps and layers
+MESH_STEPS, MESH_PARITY_STEPS, MESH_PARITY_LAYERS = 2, 2, 2
 #: the pipeline check: ``dryrun_multichip``'s stages and data
 #: (``__graft_entry__.py:139-182``)
 MESH_PIPE = dict(stages=4, width=64, batch=16, micro=4)
@@ -3954,7 +3978,7 @@ def phase_mesh(torch, state):
     against one-rank flash at rows 2 and 2d's shapes, forward and
     gradients, with each rank's launches (ring: 1 + j forward, dq and
     dk/dv launches on seq rank j) and hops; (b) ``Trainer.fit`` of the
-    full-width LM in bf16 over f32 weights, 3 steps of 8 x 512 under
+    full-width LM in bf16 over f32 weights, 2 steps of 8 x 512 under
     ``MeshSpec(model=2, seq=2)`` with ring attention, the ``onehot``
     embedding and ``transformer_rules()``: step ms, tokens/s, MFU
     (989 TFLOP/s, one card), the loss, flash launches a step by rank
@@ -5515,8 +5539,9 @@ def phase_tabular(torch, state):
 
 #: trials, trials at a time, steps a trial (a checkpoint at the last one)
 TUNE_TRIALS, TUNE_PARALLEL, TUNE_STEPS = 4, 2, 8
-#: bilevel steps a NAS searcher takes on the card and on the CPU
-NAS_STEPS = 10
+#: bilevel steps a NAS searcher takes on the card and on the CPU (few, so
+#: the whole run stays inside its time)
+NAS_STEPS = 5
 #: card against CPU after NAS_STEPS f32 steps: losses (relative) and the
 #: DARTS alphas (absolute: adam moves every alpha by about its lr a step)
 NAS_LOSS_RTOL, NAS_ALPHA_ATOL = 1e-4, 5e-4
@@ -6259,6 +6284,448 @@ def phase_pipeline(torch, state):
     return ok
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: the KServe InferenceService control plane
+# --------------------------------------------------------------------------- #
+
+#: ``kubeflow_tpu_torch/examples/manifests/bert_isvc.yaml`` as a literal
+#: (the card's host has no PyYAML; a CPU test holds the two equal)
+BERT_ISVC_MANIFEST = {
+    "apiVersion": "serving.kubeflow.org/v1beta1",
+    "kind": "InferenceService",
+    "metadata": {"name": "bert", "namespace": "default"},
+    "spec": {"predictor": {
+        "minReplicas": 1, "maxReplicas": 2, "scaleTarget": 4,
+        "canaryTrafficPercent": 100,
+        "model": {"modelFormat": {"name": "huggingface"},
+                  "storageUri": "file:///mnt/models/bert-base-uncased"}}},
+}
+
+
+def isvc_manifest(storage_uri: str) -> dict:
+    """The kserve-bert manifest with its ``storageUri`` rewritten."""
+    doc = json.loads(json.dumps(BERT_ISVC_MANIFEST))
+    doc["spec"]["predictor"]["model"]["storageUri"] = storage_uri
+    return doc
+
+
+ISVC_CANARY_PCT = 30
+ISVC_IDS = 400
+#: what the phase's transformer keeps of each answer row
+ISVC_TRIM = 16
+
+
+def _isvc_window(fa, pa):
+    _bert_window(fa, pa)
+    _zero_paged(pa)
+
+
+def _isvc_count(fa, pa, into):
+    """Add the flash and paged launches since :func:`_isvc_window` to
+    ``into`` (by body), and return this window's."""
+    got = {"flash": dict(fa.LAUNCHES_BY_BODY), "paged": dict(pa.LAUNCHES_BY_BODY)}
+    for kind, by_body in got.items():
+        for body, n in by_body.items():
+            into[kind][body] = into[kind].get(body, 0) + n
+    got["flash_total"], got["paged_total"] = fa.LAUNCHES, pa.LAUNCHES
+    return got
+
+
+def _allocated(torch):
+    """``memory_allocated`` once garbage from earlier work is collected, so
+    a difference of two readings is the step between them alone."""
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _isvc_transformer_runtime():
+    """A host-side transformer for the phase: texts → texts (lower case,
+    a ``[MASK]`` appended) before the predictor, each answer row trimmed
+    to its first ``ISVC_TRIM`` ids after it."""
+    from kubeflow_tpu_torch.serve.model import Model
+    from kubeflow_tpu_torch.serve.spec import ServingRuntime
+
+    class TextTrim(Model):
+        def __init__(self, name):
+            super().__init__(name)
+            self.ready = True
+
+        def preprocess(self, payload, headers=None):
+            return {"instances": [f"{t.lower()} [MASK]" for t in payload["instances"]]}
+
+        def postprocess(self, outputs, headers=None):
+            return {"predictions": [row[:ISVC_TRIM] for row in outputs["predictions"]]}
+
+    return ServingRuntime(name="isvc-text-trim", supported_formats=("text-trim",),
+                          factory=lambda name, path, **kw: TextTrim(name))
+
+
+def _isvc_revision(name, inner):
+    """``inner`` (a controller's revision) served under another name, so
+    one server hosts both revisions of a canary."""
+    from kubeflow_tpu_torch.serve.model import Model
+
+    class Revision(Model):
+        def __init__(self):
+            self.name = name
+
+        ready = property(lambda self: inner.ready, lambda self, v: None)
+
+        def load(self):
+            return inner.load()
+
+        def unload(self):
+            pass  # the controller owns the revision
+
+        def preprocess(self, payload, headers=None):
+            return inner.preprocess(payload, headers)
+
+        def predict(self, inputs, headers=None):
+            return inner.predict(inputs, headers)
+
+        def postprocess(self, outputs, headers=None):
+            return inner.postprocess(outputs, headers)
+
+    return Revision()
+
+
+def phase_isvc(torch, state):
+    """The KServe InferenceService control plane on the card, a line a
+    part. (a) kserve-bert from its manifest (``BERT_ISVC_MANIFEST``, its
+    ``storageUri`` a directory of seeded f32 bert-base weights, phase
+    bert's seed 0) through ``InferenceServiceSpec.from_manifest`` and
+    ``InferenceServiceController(default_registry())``, served by a
+    ``ModelServer``: cold start (download, load, warmup), every answer of
+    the bert phase's texts equal to a direct ``BertRuntimeModel`` of the
+    same weights, 12 flash launches a forward on ``fma``, no paged launch.
+    (b) a canary of the seed-1 weights at 30%: both revisions resident,
+    400 request ids split 0.2–0.4 and each pick ``canary_slot``'s, a
+    request on each revision equal to its direct answer; then the
+    promotion frees at least 0.9 of the retired revision's weight bytes
+    (``memory_allocated``). (c) a ``minReplicas: 0`` service under a
+    controller with ``idle_scale_to_zero_s=0``: one request, a tick to 0
+    replicas freeing the weights, a cold start on the next route with the
+    answer from before, and 5 in flight at ``scale_target`` 1 ticking to
+    ``maxReplicas``. (d) a transformer component around the predictor
+    (answer = transformer ∘ direct), ``:explain`` without an explainer
+    501, an InferenceGraph Ensemble over (b)'s two revisions (each branch
+    its revision's direct answer), and a ``RequestLogger`` pairing a
+    request and a response event an inference. (e) ``InferenceGateway(
+    controller=)`` in front: host ``bert.default`` answers as the direct
+    model; a ``causal-lm-engine`` service of the serving phase's bf16
+    model and ``ENGINE`` settings from a checkpoint directory, prefix
+    affinity in the fed table, the burst through the gateway judged by
+    near ties against a directly built ``LMEngine``, paged launches by
+    body."""
+    import shutil
+    import tempfile
+
+    from kubeflow_tpu_torch.gateway.router import canary_slot
+    from kubeflow_tpu_torch.gateway.server import GatewayConfig, InferenceGateway
+    from kubeflow_tpu_torch.models.bert import BertForMaskedLM, bert_base, init_bert_weights
+    from kubeflow_tpu_torch.models.transformer import TransformerConfig
+    from kubeflow_tpu_torch.ops import flash_attention as fa
+    from kubeflow_tpu_torch.ops import paged_attention as pa
+    from kubeflow_tpu_torch.serve.controller import InferenceServiceController
+    from kubeflow_tpu_torch.serve.graph import GraphSpec
+    from kubeflow_tpu_torch.serve.logger import RequestLogger
+    from kubeflow_tpu_torch.serve.modelmesh import _device_bytes
+    from kubeflow_tpu_torch.serve.runtimes import BertRuntimeModel, default_registry
+    from kubeflow_tpu_torch.serve.server import ModelServer
+    from kubeflow_tpu_torch.serve.spec import InferenceServiceSpec
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+    L = bert_base().num_layers
+    launches = {"flash": {}, "paged": {}}
+    texts = [BERT_TEXT] + bert_texts()
+    root = tempfile.mkdtemp(prefix="kft-isvc-")
+    model_dir = os.path.join(root, "models")
+    servers, gateways, ok, ctl = [], [], True, None
+
+    def direct(m, text):
+        return m.postprocess(m.predict(m.preprocess({"instances": [text]})))[
+            "predictions"][0]
+
+    def served(base, name, text):
+        return _bert_post(base, f"/v1/models/{name}:predict",
+                          {"instances": [text]})["predictions"][0]
+
+    def start(models, **kw):
+        srv = ModelServer(models, http_port=0, **kw).start()
+        servers.append(srv)
+        return srv, f"http://127.0.0.1:{srv.port}"
+
+    try:
+        # the weights: bert-base f32 from seeds 0 and 1, as port checkpoints
+        t0 = time.perf_counter()
+        revs, sds = [], []
+        for seed in (0, 1):
+            m = BertForMaskedLM(bert_base(), device="cuda")
+            init_bert_weights(m, seed)
+            sd = {k: v.detach().cpu() for k, v in m.state_dict().items()}
+            del m
+            d = os.path.join(root, f"bert-seed{seed}")
+            os.makedirs(d)
+            torch.save(sd, os.path.join(d, "state.pt"))
+            revs.append(d)
+            sds.append(sd)
+        write_s = time.perf_counter() - t0
+        d0 = BertRuntimeModel("direct-0", None, device="cuda")  # phase bert's
+        d1 = BertRuntimeModel("direct-1", None, device="cuda", state_dict=sds[1])
+        d0.load()
+        d1.load()
+        want0 = [direct(d0, t) for t in texts]
+
+        # (a) kserve-bert from its manifest
+        reg = default_registry()
+        reg.register(_isvc_transformer_runtime())
+        ctl = InferenceServiceController(reg, model_dir=model_dir)
+        spec = InferenceServiceSpec.from_manifest(isvc_manifest(f"file://{revs[0]}"))
+        t0 = time.perf_counter()
+        st = ctl.apply(spec)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        m0 = ctl.route("bert")
+        m0.warmup()
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        param_bytes = _device_bytes(m0)  # the weights ModelMesh would count
+        srv_a, base_a = start([m0])
+        req0 = m0.stats["requests"]
+        _isvc_window(fa, pa)
+        got0 = [served(base_a, "bert", t) for t in texts]
+        torch.cuda.synchronize()
+        fwd = m0.stats["requests"] - req0
+        win = _isvc_count(fa, pa, launches)
+        good = (st.ready and st.conditions == ["PredictorReady", "Ready"]
+                and (st.replicas.ready_replicas, st.replicas.desired_replicas) == (1, 1)
+                and got0 == want0 and fwd == len(texts)
+                and win["flash_total"] == L * fwd == win["flash"].get("fma", 0)
+                and win["paged_total"] == 0)
+        emit({"phase": "isvc", "part": "a_manifest", "ok": good,
+              "spec": {"name": spec.name, "format": spec.predictor.model_format,
+                       "replicas": [spec.predictor.min_replicas,
+                                    spec.predictor.max_replicas],
+                       "scale_target": spec.predictor.scale_target},
+              "conditions": st.conditions, "write_weights_s": write_s,
+              "apply_s": apply_s, "cold_start_s": cold_s,
+              "downloaded_to": os.path.relpath(m0._storage_path, root),
+              "requests": len(texts), "equal_direct": sum(
+                  g == w for g, w in zip(got0, want0)),
+              "forwards": fwd, "launches": win, "param_bytes": param_bytes,
+              "card": state["card"]})
+        ok &= good
+
+        # (b) a canary of the seed-1 revision, then its promotion
+        doc = isvc_manifest(f"file://{revs[1]}")
+        doc["spec"]["predictor"]["canaryTrafficPercent"] = ISVC_CANARY_PCT
+        mem0 = _allocated(torch)
+        t0 = time.perf_counter()
+        st = ctl.apply(InferenceServiceSpec.from_manifest(doc))
+        torch.cuda.synchronize()
+        canary_s = time.perf_counter() - t0
+        grew = _allocated(torch) - mem0
+        m1 = st.canary_model
+        ids = [f"req-{i}" for i in range(ISVC_IDS)]
+        picks = [ctl.route("bert", request_id=i) for i in ids]
+        want_pick = [canary_slot(i, ctl.canary_salt) < ISVC_CANARY_PCT for i in ids]
+        share = sum(p is m1 for p in picks) / len(picks)
+        both = st.default_model is m0 and m0.ready and m1 is not None and m1.ready
+        # one server hosts both revisions, with a logger; (d)'s graph runs
+        # on it too
+        log = RequestLogger()
+        srv_b, base_b = start([_isvc_revision("bert-default", m0),
+                               _isvc_revision("bert-canary", m1)], logger=log)
+        srv_b.register_graph(GraphSpec.from_manifest({
+            "kind": "InferenceGraph", "metadata": {"name": "revisions"},
+            "spec": {"nodes": {"root": {"routerType": "Ensemble", "steps": [
+                {"serviceName": "bert-default", "name": "default"},
+                {"serviceName": "bert-canary", "name": "canary"}]}}}}))
+        want1 = [direct(d1, t) for t in texts[:4]]
+        _isvc_window(fa, pa)
+        rev_ok = all(served(base_b, "bert-default", t) == w
+                     for t, w in zip(texts[:4], want0))
+        rev_ok &= all(served(base_b, "bert-canary", t) == w
+                      for t, w in zip(texts[:4], want1))
+        graph = [_bert_post(base_b, "/v1/graphs/revisions:infer",
+                            {"instances": [t]}) for t in texts[:4]]
+        torch.cuda.synchronize()
+        win_b = _isvc_count(fa, pa, launches)
+        graph_ok = all(
+            g == {"default": {"predictions": [w0]}, "canary": {"predictions": [w1]}}
+            for g, w0, w1 in zip(graph, want0, want1))
+        events = list(log.entries)
+        pairs = {}
+        for e in events:
+            pairs.setdefault(e["requestid"], []).append(e["type"].rsplit(".", 1)[1])
+        log_ok = (len(events) == 2 * (8 + 8)
+                  and all(v == ["request", "response"] for v in pairs.values()))
+        srv_b.kill()  # its proxies must not pin the retired revision
+        before = _allocated(torch)
+        ctl.promote_canary("bert")
+        freed = before - _allocated(torch)
+        st = ctl.get("bert")
+        good = (both and 0.2 <= share <= 0.4
+                and [p is m1 for p in picks] == want_pick and rev_ok
+                and st.default_model is m1 and st.canary_model is None
+                and not m0.ready and m0.module is None
+                and freed >= 0.9 * param_bytes)
+        emit({"phase": "isvc", "part": "b_canary", "ok": good,
+              "canary_apply_s": canary_s, "memory_grew_bytes": grew,
+              "both_resident": both, "ids": ISVC_IDS, "canary_share": share,
+              "picks_equal_canary_slot": [p is m1 for p in picks] == want_pick,
+              "revisions_equal_direct": rev_ok, "launches": win_b,
+              "promotion_freed_bytes": freed, "retired_param_bytes": param_bytes,
+              "freed_over_param_bytes": freed / param_bytes, "card": state["card"]})
+        ok &= good
+
+        # (c) scale to zero and the cold start
+        ctl_z = InferenceServiceController(reg, model_dir=model_dir,
+                                           idle_scale_to_zero_s=0.0)
+        doc = isvc_manifest(f"file://{revs[0]}")
+        doc["spec"]["predictor"]["minReplicas"] = 0
+        stz = ctl_z.apply(InferenceServiceSpec.from_manifest(doc))
+        mz = ctl_z.route("bert")
+        srv_z, base_z = start([mz])
+        _isvc_window(fa, pa)
+        before_answer = served(base_z, "bert", texts[1])
+        _isvc_count(fa, pa, launches)
+        before = _allocated(torch)
+        to_zero = ctl_z.autoscale_tick("bert")
+        freed_z = before - _allocated(torch)
+        unready = _http(base_z, "POST", "/v1/models/bert:predict",
+                        {"instances": [texts[1]]})[0]
+        t0 = time.perf_counter()
+        mz2 = ctl_z.route("bert")
+        torch.cuda.synchronize()
+        cold2_s = time.perf_counter() - t0
+        _isvc_window(fa, pa)
+        after_answer = served(base_z, "bert", texts[1])
+        _isvc_count(fa, pa, launches)
+        stz.spec.predictor.scale_target = 1
+        stz.replicas.in_flight = 5
+        scaled = ctl_z.autoscale_tick("bert")
+        stz.replicas.in_flight = 0
+        good = (to_zero == 0 and freed_z >= 0.9 * param_bytes and unready == 503
+                and mz2 is mz and mz.ready and stz.replicas.cold_starts == 1
+                and after_answer == before_answer == want0[1]
+                and scaled == stz.spec.predictor.max_replicas == 2)
+        emit({"phase": "isvc", "part": "c_scale_to_zero", "ok": good,
+              "tick_to": to_zero, "freed_bytes": freed_z,
+              "freed_over_param_bytes": freed_z / param_bytes,
+              "scaled_to_zero_status": unready, "cold_starts": stz.replicas.cold_starts,
+              "cold_start_s": cold2_s, "answer_equal_before": after_answer == before_answer,
+              "tick_at_5_in_flight": scaled, "card": state["card"]})
+        ok &= good
+        srv_z.kill()
+        ctl_z.delete("bert")
+
+        # (d) a transformer component, :explain, and (b)'s graph and logger
+        doc = isvc_manifest(f"file://{revs[0]}")
+        doc["metadata"]["name"] = "bert-t"
+        doc["spec"]["transformer"] = {"model": {"modelFormat": {"name": "text-trim"}}}
+        stt = ctl.apply(InferenceServiceSpec.from_manifest(doc))
+        mt = ctl.route("bert-t")
+        srv_t, base_t = start([mt])
+        _isvc_window(fa, pa)
+        comp = [served(base_t, "bert-t", t) for t in texts[:4]]
+        torch.cuda.synchronize()
+        win_d = _isvc_count(fa, pa, launches)
+        want_t = [direct(d0, f"{t.lower()} [MASK]")[:ISVC_TRIM] for t in texts[:4]]
+        explain = _http(base_t, "POST", "/v1/models/bert-t:explain",
+                        {"instances": [texts[0]]})[0]
+        good = (stt.ready and type(mt).__name__ == "ComposedService"
+                and comp == want_t and explain == 501 and graph_ok and log_ok)
+        emit({"phase": "isvc", "part": "d_composition", "ok": good,
+              "transformer_equal_direct": comp == want_t, "explain_status": explain,
+              "graph_branches_equal_direct": graph_ok, "graph_requests": len(graph),
+              "logger_events": len(events), "logger_paired": log_ok,
+              "launches": win_d, "card": state["card"]})
+        ok &= good
+        srv_t.kill()
+        ctl.delete("bert-t")
+
+        # (e) the gateway fed by the controller, and an LM-engine service
+        lm_dir = os.path.join(root, "lm")
+        os.makedirs(lm_dir)
+        sd_lm = sharpened_state(torch, torch.bfloat16)
+        torch.save({k: v.cpu() for k, v in sd_lm.items()},
+                   os.path.join(lm_dir, "state.pt"))
+        cfg = TransformerConfig(dtype=torch.bfloat16, attn_impl="flash", **MODEL)
+        extra = dict(ENGINE, prefill_buckets=list(ENGINE["prefill_buckets"]),
+                     config=cfg, paged_attn_impl="kernel", max_new_tokens=MAX_NEW)
+        t0 = time.perf_counter()
+        stl = ctl.apply(InferenceServiceSpec.from_manifest({
+            "kind": "InferenceService", "metadata": {"name": "lm"},
+            "spec": {"predictor": {"model": {
+                "modelFormat": {"name": "causal-lm-engine"},
+                "storageUri": f"file://{lm_dir}", "extra": extra}}}}))
+        lm_apply_s = time.perf_counter() - t0
+        mlm = ctl.route("lm")
+        srv_bert, base_bert = start([ctl.route("bert")])
+        srv_lm, base_lm = start([mlm])
+        gw = InferenceGateway(GatewayConfig(backends=[
+            ("bert", base_bert, "default"), ("lm", base_lm, "default")]),
+            controller=ctl).start()
+        gateways.append(gw)
+        gbase = f"http://127.0.0.1:{gw.http_port}"
+        routes = {r.name: r.view() for r in gw.table.routes()}
+        reqs = prompts()
+        want_gw = direct(d1, texts[2])
+        _isvc_window(fa, pa)
+        status, _, text = _http(gbase, "POST", "/v1/models/bert:predict",
+                                {"instances": [texts[2]]}, {"Host": "bert.default"})
+        bert_gw = status == 200 and json.loads(text)["predictions"][0] == want_gw
+
+        def gen(ids):
+            st_, _, body = _http(gbase, "POST", "/v2/models/lm/generate",
+                                 {"input_ids": ids, "max_new_tokens": MAX_NEW},
+                                 {"Host": "lm.default"})
+            if st_ != 200:
+                raise RuntimeError(f"generate through the gateway: {st_} {body[:200]}")
+            return json.loads(body)["token_ids"]
+
+        t0 = time.perf_counter()
+        got_lm = _concurrent(gen, reqs)
+        lm_wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        win_e = _isvc_count(fa, pa, launches)
+        ref = _model(torch, torch.bfloat16, "flash", state_dict=sd_lm)
+        want_lm = _engine_streams(torch, ref, "kernel", reqs)
+        judged, bad = _judged(torch, ref, reqs, want_lm, got_lm)
+        del ref
+        n_tok = sum(len(o) for o in got_lm)
+        good = (stl.ready and routes.get("bert", {}).get("hosts") == ["bert.default"]
+                and routes.get("lm", {}).get("affinity") == "prefix"
+                and routes["bert"]["affinity"] == "none" and bert_gw and judged
+                and win_e["paged"].get("decode", 0) > 0
+                and win_e["paged"].get("mma", 0) > 0)
+        emit({"phase": "isvc", "part": "e_gateway", "ok": good,
+              "routes": routes, "bert_equal_direct": bert_gw,
+              "lm_apply_s": lm_apply_s, "lm_wall_s": lm_wall,
+              "lm_tokens": n_tok, "lm_tokens_per_s": n_tok / lm_wall,
+              "lm_identical": want_lm == got_lm, "lm_near_ties": bad,
+              "launches": win_e, "card": state["card"]})
+        ok &= good
+    finally:
+        for gw in gateways:
+            gw.stop()
+        for srv in servers:
+            if srv._httpd is not None:
+                srv.kill()
+        if ctl is not None:  # retire what is left: engines stop, weights go
+            for name in ("lm", "bert", "bert-t"):
+                ctl.delete(name)
+        shutil.rmtree(root, ignore_errors=True)
+    state["isvc_flash_by_body"] = launches["flash"]
+    state["isvc_paged_by_body"] = launches["paged"]
+    emit({"phase": "isvc", "part": "total", "ok": ok, "launches": launches,
+          "seconds": time.perf_counter() - t_phase, "card": state["card"]})
+    return ok
+
+
 def _device_summary(prof):
     """(kernels, busy ms, kernels by device time) of a profile: busy is
     the union of kernel intervals on the card. Ranges that user
@@ -6469,7 +6936,7 @@ def main(argv=None) -> int:
                "mesh": phase_mesh, "load": phase_load,
                "tp": phase_tp, "job": phase_job, "tabular": phase_tabular,
                "tune": phase_tune, "pipeline": phase_pipeline,
-               "profile": phase_profile}
+               "isvc": phase_isvc, "profile": phase_profile}
     ok = True
     seconds = {"build": build_s}
     for p in phases:
@@ -6499,21 +6966,27 @@ def main(argv=None) -> int:
         job_flash = state.get("job_flash_launches", {})
         pipe = state.get("pipeline_paged_launches_by_body", {})
         pipe_flash = state.get("pipeline_flash_launches", {})
+        isvc = state.get("isvc_paged_by_body", {})
+        isvc_flash = state.get("isvc_flash_by_body", {})
         # paged decode on the served burst, the fleet's bursts, the load
         # runs, the tuned model's burst and the pipeline's registered
         # model's (the decode body's launches); the flash forward, timed
         # at the training shape, on the training run, the tune phase's
         # trials, the job phase's trial jobs and the pipeline's train and
         # eval jobs (it also ran the no-cache forward phase's 12 launches)
+        # and the isvc phase's (the LM service's decodes; the BERT
+        # services' forwards, all on fma)
         for key, launches, src, rep in (
             ("paged_main",
              served.get("decode", 0) + fleet.get("decode", 0) + load.get("decode", 0)
-             + tune.get("decode", 0) + pipe.get("decode", 0),
+             + tune.get("decode", 0) + pipe.get("decode", 0)
+             + isvc.get("decode", 0),
              "kubeflow_tpu_torch/ops/csrc/paged_attention.cu",
              "kubeflow_tpu/ops/paged_attention.py:185"),
             ("flash_main",
              train.get("flash_forward", 0) + tune_flash.get("flash_forward", 0)
-             + job_flash.get("flash_forward", 0) + pipe_flash.get("flash_forward", 0),
+             + job_flash.get("flash_forward", 0) + pipe_flash.get("flash_forward", 0)
+             + sum(isvc_flash.values()),
              "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
              "kubeflow_tpu/ops/flash_attention.py:120"),
         ):
@@ -6544,13 +7017,17 @@ def main(argv=None) -> int:
                     # the tuned model served from the registry
                     "launches_tune_phase_by_body": tune,
                     # the pipeline's registered model, served
-                    "launches_pipeline_phase_by_body": pipe}
+                    "launches_pipeline_phase_by_body": pipe,
+                    # the LM-engine InferenceService behind the gateway
+                    "launches_isvc_phase_by_body": isvc}
                    if key == "paged_main" else {
                     "launches_tune_phase": tune_flash.get("flash_forward"),
                     # the job phase's trial workers, one process each
                     "launches_job_phase": job_flash.get("flash_forward"),
                     # the pipeline's train and eval step jobs
                     "launches_pipeline_phase": pipe_flash.get("flash_forward"),
+                    # the controller's BERT services, by body
+                    "launches_isvc_phase": isvc_flash,
                     # the BERT predictor: 12 a forward, by body and dtype,
                     # and the kernel at its serving shapes
                     "launches_bert_phase": state.get("bert_flash_launches"),
@@ -6574,16 +7051,19 @@ def main(argv=None) -> int:
             "replaces": "kubeflow_tpu/ops/paged_attention.py:185",
             "body": r["body"], "case": r["case"],
             "launches": (served.get("mma", 0) + fleet.get("mma", 0) + load.get("mma", 0)
-                         + tune.get("mma", 0) + pipe.get("mma", 0)),
+                         + tune.get("mma", 0) + pipe.get("mma", 0)
+                         + isvc.get("mma", 0)),
             "launches_by_body": served, "launches_fleet_phase_by_body": fleet,
             "launches_load_phase_by_body": load, "launches_tune_phase_by_body": tune,
             "launches_pipeline_phase_by_body": pipe,
+            "launches_isvc_phase_by_body": isvc,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
         # the forward's f32 body on its own: timed at the BERT serving
-        # shape, launched by the bert phase's f32 forwards
+        # shape, launched by the bert phase's f32 forwards and the isvc
+        # phase's
         r = state.get("flash_bert", {}).get("bert_s128_f32")
         if r is not None:
             kernels.append({
@@ -6591,7 +7071,9 @@ def main(argv=None) -> int:
                 "source": "kubeflow_tpu_torch/ops/csrc/flash_attention.cu",
                 "replaces": "kubeflow_tpu/ops/flash_attention.py:120",
                 "body": r["body"], "case": "bert_s128_f32",
-                "launches": state.get("bert_flash_by_body", {}).get("f32", {}).get("fma", 0),
+                "launches": (state.get("bert_flash_by_body", {}).get("f32", {})
+                             .get("fma", 0) + isvc_flash.get("fma", 0)),
+                "launches_isvc_phase": isvc_flash.get("fma", 0),
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],

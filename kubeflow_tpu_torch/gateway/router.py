@@ -1,7 +1,5 @@
 """Routing decisions: host/path → service, canary split, prefix affinity.
-A copy of ``kubeflow_tpu/gateway/router.py`` without the controller feed
-(``RouteTable.update_from_controller``), which arrives with the port's
-``serve/controller.py`` (ROADMAP queue 1 item 11).
+A copy of ``kubeflow_tpu/gateway/router.py``.
 
 Reference analogs: Istio VirtualService weighted routing + KServe's
 traffic-split annotations (SURVEY.md §2.2), plus the LM-aware divergence:
@@ -10,7 +8,9 @@ cache already holds their KV (Kwon et al., PagedAttention) — a signal only
 the edge can exploit, because single replicas never see each other's
 prompts.
 
-Everything here is pure computation: no I/O, no serve-plane imports.
+Everything here is pure computation: no I/O, no serve-plane imports, so
+``serve/controller.py`` reuses ``canary_slot`` for its own per-request
+split without an import cycle.
 
 Determinism rules (enforced by design, not convention):
 
@@ -119,6 +119,11 @@ class ServiceRoute:
 _MODEL_PATH = re.compile(r"^/v[12]/models/([^/:]+)")
 _GENERATE_PATH = re.compile(r"^/v2/models/[^/:]+/(generate|generate_stream)$")
 
+#: model formats whose replicas hold per-process prefix KV caches — the
+#: controller-fed table turns prefix affinity on for these automatically
+LM_ENGINE_FORMATS = ("causal-lm-engine", "vllm", "causal-lm", "llm")
+
+
 class RouteTable:
     """host/path → ``ServiceRoute``.
 
@@ -153,8 +158,10 @@ class RouteTable:
     ) -> tuple[ServiceRoute, str] | None:
         """→ ``(route, upstream_path)`` or None when nothing matches."""
         hostname = (host or "").rsplit(":", 1)[0] if host else ""
+        # a snapshot: the probe thread may add a controller's route meanwhile
+        routes = list(self._routes.values())
         if hostname:
-            for r in self._routes.values():
+            for r in routes:
                 if hostname in r.hosts:
                     return r, path
             first_label = hostname.split(".", 1)[0]
@@ -163,7 +170,7 @@ class RouteTable:
                 return r, path
         best: tuple[ServiceRoute, str] | None = None
         best_len = -1
-        for r in self._routes.values():
+        for r in routes:
             for prefix in r.path_prefixes:
                 p = prefix.rstrip("/")
                 if (path == p or path.startswith(p + "/")) and len(p) > best_len:
@@ -178,6 +185,35 @@ class RouteTable:
 
     def revision_for(self, route: ServiceRoute, request_id: str) -> str:
         return pick_revision(request_id, route.canary_percent, self.salt)
+
+    # -- controller feed ------------------------------------------------- #
+
+    def update_from_controller(self, controller: Any) -> None:
+        """Refresh the table from ``InferenceServiceController`` state:
+        one route per service, Knative-style ``{name}.{namespace}`` host,
+        the live canary percent (0 unless a canary materialisation is
+        actually serving), and prefix affinity switched on for LM-engine
+        predictors. Duck-typed (no serve-plane import, no cycle); reads
+        the controller's ``services()`` snapshot, since ``apply`` may run
+        on another thread."""
+        for key, st in controller.services():
+            namespace, name = key.split("/", 1)
+            pct = st.spec.predictor.canary_traffic_percent
+            live_canary = st.canary_model is not None and 0 < pct < 100
+            fmt = st.spec.predictor.model_format
+            prev = self._routes.get(name)
+            self.upsert(
+                ServiceRoute(
+                    name=name,
+                    hosts=(f"{name}.{namespace}",),
+                    path_prefixes=prev.path_prefixes if prev else (),
+                    canary_percent=float(pct) if live_canary else 0.0,
+                    affinity=(
+                        "prefix" if fmt in LM_ENGINE_FORMATS else "none"
+                    ),
+                    hedge_ms=prev.hedge_ms if prev else None,
+                )
+            )
 
 
 # -- affinity keys ------------------------------------------------------- #

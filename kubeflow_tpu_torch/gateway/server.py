@@ -344,7 +344,10 @@ class _Attempt:
 class InferenceGateway:
     """``http_port=0`` binds an ephemeral port; after :meth:`start` the
     bound port is ``self.http_port``. ``scale_up(service)`` is kicked
-    once per cold episode when a request parks with no ready backend."""
+    once per cold episode when a request parks with no ready backend.
+    ``controller`` (an ``InferenceServiceController``) feeds the route
+    table (``RouteTable.update_from_controller``) here and on every
+    probe pass; the backends stay the config's."""
 
     def __init__(
         self,
@@ -356,14 +359,11 @@ class InferenceGateway:
         scale_up: Callable[[str], None] | None = None,
         policy: PolicyEngine | None = None,
     ):
-        if controller is not None:
-            raise NotImplementedError(
-                "InferenceGateway(controller=...): the route table's "
-                "InferenceService feed arrives with serve/controller.py "
-                "(ROADMAP queue 1 item 11)"
-            )
         self.config = config or GatewayConfig()
         self.host, self.http_port = host, http_port
+        #: optional InferenceServiceController whose state feeds the route
+        #: table (resynced on every probe pass)
+        self.controller = controller
         self.activator = Activator(
             queue_limit=self.config.queue_limit,
             timeout_s=self.config.activation_timeout_s,
@@ -411,6 +411,8 @@ class InferenceGateway:
         self._httpd: _HTTPServer | None = None
         self._threads: list[threading.Thread] = []
         self._stopping = threading.Event()
+        if self.controller is not None:
+            self.table.update_from_controller(self.controller)
 
     # -- lifecycle ------------------------------------------------------- #
 
@@ -457,6 +459,8 @@ class InferenceGateway:
 
     def _probe_loop(self) -> None:
         while not self._stopping.wait(self.config.probe_interval_s):
+            if self.controller is not None:
+                self.table.update_from_controller(self.controller)
             self.pool.probe_all()
 
     # -- the edge's own routes --------------------------------------------- #

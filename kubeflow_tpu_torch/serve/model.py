@@ -19,6 +19,14 @@ import torch
 from kubeflow_tpu_torch import resolve_device
 
 
+def retire(model: "Model") -> None:
+    """Permanently remove a model (service deleted, or replaced by a
+    rollout). A mesh-backed model tells retire (deregister) from unload
+    (release the weights, keep the registration: scale to zero); a plain
+    model just unloads."""
+    getattr(model, "retire", model.unload)()
+
+
 class Model:
     """Base serving model: subclass and override the lifecycle hooks.
 

@@ -340,8 +340,9 @@ class MeshBackedModel(Model):
     """``Model``-shaped proxy over a ModelMesh entry, so the port's
     ``ModelServer`` (serve/server.py) serves mesh-managed models unchanged:
     readiness maps to the mesh state, the data path pulls the model in
-    (evicting LRU) on demand. A controller that places services onto the
-    mesh waits for the port's ``serve/controller.py``."""
+    (evicting LRU) on demand. ``serve/controller.py`` places services
+    onto the mesh through it (``InferenceServiceController(
+    model_mesh=)``)."""
 
     def __init__(
         self,

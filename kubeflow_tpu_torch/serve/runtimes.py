@@ -135,6 +135,14 @@ class BertRuntimeModel(TorchModel):
                 cfg = convert.bert_config_from_hf(json.load(f))
         else:
             cfg = bert_base()
+        if isinstance(config_overrides.get("dtype"), str):
+            # a manifest's ``extra`` names the type ("bfloat16"), as the
+            # JAX runtime's flax config takes it
+            dt = getattr(torch, config_overrides["dtype"], None)
+            if not (isinstance(dt, torch.dtype) and dt.is_floating_point):
+                raise ValueError(f"dtype {config_overrides['dtype']!r} is not "
+                                 "a floating-point torch dtype")
+            config_overrides["dtype"] = dt
         if config_overrides:
             cfg = dataclasses.replace(cfg, **config_overrides)
         self.config = cfg

@@ -37,6 +37,10 @@ lines.
 - ``POST /v2/models/{m}/kv_span:prefill`` ``{"ids", "temperature",
   "seed"?}`` → the finished KV span of ``ids`` with its ``__meta__``, an
   npz body: the prefill replica's half of disaggregated serving
+- ``GET  /v1/graphs`` → ``{"graphs": [...]}``; ``POST
+  /v1/graphs/{g}:infer`` runs the InferenceGraph ``g``
+  (:meth:`ModelServer.register_graph`, ``serve/graph.py``): 404 for an
+  unknown graph, 400 for a bad body or a Switch no branch matches
 - ``GET  /metrics`` → Prometheus text
 - ``GET  /debug/traces`` (``limit`` 1–256, default 64;
   ``format=perfetto``) → the tail-sampled request traces
@@ -48,6 +52,11 @@ route, and a gateway steers by the role. ``batcher`` (a
 ``BatcherConfig``) puts a dynamic batcher (``serve/batcher.py``) in
 front of every model: ``:predict``, ``/infer`` and ``/generate`` rows
 are coalesced across requests, up to the model's top batch bucket.
+``logger`` (a ``serve/logger.py`` ``RequestLogger``) records a request
+and a response CloudEvent for each ``:predict``, ``/infer``,
+``/generate`` and graph step, and for each stream (its tokens, and
+whether the client stayed to the end), under the request's
+``x-request-id`` (or a fresh one) and its trace ids.
 
 Request tracing: ``:predict``, ``/infer`` and ``/generate`` run under a
 ``dataplane`` span, ``/generate_stream`` under a ``dataplane.stream``
@@ -82,6 +91,7 @@ import traceback
 import urllib.error
 import urllib.parse
 import urllib.request
+import uuid
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -111,6 +121,7 @@ from kubeflow_tpu_torch.serve.engine import (
 )
 from kubeflow_tpu_torch.serve.headers import TRACE_HEADER
 from kubeflow_tpu_torch.serve.kv_codec import decode_kv_entries, encode_kv_entries
+from kubeflow_tpu_torch.serve.logger import RequestLogger
 from kubeflow_tpu_torch.serve.model import Model, TorchModel
 from kubeflow_tpu_torch.serve.protocol import decode_v2, encode_v2
 from kubeflow_tpu_torch.serve.watchdog import EngineRestarting
@@ -126,6 +137,7 @@ _PREFIX_INDEX = re.compile(r"^/v2/models/([^/]+)/prefix_cache$")
 _PREFIX_EXPORT = re.compile(r"^/v2/models/([^/]+)/prefix_cache:export$")
 _PREFIX_PULL = re.compile(r"^/v2/models/([^/]+)/prefix_cache:pull$")
 _KV_SPAN_PREFILL = re.compile(r"^/v2/models/([^/]+)/kv_span:prefill$")
+_GRAPH_INFER = re.compile(r"^/v1/graphs/([^/:]+):infer$")
 
 
 class _HTTPError(Exception):
@@ -190,10 +202,11 @@ class _HTTPServer(ThreadingHTTPServer):
 
 class _Stream:
     """A route's answer that is a token stream (sent as SSE), with its
-    ``dataplane.stream`` span."""
+    ``dataplane.stream`` span and the request id its logged events carry."""
 
-    def __init__(self, name: str, it, span=None):
+    def __init__(self, name: str, it, span=None, req_id: str = ""):
         self.name, self.it, self.span = name, it, span
+        self.req_id = req_id
 
 
 class ModelServer:
@@ -206,17 +219,21 @@ class ModelServer:
     get this long to finish before the listener closes. ``role``: the
     replica's pool in disaggregated serving, reported by readiness.
     ``batcher``: a dynamic batcher in front of each model, its
-    ``max_batch_size`` clamped to the model's top batch bucket."""
+    ``max_batch_size`` clamped to the model's top batch bucket.
+    ``logger``: a ``RequestLogger`` for every inference's request and
+    response events."""
 
     def __init__(self, models: list[Model], *, http_port: int = 8080,
                  host: str = "127.0.0.1", drain_grace_s: float = 10.0,
                  default_deadline_ms: float | None = None,
-                 role: str = "both", batcher: BatcherConfig | None = None):
+                 role: str = "both", batcher: BatcherConfig | None = None,
+                 logger: RequestLogger | None = None):
         if role not in ("both", "prefill", "decode"):
             raise ValueError(
                 f"role must be 'both', 'prefill' or 'decode'; got {role!r}"
             )
         self.role = role
+        self.logger = logger
         self.host, self.http_port = host, http_port
         self.drain_grace_s = drain_grace_s
         self.default_deadline_ms = default_deadline_ms
@@ -233,6 +250,7 @@ class ModelServer:
         self._conns: set = set()
         self.models: dict[str, Model] = {}
         self.batchers: dict[str, Batcher] = {}
+        self._graphs: dict = {}  # name -> serve/graph.py InferenceGraph
         for m in models:
             if not m.ready:
                 m.load()
@@ -244,6 +262,24 @@ class ModelServer:
                 # signal must restart with it
                 m.add_restart_listener(
                     lambda name=m.name: self.reset_load_signals(name))
+
+    def register_graph(self, spec) -> None:
+        """Build a ``GraphSpec`` over this server's models, served at
+        ``POST /v1/graphs/{name}:infer``. Every ``serviceName`` must be one
+        of them (checked here, as admission)."""
+        self._graphs[spec.name] = spec.build(self)
+
+    def has(self, name: str) -> bool:
+        """Whether a model of this name is served (the graph's dataplane
+        surface)."""
+        return name in self.models
+
+    def infer(self, name: str, payload, headers: dict | None = None):
+        """One payload through model ``name``'s whole predict path (the
+        batcher, then preprocess, predict and postprocess), as a
+        ``:predict`` request would take it: the graph's dataplane
+        surface."""
+        return self._infer(name, payload, dict(headers or {}))
 
     def _batcher_for(self, model: Model, cfg: BatcherConfig) -> Batcher:
         buckets = getattr(model, "buckets", None)
@@ -428,6 +464,8 @@ class ModelServer:
             return 200, {"ready": ready, "role": self.role}
         if path == "/v1/models":
             return 200, {"models": sorted(self.models)}
+        if path == "/v1/graphs":
+            return 200, {"graphs": sorted(self._graphs)}
         if path == "/metrics":
             return 200, self._metrics_text()
         url = urllib.parse.urlsplit(path)
@@ -476,6 +514,8 @@ class ModelServer:
             return 200, self._prefix_pull(m.group(1), body)
         if m := _KV_SPAN_PREFILL.match(path):
             return 200, self._kv_span_prefill(m.group(1), body, headers)
+        if m := _GRAPH_INFER.match(path):
+            return 200, self._graph_infer(m.group(1), body)
         raise _HTTPError(404, f"no route POST {path}")
 
     @staticmethod
@@ -514,11 +554,29 @@ class ModelServer:
             )
         return out
 
-    def _infer(self, name: str, payload: dict, headers: dict[str, str]) -> dict:
+    def _graph_infer(self, name: str, body: bytes):
+        """``/v1/graphs/{name}:infer``: the JAX server's statuses: an
+        unknown graph 404, a bad body or a ``ValueError`` (a Switch no
+        branch matches) 400, a shed or unready model its own status, any
+        other failure 500."""
+        graph = self._graphs.get(name)
+        if graph is None:
+            raise _HTTPError(404, f"graph '{name}' not found")
+        payload = self._json(body)
+        try:
+            return graph.infer(payload)
+        except (ValueError, _HTTPError, AdmissionShed, DeadlineExceeded,
+                EngineRestarting, EngineOverloaded):
+            raise
+        except Exception as e:  # noqa: BLE001 — a 500, as in the reference
+            traceback.print_exception(e)
+            raise _HTTPError(500, f"{type(e).__name__}: {e}") from e
+
+    def _infer(self, name: str, payload, headers: dict[str, str]):
         model = self._model(name)
         if not model.ready:
             raise _HTTPError(503, f"model '{name}' not ready")
-        if isinstance(payload.get("inputs"), dict):
+        if isinstance(payload, dict) and isinstance(payload.get("inputs"), dict):
             # v2 named tensors -> per-instance rows, so multi-input requests
             # batch correctly and keep attention_mask/token_type_ids
             payload = {"instances": TorchModel.payload_rows(payload)}
@@ -526,30 +584,37 @@ class ModelServer:
         # continue the wire context (gateway or client) or mint a trace for
         # direct traffic; the restamped header parents the engine spans
         span = TRACER.span("dataplane", ctx=ctx_from_headers(headers))
+        req_id = headers.get("x-request-id") or str(uuid.uuid4())
         ctok = None
         if span:
             span.set_attr("model", name)
-            span.set_attr("request_id", headers.get("x-request-id", ""))
+            span.set_attr("request_id", req_id)
             headers[TRACE_HEADER] = span.header()
             ctok = _trace.set_current(span)
-        t0 = time.perf_counter()
-        self._enter(name)
         try:
-            batcher = self.batchers.get(name)
-            if batcher is not None and "instances" in payload:
-                result = {"predictions": batcher.submit(
-                    list(payload["instances"]), deadline=deadline,
-                    trace=span if span else None)}
-            else:
-                result = model(payload, headers)
-        except BaseException as e:
-            self._leave(name, None)
-            _end_failed(span, e)
-            raise
+            if self.logger is not None:
+                self.logger.log_request(name, req_id, payload)
+            t0 = time.perf_counter()
+            self._enter(name)
+            try:
+                batcher = self.batchers.get(name)
+                if (batcher is not None and isinstance(payload, dict)
+                        and "instances" in payload):
+                    result = {"predictions": batcher.submit(
+                        list(payload["instances"]), deadline=deadline,
+                        trace=span if span else None)}
+                else:
+                    result = model(payload, headers)
+            except BaseException as e:
+                self._leave(name, None)
+                _end_failed(span, e)
+                raise
+            self._leave(name, t0)
+            if self.logger is not None:
+                self.logger.log_response(name, req_id, result)
         finally:
             if ctok is not None:
                 _trace.reset_current(ctok)
-        self._leave(name, t0)
         if span:
             span.end()
         return result
@@ -575,17 +640,26 @@ class ModelServer:
             raise _HTTPError(501, f"model '{name}' does not support streaming")
         if not model.ready:
             raise _HTTPError(503, f"model '{name}' not ready")
-        row = model.preprocess({"instances": [self._json(body)]})[0]
+        doc = self._json(body)
+        row = model.preprocess({"instances": [doc]})[0]
         # the stream's own dataplane span: continue the wire context or
         # mint one, restamped so the engine spans parent onto it
         span = TRACER.span("dataplane.stream", ctx=ctx_from_headers(headers))
         if span:
             span.set_attr("model", name)
+        req_id = headers.get("x-request-id") or str(uuid.uuid4())
+        if self.logger is not None:
+            ctok = _trace.set_current(span) if span else None
+            try:
+                self.logger.log_request(name, req_id, {"instances": [doc]})
+            finally:
+                if ctok is not None:
+                    _trace.reset_current(ctok)
         try:
             headers, _ = self.effective_headers(headers)
             if span:
                 headers[TRACE_HEADER] = span.header()
-            return _Stream(name, stream_rows(row, headers), span)
+            return _Stream(name, stream_rows(row, headers), span, req_id)
         except BaseException as e:
             _end_failed(span, e)
             raise
@@ -666,6 +740,7 @@ class ModelServer:
         t0 = time.perf_counter()
         self._enter(s.name)
         total = 0
+        streamed: list[int] = []
         gone = False
         ctok = _trace.set_current(s.span) if s.span else None
         try:
@@ -689,6 +764,7 @@ class ModelServer:
                     break
                 toks = [int(t) for t in toks]
                 total += len(toks)
+                streamed.extend(toks)
                 frame({"token_ids": toks})
             frame(end)
             chunk(b"")  # the terminating zero-length chunk
@@ -698,6 +774,11 @@ class ModelServer:
         finally:
             s.it.close()
             self._leave(s.name, t0)
+            if self.logger is not None:
+                self.logger.log_response(
+                    s.name, s.req_id,
+                    {"predictions": [{"token_ids": streamed}],
+                     "streamed": True, "complete": not gone})
             if s.span:
                 s.span.set_attr("tokens_streamed", total)
                 s.span.end("cancelled" if gone else None)

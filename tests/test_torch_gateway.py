@@ -20,7 +20,11 @@ aiohttp), on the CPU, in three parts.
     torn-frame alignment, resume splicing and budget exhaustion, client
     disconnect, shed passthrough, the deadline rewrite, tenant priority,
     the retry's trace and the authoritative headers; and, on the port's
-    alone, the refused controller and its own ``/debug/traces``.
+    alone, its own ``/debug/traces``.
+(d) The controller feed: both route tables fed by their own
+    ``InferenceServiceController`` after the same rollout, and the port's
+    gateway fed by the port's controller in front of the service's
+    ``ModelServer``, its table refreshed on every probe pass.
 
 Every wait is bounded (``Event.wait``, ``join``, polls with a deadline);
 no test sleeps out a deadline. A wedge is the engine's ``pre_chunk``
@@ -902,11 +906,16 @@ def test_gateway_serves_its_own_routes(side):
 
 
 def test_port_gateway_refuses_a_controller_and_serves_its_traces():
-    """Port only: the route table's controller feed is not ported yet, and
-    the port's gateway answers ``GET /debug/traces`` itself (the
+    """Port only: the gateway takes a controller now (its table is fed at
+    construction; ``test_gateway_fed_by_the_port_controller`` drives it),
+    and the port's gateway answers ``GET /debug/traces`` itself (the
     reference's proxies it like any path; its traces are read in process)."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 11"):
-        t_srv.InferenceGateway(controller=object())
+    from kubeflow_tpu_torch.serve.controller import InferenceServiceController
+    from kubeflow_tpu_torch.serve.spec import RuntimeRegistry
+
+    empty = t_srv.InferenceGateway(controller=InferenceServiceController(
+        RuntimeRegistry()))
+    assert empty.table.routes() == []
     fleet = _Fleet([_Tagged("a")])
     gw = _gateway("torch", fleet.urls)
     try:
@@ -1381,3 +1390,92 @@ def test_gateway_strips_client_asserted_authoritative_headers(side):
         gw.close()
         be.close()
         pre.close()
+
+
+# ======================================================= (d) controller feed
+
+
+def _echo_controller(side, tmp_path, fmt="echo"):
+    """``test_gateway.py``'s ``_canary_controller`` for ``side``: a service
+    deployed, then a 30% canary of a changed spec."""
+    if side == "jax":
+        from kubeflow_tpu.serve import controller as ctl_mod
+        from kubeflow_tpu.serve import spec as spec_mod
+        from kubeflow_tpu.serve.model import EchoModel
+    else:
+        from kubeflow_tpu_torch.serve import controller as ctl_mod
+        from kubeflow_tpu_torch.serve import spec as spec_mod
+
+        class EchoModel(Model):
+            def predict(self, inputs, headers=None):
+                return inputs
+    reg = spec_mod.RuntimeRegistry()
+    reg.register(spec_mod.ServingRuntime(
+        "echo", (fmt,), lambda name, path, **kw: EchoModel(name)))
+    ctl = ctl_mod.InferenceServiceController(reg, model_dir=str(tmp_path))
+    ctl.apply(spec_mod.InferenceServiceSpec(
+        "svc", spec_mod.PredictorSpec(model_format=fmt)))
+    ctl.apply(spec_mod.InferenceServiceSpec(
+        "svc", spec_mod.PredictorSpec(model_format=fmt, canary_traffic_percent=30,
+                                      extra={"rollout": 2})))
+    return ctl
+
+
+@pytest.mark.parametrize("fmt", ["echo", "causal-lm-engine", "vllm", "llm"])
+def test_route_table_fed_from_controller_matches_jax(fmt, tmp_path):
+    """Mirrors ``test_gateway.py``'s controller-fed table: one route per
+    service with a ``{name}.{namespace}`` host, the live canary percent,
+    prefix affinity for LM-engine formats, the split gone once promoted;
+    a route's declared prefixes and hedge survive a refresh."""
+    views = {}
+    for side, s in SIDES.items():
+        ctl = _echo_controller(side, tmp_path / side, fmt)
+        t = s.rt.RouteTable()
+        t.upsert(s.rt.ServiceRoute(name="svc", path_prefixes=("/edge",), hedge_ms=5.0))
+        t.update_from_controller(ctl)
+        fed = t.get("svc").view()
+        ctl.promote_canary("svc")
+        t.update_from_controller(ctl)
+        views[side] = (fed, t.get("svc").view(), [r.name for r in t.routes()])
+    assert views["torch"] == views["jax"]
+    fed, promoted, _ = views["torch"]
+    assert fed["hosts"] == ["svc.default"] and fed["canary_percent"] == 30.0
+    assert fed["affinity"] == ("none" if fmt == "echo" else "prefix")
+    assert fed["path_prefixes"] == ["/edge"] and fed["hedge_ms"] == 5.0
+    assert promoted["canary_percent"] == 0.0
+
+
+def test_gateway_fed_by_the_port_controller(tmp_path):
+    """The port's gateway, given the port's controller, resolves the
+    service's Knative host to its replica at construction, and picks up a
+    service applied later on a probe pass."""
+    from kubeflow_tpu_torch.serve.controller import InferenceServiceController
+    from kubeflow_tpu_torch.serve.spec import (
+        InferenceServiceSpec,
+        PredictorSpec,
+        RuntimeRegistry,
+        ServingRuntime,
+    )
+
+    reg = RuntimeRegistry()
+    reg.register(ServingRuntime("tag", ("tag",), lambda name, path, **kw: _Tagged(
+        kw.get("tag", "stable"), name=name)))
+    ctl = InferenceServiceController(reg, model_dir=str(tmp_path))
+    ctl.apply(InferenceServiceSpec("svc", PredictorSpec(model_format="tag")))
+    fleet = _Fleet([ctl.route("svc")])
+    gw = t_srv.InferenceGateway(
+        t_srv.GatewayConfig(backends=[("svc", fleet.urls[0], "default")],
+                            probe_interval_s=0.05),
+        controller=ctl).start()
+    try:
+        assert gw.table.get("svc").hosts == ("svc.default",)
+        status, _, text = _call(gw.http_port, "POST", "/v1/models/svc:predict",
+                                {"instances": [[1]]}, {"host": "svc.default"})
+        assert status == 200 and json.loads(text)["predictions"] == ["stable"]
+        ctl.apply(InferenceServiceSpec("late", PredictorSpec(
+            model_format="tag", extra={"tag": "late"})))
+        _until(lambda: gw.table.get("late") is not None, what="the probe pass")
+        assert gw.table.get("late").hosts == ("late.default",)
+    finally:
+        gw.stop()
+        fleet.close()

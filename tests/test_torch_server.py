@@ -9,6 +9,7 @@ JSON shapes and status codes.
 from __future__ import annotations
 
 import json
+import threading
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
@@ -132,3 +133,51 @@ def test_error_statuses(served, method, path, body, status, key):
     server, _ = served
     got, payload = _call(server, method, path, body)
     assert got == status and key in payload
+
+
+def test_request_logger_records_generate_and_streams(served):
+    """The JAX server's logging on the engine routes: ``/generate`` is a
+    request and a response event; a stream logs its request at admission
+    and, when it ends, every token it sent with ``streamed`` and
+    ``complete``. A second server over the fixture's engine carries the
+    logger (``kill`` leaves the model loaded for the other tests)."""
+    from kubeflow_tpu_torch.serve.logger import RequestLogger
+
+    server, _ = served
+    lg = RequestLogger()
+    logged = ModelServer([server.models["lm"]], http_port=0, logger=lg).start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{logged.port}/v2/models/lm/generate",
+            data=json.dumps({"input_ids": [5, 9, 11]}).encode(),
+            headers={"Content-Type": "application/json", "x-request-id": "g-1"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            generated = json.loads(r.read())
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{logged.port}/v2/models/lm/generate_stream",
+            data=json.dumps({"input_ids": [5, 9, 11]}).encode(),
+            headers={"Content-Type": "application/json", "x-request-id": "s-1"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            frames = [json.loads(ln[6:]) for ln in r.read().decode().splitlines()
+                      if ln.startswith("data: ")]
+        # the stream's response event is logged after its last chunk is
+        # written, so the client can read it all first: wait, bounded
+        ev = threading.Event()
+        for _ in range(6000):
+            if len(lg.entries) >= 4:
+                break
+            ev.wait(0.01)
+    finally:
+        logged.kill()
+    streamed = [t for f in frames for t in f.get("token_ids", [])]
+    assert frames[-1] == {"done": True, "n_tokens": len(streamed)}
+    assert streamed == generated["token_ids"]  # greedy: the same tokens
+    events = [(e["type"].rsplit(".", 1)[1], e["requestid"], e["data"])
+              for e in lg.entries]
+    assert events == [
+        ("request", "g-1", {"instances": [{"input_ids": [5, 9, 11]}]}),
+        ("response", "g-1", {"predictions": [generated]}),
+        ("request", "s-1", {"instances": [{"input_ids": [5, 9, 11]}]}),
+        ("response", "s-1", {"predictions": [{"token_ids": streamed}],
+                             "streamed": True, "complete": True}),
+    ]
