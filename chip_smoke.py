@@ -152,10 +152,14 @@ sm_90a, into the git-ignored ``build/``) and runs twenty phases:
    heads of every layer and of the paged pool, on the paged kernel, the
    serving phase's burst held against the one-rank engine on the same
    weights by the near-tie rule, then at f32 and 2 layers, identical;
-   tokens/s, TTFT p50, decode-step ms, bytes staged a step, the
-   collective share, paged launches by rank and shape (each launched
-   shape held by a kernels-phase case at the ranks' share of the heads)
-   and peak memory by rank;
+   then speculative decoding (K=4) on the engine phase's motif prompts
+   and the MoE LM (every second FFN ``MoEConfig()``'s), each in bf16 and
+   f32 against the one-rank engine of the same knobs likewise (drafts
+   accepted and S=5 verifies on both ranks; the ranks' drop shares
+   equal); tokens/s, TTFT p50, decode-step ms, bytes staged a step, the
+   collective share, paged launches by rank, span and shape (each
+   launched shape held by a kernels-phase case at the ranks' share of
+   the heads) and peak memory by rank;
 16. job — JAXJobs on the port's control plane (``LocalCluster`` with
    ``WiringConfig(platform="gpu")``), each worker a process on this card:
    ``examples/mnist.py`` as a two-worker job (conditions Created →
@@ -243,6 +247,7 @@ training steps.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -446,14 +451,17 @@ def paged_cases(torch):
 
 #: the tp phase's mesh: two ranks, the heads split over ``model``
 TP_RANKS = 2
+#: the speculative runs' draft tokens a step (the engine and tp phases)
+SPEC_K = 4
 
 
 def tp_paged_cases(torch):
     """The shapes a rank of the tp phase launches the paged kernel at: its
     share of the heads (16 / ``TP_RANKS``), the served decode (B=8, S=1)
-    at each table width the engine's pow2 horizon takes (1, 2 and 4 pages
-    of 32), and the prefill piece (B=1, S=32, one page), in bf16 (the
-    served model) and f32 (the parity run)."""
+    and the K=4 speculative verify (S=5, each row's span at its own
+    position) at each table width the engine's pow2 horizon takes (1, 2
+    and 4 pages of 32), and the prefill piece (B=1, S=32, one page), in
+    bf16 (the served model) and f32 (the parity run)."""
     H = MODEL["n_heads"] // TP_RANKS
     decode = dict(B=8, H=H, Hkv=H, D=64, P=32, T=1152, S=1)
     piece = dict(decode, B=1, S=32, W=1, live_rows=True)
@@ -462,6 +470,8 @@ def tp_paged_cases(torch):
         out += [(f"tp_decode_{tag}_w{w}", dict(decode, W=w, dtype=dt))
                 for w in (1, 2, 4)]
         out.append((f"tp_prefill_{tag}_w1", dict(piece, dtype=dt)))
+        out += [(f"tp_verify_{tag}_w{w}", dict(decode, S=SPEC_K + 1, W=w, dtype=dt))
+                for w in (1, 2, 4)]
     return out
 
 
@@ -1132,13 +1142,16 @@ def phase_kernels(torch, state):
 # --------------------------------------------------------------------------- #
 
 def _model(torch, dtype, attn_impl, seed=0, state_dict=None, layers=None,
-           device="cuda"):
-    """``MODEL`` (at ``layers`` blocks when given) on ``device``."""
+           device="cuda", moe=False):
+    """``MODEL`` (at ``layers`` blocks when given) on ``device``; with
+    ``moe`` every second block's FFN is the default ``MoEConfig``'s (the
+    mesh phase's MoE LM)."""
     from kubeflow_tpu_torch.models.transformer import (
         TransformerConfig, TransformerLM, init_weights,
     )
 
     cfg = TransformerConfig(dtype=dtype, attn_impl=attn_impl,
+                            moe_every=2 if moe else 0,
                             **dict(MODEL, n_layers=layers or MODEL["n_layers"]))
     m = TransformerLM(cfg, device=device)
     if state_dict is None:
@@ -1179,19 +1192,21 @@ def phase_forward(torch, state):
 # phases 3-4: the served engine
 # --------------------------------------------------------------------------- #
 
-def sharpened_state(torch, dtype, layers=None, device="cuda"):
+def sharpened_state(torch, dtype, layers=None, device="cuda", moe=False):
     """Random weights from a seed with the unembed tied to the embedding
     and the residual branches tempered (bench.py's paged-attention model):
     a fully random head has near-tied logits, so any rounding would flip
-    a greedy argmax; this keeps margins a trained LM would have."""
-    m = _model(torch, dtype, "flash", seed=0, layers=layers, device=device)
+    a greedy argmax; this keeps margins a trained LM would have. ``moe``:
+    the MoE LM's, its experts' down projections tempered as the MLP's."""
+    m = _model(torch, dtype, "flash", seed=0, layers=layers, device=device,
+               moe=moe)
     sd = {k: v.clone() for k, v in m.state_dict().items()}
     del m
     sd["unembed.weight"] = sd["embed.embedding"].clone()
     for k in sd:
         if "o_proj" in k:
             sd[k] *= 0.5
-        elif "down_proj" in k:
+        elif "down_proj" in k or "experts.down_kernel" in k:
             sd[k] *= 0.1
     return sd
 
@@ -1204,6 +1219,16 @@ def prompts():
         [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=int(n))]
         for n in rng.integers(8, 28, size=N_REQ)
     ]
+
+
+def motif_prompts(rng):
+    """``N_REQ`` prompts of 16 + i tokens that repeat an 8-token motif
+    (the drafter matches them), drawn from ``rng``."""
+    out = []
+    for i in range(N_REQ):
+        motif = [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=8)]
+        out.append((motif * 4)[: 16 + i])
+    return out
 
 
 def _concurrent(fn, args):
@@ -1439,12 +1464,9 @@ def phase_engine(torch, state):
 
     # (b) speculative decoding on prompts that repeat an 8-token motif
     rng = np.random.default_rng(3)
-    motif_reqs = []
-    for i in range(N_REQ):
-        motif = [int(t) for t in rng.integers(2, MODEL["vocab_size"], size=8)]
-        motif_reqs.append((motif * 4)[: 16 + i])
+    motif_reqs = motif_prompts(rng)
     _zero_paged(pa)
-    k4, sk = run(dict(base, spec_draft_tokens=4, spec_ngram=3), motif_reqs)
+    k4, sk = run(dict(base, spec_draft_tokens=SPEC_K, spec_ngram=3), motif_reqs)
     _, by_s, by_body = _paged_counts(pa)
     k0, s0 = run(base, motif_reqs)
     same_b, bad_b = _compare_greedy(torch, model, motif_reqs, k0, k4)
@@ -1460,7 +1482,8 @@ def phase_engine(torch, state):
     m16 = _model(torch, torch.bfloat16, "flash",
                  state_dict=sharpened_state(torch, torch.bfloat16))
     _zero_paged(pa)
-    h4, sh = run(dict(base, spec_draft_tokens=4, spec_ngram=3), motif_reqs, model=m16)
+    h4, sh = run(dict(base, spec_draft_tokens=SPEC_K, spec_ngram=3), motif_reqs,
+                 model=m16)
     _, by_s16, by_body16 = _paged_counts(pa)
     h0, _ = run(base, motif_reqs, model=m16)
     ok16, bad16 = _judged(torch, m16, motif_reqs, h0, h4)
@@ -4276,13 +4299,14 @@ def _tp_burst(torch, dist, eng, reqs):
 
 
 def _tp_counts(torch, dev):
-    """This rank's paged launches (by shape and body), staged bytes,
+    """This rank's paged launches (by span, shape and body), staged bytes,
     collective seconds and calls since they were set to 0, and its peak
     memory."""
     from kubeflow_tpu_torch.core import collectives as coll
     from kubeflow_tpu_torch.ops import paged_attention as pa
 
     return {"paged_launches": pa.LAUNCHES,
+            "paged_by_s": dict(pa.LAUNCHES_BY_S),
             "paged_by_shape": dict(pa.LAUNCHES_BY_SHAPE),
             "paged_by_body": dict(pa.LAUNCHES_BY_BODY),
             "staged_bytes": coll.STAGED_BYTES,
@@ -4309,13 +4333,53 @@ def _tp_free(torch, dev):
         torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def _moe_drops(torch):
+    """Collect the ``moe_dropped_frac`` of every MoE call the block runs
+    (the served forward keeps no stats): yields the list of the calls'
+    device scalars."""
+    from kubeflow_tpu_torch.models import transformer as ttf
+
+    inner, drops = ttf.moe_ffn, []
+
+    def counted(*args, **kw):
+        out = inner(*args, **kw)
+        drops.append(out[2]["moe_dropped_frac"].detach())
+        return out
+
+    ttf.moe_ffn = counted
+    try:
+        yield drops
+    finally:
+        ttf.moe_ffn = inner
+
+
+def tp_parts(torch):
+    """The tp phase's parts ``(name, dtype, layers, prompts, engine kwargs,
+    moe)``: (a) the serving burst at full width in bf16 and (b) f32 at
+    ``TP_F32_LAYERS``; (c) the engine phase's motif prompts at K=4,
+    likewise; (d) the MoE LM (every second FFN ``MoEConfig()``'s)."""
+    import numpy as np
+
+    reqs, motif = prompts(), motif_prompts(np.random.default_rng(3))
+    spec = dict(spec_draft_tokens=SPEC_K, spec_ngram=3)
+    full, f32 = MODEL["n_layers"], TP_F32_LAYERS
+    bf, fl = torch.bfloat16, torch.float32
+    return [("a_bf16", bf, full, reqs, {}, False),
+            ("b_f32", fl, f32, reqs, {}, False),
+            ("c_spec_bf16", bf, full, motif, spec, False),
+            ("c_spec_f32", fl, f32, motif, spec, False),
+            ("d_moe_bf16", bf, full, reqs, {}, True),
+            ("d_moe_f32", fl, f32, reqs, {}, True)]
+
+
 def _tp_rank(device="cuda"):
-    """One rank of the tp phase (both run this): (a) the full-width bf16
-    model served over ``MeshSpec(model=2)`` on the paged kernel, a warm
-    burst and then the counted one; rank 0 then serves the same burst on
-    the one-rank engine over the full weights; (b) the same at f32 with
-    TF32 off and ``TP_F32_LAYERS`` blocks. (``device="cpu"`` runs the
-    same code on the kernel's plain twin.)"""
+    """One rank of the tp phase (both run this), a part at a time
+    (:func:`tp_parts`): the model served over ``MeshSpec(model=2)`` on the
+    paged kernel, a warm burst and then the counted one; rank 0 then
+    serves the same burst on the one-rank engine (the same knobs) over
+    the full weights. (``device="cpu"`` runs the same code on the
+    kernel's plain twin.)"""
     import torch
     import torch.distributed as dist
 
@@ -4328,14 +4392,13 @@ def _tp_rank(device="cuda"):
     torch.backends.cuda.matmul.allow_tf32 = False
     rank = dist.get_rank()
     mesh = build_mesh(MeshSpec(model=TP_RANKS), device=dev)
-    reqs = prompts()
-    kw = dict(ENGINE, paged_attn_impl="kernel")
     res = {"rank": rank, "backend": dist.get_backend()}
-    for part, dtype, layers in (("a_bf16", torch.bfloat16, MODEL["n_layers"]),
-                                ("b_f32", torch.float32, TP_F32_LAYERS)):
-        sd = sharpened_state(torch, dtype, layers, dev)
+    for part, dtype, layers, reqs, knobs, moe in tp_parts(torch):
+        t_part = time.perf_counter()
+        kw = dict(ENGINE, paged_attn_impl="kernel", **knobs)
+        sd = sharpened_state(torch, dtype, layers, dev, moe=moe)
         model = _model(torch, dtype, "flash", state_dict=sd, layers=layers,
-                       device=dev)
+                       device=dev, moe=moe)
         # the warm burst (kernel libraries loaded, allocator warm) ...
         _tp_burst(torch, dist, LMEngine(model, mesh=mesh, **kw), reqs)
         gc.collect()
@@ -4343,11 +4406,17 @@ def _tp_rank(device="cuda"):
         # ... then the counted one: every count set to 0 just before it
         eng = LMEngine(model, mesh=mesh, **kw)
         _tp_zero(torch, dist, dev)
-        got, wall = _tp_burst(torch, dist, eng, reqs)
+        with _moe_drops(torch) as drops:
+            got, wall = _tp_burst(torch, dist, eng, reqs)
         _mesh_sync(torch, dev)
         out = _tp_counts(torch, dev)
         out["records"] = eng.tp_records
         out["kv_heads_held"] = next(iter(eng.cache.values()))["k"].shape[0]
+        if moe:
+            # every rank routes the whole batch: its drops are the leader's
+            out["moe_calls"] = len(drops)
+            out["moe_dropped_frac"] = (torch.stack(drops).mean().item()
+                                       if drops else None)
         if eng.is_leader:
             tokens = sum(len(t) for t in got)
             steps = eng.stats["chunks"] * eng.chunk_steps
@@ -4358,6 +4427,8 @@ def _tp_rank(device="cuda"):
                 "decode_step_ms": eng.overlap["decode_gap_ms"] / eng.chunk_steps,
                 "chunks": eng.stats["chunks"],
                 "prefill_pieces": eng.stats["prefill_pieces"],
+                "spec_proposed": eng.stats["spec_proposed"],
+                "spec_accepted": eng.stats["spec_accepted"],
                 "staged_bytes_per_step": out["staged_bytes"] / max(steps, 1),
                 "collective_share": out["collective_s"] / wall,
             })
@@ -4367,8 +4438,8 @@ def _tp_rank(device="cuda"):
         dist.barrier()
         if rank == 0:
             full = _model(torch, dtype, "flash", state_dict=sd, layers=layers,
-                          device=dev)
-            want = _engine_streams(torch, full, "kernel", reqs)
+                          device=dev, moe=moe)
+            want = _engine_streams(torch, full, "kernel", reqs, **knobs)
             if dtype == torch.float32:
                 same, bad = _compare_greedy(torch, full, reqs, want, got)
                 judged = same
@@ -4382,6 +4453,7 @@ def _tp_rank(device="cuda"):
             _tp_free(torch, dev)
         dist.barrier()
         del sd
+        out["seconds"] = time.perf_counter() - t_part
         res[part] = out
     return res
 
@@ -4389,19 +4461,24 @@ def _tp_rank(device="cuda"):
 def phase_tp(torch, state):
     """Tensor-parallel serving in one world of two ranks on this card
     (gloo, ``LOCAL_WORLD_SIZE=2``, collectives staged through pinned host
-    memory; spawned once, the kernels built here first): the full-width
-    ``MODEL`` in bf16 over ``MeshSpec(model=2)`` on the paged pool with
-    the kernel, the serving phase's burst (``N_REQ`` requests,
-    ``MAX_NEW`` new tokens), held against the one-rank engine on the same
-    weights by the near-tie rule; then at f32 with ``TP_F32_LAYERS``
-    blocks, token-identical. A line a part: tokens/s, TTFT p50, the
-    decode-step ms (the decode-gap EWMA over the chunk's steps), bytes
-    staged a decode step (prefill pieces included), the collective share
-    of the burst's wall, paged launches by rank and shape, and peak
-    memory by rank; then ``shapes_not_held``, which fails the phase when
-    a shape the ranks launched the paged kernel at has no kernels-phase
-    case. Two ranks sharing one card and the host link say nothing of a
-    multi-card TP server."""
+    memory; spawned once, the kernels built here first), over
+    ``MeshSpec(model=2)`` on the paged pool with the kernel, a line a
+    part (:func:`tp_parts`): (a) the full-width ``MODEL`` in bf16, the
+    serving phase's burst (``N_REQ`` requests, ``MAX_NEW`` new tokens),
+    held against the one-rank engine on the same weights by the near-tie
+    rule, and (b) at f32 with ``TP_F32_LAYERS`` blocks, token-identical;
+    (c) speculative decoding (K=4) on the engine phase's motif prompts,
+    against the one-rank K=4 engine, in bf16 and f32 likewise, with
+    drafts accepted and verifies (S=5) launched on both ranks; (d) the
+    MoE LM (every second FFN ``MoEConfig()``'s), K=0, likewise, each
+    rank's mean drop share of its MoE calls the leader's. A line: tokens/s,
+    TTFT p50, the decode-step ms (the decode-gap EWMA over the chunk's
+    steps), bytes staged a decode step (prefill pieces included), the
+    collective share of the burst's wall, paged launches by rank, span,
+    shape and body, and peak memory by rank; then ``shapes_not_held``,
+    which fails the phase when a shape the ranks launched the paged kernel
+    at has no kernels-phase case. Two ranks sharing one card and the host
+    link say nothing of a multi-card TP server."""
     from kubeflow_tpu_torch.core.distributed import launch
 
     t0 = time.perf_counter()
@@ -4409,35 +4486,46 @@ def phase_tp(torch, state):
                    key=lambda r: r["rank"])
     ok = True
     launched: dict[str, int] = {}
-    for part in ("a_bf16", "b_f32"):
+    for part, dtype, layers, reqs, knobs, moe in tp_parts(torch):
         rows = [r[part] for r in ranks]
         lead = rows[0]
         heads = MODEL["n_heads"] // TP_RANKS
         good = (lead["judged"] and all(x["paged_launches"] > 0 for x in rows)
                 and all(x["kv_heads_held"] == heads for x in rows)
                 and len({x["records"] for x in rows}) == 1)
-        if part == "b_f32":
+        if dtype == torch.float32:
             good &= lead["one_rank_streams_equal"]
+        extra = {}
+        if knobs.get("spec_draft_tokens"):
+            good &= (lead["spec_accepted"] > 0
+                     and all(x["paged_by_s"].get(SPEC_K + 1, 0) > 0 for x in rows))
+            extra = {k: lead[k] for k in ("spec_proposed", "spec_accepted")}
+        if moe:
+            good &= (lead["moe_calls"] > 0
+                     and len({(x["moe_calls"], x["moe_dropped_frac"])
+                              for x in rows}) == 1)
+            extra = {k: lead[k] for k in ("moe_calls", "moe_dropped_frac")}
         for x in rows:
             for k, n in x["paged_by_shape"].items():
                 launched[k] = launched.get(k, 0) + n
         ok &= good
         emit({"phase": "tp", "part": part, "ok": good,
-              "mesh": {"model": TP_RANKS}, "dtype": part.split("_")[1],
-              "layers": MODEL["n_layers"] if part == "a_bf16" else TP_F32_LAYERS,
-              "requests": N_REQ, "max_new": MAX_NEW,
+              "mesh": {"model": TP_RANKS}, "dtype": _dtname(torch, dtype),
+              "layers": layers, "moe": moe, **knobs,
+              "requests": len(reqs), "max_new": MAX_NEW,
               "one_rank_streams_equal": lead["one_rank_streams_equal"],
-              "judged_by_near_tie": part == "a_bf16", "near_tie": NEAR_TIE,
+              "judged_by_near_tie": dtype != torch.float32, "near_tie": NEAR_TIE,
               "divergences": lead["divergences"],
               **{k: lead[k] for k in (
                   "tokens", "wall_s", "tokens_per_s", "ttft_p50_ms",
                   "decode_step_ms", "chunks", "prefill_pieces",
                   "staged_bytes_per_step", "collective_share")},
-              "records": lead["records"],
+              **extra, "records": lead["records"], "seconds": lead["seconds"],
               "by_rank": [{k: x[k] for k in (
-                  "paged_launches", "paged_by_shape", "paged_by_body",
-                  "staged_bytes", "collective_s", "collective_calls",
-                  "peak_gb", "kv_heads_held")} for x in rows]})
+                  "paged_launches", "paged_by_s", "paged_by_shape",
+                  "paged_by_body", "staged_bytes", "collective_s",
+                  "collective_calls", "peak_gb", "kv_heads_held")}
+                  for x in rows]})
     held = {paged_case_key(torch, c) for _, c in paged_cases(torch)}
     unheld = sorted(set(launched) - held)
     ok &= not unheld

@@ -51,7 +51,10 @@ tensor-parallel serving: the rank's heads write and read the rank's
 share of the cache (``init_kv_cache``/``init_paged_kv_cache`` with
 ``kv_heads``), o/down sum over ``model`` as in training, and the
 vocabulary columns are gathered over ``model`` so that every rank holds
-the whole logits; ``seq`` is not split there.
+the whole logits; ``seq`` is not split there. Every rank holds the whole
+batch there, so an MoE block routes it as one token group
+(``moe_ffn(local_tokens=True)``): capacity counts every token of the
+forward, pad and dead rows included, as the JAX cached forward does.
 
 Under ``remat`` each block of a no-cache forward that records gradients
 runs inside ``torch.utils.checkpoint`` and is recomputed in the backward,
@@ -554,13 +557,16 @@ class Experts(nn.Module):
         self.down_kernel = nn.Parameter(
             torch.empty(moe.num_experts, moe.expert_dim, d, device=device))
 
-    def forward(self, y, mesh: Mesh | None = None, moe_stats=None):
+    def forward(self, y, mesh: Mesh | None = None, moe_stats=None,
+                local_tokens: bool = False):
+        """``local_tokens``: every rank holds the whole batch (a cached
+        forward under a mesh), routed as one token group."""
         B, S, d = y.shape
         out, aux, stats = moe_ffn(
             y.reshape(B * S, d), gather_at_use(self.router_kernel, mesh),
             gather_at_use(self.up_kernel, mesh),
             gather_at_use(self.down_kernel, mesh), self.cfg.moe,
-            rows=B, mesh=mesh)
+            rows=B, mesh=mesh, local_tokens=local_tokens)
         if moe_stats is not None:
             moe_stats.append((aux, stats))
         return out.reshape(B, S, d)
@@ -590,7 +596,9 @@ class Block(nn.Module):
             h = self.attn(self.ln1(x), positions, segment_ids, mesh=mesh)
         x = x + h
         if hasattr(self, "experts"):
-            out = x + self.experts(self.ln2(x), mesh, moe_stats)
+            # a cached forward serves: its batch is whole on every rank
+            out = x + self.experts(self.ln2(x), mesh, moe_stats,
+                                   local_tokens=layer_cache is not None)
         else:
             out = x + self.mlp(self.ln2(x), mesh)
         if layer_cache is not None:
@@ -610,9 +618,10 @@ class TransformerLM(nn.Module):
     ``page_table``/``page_size``/``page_write_ok`` and explicit
     ``positions`` and gets ``(logits, cache)``; the pool is updated in
     place, and under ``kv_quant="int8"`` a ``quant_stats`` list collects
-    each layer's quantization-error sums. Parameters are allocated
-    uninitialized on ``device`` (``None`` = the CUDA card): load a state
-    dict or call :func:`init_weights`.
+    each layer's quantization-error sums. ``moe_stats`` (a list, with or
+    without a cache) collects each MoE block's ``(aux, stats)``.
+    Parameters are allocated uninitialized on ``device`` (``None`` = the
+    CUDA card): load a state dict or call :func:`init_weights`.
     ``param_dtype`` is the storage dtype of the projections (flax
     ``Dense.param_dtype``); ``None`` stores them in ``cfg.dtype``.
     """
@@ -687,7 +696,7 @@ class TransformerLM(nn.Module):
                 name = f"layers_{i}"
                 x, cache[name] = block(
                     x, positions, segment_ids, layer_cache=cache[name],
-                    mesh=mesh, **cached,
+                    mesh=mesh, moe_stats=moe_stats, **cached,
                 )
             elif remat:
                 x = checkpoint(block, x, positions, segment_ids,

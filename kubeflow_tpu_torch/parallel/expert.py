@@ -22,6 +22,14 @@ its block, with the expert FFN split column/row over ``model`` when the
 weights are, and one sum over those axes combines the partial outputs.
 The rank's tokens fill only their own slots of each expert buffer (the
 others stay 0 and come out 0), so no token moves between ranks.
+
+Tensor-parallel serving replicates the whole batch on every rank (over
+the batch axes too), so there the rank's tokens are the whole group:
+``moe_ffn(local_tokens=True)`` routes them as the mesh-less function
+does (capacity, slots, losses and drops over the rank's own tokens) and
+keeps only the split of the expert weights over ``expert`` and
+``model``. Counting them over the token axes would count each token once
+a replica.
 """
 
 from __future__ import annotations
@@ -132,21 +140,28 @@ def moe_ffn(
     *,
     rows: int = 1,
     mesh: Mesh | None = None,
+    local_tokens: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, dict]:
     """Dense-dispatch MoE FFN. Returns ``(out (T_local, d_model),
     aux_loss, stats)``. ``x`` holds ``rows`` rows of this rank's token
     block (row-major); under a mesh the tokens are the rank's block of the
-    global batch and the expert weights its local shards."""
+    global batch and the expert weights its local shards.
+    ``local_tokens``: the rank's tokens are the whole token group (a
+    batch replicated over the batch axes, as tensor-parallel serving
+    holds it); they are routed alone, and only the expert weights'
+    split crosses ranks."""
     mesh = current_mesh() if mesh is None else mesh
+    # the mesh the tokens are split over (None: they are all here)
+    route_mesh = None if local_tokens else mesh
     T_local, _ = x.shape
     E = cfg.num_experts
-    T = T_local * _token_group(mesh)[0]
+    T = T_local * _token_group(route_mesh)[0]
     capacity = max(int(cfg.capacity_factor * cfg.top_k * T / E), 1)
 
     logits = x.float() @ router_kernel.float()
     probs = router_probs(logits)
     combine, dispatch = top_k_routing(probs, cfg.top_k, capacity,
-                                      rows=rows, mesh=mesh)
+                                      rows=rows, mesh=route_mesh)
 
     # the axes the expert weights are split over: a rank's experts (and
     # its columns of their FFN) see every token of its block
@@ -172,10 +187,10 @@ def moe_ffn(
         out = coll.psum(out, split, mesh=mesh)
 
     aux = cfg.aux_loss_weight * load_balancing_loss(
-        probs, dispatch, mesh=mesh, total_tokens=T)
+        probs, dispatch, mesh=route_mesh, total_tokens=T)
     lse = torch.logsumexp(logits, dim=-1)
-    z = cfg.z_loss_weight * _global_sum((lse * lse).sum(), mesh) / T
-    kept = _global_sum(dispatch.float().sum(), mesh)
+    z = cfg.z_loss_weight * _global_sum((lse * lse).sum(), route_mesh) / T
+    kept = _global_sum(dispatch.float().sum(), route_mesh)
     stats = {
         "moe_dropped_frac": 1.0 - kept / (cfg.top_k * T),
         "moe_aux_loss": aux,

@@ -79,11 +79,18 @@ Requests join and leave a running decode batch of ``max_batch`` rows:
   follower loop in the calling thread) runs the same program on its
   shards; the model's sums over ``model`` keep the ranks in step, and
   each rank samples the same whole logits. Replicas over ``data``
-  compute the same step. A follower that dies or wedges fails the
-  leader's next collective within the group's timeout, through the
-  fatal path. Speculative decoding, KV-span and prefix-entry movement,
-  the host KV tier and MoE layers raise ``NotImplementedError`` under a
-  mesh (ROADMAP queue 1 item 14).
+  compute the same step. Every rank's generator is seeded alike and
+  every program draws from it unconditionally, so the ranks draw the
+  same noise in the same order: the tokens a follower emits, and writes
+  KV for, are the leader's. Speculative decoding runs its drafter and
+  verify inside the chunk program on every rank, from the token history
+  the carry holds; an MoE block routes each rank's whole batch as one
+  token group (``parallel/expert.py``), its expert FFN split over
+  ``model``. A follower that dies or wedges fails the leader's next
+  collective within the group's timeout, through the fatal path.
+  KV-span and prefix-entry movement, the host KV tier and the
+  watchdog's rebuild raise ``NotImplementedError`` under a mesh
+  (ROADMAP queue 1 item 14).
 
 Greedy token streams, and seeded sampled ones, are identical to the JAX
 engine's on the same weights (``tests/test_torch_engine*.py``,
@@ -262,16 +269,11 @@ def _reject_unported(c: LMEngineConfig) -> None:
     ):
         raise ValueError("prefill_chunk must be a multiple of 16")
     if c.mesh is not None:
-        unported = [
-            (c.spec_draft_tokens > 0, "speculative decoding (spec_draft_tokens)"),
-            (c.host_kv_bytes > 0, "the host KV tier (host_kv_bytes)"),
-        ]
-        for bad, what in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} under a tensor-parallel mesh is not ported yet "
-                    f"(ROADMAP {TP_UNPORTED})"
-                )
+        if c.host_kv_bytes > 0:
+            raise NotImplementedError(
+                "the host KV tier (host_kv_bytes) under a tensor-parallel "
+                f"mesh is not ported yet (ROADMAP {TP_UNPORTED})"
+            )
     elif c.rules is not None:
         raise ValueError("rules lay the weights out over a mesh: pass mesh= too")
 
@@ -285,9 +287,10 @@ def _tensor_parallel(model: TransformerLM, c: LMEngineConfig):
     ``MeshSpec``, built over the default process group, or a built
     ``Mesh``): the JAX engine's checks, then this rank keeps its shard of
     every weight by ``c.rules`` (``transformer_rules(fsdp=False)`` by
-    default). The cut is made in place: a copy would hold the full
-    weights twice. A model cut before is served as it is when it was cut
-    by these rules for this mesh and rank (an earlier engine's), and
+    default; an MoE block's expert FFN splits over ``model``, its expert
+    dim over ``expert``). The cut is made in place: a copy would hold the
+    full weights twice. A model cut before is served as it is when it was
+    cut by these rules for this mesh and rank (an earlier engine's), and
     refused otherwise. Returns the rank's mesh; its groups exist on
     return."""
     from kubeflow_tpu_torch.core.mesh import Mesh, build_mesh
@@ -297,10 +300,6 @@ def _tensor_parallel(model: TransformerLM, c: LMEngineConfig):
     mesh = c.mesh if isinstance(c.mesh, Mesh) else build_mesh(
         c.mesh, device=model.device)
     cfg = model.cfg
-    if cfg.moe_every:
-        raise NotImplementedError(
-            f"MoE layers under a tensor-parallel mesh are not ported yet "
-            f"(ROADMAP {TP_UNPORTED})")
     if mesh.size(Axis.SEQ) > 1 or mesh.size(Axis.PIPE) > 1:
         raise NotImplementedError(
             "tensor-parallel serving splits heads over 'model' and "

@@ -9,7 +9,10 @@ emitted with the bonus token from the first rejected position — up to
 K+1 tokens for one forward.
 
 Both functions are tensor ops over static shapes with no host sync, so
-they run inside the engine's decode chunk on the card. Greedy
+they run inside the engine's decode chunk on the card. Neither branches
+on a value: ``spec_accept`` draws its noise for every row, greedy or
+not, so each rank of a tensor-parallel engine makes the same draws from
+its alike-seeded generator in the same order. Greedy
 verification accepts a draft iff it is the argmax, which makes greedy
 speculative streams identical to plain decoding. Temperature rows use
 the distribution-preserving rejection rule for a point-mass proposal;

@@ -169,8 +169,7 @@ def test_request_validation():
 #: engine features a tensor-parallel mesh still refuses (a one-rank mesh
 #: needs no process group) and the measured page-size table
 UNPORTED = [
-    ("mesh_spec_draft", dict(mesh=MeshSpec(), spec_draft_tokens=4),
-     r"speculative .*queue 1 item 14", None),
+    ("mesh_spec_draft", dict(mesh=MeshSpec(), spec_draft_tokens=4), None, None),
     ("mesh_host_kv_tier", dict(mesh=MeshSpec(), host_kv_bytes=1 << 20),
      r"host KV tier .*queue 1 item 14", None),
     ("mesh_kv_span_export", dict(mesh=MeshSpec()),
@@ -178,6 +177,9 @@ UNPORTED = [
      lambda eng: eng.prefill_span([3, 4, 5])),
     ("measured_page_size", dict(page_size=None), "page-size", None),
 ]
+#: cases this list once held that are ported now: the engine builds
+#: under its knobs and serves the tokens of the JAX engine with them
+PORTED_ENGINE = ("mesh_spec_draft",)
 #: dense mode (``kv_pool_tokens=None``, the JAX default) is ported; like
 #: the JAX engine it rejects the paged kernel and the int8 pool, which
 #: need a pool, with a ValueError
@@ -192,9 +194,20 @@ POOL_ONLY = [
     UNPORTED + [(n, k, "require paged mode", None) for n, k in POOL_ONLY],
     ids=[u[0] for u in UNPORTED + POOL_ONLY])
 def test_unported_engine_knobs_raise(name, knob, what, call):
-    _, tmodel = _models()
+    """Every knob of this list raises, but for ``PORTED_ENGINE``:
+    speculative decoding (K=4) under a one-rank mesh serves the JAX K=4
+    engine's greedy tokens (``tests/test_torch_tp_serve.py`` holds it
+    over ``MeshSpec(data=2, model=2)``)."""
+    (jmodel, jcfg, params), tmodel = _models()
     if "mesh" in knob:  # a mesh lays the weights out in place
         tmodel = copy.deepcopy(tmodel)
+    if name in PORTED_ENGINE:
+        prompts = [(p * 4)[:14 + i] for i, p in enumerate(_prompts(21, (5, 6)))]
+        jkw = {**ENGINE, **{k: v for k, v in knob.items() if k != "mesh"}}
+        want, _ = _serve(JaxEngine(jmodel, jcfg, params, **jkw), prompts, 12)
+        got, stats = _serve(LMEngine(tmodel, **{**ENGINE, **knob}), prompts, 12)
+        assert got == want and stats["spec_proposed"] > 0
+        return
     err = ValueError if knob.get("kv_pool_tokens", 0) is None else NotImplementedError
     for kw in (dict(**{**ENGINE, **knob}),
                dict(config=LMEngineConfig(**{**ENGINE, **knob}))):

@@ -109,6 +109,13 @@ MESH_CASES = {
 }
 
 
+#: tensor-parallel serving's token group: the whole batch on every rank,
+#: replicated over ``data``; tight capacity, so a token counted once a
+#: replica would change the drops
+SERVING_CASE = ("serving_data2_expert2_model2",
+                dict(data=2, expert=2, model=2), TIGHT_CFG, (4, 16, 8))
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     cases, inputs = [], {}
@@ -119,6 +126,13 @@ def world(tmp_path_factory):
         inputs[name] = (x, router, up, down)
         cases.append((name, dict(fn="moe", spec=mesh, x=x, router=router, up=up,
                                  down=down, cfg=cfg, rows=shape[0])))
+    name, mesh, cfg, shape = SERVING_CASE
+    rng = np.random.RandomState(20)
+    router, up, down = _weights(rng, shape[2], cfg)
+    x = rng.randn(*shape).astype(np.float32)
+    inputs[name] = (x, router, up, down)
+    cases.append((name, dict(fn="moe_serving", spec=mesh, x=x, router=router,
+                             up=up, down=down, cfg=cfg)))
     return tw.world(8, cases, tmp_path_factory.mktemp("world")), inputs
 
 
@@ -149,6 +163,27 @@ def test_mesh_moe_matches_jax_global_view(world, name):
         # the drops are the global view's, token for token
         assert r["stats"]["moe_dropped_frac"] == jstats["moe_dropped_frac"]
         assert r["stats"]["moe_z_loss"] == pytest.approx(jstats["moe_z_loss"], abs=ATOL)
+
+
+def test_serving_token_group_is_the_whole_batch(world):
+    """``local_tokens=True`` under ``data=2``: every rank routes its whole
+    (replicated) batch as the mesh-less ``moe_ffn`` does, drops included,
+    with the expert FFN split over ``expert`` and ``model``."""
+    results, inputs = world
+    name, _, cfg, shape = SERVING_CASE
+    x, router, up, down = inputs[name]
+    B, S, d = shape
+    want, waux, wstats = texp.moe_ffn(
+        *(torch.tensor(a) for a in (x.reshape(B * S, d), router, up, down)),
+        texp.MoEConfig(**cfg), rows=B)
+    jout, jaux, jstats, _ = _jax_moe(x.reshape(B * S, d), router, up, down, cfg)
+    assert float(wstats["moe_dropped_frac"]) > 0.1
+    for r in results[name]:
+        np.testing.assert_allclose(r["out"], want.numpy().reshape(shape), atol=ATOL)
+        np.testing.assert_allclose(r["out"], jout.reshape(shape), atol=ATOL)
+        assert r["aux"] == pytest.approx(float(waux), abs=ATOL)
+        assert r["stats"]["moe_dropped_frac"] == float(wstats["moe_dropped_frac"])
+        assert r["stats"]["moe_dropped_frac"] == jstats["moe_dropped_frac"]
 
 
 def test_tight_cases_drop(world):

@@ -226,6 +226,26 @@ def moe(spec, x, router, up, down, cfg, rows):
             "where": (m.index(Axis.BATCH), m.index(Axis.SEQ))}
 
 
+def moe_serving(spec, x, router, up, down, cfg):
+    """``moe_ffn(local_tokens=True)`` as tensor-parallel serving calls it:
+    every rank holds the whole batch ``x`` (B, S, d), replicated over the
+    batch axes too, and its shard of the expert weights; returns this
+    rank's output, aux loss and stats."""
+    from kubeflow_tpu_torch.parallel.expert import MoEConfig, moe_ffn
+    from kubeflow_tpu_torch.parallel.sharding import P, shard_tensor
+
+    m = _mesh(spec)
+    x = _t(x)
+    B, S, d = x.shape
+    upl = shard_tensor(_t(up), P(Axis.EXPERT, None, Axis.MODEL), m)
+    downl = shard_tensor(_t(down), P(Axis.EXPERT, Axis.MODEL, None), m)
+    with torch.no_grad(), mesh_context(m):
+        out, aux, stats = moe_ffn(x.reshape(B * S, d), _t(router), upl, downl,
+                                  MoEConfig(**cfg), rows=B, local_tokens=True)
+    return {"out": _np(out).reshape(B, S, d), "aux": float(aux),
+            "stats": {k: float(v) for k, v in stats.items()}}
+
+
 # --------------------------------------------------------------------------- #
 # pipeline
 # --------------------------------------------------------------------------- #
@@ -323,7 +343,11 @@ def _tp_model(cfg_kw, sd, dtype="float32"):
     """The port's LM with the bridged full weights ``sd`` (each rank cuts
     its own shard when an engine takes it)."""
     from kubeflow_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+    from kubeflow_tpu_torch.parallel.expert import MoEConfig
 
+    cfg_kw = dict(cfg_kw)
+    if "moe" in cfg_kw:
+        cfg_kw["moe"] = MoEConfig(**cfg_kw["moe"])
     cfg = TransformerConfig(**cfg_kw, dtype=getattr(torch, dtype))
     model = TransformerLM(cfg, device="cpu")
     model.load_state_dict({k: _t(v) for k, v in sd.items()})
@@ -366,7 +390,8 @@ def tp_serve(spec, cfg, sd, prompts, max_new, runs):
     ``spec`` (every rank), then on rank 0 the one-rank engine with the
     same kwargs and weights. Run kwargs ``dtype``, ``concurrent`` and
     ``sample`` (submit's ``temperature``/``seed``) go to the model and
-    to :func:`_tp_drive`, not to the engine."""
+    to :func:`_tp_drive`, not to the engine; ``one_rank`` overrides
+    engine kwargs of the one-rank engine alone."""
     from kubeflow_tpu_torch.serve.engine import LMEngine
 
     m = _mesh(spec)
@@ -375,17 +400,82 @@ def tp_serve(spec, cfg, sd, prompts, max_new, runs):
         kw = dict(kw)
         dtype = kw.pop("dtype", "float32")
         drive = dict(concurrent=kw.pop("concurrent", False), **kw.pop("sample", {}))
+        one_kw = dict(kw, **kw.pop("one_rank", {}))
         eng = LMEngine(_tp_model(cfg, sd, dtype), mesh=m, **kw)
         got = {"tokens": _tp_drive(eng, prompts, max_new, **drive),
                "records": eng.tp_records, "stats": dict(eng.stats),
                "overlap": dict(eng.overlap),
                "kv_heads": next(iter(eng.cache.values()))["k"].shape[0]}
         if m.rank == 0:
-            one = LMEngine(_tp_model(cfg, sd, dtype), **kw)
+            one = LMEngine(_tp_model(cfg, sd, dtype), **one_kw)
             got["one_rank"] = _tp_drive(one, prompts, max_new, **drive)
             got["one_rank_overlap"] = dict(one.overlap)
         out[name] = got
     return out
+
+
+def tp_moe_forward(spec, cfg, sd, tokens, steps):
+    """The MoE model's dense cached forward as tensor-parallel serving runs
+    it (the weights cut by ``transformer_rules(fsdp=False)``, the rank's
+    heads of the cache, the whole batch on every rank): a prefill of
+    ``tokens`` (B, S) at slot 0, then ``steps`` (B, n) a token a step.
+    Returns this rank's logits of every call and each MoE call's drops;
+    rank 0 adds the one-rank model's."""
+    from kubeflow_tpu_torch.models.transformer import init_kv_cache
+    from kubeflow_tpu_torch.parallel.sharding import shard_module, transformer_rules
+
+    def run(model, mesh, kv_heads):
+        tok, nxt = _t(tokens).long(), _t(steps).long()
+        B, S = tok.shape
+        cache = init_kv_cache(model.cfg, B, S + nxt.shape[1], device="cpu",
+                              kv_heads=kv_heads)
+        moe: list = []
+        with torch.no_grad(), mesh_context(mesh):
+            logits = [model(tok, cache=cache, cache_index=0, moe_stats=moe)[0]]
+            for i in range(nxt.shape[1]):
+                logits.append(model(nxt[:, i:i + 1], cache=cache,
+                                    cache_index=S + i, moe_stats=moe)[0])
+        return {"logits": [_np(x) for x in logits],
+                "dropped": [float(st["moe_dropped_frac"]) for _, st in moe]}
+
+    m = _mesh(spec)
+    model = _tp_model(cfg, sd)
+    shard_module(model, transformer_rules(fsdp=False)(model), m)
+    out = run(model, m, model.cfg.kv_heads // m.size(Axis.MODEL))
+    if m.rank == 0:
+        one = _tp_model(cfg, sd)
+        out["one_rank"] = run(one, None, one.cfg.kv_heads)
+    return out
+
+
+def tp_draws(spec, cfg, sd, kw, prompts, max_new, temperature):
+    """Unseeded sampling at ``temperature`` on a tensor-parallel engine:
+    every rank records the tokens each prefill piece and decode chunk of
+    its own emitted (and wrote KV for), in program order. Returns them
+    with the rank's records and, on the leader, the streams and stats;
+    every rank's list must be the leader's."""
+    from kubeflow_tpu_torch.serve.engine import LMEngine
+
+    eng = LMEngine(_tp_model(cfg, sd), mesh=_mesh(spec), **kw)
+    emitted: list = []
+    prefill, chunk = eng._run_prefill, eng._run_chunk
+
+    def run_prefill(**kw):
+        tok, qerr = prefill(**kw)
+        emitted.append(("prefill", int(tok)))
+        return tok, qerr
+
+    def run_chunk(**kw):
+        res = chunk(**kw)
+        emitted.append(("chunk", _np(res["toks"]).tolist(),
+                        _np(res["valid"]).tolist()))
+        return res
+
+    eng._run_prefill, eng._run_chunk = run_prefill, run_chunk
+    streams = _tp_drive(eng, prompts, max_new, concurrent=True,
+                        temperature=temperature)
+    return {"emitted": emitted, "records": eng.tp_records, "streams": streams,
+            "stats": dict(eng.stats) if eng.is_leader else None}
 
 
 def tp_refusals(spec, cfg, sd, kw):
